@@ -1,0 +1,754 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 by design).
+
+    python3 chip_smoke.py            # the card run (needs one CUDA device)
+    python3 chip_smoke.py --cpu-rehearsal   # reduced config on the CPU
+
+Phases, each printed as one JSON line:
+
+1. device  -- ``nvidia-smi`` name and power limit, torch's device name/count.
+2. build   -- ``nvcc`` for every CUDA source (in parallel) with each
+              kernel's registers, shared memory and spills.
+3. kernels -- each CUDA kernel against its plain PyTorch version at the
+              serving path's shapes of qwen2.5-32b (bf16 activations, plus
+              edge blocks): max error against the stated tolerance, the
+              fused matmul also bit for bit against the same sum taken in
+              the kernel's order, its quantize prologue bit for bit against
+              the plain codec (identity weight: y == qdq(x)), the attention's
+              V decode bit for bit (one visible key: out == V), kernel time
+              (CUDA events, L2 flushed before every launch), plain time, one
+              PyTorch library call as a yardstick the port never calls, and
+              the bound (least time the card could take).
+4. serve   -- the packed store of full-width qwen2.5-32b built leaf by leaf
+              on the card from ``--seed``, then ``ServeEngine`` (kernel
+              datapath, packed MXSF KV cache) on a few requests: tokens,
+              stats, host-clock tokens/s, peak memory, and the launch count
+              of each kernel, which must equal the path's count.
+5. slice   -- the first prefill dispatch and two decode dispatches of one
+              engine state through the kernels, each kernel call teacher-
+              forced: its plain version runs on the same inputs and the
+              kernel must meet phase 3's tolerance there (the fused matmul
+              of the first layer and of the LM head bit for bit against the
+              kernel-order sum), so the logits match the plain head within
+              its tolerance and the tokens agree wherever the plain
+              top-1/top-2 gap is wider than twice it; the cache changes at
+              the written rows only.
+6. the ``kernels`` line, then the ``{"ok": true, ...}`` line.
+
+Any failure raises, so the run exits non-zero and prints no ok line.  The
+rehearsal runs the same phases on the CPU at the reduced config (the
+kernels' plain versions, no build, no launch counts) and prints no ok line.
+``--out FILE`` also writes every phase's results to FILE as one JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+MATMUL_RTOL = 1e-5      # of sum_k |x_k w_k|: f32 summation order only
+ATTN_ATOL = 1e-5        # of max|v|: f32 summation order and expf
+
+RESULTS: dict = {}
+
+
+def emit(phase: str, **fields):
+    RESULTS.setdefault(phase, []).append(fields)
+    print(json.dumps({"phase": phase, **fields}, default=str), flush=True)
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu-rehearsal", action="store_true",
+                   help="reduced config on the CPU; prints no ok line")
+    p.add_argument("--out", default=None,
+                   help="also write all results to this JSON file")
+    return p.parse_args(argv)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Mean ms of ``fn()`` over ``iters`` calls after a warm-up: CUDA events
+    around each call with the L2 cache flushed before it on the card, the
+    host clock on the CPU."""
+
+    def __init__(self, torch, device):
+        self.torch, self.device = torch, device
+        self.flush = (torch.empty(64 << 20, dtype=torch.uint8, device=device)
+                      if device.type == "cuda" else None)
+
+    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        if self.flush is None:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / iters
+        total = 0.0
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(torch, rehearsal: bool) -> str:
+    if rehearsal:
+        emit("device", kind="cpu", count=0, nvidia_smi=None)
+        return "cpu"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit("device", kind=kind, count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    return kind
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    results = build.build_all()
+    wall = time.perf_counter() - t0
+    for name, res in results.items():
+        info = [ln.split(":", 1)[-1].strip() for ln in res.ptxas.splitlines()
+                if "Used" in ln or "spill" in ln]
+        emit("build", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+             seconds=round(res.seconds, 2), ptxas=info)
+    emit("build", wall_seconds=round(wall, 2))
+
+
+def _bound_ms(nbytes: float, *work):
+    """Least time for the work: the larger of its bytes over the memory rate
+    and its operations, given as (count, peak rate) pairs, at their rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(ops / peak for ops, peak in work)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _edge_x(torch, m, k, gen, device):
+    """f32 activations with zero, subnormal, +-3e38 and S_e ~ +-127 blocks
+    (each value bf16-exact)."""
+    x = torch.randn((m, k), generator=gen, device=device)
+    x[0, :64] = 0.0
+    x[min(1, m - 1), :64] *= 1e-40
+    x[min(1, m - 1), 64:128] = 3e38 * torch.sign(x[min(1, m - 1), 64:128])
+    x[-1, -64:] *= 2.0 ** -120
+    return x.to(torch.bfloat16).float()
+
+
+def _tie_x(torch, m, k, gen, device):
+    """f32 activations (bf16-exact) whose values sit on the encoder's
+    rounding midpoints: each 64-block has one max element 1.9921875 and 63
+    ties (k + 1/2) steps of every MXSF regime (E2M5, E3M2, the subnormal
+    step, and the ties that round up into the next exponent), the whole
+    block times a random 2^j."""
+    ties = ([(q + 0.5) * 2.0 ** (e - 5) for e in (-2, -1, 0)
+             for q in range(32, 64)]
+            + [(q + 0.5) * 2.0 ** (e - 2) for e in range(-9, -2)
+               for q in range(4, 8)]
+            + [(q + 0.5) * 2.0 ** -11 for q in range(4)])
+    ties = torch.tensor(ties, device=device)
+    pick = torch.randint(len(ties), (m, k), generator=gen, device=device)
+    x = ties[pick]
+    x[:, ::64] = 1.9921875
+    sign = torch.randint(2, (m, k), generator=gen, device=device) * 2 - 1
+    j = torch.randint(-40, 41, (m, k // 64), generator=gen, device=device)
+    pow2 = ((j + 127).to(torch.int32) << 23).view(torch.float32)  # exact
+    return x * sign * pow2.repeat_interleave(64, dim=1)
+
+
+def _kernel_order_matmul(torch, xq, wq):
+    """xq @ wq with K summed one term at a time from k = 0, as each thread
+    of the fused kernel sums it.  A product of two decoded MXSF values is
+    exact in f32, so each step rounds once, as the kernel's FMA does: the
+    result is the kernel's bit for bit."""
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    for k in range(xq.shape[1]):
+        acc.addcmul_(xq[:, k:k + 1], wq[k:k + 1])
+    return acc
+
+
+def matmul_against_plain(torch, x, codes, scales, y, bitwise: bool,
+                         keep: bool = False):
+    """The kernel's y against the plain version on the same inputs: max
+    error, its ratio to MATMUL_RTOL * sum_k |x_k w_k| and, with
+    ``bitwise``, whether y equals the kernel-order sum bit for bit; with
+    ``keep`` also the plain output and the tolerance (tensors)."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    y_ref = FM.mxsf_fused_matmul_plain(x, codes, scales)
+    xq = B.qdq(torch.nn.functional.pad(x.float(),
+                                       (0, codes.shape[0] - x.shape[1])),
+               "mxsf", (1, 64))
+    wq = B.dequantize(B.QuantizedTensor(codes, scales, "mxsf", (64, 1),
+                                        tuple(codes.shape), "float32"))
+    err = (y - y_ref).abs()
+    tol = MATMUL_RTOL * torch.matmul(xq.abs(), wq.abs()) + 1e-30
+    out = dict(max_abs_err=float(err.max()),
+               err_over_tol=float((err / tol).max()),
+               finite=bool(torch.isfinite(y).all()
+                           and torch.isfinite(y_ref).all()))
+    if bitwise:
+        out["bitwise"] = bool(torch.equal(y, _kernel_order_matmul(
+            torch, xq, wq)))
+    if keep:
+        out.update(y_ref=y_ref, tol=tol)
+    return out
+
+
+def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    x = (_edge_x(torch, m, k, gen, device) if edge else
+         torch.randn((m, k), generator=gen, device=device)).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=device)
+    if edge:  # zero, tiny and huge weight blocks, sized so that no sum
+        # overflows (where it did, the overflow would depend on the order)
+        w[:64, : n // 4] = 0.0
+        w[64:128] *= 2.0 ** -100      # meets x's 3e38 block
+        w[128:192, : n // 4] *= 1e37  # S_e near +127
+        w[192:256, : n // 4] *= 1e-38  # subnormal weights
+        x[:, 128:192] *= 1e-3
+    qt = B.quantize(w.to(torch.bfloat16), "mxsf", (64, 1))
+    del w
+    codes, scales = qt.codes, qt.scale_e8m0
+    y = FM.mxsf_fused_matmul(x, codes, scales)
+    # random inputs also bit for bit against the kernel-order sum (edge
+    # blocks make subnormal products, which the kernel's FMA keeps exact
+    # and a separate multiply rounds)
+    res = matmul_against_plain(torch, x, codes, scales, y,
+                               bitwise=device.type == "cuda" and not edge)
+    if not res["finite"]:
+        raise AssertionError(f"matmul {m}x{k}x{n}: non-finite output")
+    if res["err_over_tol"] > 1.0 or not res.get("bitwise", True):
+        raise AssertionError(f"matmul {m}x{k}x{n}: error "
+                             f"{res['max_abs_err']} is "
+                             f"{res['err_over_tol']:.3g}x the tolerance, "
+                             f"bitwise={res.get('bitwise')}")
+    row = dict(kernel="mxsf_fused_matmul", m=m, k=k, n=n, edge=edge,
+               max_abs_err=res["max_abs_err"],
+               err_over_tol=res["err_over_tol"],
+               bitwise_kernel_order=res.get("bitwise"))
+    if not edge:
+        w_lib = B.dequantize(B.QuantizedTensor(
+            codes, scales, "mxsf", (64, 1), tuple(codes.shape), "bfloat16"))
+        row["ms"] = timer(lambda: FM.mxsf_fused_matmul(x, codes, scales), 10)
+        row["plain_ms"] = timer(
+            lambda: FM.mxsf_fused_matmul_plain(x, codes, scales), 3, 1)
+        row["library_ms"] = timer(lambda: torch.matmul(x, w_lib), 10)
+        nbytes = m * k * 2 + codes.numel() + scales.numel() + m * n * 4
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        del w_lib
+    emit("kernels", **row)
+    return row
+
+
+def check_codec_exact(torch, gen, device, m, k):
+    """The fused kernel's quantize prologue bit for bit: against an identity
+    weight (every decoded block one-hot, value 1.0) each output is one exact
+    product, so y == qdq(x) exactly -- for random, tie-heavy and edge x, in
+    f32 and bf16."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    eye = B.quantize(torch.eye(k, device=device), "mxsf", (64, 1))
+    inputs = {"random": torch.randn((m, k), generator=gen, device=device),
+              "ties": _tie_x(torch, m, k, gen, device),
+              "edge": _edge_x(torch, m, k, gen, device)}
+    for name, x32 in inputs.items():
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            y = FM.mxsf_fused_matmul(x, eye.codes, eye.scale_e8m0)
+            want = B.qdq(x.float(), "mxsf", (1, 64))
+            n_diff = int((y != want).sum())
+            emit("kernels", kernel="mxsf_fused_matmul", check="codec_exact",
+                 x=name, dtype=str(dt).split(".")[-1], m=m, k=k,
+                 rounded=int((want != x.float()).sum()), n_diff=n_diff)
+            if n_diff:
+                raise AssertionError(f"fused matmul codec ({name}, {dt}): "
+                                     f"{n_diff} values differ from qdq(x)")
+
+
+def _bf16_ulp(torch, t):
+    """One bf16 ulp at each |t|: 2^(floor(log2|t|) - 7)."""
+    _, e = torch.frexp(t.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t), e - 8)
+
+
+def attention_against_plain(torch, out, q, kv_args, args):
+    """The kernel's out against the plain version on the same inputs: max
+    error and its ratio to ATTN_ATOL * max|v| (plus one bf16 ulp of the
+    plain value for bf16 q: the f32 results may round to neighbours)."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_attention as MA
+    ref = MA.mxsf_attention_plain(q, *kv_args, **args).float()
+    vc, vs = kv_args[2], kv_args[3]
+    vmax = float(B.dequantize(B.QuantizedTensor(
+        vc, vs, "mxsf", (vc.shape[-1],), tuple(vc.shape),
+        "float32")).abs().max())
+    tol = ATTN_ATOL * vmax
+    if q.dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch, ref)
+    err = (out.float() - ref).abs()
+    return float(err.max()), float((err / tol).max())
+
+
+def check_attention(torch, timer, gen, device, cfg, slots, L, S):
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_attention as MA
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    g = h // kv
+    cache = {}
+    for nm in ("k", "v"):
+        qt = B.quantize(torch.randn((slots, L, kv, dh), generator=gen,
+                                    device=device), "mxsf", (dh,))
+        cache[nm] = (qt.codes, qt.scale_e8m0)
+    q32 = torch.randn((slots * h, S, dh), generator=gen, device=device)
+    q = q32.to(torch.bfloat16)
+    lens = [0, L // 3, L - 5, L][:slots] + [L] * max(0, slots - 4)
+    kvl = torch.tensor(lens, dtype=torch.int32).repeat_interleave(h)
+    off = torch.clamp(kvl - S, min=0)
+    win = torch.full_like(kvl, MA.NO_WINDOW)
+    win[h:2 * h] = 64  # one slot with a sliding window
+    args = dict(causal=True, kv_len=kvl.to(device), q_offset=off.to(device),
+                window=win.to(device))
+    kv_args = (cache["k"][0], cache["k"][1], cache["v"][0], cache["v"][1])
+    call = lambda qq=q: MA.mxsf_attention(qq, *kv_args, **args)
+    plain = lambda qq=q: MA.mxsf_attention_plain(qq, *kv_args, **args)
+    errs = {}
+    for name, qq in (("bfloat16", q), ("float32", q32)):
+        out = call(qq)
+        errs[name] = attention_against_plain(torch, out, qq, kv_args, args)
+        if errs[name][1] > 1.0 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attention S={S} {name}: error "
+                                 f"{errs[name][0]} is {errs[name][1]:.3g}x "
+                                 "the tolerance")
+        if not bool((out[:h] == 0).all()):
+            raise AssertionError("attention: a kv_len=0 row is not zero")
+    # V decode bit for bit: with one visible key p = 1 and l = 1, so every
+    # f32 output row is that key's decoded V row exactly
+    one = dict(args, kv_len=torch.ones_like(args["kv_len"]),
+               q_offset=torch.zeros_like(args["q_offset"]))
+    out1 = MA.mxsf_attention(q32[:, :1].contiguous(), *kv_args, **one)
+    v0 = B.dequantize(B.QuantizedTensor(
+        cache["v"][0][:, :1], cache["v"][1][:, :1], "mxsf", (dh,),
+        (slots, 1, kv, dh), "float32"))  # (slots, 1, kv, dh)
+    want = v0[:, 0].repeat_interleave(g, dim=1).reshape(slots * h, 1, dh)
+    v_diff = int((out1 != want).sum())
+    if v_diff:
+        raise AssertionError(f"attention: {v_diff} V values differ from "
+                             "the plain decode with one visible key")
+    # library yardstick: SDPA on the dequantized cache (GQA expanded)
+    deq = {nm: B.dequantize(B.QuantizedTensor(
+        c, s, "mxsf", (dh,), tuple(c.shape), "bfloat16"))
+        .permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        for nm, (c, s) in cache.items()}
+    qpos = off[:, None] + torch.arange(S)[None, :]
+    kpos = torch.arange(L)
+    mask = ((kpos[None, None, :] < kvl[:, None, None])
+            & (kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos[None, None, :] > (qpos - win[:, None])[:, :, None]))
+    mask = mask.reshape(slots, h, S, L).to(device)
+    qb = q.reshape(slots, h, S, dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(kernel="mxsf_attention", slots=slots, L=L, S=S, h=h, kv=kv,
+               dh=dh, kv_len=lens, max_abs_err=errs["bfloat16"][0],
+               err_over_tol=errs["bfloat16"][1],
+               f32_max_abs_err=errs["float32"][0],
+               f32_err_over_tol=errs["float32"][1], v_decode_diff=v_diff)
+    row["ms"] = timer(call, 20)
+    row["plain_ms"] = timer(plain, 5)
+    row["library_ms"] = timer(
+        lambda: sdpa(qb, deq["k"], deq["v"], attn_mask=mask), 20)
+    # bytes: the valid K/V rows of each (slot, kv head) once, q and out;
+    # operations over the visible keys of every query row: QK^T at the bf16
+    # tensor rate (on the path q is MXSF-quantized and decoded K has at most
+    # 6 significant bits, so its products are bf16-exact), PV at the f32
+    # rate (P stays f32)
+    vis = mask.reshape(slots * h, S, L)
+    rows_needed = [int(vis[b * h:(b + 1) * h].any(dim=(0, 1)).sum())
+                   for b in range(slots)]
+    nbytes = sum(rows_needed) * kv * 2 * (dh + 1) + 2 * q.numel() * 2
+    ops = 2.0 * dh * float(vis.sum())
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        nbytes, (ops, BF16_TENSOR_FLOPS), (ops, F32_FLOPS))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit("kernels", **row)
+    return row
+
+
+def phase_kernels(torch, device, cfg, slots, chunk, max_len, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    timer = Timer(torch, device)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    shapes = [(d, hd), (d, kvd), (d, f), (f, d), (d, v)]
+    if hd != d:
+        shapes.insert(1, (hd, d))
+    rows = {}
+    for m in (slots, slots * chunk):
+        for k, n in shapes:
+            rows[(m, k, n)] = check_matmul(torch, timer, gen, device, m, k, n)
+    check_matmul(torch, timer, gen, device, slots, d, kvd, edge=True)
+    check_matmul(torch, timer, gen, device, slots * chunk, d, kvd, edge=True)
+    check_codec_exact(torch, gen, device, slots * chunk, d)
+    attn = {S: check_attention(torch, timer, gen, device, cfg, slots,
+                               max_len, S) for S in (1, chunk)}
+    del timer
+    return rows, attn
+
+
+def _prompts(cfg, seed, lengths):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=n).tolist() for n in lengths]
+
+
+def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
+                new_tokens, lengths):
+    from repro_torch.core.packed_store import store_nbytes
+    from repro_torch.kernels import mxsf_attention as MA
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    sync()
+    emit("serve", step="store", seconds=time.perf_counter() - t0,
+         n_layers=cfg.n_layers, store_nbytes=store_nbytes(store))
+    eng = ServeEngine(cfg, store, policy, slots=slots, max_len=max_len,
+                      prefill_chunk=chunk, backend="cuda", device=device)
+    prompts = _prompts(cfg, args.seed, lengths)
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    FM.launches = MA.launches = 0
+    t0 = time.perf_counter()
+    eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"mxsf_fused_matmul": FM.launches,
+                "mxsf_attention": MA.launches}
+    st = eng.stats()
+    dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
+    expect = {"mxsf_fused_matmul": (7 * cfg.n_layers + 1) * dispatches,
+              "mxsf_attention": cfg.n_layers * dispatches}
+    outs = [r.out for r in reqs]
+    for r in reqs:
+        if not r.done or len(r.out) != new_tokens or not all(
+                0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"request {r.uid}: bad output {r.out}")
+    decode_tokens = st["tokens_generated"] - len(reqs)
+    emit("serve", step="run", tokens=outs, prompt_lengths=lengths,
+         stats=st, wall_seconds=wall,
+         prefill_tokens_per_s=sum(lengths) / st["prefill_seconds"],
+         decode_tokens_per_s=(decode_tokens / st["decode_seconds"]
+                              if st["decode_seconds"] else None),
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if device.type == "cuda" else None),
+         launches=launches, expected_launches=expect)
+    if device.type == "cuda" and launches != expect:
+        raise AssertionError(f"launch counts {launches} != path {expect}")
+    if device.type == "cuda":
+        profile_decode(torch, eng)
+    return eng, prompts, launches
+
+
+def profile_decode(torch, eng):
+    """One more decode dispatch on the final engine state under the
+    profiler: device busy time by kernel name against the host wall time
+    (after the launch counts were read, so it counts nowhere)."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = eng._tensor(eng.last_tok)[:, None]
+    pos = eng._tensor(eng.pos)
+    eng._decode(eng.params, toks, eng.cache, pos)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._decode(eng.params, toks, eng.cache, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}  # device kernels only: an aten op's device time is that
+    for evt in prof.key_averages():  # of the kernels it launched
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            by_name[evt.key] = (dev_us, evt.count)
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit("serve", step="profile_decode", wall_ms=wall * 1e3,
+         device_busy_ms=busy_ms,
+         idle_share=(1.0 - busy_ms / (wall * 1e3)) if wall else None,
+         top_kernels=[dict(name=k[:80], device_ms=v[0] / 1e3, calls=v[1])
+                      for k, v in top])
+
+
+class checked_kernels:
+    """Inside the block each call of the two kernel wrappers launches the
+    kernel, whose output the path goes on with, and holds it against the
+    plain version on the same inputs (phase 5; the package itself has no
+    such switch).  Matmul call number i with N columns is also held bit for
+    bit against the kernel-order sum where ``bitwise(i, N)``; the last
+    matmul call keeps its plain output and tolerance in ``last``."""
+
+    def __init__(self, torch, bitwise):
+        self.torch, self.bitwise = torch, bitwise
+        self.matmuls, self.attentions, self.last = [], [], None
+
+    def __enter__(self):
+        from repro_torch.kernels import mxsf_attention as MA
+        from repro_torch.kernels import mxsf_fused_matmul as FM
+        torch, kmm, kat = self.torch, FM.mxsf_fused_matmul, MA.mxsf_attention
+
+        def matmul(x, codes, scales, *a, **kw):
+            y = kmm(x, codes, scales, *a, **kw)
+            res = matmul_against_plain(
+                torch, x, codes, scales, y,
+                self.bitwise(len(self.matmuls), codes.shape[1]), keep=True)
+            self.last = (res.pop("y_ref"), res.pop("tol"), x.dtype)
+            self.matmuls.append(res)
+            return y
+
+        def attention(q, *kv_args, **args):
+            out = kat(q, *kv_args, **args)
+            err, ratio = attention_against_plain(torch, out, q, kv_args,
+                                                 args)
+            self.attentions.append(dict(
+                max_abs_err=err, err_over_tol=ratio,
+                finite=bool(torch.isfinite(out).all())))
+            return out
+
+        self.saved = [(FM, "mxsf_fused_matmul", kmm),
+                      (MA, "mxsf_attention", kat)]
+        FM.mxsf_fused_matmul, MA.mxsf_attention = matmul, attention
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _cache_fault(torch, start, cache, written):
+    """None if the cache changed only at the written (slot, position) rows
+    and every written row of every layer holds a nonzero scale byte, else
+    what went wrong.  written: (B, W) bool."""
+    for name, new in cache.items():
+        old = start[name]
+        changed = (new != old).flatten(4).any(-1)  # (.., .., B, W)
+        if bool((changed & ~written).any()):
+            return f"{name} changed outside the written rows"
+        if name.endswith("scales") and not bool(
+                (new[:, :, written] > 0).all()):
+            return f"{name}: a written row has a zero scale"
+    return None
+
+
+def phase_slice(torch, eng, cfg, prompts, chunk):
+    """Teacher-force one prefill dispatch and two decode dispatches from
+    one engine state: the path runs through the kernels and every kernel
+    call is held against its plain version on the same inputs."""
+    from repro_torch.core.blocking import torch_dtype
+    from repro_torch.models import model as M
+    dev = eng.device
+    B, W = eng.slots, eng.max_len
+    per_layer = 7  # fused matmuls per decoder layer: q k v o gate up down
+    on_card = dev.type == "cuda"
+
+    def bitwise(i, n):  # the first layer and the LM head
+        return on_card and (i < per_layer or n == cfg.padded_vocab)
+
+    cache = M.init_cache(cfg, B, W, device=dev)
+    toks = torch.zeros((B, chunk), dtype=torch.int64)
+    nv = torch.zeros(B, dtype=torch.int64)
+    for s, p in enumerate(prompts[:B]):
+        n = min(chunk, len(p))
+        toks[s, :n] = torch.tensor(p[:n])
+        nv[s] = n
+    pos = torch.zeros(B, dtype=torch.int64)
+    steps = [("prefill", toks.to(dev), pos.to(dev), nv.to(dev))]
+    rows = []
+    for i in range(3):
+        kind, t, p, n = steps[i]
+        start = {k: v.clone() for k, v in cache.items()}
+        with checked_kernels(torch, bitwise) as chk:
+            if kind == "prefill":
+                lk = M.prefill_step(eng.params, t, cache, p, n, cfg,
+                                    eng.policy)[0]
+            else:
+                lk = M.decode_step(eng.params, t, cache, p, cfg,
+                                   eng.policy)[0]
+        # the logits against the plain LM head's output on the same input,
+        # cast as mx_dot's packed forward casts (one ulp more where that
+        # cast rounds to bf16)
+        y_ref, tol, x_dtype = chk.last
+        head = eng.params["head"]
+        cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
+        y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
+        tol = tol[:, :head.shape[-1]]
+        if cast == torch.bfloat16:
+            tol = tol + _bf16_ulp(torch, y_ref)
+        y_ref, tol = (v.reshape(B, t.shape[1], -1) for v in (y_ref, tol))
+        last = (torch.clamp(n - 1, 0, t.shape[1] - 1) if kind == "prefill"
+                else torch.zeros(B, dtype=torch.int64, device=dev))
+        sel = torch.arange(B, device=dev)
+        y_ref, tol = y_ref[sel, last], tol[sel, last]
+        live = (n > 0 if kind == "prefill"
+                else torch.ones(B, dtype=torch.bool, device=dev))
+        real = slice(0, cfg.vocab)
+        lk, lp, tol = (v[live][:, real].float() for v in (lk, y_ref, tol))
+        logit_ratio = float(((lk - lp).abs() / tol).max())
+        top2 = lp.topk(2, dim=-1)
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        tk, tp = lk.argmax(-1), lp.argmax(-1)
+        decided = gap > 2 * tol.max(dim=-1).values
+        agree = bool((tk[decided] == tp[decided]).all())
+        # the rows this step writes: pos .. pos+n-1 of each slot (ring W)
+        span = n if kind == "prefill" else torch.ones_like(p)
+        at = torch.arange(W, device=dev)[None, :]
+        written = ((at - p[:, None]) % W) < span[:, None]
+        mm, at_ = chk.matmuls, chk.attentions
+        row = dict(
+            step=i, kind=kind, matmul_calls=len(mm),
+            attention_calls=len(at_),
+            matmul_max_err_over_tol=max(r["err_over_tol"] for r in mm),
+            matmul_bitwise=[r["bitwise"] for r in mm if "bitwise" in r],
+            attention_max_err_over_tol=max(r["err_over_tol"] for r in at_),
+            logits_max_abs_err=float((lk - lp).abs().max()),
+            logits_err_over_tol=logit_ratio,
+            max_abs_logit=float(lp.abs().max()),
+            finite=all(r["finite"] for r in mm + at_),
+            tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
+            decided=decided.tolist(), agree_where_decided=agree,
+            cache_fault=_cache_fault(torch, start, cache, written))
+        rows.append(row)
+        emit("slice", **row)
+        faults = [
+            len(mm) != per_layer * cfg.n_layers + 1 and "matmul call count",
+            len(at_) != cfg.n_layers and "attention call count",
+            row["matmul_max_err_over_tol"] > 1.0 and "matmul tolerance",
+            not all(row["matmul_bitwise"]) and "matmul bitwise",
+            row["attention_max_err_over_tol"] > 1.0 and "attention tolerance",
+            logit_ratio > 1.0 and "logits tolerance",
+            not agree and "tokens", not row["finite"] and "non-finite",
+            row["cache_fault"]]
+        faults = [f for f in faults if f]
+        if faults:
+            raise AssertionError(f"slice step {i} ({kind}): {faults}")
+        # teacher-force the kernel path's tokens into the next step
+        nxt = torch.zeros(B, dtype=torch.int64, device=dev)
+        nxt[live] = tk
+        p_next = (p + n) if kind == "prefill" else (p + 1)
+        steps.append(("decode", nxt[:, None], p_next, None))
+    return rows
+
+
+def kernels_line(rows, attn, launches, slots, cfg):
+    mm = rows[(slots, cfg.d_model, cfg.d_ff)]
+    at = attn[1]
+    out = []
+    for name, row, src, rep in (
+            ("mxsf_fused_matmul", mm,
+             "src/repro_torch/kernels/csrc/mxsf_fused_matmul.cu",
+             "src/repro/kernels/mxsf_fused_matmul.py:103"),
+            ("mxsf_attention", at,
+             "src/repro_torch/kernels/csrc/mxsf_attention.cu",
+             "src/repro/kernels/mxsf_attention.py:115")):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches[name],
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                    "shape": {k: row[k] for k in row
+                              if k in ("m", "k", "n", "slots", "L", "S")}})
+    return {"kernels": out}
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    import torch
+    if not args.cpu_rehearsal and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (use --cpu-rehearsal on the CPU)",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rehearsal = args.cpu_rehearsal
+    device = torch.device("cpu" if rehearsal else "cuda")
+    cfg = get_config("qwen2.5-32b")
+    if rehearsal:
+        cfg = cfg.reduced()
+        torch.set_num_threads(4)
+    slots, chunk = 4, 16
+    max_len, new_tokens = (512, 16) if not rehearsal else (64, 4)
+    lengths = [37, 80, 143, 200] if not rehearsal else [5, 9, 20, 33]
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+
+    kind = phase_device(torch, rehearsal)
+    if not rehearsal:
+        phase_build()
+    rows, attn = phase_kernels(torch, device, cfg, slots, chunk, max_len,
+                               args.seed)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    eng, prompts, launches = phase_serve(torch, device, cfg, policy, args,
+                                         slots, chunk, max_len, new_tokens,
+                                         lengths)
+    phase_slice(torch, eng, cfg, prompts, chunk)
+    line = kernels_line(rows, attn, launches, slots, cfg)
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(dict(RESULTS, kernels_line=line),
+                                  indent=1, default=str))
+    print(json.dumps(line), flush=True)
+    if rehearsal:
+        print("chip_smoke: CPU rehearsal done (no result line)", flush=True)
+        return 0
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
