@@ -18,7 +18,17 @@ Phases, each printed as one JSON line:
               V decode bit for bit (one visible key: out == V), kernel time
               (CUDA events, L2 flushed before every launch), plain time, one
               PyTorch library call as a yardstick the port never calls, and
-              the bound (least time the card could take).
+              the bound (least time the card could take).  Then the
+              training kernels at the shapes of full-width h2o-danube-1.8b
+              at batch 4 x seq 512 (M = 2048): the quantizer ((8,8) on the
+              bf16 weight wg and on an f32 g, (64,1) on wg, (1,64) on x)
+              and the requantize ((64,1)->(1,64) on wg's codes,
+              (1,64)->(64,1) on x's) bit for bit, edge blocks included;
+              the packed x packed matmul (dx and dw of wg, (8,8)) within
+              tolerance and bit for bit against the kernel-order sum; the
+              fused matmul's training switches (emit_codes with (8,8) and
+              (1,64)/(64,1), codes bit for bit against the quantizer's;
+              quantize_lhs=False within tolerance).
 4. serve   -- the packed store of full-width qwen2.5-32b built leaf by leaf
               on the card from ``--seed``, then ``ServeEngine`` (kernel
               datapath, packed MXSF KV cache) on a few requests: tokens,
@@ -33,7 +43,26 @@ Phases, each printed as one JSON line:
               its tolerance and the tokens agree wherever the plain
               top-1/top-2 gap is wider than twice it; the cache changes at
               the written rows only.
-6. the ``kernels`` line, then the ``{"ok": true, ...}`` line.
+6. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
+              ``init_state`` from ``--seed``, batches from ``lm_batch``
+              (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
+              for 3 steps, then a fourth under the profiler: loss, grad
+              norm, lr, step seconds (host clock, synchronised), tokens/s,
+              peak memory and each kernel's launches, which must equal the
+              path's count.  Then the 1D
+              layout (``block_mode="1d"``, ``quantize_bwd=True``) at the
+              same width with the depth cut to 4 layers, for 2 steps.
+7. train_slice -- one more train step of each layout (on the state the
+              phase "train" left, with its first batch) teacher-forced:
+              every quantize and requantize call and every set of emitted
+              codes bit for bit against its plain version on the same
+              inputs, every matmul call within ``train_rtol(K)`` =
+              TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version
+              and bit for bit against the kernel-order sum, and the loss
+              within the head's tolerance of the loss of the plain head's
+              logits.
+8. the ``kernels`` line (every CUDA kernel, its launches on the serving
+   and both training paths), then the ``{"ok": true, ...}`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -44,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -58,6 +88,9 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 MATMUL_RTOL = 1e-5      # of sum_k |x_k w_k|: f32 summation order only
+TRAIN_SUM_C = 4.0       # train_rtol's multiple of sqrt(K) u: twice the
+                        # worst measured on the H100 (1.55, head's dx)
+F32_EPS = 2.0 ** -24    # f32 unit roundoff
 ATTN_ATOL = 1e-5        # of max|v|: f32 summation order and expf
 
 RESULTS: dict = {}
@@ -199,22 +232,15 @@ def _kernel_order_matmul(torch, xq, wq):
     return acc
 
 
-def matmul_against_plain(torch, x, codes, scales, y, bitwise: bool,
-                         keep: bool = False):
-    """The kernel's y against the plain version on the same inputs: max
-    error, its ratio to MATMUL_RTOL * sum_k |x_k w_k| and, with
-    ``bitwise``, whether y equals the kernel-order sum bit for bit; with
-    ``keep`` also the plain output and the tolerance (tensors)."""
-    from repro_torch.core import blocking as B
-    from repro_torch.kernels import mxsf_fused_matmul as FM
-    y_ref = FM.mxsf_fused_matmul_plain(x, codes, scales)
-    xq = B.qdq(torch.nn.functional.pad(x.float(),
-                                       (0, codes.shape[0] - x.shape[1])),
-               "mxsf", (1, 64))
-    wq = B.dequantize(B.QuantizedTensor(codes, scales, "mxsf", (64, 1),
-                                        tuple(codes.shape), "float32"))
+def held_to_plain(torch, y, y_ref, xq, wq, bitwise: bool, keep=False,
+                  rtol=MATMUL_RTOL):
+    """A matmul kernel's y against the plain version's y_ref on the same
+    inputs (xq, wq: the f32 operands both multiply): max error, its ratio
+    to rtol * sum_k |x_k w_k| and, with ``bitwise``, whether y equals the
+    kernel-order sum bit for bit; with ``keep`` also the plain output and
+    the tolerance (tensors)."""
     err = (y - y_ref).abs()
-    tol = MATMUL_RTOL * torch.matmul(xq.abs(), wq.abs()) + 1e-30
+    tol = rtol * torch.matmul(xq.abs(), wq.abs()) + 1e-30
     out = dict(max_abs_err=float(err.max()),
                err_over_tol=float((err / tol).max()),
                finite=bool(torch.isfinite(y).all()
@@ -225,6 +251,30 @@ def matmul_against_plain(torch, x, codes, scales, y, bitwise: bool,
     if keep:
         out.update(y_ref=y_ref, tol=tol)
     return out
+
+
+def fused_operands(torch, x, codes, scales, xblk=(1, 64), wblk=(64, 1),
+                   quantize_lhs=True):
+    """The f32 operands the fused matmul multiplies: qdq(x) (or x) padded to
+    the weight's rows, and the decoded weight."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import common as C
+    xv = torch.nn.functional.pad(x.float(), (0, codes.shape[0] - x.shape[1]))
+    if quantize_lhs:
+        xv = B.qdq(xv, "mxsf", tuple(xblk))
+    return xv, C.decode_packed(codes, scales, wblk)
+
+
+def matmul_against_plain(torch, x, codes, scales, y, bitwise: bool,
+                         keep: bool = False, xblk=(1, 64), wblk=(64, 1),
+                         quantize_lhs=True, rtol=MATMUL_RTOL):
+    """The fused kernel's y against its plain version (``held_to_plain``)."""
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    y_ref = FM.mxsf_fused_matmul_plain(x, codes, scales, xblk, wblk,
+                                       quantize_lhs)
+    xq, wq = fused_operands(torch, x, codes, scales, xblk, wblk,
+                            quantize_lhs)
+    return held_to_plain(torch, y, y_ref, xq, wq, bitwise, keep, rtol)
 
 
 def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
@@ -430,6 +480,559 @@ def phase_kernels(torch, device, cfg, slots, chunk, max_len, seed):
     return rows, attn
 
 
+# ---------------------------------------------------------------------------
+# training kernels at the training path's shapes (phase 3, continued)
+# ---------------------------------------------------------------------------
+
+def _codec_edge(torch, m, k, gen, device):
+    """f32 values with zero, -0.0, subnormal, +-3e38 and S_e ~ +-127 blocks
+    and values on the encoder's rounding midpoints (every 8x8 tile and
+    64-long row or column block of the first 64 rows holds one kind)."""
+    x = torch.randn((m, k), generator=gen, device=device)
+    x[:8] = 0.0
+    x[8:16] = -0.0
+    x[16:24] *= 1e-40
+    x[24:32] = 3e38 * torch.sign(x[24:32])
+    x[32:40] *= 2.0 ** -120
+    x[40:64] = _tie_x(torch, 24, k, gen, device)
+    x[:, :8] *= 1e-39   # subnormal column blocks along K
+    return x
+
+
+def check_quantize(torch, timer, x, block, name, edge=None):
+    """Quantizer kernel against its plain version, bit for bit (codes and
+    scales), on x and on the edge inputs; times at x's shape."""
+    from repro_torch.kernels import mxsf_quant as MQ
+    got = MQ.mxsf_quantize(x, block)
+    want = MQ.mxsf_quantize_plain(x, block)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    edge_same = None
+    if edge is not None:
+        eg = MQ.mxsf_quantize(edge, block)
+        ew = MQ.mxsf_quantize_plain(edge, block)
+        edge_same = torch.equal(eg[0], ew[0]) and torch.equal(eg[1], ew[1])
+    if not same or edge_same is False:
+        raise AssertionError(f"quantize {name} {block}: not bit for bit "
+                             f"(random {same}, edge {edge_same})")
+    m, k = x.shape
+    row = dict(kernel="mxsf_quantize", operand=name, m=m, k=k,
+               block=list(block), dtype=str(x.dtype).split(".")[-1],
+               bitwise=same, edge_bitwise=edge_same, max_abs_err=0.0)
+    row["ms"] = timer(lambda: MQ.mxsf_quantize(x, block), 10)
+    row["plain_ms"] = timer(lambda: MQ.mxsf_quantize_plain(x, block), 3, 1)
+    row["library_ms"] = None  # no single PyTorch call computes it
+    nbytes = x.numel() * x.element_size() + got[0].numel() + got[1].numel()
+    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit("kernels", **row)
+    return row, got
+
+
+def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None):
+    """Requantize kernel against its plain version, bit for bit."""
+    from repro_torch.kernels import mxsf_quant as MQ
+    got = MQ.mxsf_requantize(codes, scales, fb, tb)
+    want = MQ.mxsf_requantize_plain(codes, scales, fb, tb)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    edge_same = None
+    if edge is not None:
+        eg = MQ.mxsf_requantize(*edge, fb, tb)
+        ew = MQ.mxsf_requantize_plain(*edge, fb, tb)
+        edge_same = torch.equal(eg[0], ew[0]) and torch.equal(eg[1], ew[1])
+    if not same or edge_same is False:
+        raise AssertionError(f"requantize {name} {fb}->{tb}: not bit for "
+                             f"bit (random {same}, edge {edge_same})")
+    m, k = codes.shape
+    row = dict(kernel="mxsf_requantize", operand=name, m=m, k=k,
+               from_block=list(fb), to_block=list(tb), bitwise=same,
+               edge_bitwise=edge_same, max_abs_err=0.0)
+    row["ms"] = timer(lambda: MQ.mxsf_requantize(codes, scales, fb, tb), 10)
+    row["plain_ms"] = timer(
+        lambda: MQ.mxsf_requantize_plain(codes, scales, fb, tb), 3, 1)
+    row["library_ms"] = None
+    nbytes = (codes.numel() + scales.numel() + got[0].numel()
+              + got[1].numel())
+    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit("kernels", **row)
+    return row
+
+
+def _gate(name, res, bitwise):
+    if not res["finite"] or res["err_over_tol"] > 1.0 or (
+            bitwise and not res.get("bitwise")):
+        raise AssertionError(f"{name}: error {res['max_abs_err']} is "
+                             f"{res['err_over_tol']:.3g}x the tolerance, "
+                             f"bitwise={res.get('bitwise')}")
+
+
+def check_mx_matmul(torch, timer, name, x, w, blk=(8, 8)):
+    """Packed x packed kernel against its plain version within tolerance
+    and bit for bit against the kernel-order sum."""
+    from repro_torch.kernels import common as C
+    from repro_torch.kernels import mx_matmul as MM
+    y = MM.mxsf_matmul(*x, *w, blk, blk)
+    y_ref = MM.mxsf_matmul_plain(*x, *w, blk, blk)
+    xq, wq = C.decode_packed(*x, blk), C.decode_packed(*w, blk)
+    res = held_to_plain(torch, y, y_ref, xq, wq, bitwise=True)
+    _gate(f"mx_matmul {name}", res, True)
+    m, k = x[0].shape
+    n = w[0].shape[1]
+    row = dict(kernel="mxsf_matmul", operand=name, m=m, k=k, n=n,
+               block=list(blk), max_abs_err=res["max_abs_err"],
+               err_over_tol=res["err_over_tol"],
+               bitwise_kernel_order=res["bitwise"])
+    row["ms"] = timer(lambda: MM.mxsf_matmul(*x, *w, blk, blk), 10)
+    row["plain_ms"] = timer(lambda: MM.mxsf_matmul_plain(*x, *w, blk, blk),
+                            3, 1)
+    xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+    row["library_ms"] = timer(lambda: torch.matmul(xb, wb), 10)
+    del xq, wq, xb, wb
+    nbytes = sum(t.numel() for t in (*x, *w)) + m * n * 4
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit("kernels", **row)
+    return row
+
+
+def check_fused_train(torch, timer, name, x, codes, scales, xblk, wblk,
+                      quantize_lhs=True, want_codes=None):
+    """The fused matmul's training switches: with ``emit_codes`` the codes
+    must equal the quantizer kernel's (``want_codes``) and the plain
+    version's bit for bit, and y its plain version within tolerance and bit
+    for bit against the kernel-order sum; the raw-x path within tolerance
+    (its products round in f32, so no bitwise claim)."""
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    emit_codes = quantize_lhs
+    call = lambda: FM.mxsf_fused_matmul(x, codes, scales, xblk, wblk,
+                                        quantize_lhs, emit_codes)
+    out = call()
+    y = out[0] if emit_codes else out
+    res = matmul_against_plain(torch, x, codes, scales, y, quantize_lhs,
+                               xblk=xblk, wblk=wblk,
+                               quantize_lhs=quantize_lhs)
+    _gate(f"fused {name}", res, quantize_lhs)
+    codes_ok = None
+    if emit_codes:
+        plain = FM.mxsf_fused_matmul_plain(x, codes, scales, xblk, wblk,
+                                           True, True)
+        codes_ok = (torch.equal(out[1], plain[1])
+                    and torch.equal(out[2], plain[2])
+                    and torch.equal(out[1], want_codes[0])
+                    and torch.equal(out[2], want_codes[1]))
+        if not codes_ok:
+            raise AssertionError(f"fused {name}: emitted codes differ")
+    m, k = x.shape
+    n = codes.shape[1]
+    row = dict(kernel="mxsf_fused_matmul", operand=name, m=m, k=k, n=n,
+               xblk=list(xblk), wblk=list(wblk), quantize_lhs=quantize_lhs,
+               emit_codes=emit_codes, emitted_codes_bitwise=codes_ok,
+               dtype=str(x.dtype).split(".")[-1],
+               max_abs_err=res["max_abs_err"],
+               err_over_tol=res["err_over_tol"],
+               bitwise_kernel_order=res.get("bitwise"))
+    row["ms"] = timer(call, 10)
+    row["plain_ms"] = timer(lambda: FM.mxsf_fused_matmul_plain(
+        x, codes, scales, xblk, wblk, quantize_lhs, emit_codes), 3, 1)
+    _, wq = fused_operands(torch, x, codes, scales, xblk, wblk, False)
+    lib_dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    xl, wl = x.to(lib_dt), wq[:k].to(lib_dt)
+    row["library_ms"] = timer(lambda: torch.matmul(xl, wl), 10)
+    del wq, xl, wl
+    nbytes = (x.numel() * x.element_size() + codes.numel() + scales.numel()
+              + m * n * 4)
+    if emit_codes:
+        nbytes += out[1].numel() + out[2].numel()
+    rate = BF16_TENSOR_FLOPS if quantize_lhs else F32_FLOPS
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        nbytes, (2.0 * m * k * n, rate))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit("kernels", **row)
+    return row, out
+
+
+def phase_train_kernels(torch, device, cfg, batch, seq, seed):
+    """The three training kernels and the fused matmul's training switches
+    at the training path's shapes of ``cfg``: M = batch * seq tokens, the
+    gate projection wg (d x d_ff) and the activations at d_model."""
+    from repro_torch.core import blocking as B
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    timer = Timer(torch, device)
+    d, f, m = cfg.d_model, cfg.d_ff, batch * seq
+    w = (torch.randn((d, f), generator=gen, device=device)
+         / math.sqrt(d)).to(torch.bfloat16)
+    g = torch.randn((m, f), generator=gen, device=device) * 1e-4
+    x = torch.randn((m, d), generator=gen, device=device).to(torch.bfloat16)
+    edge = _codec_edge(torch, 128, 256, gen, device)
+    rows = {}
+    rows["quantize"], w8 = check_quantize(torch, timer, w, (8, 8),
+                                          "weight wg", edge)
+    _, g8 = check_quantize(torch, timer, g, (8, 8), "grad g", edge)
+    _, w64 = check_quantize(torch, timer, w, (64, 1), "weight wg", edge)
+    check_quantize(torch, timer, x, (1, 64), "activation x", edge)
+    # requantize: w (64,1)->(1,64) and x (1,64)->(64,1), the 1D backward's
+    x64 = B.quantize(x, "mxsf", (1, 64))
+    e64 = B.quantize(edge, "mxsf", (64, 1))
+    e1 = B.quantize(edge, "mxsf", (1, 64))
+    rows["requantize"] = check_requantize(
+        torch, timer, *w64, (64, 1), (1, 64), "weight wg",
+        (e64.codes, e64.scale_e8m0))
+    check_requantize(torch, timer, x64.codes, x64.scale_e8m0, (1, 64),
+                     (64, 1), "activation x", (e1.codes, e1.scale_e8m0))
+    # mx_matmul, the 2D backward of wg: dx = g @ w^T, dw = x^T @ g
+    x8 = B.quantize(x, "mxsf", (8, 8))
+    wT = B.transpose_qt(B.QuantizedTensor(*w8, "mxsf", (8, 8), (d, f),
+                                          "bfloat16"))
+    xT = B.transpose_qt(x8)
+    rows["mx_matmul"] = check_mx_matmul(
+        torch, timer, "dx of wg", g8,
+        (wT.codes.contiguous(), wT.scale_e8m0.contiguous()))
+    check_mx_matmul(torch, timer, "dw of wg",
+                    (xT.codes.contiguous(), xT.scale_e8m0.contiguous()), g8)
+    # fused: emit_codes in both layouts, and the raw-g path
+    rows["fused_emit_2d"], _ = check_fused_train(
+        torch, timer, "forward of wg, (8,8)", x, *w8, (8, 8), (8, 8),
+        want_codes=(x8.codes, x8.scale_e8m0))
+    check_fused_train(torch, timer, "forward of wg, (1,64)", x, *w64,
+                      (1, 64), (64, 1), want_codes=(x64.codes,
+                                                    x64.scale_e8m0))
+    check_fused_train(torch, timer, "dx of wg, raw g", g,
+                      wT.codes.contiguous(), wT.scale_e8m0.contiguous(),
+                      (8, 8), (8, 8), quantize_lhs=False)
+    del timer
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# training (phase "train") and its teacher-forced slice ("train_slice")
+# ---------------------------------------------------------------------------
+
+def train_launch_counts(cfg, policy):
+    """Kernel launches of one train step of a dense decoder, from the path:
+    7 linears per layer plus the LM head (once: S <= xent_chunk), each one
+    raw-weight mx_dot with its backward."""
+    n = 7 * cfg.n_layers + 1
+    if policy.block_mode == "2d":
+        # w and g quantized; the fused forward emits x's codes; dx and dw
+        return {"mxsf_quantize": 2 * n, "mxsf_fused_matmul": n,
+                "mxsf_matmul": 2 * n, "mxsf_requantize": 0}
+    # 1d: w quantized; forward, dx and dw fused; w and x re-blocked
+    return {"mxsf_quantize": n, "mxsf_fused_matmul": 3 * n,
+            "mxsf_matmul": 0, "mxsf_requantize": 2 * n}
+
+
+def reset_launches():
+    from repro_torch.kernels import mx_matmul as MM
+    from repro_torch.kernels import mxsf_attention as MA
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.kernels import mxsf_quant as MQ
+    FM.launches = MA.launches = MM.launches = 0
+    for k in MQ.launches:
+        MQ.launches[k] = 0
+
+
+def read_launches():
+    from repro_torch.kernels import mx_matmul as MM
+    from repro_torch.kernels import mxsf_attention as MA
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.kernels import mxsf_quant as MQ
+    return {"mxsf_fused_matmul": FM.launches, "mxsf_attention": MA.launches,
+            "mxsf_matmul": MM.launches, **MQ.launches}
+
+
+def make_batches(torch, cfg, seed, steps, batch, seq, device):
+    """The steps' batches from the port's ``lm_batch``, built before the
+    run (the vocab^2 transition table is freed after each)."""
+    from repro_torch.data.pipeline import lm_batch
+    out = []
+    for i in range(steps):
+        toks, labs = lm_batch(seed, i, batch, seq, cfg.vocab, device=device)
+        out.append({"tokens": toks, "labels": labs})
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
+                profile=False):
+    """``steps`` AdamW steps of ``make_train_step`` from random parameters
+    (``init_state`` from ``--seed``): loss, grad norm, lr, step seconds
+    (host clock, synchronised), tokens/s, peak memory and each kernel's
+    launches, which must equal the path's count on the card; with
+    ``profile`` one more step, logged as the others are, runs under the
+    profiler (device busy time by kernel; its seconds are the profiled
+    wall time).  The step updates the state in place.  Returns the
+    state, the batches and the launches summed over the ``steps`` steps
+    (the profiled one not among them)."""
+    from repro_torch.core.packed_store import tree_leaves
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = T.init_state(gen, cfg, OptConfig(), device=device)
+    profile = profile and on_card
+    batches = make_batches(torch, cfg, args.seed, steps + profile, batch,
+                           seq, device)
+    sync()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    emit("train", layout=label, step="init", seconds=time.perf_counter() - t0,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, n_params=n_params,
+         batch=batch, seq=seq, policy=str(policy))
+    step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
+    expect = train_launch_counts(cfg, policy)
+    total = dict.fromkeys(expect, 0)
+    losses = []
+    for i, b in enumerate(batches):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        prof = None
+        if i == steps:  # the extra, profiled step
+            out = []
+            prof = device_profile(
+                torch, lambda: out.append(step_fn(state, b)))
+            state, metrics = out[0]
+        else:
+            state, metrics = step_fn(state, b)
+        sync()
+        dt = (time.perf_counter() - t0 if prof is None
+              else prof["wall_ms"] / 1e3)  # not the trace's processing
+        got = {k: v for k, v in read_launches().items() if k in expect}
+        if prof is None:
+            for k in total:
+                total[k] += got[k]
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        emit("train", layout=label, step=i, profiled=prof is not None,
+             loss=loss,
+             grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+             seconds=dt, tokens_per_s=batch * seq / dt,
+             max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                   if on_card else None),
+             launches=got, expected_launches=expect,
+             **({"profile": prof} if prof else {}))
+        if not math.isfinite(loss):
+            raise AssertionError(f"train {label} step {i}: loss {loss}")
+        if on_card and got != expect:
+            raise AssertionError(f"train {label} step {i}: launches {got} "
+                                 f"!= path {expect}")
+    # random init: logits ~ N(0, ~1), so the first loss is ~ln(vocab) + 0.5
+    if abs(losses[0] - math.log(cfg.vocab)) > 1.5:
+        raise AssertionError(f"train {label}: step-0 loss {losses[0]} is "
+                             f"not near ln(vocab) = {math.log(cfg.vocab)}")
+    return state, batches, total
+
+
+def train_rtol(k: int) -> float:
+    """The train slice's matmul tolerance, of sum_k |x_k w_k|: TRAIN_SUM_C
+    sqrt(K) u.  Gradient sums run over up to 32768 exact products, often
+    of one sign, where two f32 orders (the kernel's and cuBLAS's) drift
+    apart like a random walk of K roundings: MATMUL_RTOL is too tight at
+    large K, and the worst case 2 (K - 1) u would not discriminate."""
+    return TRAIN_SUM_C * math.sqrt(k) * F32_EPS
+
+
+class checked_kernels:
+    """Teacher-forcing hook of phases ``slice`` and ``train_slice`` (the
+    package itself has no such switch).  Inside the block each call of the
+    five kernel wrappers launches the kernel, whose output the path goes
+    on with, and runs the plain version on the same inputs: quantize,
+    requantize and emitted codes bit for bit; attention within
+    ``attention_against_plain``'s tolerance; a matmul over K terms within
+    ``rtol(K)`` * sum|x w| of the plain version and, where ``bitwise(kind,
+    i, N)`` says so for call i with N columns, bit for bit against the
+    kernel-order sum (the products are exact: the order is the kernel's
+    only freedom; a fused call on raw x never is).  The last fused call
+    with ``head_n`` columns keeps its plain output, tolerance and x's
+    dtype in ``head``."""
+
+    def __init__(self, torch, bitwise, rtol, head_n):
+        self.torch, self.bitwise, self.rtol = torch, bitwise, rtol
+        self.head_n, self.head = head_n, None
+        self.calls = {k: [] for k in ("mxsf_fused_matmul", "mxsf_attention",
+                                      "mxsf_quantize", "mxsf_requantize",
+                                      "mxsf_matmul")}
+
+    def _matmul(self, kind, y, y_ref, xq, wq, bitwise, keep=False):
+        k = xq.shape[1]
+        res = held_to_plain(self.torch, y, y_ref, xq, wq, bitwise, keep,
+                            rtol=self.rtol(k))
+        res.update(k=k, over_sum=res["err_over_tol"] * self.rtol(k))
+        self.calls[kind].append(res)
+        return res
+
+    def __enter__(self):
+        from repro_torch.kernels import common as C
+        from repro_torch.kernels import mx_matmul as MM
+        from repro_torch.kernels import mxsf_attention as MA
+        from repro_torch.kernels import mxsf_fused_matmul as FM
+        from repro_torch.kernels import mxsf_quant as MQ
+        torch, calls = self.torch, self.calls
+        kq, kr = MQ.mxsf_quantize, MQ.mxsf_requantize
+        km, kf, ka = MM.mxsf_matmul, FM.mxsf_fused_matmul, MA.mxsf_attention
+
+        def same(out, want):
+            return all(torch.equal(a, b) for a, b in zip(out, want))
+
+        def quantize(x, block):
+            out = kq(x, block)
+            calls["mxsf_quantize"].append(dict(codes_bitwise=same(
+                out, MQ.mxsf_quantize_plain(x, block))))
+            return out
+
+        def requantize(codes, scales, fb, tb):
+            out = kr(codes, scales, fb, tb)
+            calls["mxsf_requantize"].append(dict(codes_bitwise=same(
+                out, MQ.mxsf_requantize_plain(codes, scales, fb, tb))))
+            return out
+
+        def matmul(xc, xs, wc, ws, xblk, wblk):
+            y = km(xc, xs, wc, ws, xblk, wblk)
+            kind = "mxsf_matmul"
+            self._matmul(
+                kind, y, MM.mxsf_matmul_plain(xc, xs, wc, ws, xblk, wblk),
+                C.decode_packed(xc, xs, xblk), C.decode_packed(wc, ws, wblk),
+                self.bitwise(kind, len(calls[kind]), wc.shape[1]))
+            return y
+
+        def fused(x, codes, scales, xblk=(1, 64), wblk=(64, 1),
+                  quantize_lhs=True, emit_codes=False):
+            out = kf(x, codes, scales, xblk, wblk, quantize_lhs, emit_codes)
+            y = out[0] if emit_codes else out
+            kind, n = "mxsf_fused_matmul", codes.shape[1]
+            xq, wq = fused_operands(torch, x, codes, scales, xblk, wblk,
+                                    quantize_lhs)
+            res = self._matmul(
+                kind, y, FM.mxsf_fused_matmul_plain(
+                    x, codes, scales, xblk, wblk, quantize_lhs), xq, wq,
+                quantize_lhs and self.bitwise(kind, len(calls[kind]), n),
+                keep=True)
+            y_ref, tol = res.pop("y_ref"), res.pop("tol")
+            if emit_codes:
+                res["codes_bitwise"] = same(
+                    out[1:], MQ.mxsf_quantize_plain(x, xblk))
+            if n == self.head_n:
+                self.head = (y_ref, tol, x.dtype)
+            return out
+
+        def attention(q, *kv_args, **args):
+            out = ka(q, *kv_args, **args)
+            err, ratio = attention_against_plain(torch, out, q, kv_args,
+                                                 args)
+            calls["mxsf_attention"].append(dict(
+                max_abs_err=err, err_over_tol=ratio,
+                finite=bool(torch.isfinite(out).all())))
+            return out
+
+        self.saved = [(MQ, "mxsf_quantize", kq), (MQ, "mxsf_requantize", kr),
+                      (MM, "mxsf_matmul", km), (FM, "mxsf_fused_matmul", kf),
+                      (MA, "mxsf_attention", ka)]
+        MQ.mxsf_quantize, MQ.mxsf_requantize = quantize, requantize
+        MM.mxsf_matmul, FM.mxsf_fused_matmul = matmul, fused
+        MA.mxsf_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def rows(self, expect):
+        """Per kernel: its calls against the path's count ``expect``, the
+        worst tolerance ratio with its call's K, for matmuls also the worst
+        error over sum|x w| in units of MATMUL_RTOL and of sqrt(K) u, and
+        the bitwise results; then the list of faults."""
+        rows, faults = {}, []
+        for kind, calls in self.calls.items():
+            row = dict(calls=len(calls), expected=expect.get(kind, 0))
+            if len(calls) != row["expected"]:
+                faults.append(f"{kind} call count")
+            if calls and "err_over_tol" in calls[0]:
+                j = max(range(len(calls)),
+                        key=lambda j: calls[j]["err_over_tol"])
+                row.update(max_err_over_tol=calls[j]["err_over_tol"],
+                           worst_call=dict(
+                               i=j, k=calls[j].get("k"),
+                               max_abs_err=calls[j]["max_abs_err"]),
+                           finite=all(c["finite"] for c in calls))
+                if row["max_err_over_tol"] > 1.0 or not row["finite"]:
+                    faults.append(f"{kind} tolerance")
+            if calls and "over_sum" in calls[0]:
+                j = max(range(len(calls)), key=lambda j: calls[j]["over_sum"])
+                row["worst_over_matmul_rtol"] = dict(
+                    i=j, k=calls[j]["k"],
+                    ratio=calls[j]["over_sum"] / MATMUL_RTOL)
+                row["max_over_sqrt_k_u"] = max(
+                    c["over_sum"] / (math.sqrt(c["k"]) * F32_EPS)
+                    for c in calls)
+            order = [c["bitwise"] for c in calls if "bitwise" in c]
+            if order:
+                row["bitwise_checked"] = len(order)
+                row["bitwise_all"] = all(order)
+                if not all(order):
+                    faults.append(f"{kind} kernel-order bitwise")
+            codes = [c["codes_bitwise"] for c in calls
+                     if "codes_bitwise" in c]
+            if codes:
+                row["codes_bitwise"] = all(codes)
+                if not all(codes):
+                    faults.append(f"{kind} codes")
+            rows[kind] = row
+        return rows, faults
+
+
+def _xent(torch, logits, labels):
+    return float(torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()))
+
+
+def phase_train_slice(torch, device, cfg, policy, state, batch, label):
+    """One train step teacher-forced (``checked_kernels``): every kernel
+    call is held against its plain version on the same inputs, every
+    matmul within ``train_rtol`` and bit for bit against the kernel-order
+    sum; the step's loss must match the loss of the plain head's logits
+    within the head's tolerance."""
+    from repro_torch.core.blocking import torch_dtype
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    on_card = device.type == "cuda"
+
+    def bitwise(kind, i, n):
+        """Every call: all operands are quantized on the training path."""
+        return on_card
+
+    step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
+    t0 = time.perf_counter()
+    with checked_kernels(torch, bitwise, train_rtol,
+                         cfg.padded_vocab) as chk:
+        _, metrics = step_fn(state, batch)
+    seconds = time.perf_counter() - t0
+    loss = float(metrics["loss"])
+    # the loss of the plain head's logits, cast as the forward casts them
+    y_ref, tol, _ = chk.head
+    V = cfg.padded_vocab
+    cast = torch_dtype(cfg.compute_dtype)  # mx_dot's cast of the head
+    logits = y_ref[:, :V].to(cast).float()
+    ulp = _bf16_ulp(torch, logits) if cast == torch.bfloat16 else 0.0
+    logits = logits.reshape(*batch["labels"].shape, V)[..., :cfg.vocab]
+    loss_plain = _xent(torch, logits, batch["labels"])
+    # logsumexp and the gold logit each move by at most max|d logit|
+    loss_tol = 2.0 * float((tol[:, :V] + ulp).max())
+    rows, faults = chk.rows(train_launch_counts(cfg, policy))
+    emit("train_slice", layout=label, n_layers=cfg.n_layers, loss=loss,
+         loss_plain_head=loss_plain, loss_abs_err=abs(loss - loss_plain),
+         loss_tol=loss_tol, seconds=seconds, kernels=rows)
+    if abs(loss - loss_plain) > loss_tol:
+        faults.append("loss")
+    if faults:
+        raise AssertionError(f"train_slice {label}: {faults}")
+    return rows
+
+
 def _prompts(cfg, seed, lengths):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -439,8 +1042,6 @@ def _prompts(cfg, seed, lengths):
 def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
                 new_tokens, lengths):
     from repro_torch.core.packed_store import store_nbytes
-    from repro_torch.kernels import mxsf_attention as MA
-    from repro_torch.kernels import mxsf_fused_matmul as FM
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -456,13 +1057,13 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    FM.launches = MA.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     eng.run()
     sync()
     wall = time.perf_counter() - t0
-    launches = {"mxsf_fused_matmul": FM.launches,
-                "mxsf_attention": MA.launches}
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("mxsf_fused_matmul", "mxsf_attention")}
     st = eng.stats()
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
     expect = {"mxsf_fused_matmul": (7 * cfg.n_layers + 1) * dispatches,
@@ -488,19 +1089,15 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
     return eng, prompts, launches
 
 
-def profile_decode(torch, eng):
-    """One more decode dispatch on the final engine state under the
-    profiler: device busy time by kernel name against the host wall time
-    (after the launch counts were read, so it counts nowhere)."""
+def device_profile(torch, fn):
+    """Run ``fn`` once under the profiler: host wall time (synchronised),
+    device busy time summed over device kernels, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
-    toks = eng._tensor(eng.last_tok)[:, None]
-    pos = eng._tensor(eng.pos)
-    eng._decode(eng.params, toks, eng.cache, pos)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._decode(eng.params, toks, eng.cache, pos)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}  # device kernels only: an aten op's device time is that
@@ -513,56 +1110,21 @@ def profile_decode(torch, eng):
             by_name[evt.key] = (dev_us, evt.count)
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("serve", step="profile_decode", wall_ms=wall * 1e3,
-         device_busy_ms=busy_ms,
-         idle_share=(1.0 - busy_ms / (wall * 1e3)) if wall else None,
-         top_kernels=[dict(name=k[:80], device_ms=v[0] / 1e3, calls=v[1])
-                      for k, v in top])
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                idle_share=(1.0 - busy_ms / (wall * 1e3)) if wall else None,
+                top_kernels=[dict(name=k[:80], device_ms=v[0] / 1e3,
+                                  calls=v[1]) for k, v in top])
 
 
-class checked_kernels:
-    """Inside the block each call of the two kernel wrappers launches the
-    kernel, whose output the path goes on with, and holds it against the
-    plain version on the same inputs (phase 5; the package itself has no
-    such switch).  Matmul call number i with N columns is also held bit for
-    bit against the kernel-order sum where ``bitwise(i, N)``; the last
-    matmul call keeps its plain output and tolerance in ``last``."""
-
-    def __init__(self, torch, bitwise):
-        self.torch, self.bitwise = torch, bitwise
-        self.matmuls, self.attentions, self.last = [], [], None
-
-    def __enter__(self):
-        from repro_torch.kernels import mxsf_attention as MA
-        from repro_torch.kernels import mxsf_fused_matmul as FM
-        torch, kmm, kat = self.torch, FM.mxsf_fused_matmul, MA.mxsf_attention
-
-        def matmul(x, codes, scales, *a, **kw):
-            y = kmm(x, codes, scales, *a, **kw)
-            res = matmul_against_plain(
-                torch, x, codes, scales, y,
-                self.bitwise(len(self.matmuls), codes.shape[1]), keep=True)
-            self.last = (res.pop("y_ref"), res.pop("tol"), x.dtype)
-            self.matmuls.append(res)
-            return y
-
-        def attention(q, *kv_args, **args):
-            out = kat(q, *kv_args, **args)
-            err, ratio = attention_against_plain(torch, out, q, kv_args,
-                                                 args)
-            self.attentions.append(dict(
-                max_abs_err=err, err_over_tol=ratio,
-                finite=bool(torch.isfinite(out).all())))
-            return out
-
-        self.saved = [(FM, "mxsf_fused_matmul", kmm),
-                      (MA, "mxsf_attention", kat)]
-        FM.mxsf_fused_matmul, MA.mxsf_attention = matmul, attention
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
+def profile_decode(torch, eng):
+    """One more decode dispatch on the final engine state under the
+    profiler: device busy time by kernel name against the host wall time
+    (after the launch counts were read, so it counts nowhere)."""
+    toks = eng._tensor(eng.last_tok)[:, None]
+    pos = eng._tensor(eng.pos)
+    eng._decode(eng.params, toks, eng.cache, pos)  # warm
+    emit("serve", step="profile_decode", **device_profile(
+        torch, lambda: eng._decode(eng.params, toks, eng.cache, pos)))
 
 
 def _cache_fault(torch, start, cache, written):
@@ -591,8 +1153,11 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     per_layer = 7  # fused matmuls per decoder layer: q k v o gate up down
     on_card = dev.type == "cuda"
 
-    def bitwise(i, n):  # the first layer and the LM head
+    def bitwise(kind, i, n):  # the first layer and the LM head
         return on_card and (i < per_layer or n == cfg.padded_vocab)
+
+    expect = {"mxsf_fused_matmul": per_layer * cfg.n_layers + 1,
+              "mxsf_attention": cfg.n_layers}
 
     cache = M.init_cache(cfg, B, W, device=dev)
     toks = torch.zeros((B, chunk), dtype=torch.int64)
@@ -607,7 +1172,8 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     for i in range(3):
         kind, t, p, n = steps[i]
         start = {k: v.clone() for k, v in cache.items()}
-        with checked_kernels(torch, bitwise) as chk:
+        with checked_kernels(torch, bitwise, lambda k: MATMUL_RTOL,
+                             cfg.padded_vocab) as chk:
             if kind == "prefill":
                 lk = M.prefill_step(eng.params, t, cache, p, n, cfg,
                                     eng.policy)[0]
@@ -617,7 +1183,7 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
         # the logits against the plain LM head's output on the same input,
         # cast as mx_dot's packed forward casts (one ulp more where that
         # cast rounds to bf16)
-        y_ref, tol, x_dtype = chk.last
+        y_ref, tol, x_dtype = chk.head
         head = eng.params["head"]
         cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
         y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
@@ -643,32 +1209,20 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
         span = n if kind == "prefill" else torch.ones_like(p)
         at = torch.arange(W, device=dev)[None, :]
         written = ((at - p[:, None]) % W) < span[:, None]
-        mm, at_ = chk.matmuls, chk.attentions
+        kernels, faults = chk.rows(expect)
         row = dict(
-            step=i, kind=kind, matmul_calls=len(mm),
-            attention_calls=len(at_),
-            matmul_max_err_over_tol=max(r["err_over_tol"] for r in mm),
-            matmul_bitwise=[r["bitwise"] for r in mm if "bitwise" in r],
-            attention_max_err_over_tol=max(r["err_over_tol"] for r in at_),
+            step=i, kind=kind, kernels=kernels,
             logits_max_abs_err=float((lk - lp).abs().max()),
             logits_err_over_tol=logit_ratio,
             max_abs_logit=float(lp.abs().max()),
-            finite=all(r["finite"] for r in mm + at_),
             tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
             decided=decided.tolist(), agree_where_decided=agree,
             cache_fault=_cache_fault(torch, start, cache, written))
         rows.append(row)
         emit("slice", **row)
-        faults = [
-            len(mm) != per_layer * cfg.n_layers + 1 and "matmul call count",
-            len(at_) != cfg.n_layers and "attention call count",
-            row["matmul_max_err_over_tol"] > 1.0 and "matmul tolerance",
-            not all(row["matmul_bitwise"]) and "matmul bitwise",
-            row["attention_max_err_over_tol"] > 1.0 and "attention tolerance",
-            logit_ratio > 1.0 and "logits tolerance",
-            not agree and "tokens", not row["finite"] and "non-finite",
-            row["cache_fault"]]
-        faults = [f for f in faults if f]
+        faults += [f for f in (logit_ratio > 1.0 and "logits tolerance",
+                               not agree and "tokens", row["cache_fault"])
+                   if f]
         if faults:
             raise AssertionError(f"slice step {i} ({kind}): {faults}")
         # teacher-force the kernel path's tokens into the next step
@@ -679,26 +1233,45 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     return rows
 
 
-def kernels_line(rows, attn, launches, slots, cfg):
+def kernels_line(rows, attn, train_rows, launches, slots, cfg):
+    """One entry per CUDA kernel: its launches on the main paths (serving,
+    2D and 1D training, each counted from 0) and the numbers of its row at
+    a main-path shape."""
     mm = rows[(slots, cfg.d_model, cfg.d_ff)]
-    at = attn[1]
     out = []
     for name, row, src, rep in (
-            ("mxsf_fused_matmul", mm,
-             "src/repro_torch/kernels/csrc/mxsf_fused_matmul.cu",
+            ("mxsf_fused_matmul", mm, "mxsf_fused_matmul.cu",
              "src/repro/kernels/mxsf_fused_matmul.py:103"),
-            ("mxsf_attention", at,
-             "src/repro_torch/kernels/csrc/mxsf_attention.cu",
-             "src/repro/kernels/mxsf_attention.py:115")):
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": launches[name],
+            ("mxsf_attention", attn[1], "mxsf_attention.cu",
+             "src/repro/kernels/mxsf_attention.py:115"),
+            ("mxsf_quantize", train_rows["quantize"], "mxsf_quant.cu",
+             "src/repro/kernels/mxsf_quant.py:75"),
+            ("mxsf_requantize", train_rows["requantize"], "mxsf_quant.cu",
+             "src/repro/kernels/mxsf_quant.py:128"),
+            ("mxsf_matmul", train_rows["mx_matmul"], "mx_matmul.cu",
+             "src/repro/kernels/mx_matmul.py:49")):
+        by_path = {path: n[name] for path, n in launches.items()
+                   if name in n}
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{src}",
+                    "replaces": rep, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     "shape": {k: row[k] for k in row
-                              if k in ("m", "k", "n", "slots", "L", "S")}})
+                              if k in ("m", "k", "n", "slots", "L", "S",
+                                       "block", "from_block", "to_block",
+                                       "operand")}})
     return {"kernels": out}
+
+
+def free_device(torch, device):
+    import gc
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -709,7 +1282,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.base import get_config
-    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.core.policy import MXSF_INFER, MXSF_TRAIN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rehearsal = args.cpu_rehearsal
@@ -726,15 +1299,44 @@ def main(argv=None) -> int:
     kind = phase_device(torch, rehearsal)
     if not rehearsal:
         phase_build()
+    train_cfg = get_config("h2o-danube-1.8b")
+    batch, seq = (4, 512) if not rehearsal else (2, 32)
+    if rehearsal:
+        train_cfg = train_cfg.reduced()
     rows, attn = phase_kernels(torch, device, cfg, slots, chunk, max_len,
                                args.seed)
+    train_rows = phase_train_kernels(torch, device, train_cfg, batch, seq,
+                                     args.seed)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    eng, prompts, launches = phase_serve(torch, device, cfg, policy, args,
-                                         slots, chunk, max_len, new_tokens,
-                                         lengths)
+    eng, prompts, serve_launches = phase_serve(
+        torch, device, cfg, policy, args, slots, chunk, max_len, new_tokens,
+        lengths)
     phase_slice(torch, eng, cfg, prompts, chunk)
-    line = kernels_line(rows, attn, launches, slots, cfg)
+    del eng  # the serving store (~36 GB) makes room for training
+    free_device(torch, device)
+    launches = {"serve": serve_launches}
+    # 2D (MXSF_TRAIN) at full depth, then the 1D layout at cut depth
+    pol2 = MXSF_TRAIN.replace(backend="cuda")
+    state, batches, launches["train_2d"] = phase_train(
+        torch, device, train_cfg, pol2, args, 3, batch, seq, "2d",
+        profile=True)
+    phase_train_slice(torch, device, train_cfg, pol2, state, batches[0],
+                      "2d")
+    del state, batches
+    free_device(torch, device)
+    cfg1 = train_cfg.replace(n_layers=min(4, train_cfg.n_layers))
+    pol1 = pol2.replace(block_mode="1d", quantize_bwd=True)
+    state, batches, launches["train_1d"] = phase_train(
+        torch, device, cfg1, pol1, args, 2, batch, seq, "1d")
+    phase_train_slice(torch, device, cfg1, pol1, state, batches[0], "1d")
+    del state, batches
+    line = kernels_line(rows, attn, train_rows, launches, slots, cfg)
+    if device.type == "cuda":
+        never = [k["name"] for k in line["kernels"] if k["launches"] == 0]
+        if never:
+            raise AssertionError(f"kernels never launched on a main path: "
+                                 f"{never}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

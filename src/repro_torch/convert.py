@@ -7,7 +7,9 @@ JAX layout -- the stacked ``(n_super, ...)`` layer axis and the ``sub{j}``
 keys -- which is the port's layout too, so leaves map one to one.  A packed
 leaf (any object with ``codes``, ``scale_e8m0``, ``fmt``, ``block``,
 ``shape`` and ``dtype``) goes through ``qt_from_numpy``.  After conversion
-both packages compute the same function.
+both packages compute the same function.  ``train_state_from_numpy``
+carries a JAX train state (``{"params", "opt": {"m", "v", "step"}}``, and
+``"master"`` where the JAX state has it) across the same way.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from .configs.base import ModelConfig
 from .core.blocking import QuantizedTensor
 from .core.packed_store import tree_leaves
 
-__all__ = ["tensor_from_numpy", "qt_from_numpy", "params_from_numpy"]
+__all__ = ["tensor_from_numpy", "qt_from_numpy", "params_from_numpy",
+           "train_state_from_numpy"]
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -63,3 +66,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
             raise ValueError(f"layer leaf has leading dim {lead}, expected "
                              f"n_super={n_super} for {cfg.name}")
     return out
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device="cpu"):
+    """The JAX package's train state (numpy leaves) as the port's: params
+    and AdamW ``m``, ``v`` (and ``master``) in the parameter layout,
+    ``step`` a 0-d int32 tensor."""
+    opt = {k: params_from_numpy(state["opt"][k], cfg, device)
+           for k in ("m", "v", "master") if k in state["opt"]}
+    opt["step"] = torch.as_tensor(np.asarray(state["opt"]["step"]),
+                                  dtype=torch.int32, device=device)
+    return {"params": params_from_numpy(state["params"], cfg, device),
+            "opt": opt}

@@ -22,7 +22,8 @@ import torch.nn.functional as Fn
 
 from . import formats as F
 
-__all__ = ["QuantizedTensor", "quantize", "dequantize", "qdq", "torch_dtype"]
+__all__ = ["QuantizedTensor", "quantize", "dequantize", "qdq", "transpose_qt",
+           "torch_dtype"]
 
 SCALE_BIAS = 127  # E8M0 storage bias
 
@@ -196,3 +197,17 @@ def qdq(x: torch.Tensor, fmt_name: str, block: Tuple[int, ...]) -> torch.Tensor:
     se_el = _se_per_element(F.shared_exponent(_block_amax(xf, block)), block)
     y = F.quantize_rel(_scale_exp2(xf, -se_el), fmt) * _exp2i(se_el)
     return _crop(y, orig_shape).to(orig_dtype)
+
+
+def transpose_qt(qt: QuantizedTensor) -> QuantizedTensor:
+    """Transpose without requantization (paper Fig. 4b).
+
+    Valid for square 2D tiles: the tile holding x[i, j] in X^T is the
+    transposed tile of X, so codes and scales swap their two trailing axes
+    (views, as in the JAX package)."""
+    if len(qt.block) != 2 or qt.block[0] != qt.block[1]:
+        raise ValueError("transpose reuse requires square 2D tiles")
+    shape = tuple(qt.shape[:-2]) + (qt.shape[-1], qt.shape[-2])
+    return QuantizedTensor(qt.codes.transpose(-1, -2),
+                           qt.scale_e8m0.transpose(-1, -2), qt.fmt, qt.block,
+                           shape, qt.dtype)

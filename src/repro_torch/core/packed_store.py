@@ -37,17 +37,19 @@ PACKED_LEAF_NAMES = frozenset({
 })
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf (tensor or QuantizedTensor) of a dict tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def tree_map(fn, *trees):
+    """Apply ``fn`` to the leaves (tensors or QuantizedTensors) of dict trees
+    of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def tree_leaves(tree):
+    """Leaves in sorted-key order, as ``jax.tree.leaves`` visits a dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
     else:
         yield tree
 

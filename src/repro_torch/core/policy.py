@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["QuantPolicy", "BF16", "MXSF_INFER"]
+__all__ = ["QuantPolicy", "BF16", "MXSF_TRAIN", "MXSF_INFER"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +22,7 @@ class QuantPolicy:
     tile: int = 8                # 2D tile edge (paper: 8x8 training)
     quantize_bwd: bool = True    # quantize gradients in backward
     attn_matmuls: bool = True    # quantize QK^T and attn.V operands
+    save_packed: bool = True     # store uint8-packed residuals for bwd
     kv_cache_fmt: str = ""       # e.g. 'mxsf': 8-bit packed KV cache (serving)
     backend: str = "torch"       # 'torch' | 'cuda': mx_dot matmul datapath
 
@@ -59,5 +60,7 @@ class QuantPolicy:
 
 
 BF16 = QuantPolicy(block_mode="none")
+MXSF_TRAIN = QuantPolicy(fwd_fmt="mxsf", bwd_fmt="mxsf", block_mode="2d",
+                         tile=8)
 MXSF_INFER = QuantPolicy(fwd_fmt="mxsf", block_mode="1d", block_1d=64,
                          quantize_bwd=False)

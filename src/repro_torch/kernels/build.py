@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "BuildResult", "build_all", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mxsf_fused_matmul", "mxsf_attention")
+SOURCES = ("mxsf_fused_matmul", "mxsf_attention", "mxsf_quant", "mx_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,19 +1,21 @@
 """Bit-level float helpers of the kernels, as plain PyTorch.
 
 Counterpart of the JAX package's ``kernels/common.py``.  The same functions
-exist as ``__device__`` helpers in ``csrc/mxsf_codec.cuh``, which both CUDA
-kernels include; the plain versions here are what the kernels' plain
-PyTorch versions (and the CPU tests) run.  Exponents are read and powers of
-two built by bit-casting, exactly as the kernels do.
+exist as ``__device__`` helpers in ``csrc/mxsf_codec.cuh``, which every CUDA
+kernel includes; the plain versions here are what the kernels' plain
+PyTorch versions (and the CPU tests) run, as the JAX kernels' bodies run
+them.  Exponents are read and powers of two built by bit-casting, exactly
+as the kernels do.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["flog2", "exp2i", "rne", "scale_by_exp2", "decode_mxsf",
-           "encode_mxsf"]
+__all__ = ["flog2", "exp2i", "rne", "scale_by_exp2", "broadcast_block_scale",
+           "decode_mxsf", "encode_mxsf", "decode_packed"]
 
 _I32 = torch.int32
+SCALE_BIAS = 127  # E8M0 storage bias
 
 
 def flog2(a: torch.Tensor) -> torch.Tensor:
@@ -41,6 +43,11 @@ def scale_by_exp2(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     e = e.to(_I32)
     e1 = torch.div(e, 2, rounding_mode="floor")
     return x * exp2i(e1) * exp2i(e - e1)
+
+
+def broadcast_block_scale(se: torch.Tensor, bm: int, bk: int):
+    """Block-grid scale exponents (G1, G2) -> per-element (G1*bm, G2*bk)."""
+    return se.repeat_interleave(bm, 0).repeat_interleave(bk, 1)
 
 
 def rne(x: torch.Tensor) -> torch.Tensor:
@@ -105,3 +112,12 @@ def encode_mxsf(xa: torch.Tensor) -> torch.Tensor:
     code = torch.where(a == 0, torch.zeros_like(code25),
                        torch.where(e >= -2, code25, code32))
     return ((code | (s << 7)) & 0xFF).to(torch.uint8)
+
+
+def decode_packed(codes: torch.Tensor, scales: torch.Tensor,
+                  block) -> torch.Tensor:
+    """f32 values of a packed 2D code grid under ``block``: the code's value
+    times 2^(scale byte - 127), the exponent clipped as ``exp2i`` clips it
+    (the decode of the kernels and of ``blocking.dequantize``, uncropped)."""
+    se = scales.to(_I32) - SCALE_BIAS
+    return decode_mxsf(codes) * exp2i(broadcast_block_scale(se, *block))

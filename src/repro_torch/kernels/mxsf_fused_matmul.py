@@ -2,22 +2,28 @@
 
 Replaces the JAX package's Pallas TPU kernel
 ``kernels/mxsf_fused_matmul.py::mxsf_fused_matmul_pallas`` (wrapper
-``kernels/ops.py::mxsf_fused_matmul``) on the serving path: unquantized x
-(M, K) against a packed weight (codes (Kp, N) uint8 + E8M0 scales
-(Kp/64, N)), ``y = qdq_MXSF(x) @ decode(w)`` in f32.  x may have fewer K
-columns than the block-padded weight has rows; the gap reads as zero.
+``kernels/ops.py::mxsf_fused_matmul``): x (M, K) against a packed weight
+(codes (Kp, N) uint8 + E8M0 scales under ``wblk``),
+``y = qdq_MXSF(x; xblk) @ decode(w)`` in f32.  x may have fewer K columns
+than the block-padded weight has rows; the gap reads as zero.  The two
+training switches of the JAX kernel:
 
-* CUDA tensors launch ``csrc/mxsf_fused_matmul.cu`` (serving switches only:
-  ``quantize_lhs=True, emit_codes=False``, blocks (1,64)/(64,1)); anything
-  else the kernel does not take raises.  There is no fallback.
+* ``quantize_lhs=False`` feeds the raw x (the backward's unquantized g);
+* ``emit_codes=True`` also returns x's codes and scales, cropped to x's
+  block-padded shape -- the packed residual of the backward.
+
+* CUDA tensors launch ``csrc/mxsf_fused_matmul.cu`` (blocks (1,64)/(64,1)
+  or (8,8)/(8,8); a raw x against either weight block); anything else the
+  kernel does not take raises.  There is no fallback.
 * CPU tensors take ``mxsf_fused_matmul_plain``, the counterpart of the JAX
-  package's ``kernels/ref.py::mxsf_fused_matmul_ref``.
+  package's ``kernels/ref.py::mxsf_fused_matmul_ref``; its emitted codes
+  come from ``blocking.quantize``.
 
 Bound on the H100: the weight bytes at serving shapes (a few to ~64 rows,
-below the ~295 op/byte ridge).  The kernel streams each weight byte once per
-64-row M tile and keeps every product exact in f32; see the source's note
-for the design.  ``launches`` counts kernel launches (the CPU path does not
-count).
+below the ~295 op/byte ridge), operations at training shapes.  The kernel
+streams each weight byte once per M tile and keeps every product of
+quantized operands exact in f32; see the source's note for the design.
+``launches`` counts kernel launches (the CPU path does not count).
 """
 from __future__ import annotations
 
@@ -32,14 +38,20 @@ __all__ = ["mxsf_fused_matmul", "mxsf_fused_matmul_plain", "launches"]
 launches = 0  # kernel launches; reset by whoever reads it
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
+# the kernel's quantized-x modes by (xblk, wblk), and its weight blocks
+_XMODE = {((1, 64), (64, 1)): 1, ((8, 8), (8, 8)): 2}
+_WB8 = {(64, 1): 0, (8, 8): 1}
 
 
 def mxsf_fused_matmul_plain(x, w_codes, w_scales, xblk=(1, 64),
-                            wblk=(64, 1), quantize_lhs: bool = True):
+                            wblk=(64, 1), quantize_lhs: bool = True,
+                            emit_codes: bool = False):
     """Plain PyTorch version: qdq the LHS (bit-identical to encode/decode),
-    dequantize the packed RHS, f32 matmul."""
+    dequantize the packed RHS, f32 matmul; with ``emit_codes`` also
+    ``blocking.quantize``'s codes and scales of x."""
     k = x.shape[1]
     kw, n = w_codes.shape
     xv = x.float()
@@ -49,44 +61,49 @@ def mxsf_fused_matmul_plain(x, w_codes, w_scales, xblk=(1, 64),
         xv = B.qdq(xv, "mxsf", tuple(xblk))
     qw = B.QuantizedTensor(w_codes, w_scales, "mxsf", tuple(wblk), (kw, n),
                            "float32")
-    return torch.matmul(xv, B.dequantize(qw))
+    y = torch.matmul(xv, B.dequantize(qw))
+    if not emit_codes:
+        return y
+    qx = B.quantize(x, "mxsf", tuple(xblk))
+    return y, qx.codes, qx.scale_e8m0
 
 
-def _check(x, w_codes, w_scales, xblk, wblk):
+def _check(x, w_codes, w_scales, xblk, wblk, quantize_lhs, emit_codes):
     if x.ndim != 2 or w_codes.ndim != 2:
         raise ValueError(f"x {tuple(x.shape)} and w_codes "
                          f"{tuple(w_codes.shape)} must be 2D")
     k = x.shape[1]
     kw, n = w_codes.shape
-    if kw < k or kw % wblk[0] != 0:
-        raise ValueError(f"w_codes rows {kw} must be >= K={k} and a "
-                         f"multiple of the weight block {wblk}")
+    if kw < k or kw % wblk[0] != 0 or n % wblk[1] != 0:
+        raise ValueError(f"w_codes {tuple(w_codes.shape)} must have >= "
+                         f"K={k} rows and tile the weight block {wblk}")
     if tuple(w_scales.shape) != (kw // wblk[0], n // wblk[1]):
         raise ValueError(f"w_scales shape {tuple(w_scales.shape)} does not "
                          f"match codes {tuple(w_codes.shape)} / {wblk}")
+    if emit_codes and not quantize_lhs:
+        raise ValueError("emit_codes requires quantize_lhs")
 
 
 def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
                       quantize_lhs: bool = True, emit_codes: bool = False):
-    """y (M, N) f32 = qdq_MXSF(x) @ decode(w_codes, w_scales)."""
+    """y (M, N) f32 = qdq_MXSF(x) @ decode(w_codes, w_scales); with
+    ``emit_codes`` returns ``(y, x_codes, x_scales)``."""
     global launches
-    _check(x, w_codes, w_scales, xblk, wblk)
+    xblk = tuple(int(b) for b in xblk)
+    wblk = tuple(int(b) for b in wblk)
+    _check(x, w_codes, w_scales, xblk, wblk, quantize_lhs, emit_codes)
     if x.device.type == "cpu":
-        if emit_codes:
-            raise NotImplementedError("emit_codes serves training; see "
-                                      "ROADMAP.md, deferred item 3")
         return mxsf_fused_matmul_plain(x, w_codes, w_scales, xblk, wblk,
-                                       quantize_lhs)
+                                       quantize_lhs, emit_codes)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    if not quantize_lhs or emit_codes:
-        raise NotImplementedError(
-            "the CUDA kernel takes the serving switches only "
-            "(quantize_lhs=True, emit_codes=False); see ROADMAP.md, "
-            "deferred item 3")
-    if tuple(xblk) != (1, 64) or tuple(wblk) != (64, 1):
-        raise ValueError(f"the CUDA kernel takes blocks (1,64)/(64,1); got "
-                         f"{tuple(xblk)}/{tuple(wblk)}")
+    m, k = x.shape
+    kw, n = w_codes.shape
+    xmode = _XMODE.get((xblk, wblk)) if quantize_lhs else 0
+    if xmode is None or wblk not in _WB8:
+        raise ValueError(f"the CUDA kernel takes blocks (1,64)/(64,1) or "
+                         f"(8,8)/(8,8) (any weight block of the two for a "
+                         f"raw x); got {xblk}/{wblk}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x dtype {x.dtype}: expected float32 or bfloat16")
     if w_codes.dtype != torch.uint8 or w_scales.dtype != torch.uint8:
@@ -94,11 +111,18 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
     for name, t in (("x", x), ("w_codes", w_codes), ("w_scales", w_scales)):
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    m, k = x.shape
-    kw, n = w_codes.shape
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    codes = scales = None
+    mb = kb = 0
+    if emit_codes:
+        mb, kb = -(-m // xblk[0]) * xblk[0], -(-k // xblk[1]) * xblk[1]
+        codes = torch.empty((mb, kb), dtype=torch.uint8, device=x.device)
+        scales = torch.empty((mb // xblk[0], kb // xblk[1]),
+                             dtype=torch.uint8, device=x.device)
     if m == 0 or n == 0:
-        return y
+        if emit_codes and codes.numel():
+            raise ValueError("emit_codes needs at least one output column")
+        return (y, codes, scales) if emit_codes else y
     vec_ok = int(n % 16 == 0 and w_codes.data_ptr() % 16 == 0
                  and w_scales.data_ptr() % 16 == 0)
     from . import build
@@ -107,8 +131,10 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
              w_codes.data_ptr(), w_scales.data_ptr(), y.data_ptr(),
-             m, k, kw, n, vec_ok,
+             m, k, kw, n, vec_ok, xmode, _WB8[wblk],
+             codes.data_ptr() if emit_codes else None,
+             scales.data_ptr() if emit_codes else None, mb, kb,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "mxsf_fused_matmul")
     launches += 1
-    return y
+    return (y, codes, scales) if emit_codes else y

@@ -1,0 +1,186 @@
+"""MXSF quantize and packed->packed requantize: wrappers, plain versions and
+launch counts.
+
+Replaces the JAX package's Pallas TPU kernels
+``kernels/mxsf_quant.py::mxsf_quantize_pallas`` (body ``_quant_kernel``)
+and ``::mxsf_requantize_pallas`` (body ``_requant_kernel``), wrappers
+``kernels/ops.py::mxsf_quantize`` / ``mxsf_requantize``.  Both share the
+MXSF converter (``_encode_blocks`` here, ``_encode_tile`` there): block
+amax -> shared exponent -> encode, through the bit-level codec of
+``kernels/common.py``.
+
+* ``mxsf_quantize(x, block)``: f32/bf16 (M, K) -> uint8 codes and E8M0
+  scales, cropped to the block-padded shape (``QuantizedTensor``-ready).
+* ``mxsf_requantize(codes, scales, from_block, to_block)``: re-block a
+  packed tensor, bit for bit ``quantize(dequantize(qt), to_block)`` with
+  the code grid treated as the value domain (zero padding to the lcm of
+  both blocks, output cropped to the to-block-padded shape).
+
+CUDA tensors launch ``csrc/mxsf_quant.cu`` (one thread per MX block; bound
+by bytes) or raise; CPU tensors take the plain versions.  There is no
+fallback.  ``launches`` counts kernel launches per wrapper (the CPU path
+does not count).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import common as C
+
+__all__ = ["mxsf_quantize", "mxsf_quantize_plain", "mxsf_requantize",
+           "mxsf_requantize_plain", "launches"]
+
+# kernel launches per wrapper; reset by whoever reads them
+launches = {"mxsf_quantize": 0, "mxsf_requantize": 0}
+
+# elements per plain-codec pass: the elementwise codec keeps ~20 full-size
+# temporaries, so large operands are coded in slices of whole block rows
+_SLICE_ELEMENTS = 1 << 24
+
+
+def _ceil_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def _pad2d(x: torch.Tensor, m_to: int, k_to: int) -> torch.Tensor:
+    m, k = x.shape
+    if m_to == m and k_to == k:
+        return x
+    return torch.nn.functional.pad(x, (0, k_to - k, 0, m_to - m))
+
+
+def _row_slices(m: int, k: int, bm: int):
+    rows = max(bm, _SLICE_ELEMENTS // max(k, 1) // bm * bm)
+    return [(i, min(i + rows, m)) for i in range(0, m, rows)] or [(0, 0)]
+
+
+def _encode_blocks(x: torch.Tensor, bm: int, bk: int):
+    """The converter body: f32 (M, K), both multiples of the block, ->
+    (codes, scale bytes).  Mirrors the JAX package's ``_encode_tile``."""
+    m, k = x.shape
+    amax = x.abs().reshape(m // bm, bm, k // bk, bk).amax(dim=(1, 3))
+    se = torch.where(amax > 0, C.flog2(amax),
+                     torch.full_like(amax, -127, dtype=torch.int32))
+    codes = C.encode_mxsf(C.scale_by_exp2(x, -C.broadcast_block_scale(
+        se, bm, bk)))
+    scales = (se + C.SCALE_BIAS).clamp(0, 255).to(torch.uint8)
+    return codes, scales
+
+
+def mxsf_quantize_plain(x: torch.Tensor, block=(1, 32)):
+    """Plain PyTorch version: zero-pad to the block, encode through the
+    codec of ``kernels/common.py``."""
+    bm, bk = block
+    m, k = x.shape
+    mb, kb = _ceil_to(m, bm), _ceil_to(k, bk)
+    xp = _pad2d(x, mb, kb)
+    codes = torch.empty((mb, kb), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((mb // bm, kb // bk), dtype=torch.uint8,
+                         device=x.device)
+    for a, b in _row_slices(mb, kb, bm):
+        codes[a:b], scales[a // bm:b // bm] = _encode_blocks(
+            xp[a:b].float(), bm, bk)
+    return codes, scales
+
+
+def mxsf_requantize_plain(codes: torch.Tensor, scales: torch.Tensor,
+                          from_block=(32, 1), to_block=(1, 32)):
+    """Plain PyTorch version: decode under ``from_block`` (the same exp2i
+    product as ``blocking.dequantize``), re-encode under ``to_block``."""
+    fbm, fbk = from_block
+    tbm, tbk = to_block
+    m, k = codes.shape
+    bm, bk = math.lcm(fbm, tbm), math.lcm(fbk, tbk)
+    mp, kp = _ceil_to(m, bm), _ceil_to(k, bk)
+    c = _pad2d(codes, mp, kp)
+    s = _pad2d(scales, mp // fbm, kp // fbk)
+    out_c = torch.empty((mp, kp), dtype=torch.uint8, device=codes.device)
+    out_s = torch.empty((mp // tbm, kp // tbk), dtype=torch.uint8,
+                        device=codes.device)
+    for a, b in _row_slices(mp, kp, bm):
+        x = C.decode_packed(c[a:b], s[a // fbm:b // fbm], (fbm, fbk))
+        out_c[a:b], out_s[a // tbm:b // tbm] = _encode_blocks(x, tbm, tbk)
+    mb, kb = _ceil_to(m, tbm), _ceil_to(k, tbk)
+    return (out_c[:mb, :kb].contiguous(),
+            out_s[:mb // tbm, :kb // tbk].contiguous())
+
+
+def _launch(name: str, argtypes, *args):
+    from . import build
+    lib = build.library("mxsf_quant")
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    build.check(lib, fn(*args), name)
+    launches[name] += 1
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (plain version), True for a contiguous CUDA
+    tensor; anything else raises."""
+    if t.device.type == "cpu":
+        return False
+    if not t.is_cuda:
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    return True
+
+
+_Q_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_void_p]
+_R_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p] * 3
+
+
+def mxsf_quantize(x: torch.Tensor, block=(1, 32)):
+    """MXSF-quantize a 2D f32/bf16 tensor.  Returns ``(codes, scales)``
+    cropped to the block-padded shape."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2D; got {tuple(x.shape)}")
+    bm, bk = (int(b) for b in block)
+    if not _on_card(x, "mxsf_quantize"):
+        return mxsf_quantize_plain(x, (bm, bk))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype}: expected float32 or bfloat16")
+    m, k = x.shape
+    mb, kb = _ceil_to(m, bm), _ceil_to(k, bk)
+    codes = torch.empty((mb, kb), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((mb // bm, kb // bk), dtype=torch.uint8,
+                         device=x.device)
+    _launch("mxsf_quantize", _Q_ARGS, x.data_ptr(),
+            int(x.dtype == torch.bfloat16), m, k, bm, bk, codes.data_ptr(),
+            scales.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    return codes, scales
+
+
+def mxsf_requantize(codes: torch.Tensor, scales: torch.Tensor,
+                    from_block=(32, 1), to_block=(1, 32)):
+    """Re-block a packed MXSF tensor.  ``codes`` is the from-block-padded
+    grid; returns ``(codes, scales)`` cropped to the to-block-padded shape
+    of that grid."""
+    if codes.ndim != 2:
+        raise ValueError(f"codes must be 2D; got {tuple(codes.shape)}")
+    fbm, fbk = (int(b) for b in from_block)
+    tbm, tbk = (int(b) for b in to_block)
+    m, k = codes.shape
+    if m % fbm or k % fbk or tuple(scales.shape) != (m // fbm, k // fbk):
+        raise ValueError(f"codes {tuple(codes.shape)} / scales "
+                         f"{tuple(scales.shape)} do not tile {from_block}")
+    if not _on_card(codes, "mxsf_requantize"):
+        return mxsf_requantize_plain(codes, scales, (fbm, fbk), (tbm, tbk))
+    if codes.dtype != torch.uint8 or scales.dtype != torch.uint8:
+        raise TypeError("codes and scales must be uint8")
+    if scales.device != codes.device or not scales.is_contiguous():
+        raise ValueError(f"scales must be contiguous on {codes.device}")
+    mb, kb = _ceil_to(m, tbm), _ceil_to(k, tbk)
+    out_c = torch.empty((mb, kb), dtype=torch.uint8, device=codes.device)
+    out_s = torch.empty((mb // tbm, kb // tbk), dtype=torch.uint8,
+                        device=codes.device)
+    _launch("mxsf_requantize", _R_ARGS, codes.data_ptr(), scales.data_ptr(),
+            m, k, fbm, fbk, tbm, tbk, out_c.data_ptr(), out_s.data_ptr(),
+            torch.cuda.current_stream(codes.device).cuda_stream)
+    return out_c, out_s

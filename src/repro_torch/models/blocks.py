@@ -1,17 +1,18 @@
 """Decoder model blocks: dense, norms, rotary embeddings, MLPs, attention.
 
-PyTorch counterpart of the parts of the JAX package's ``models/blocks.py``
-that the packed-MXSF serving path runs.  Every matmul goes through
-``mx_dot`` (the fused quantize->matmul kernel on packed weights); softmax,
-norms and residual math stay in f32 or the compute dtype as in the JAX
-package.
+PyTorch counterpart of the decoder parts of the JAX package's
+``models/blocks.py``.  Every matmul goes through ``mx_dot`` /
+``mx_einsum``; softmax, norms and residual math stay in f32 or the compute
+dtype as in the JAX package.
 
-Attention covers cached causal self-attention over a packed MXSF KV cache
-through the flash kernel (``kernels/mxsf_attention.py``), for S=1 decode
-steps and S=C prefill chunks.  The value-domain paths (``_attend``,
-``_scores_block``: training forward, un-packed caches, softcaps, SWA
-patterns) and ``moe`` are not in this slice and raise
-``NotImplementedError`` (ROADMAP.md, deferred items 1 and 5).
+Attention covers uncached self-attention (training and full-sequence
+forward: ``_attend``/``_scores_block``, query-chunked with a
+``torch.utils.checkpoint`` per chunk) and cached causal self-attention over
+a packed MXSF KV cache through the flash kernel
+(``kernels/mxsf_attention.py``), for S=1 decode steps and S=C prefill
+chunks.  Cross-attention, un-packed or value-domain caches, and ``moe``
+are not ported and raise ``NotImplementedError`` (ROADMAP.md, Deferred
+item 3).
 
 Where the JAX package returns a new cache, ``attention`` writes the new
 K/V codes into the given cache tensors in place and returns the same dict.
@@ -22,11 +23,12 @@ import math
 
 import torch
 import torch.nn.functional as Fn
+import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import blocking as mxblk
 from ..core.blocking import QuantizedTensor
-from ..core.mx_dot import mx_dot, qdq_along
+from ..core.mx_dot import mx_dot, mx_einsum, qdq_along
 from ..core.policy import QuantPolicy
 from ..kernels import mxsf_attention as MA
 
@@ -96,22 +98,38 @@ def _write_cache(buf, upd, slot, write_len):
     buf[bi, cols[bi, si]] = upd[bi, si]
 
 
-def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, window=None,
-              cache=None, cache_pos=None, cache_write_len=None):
-    """Cached causal self-attention over a packed MXSF KV cache.
+def _attn_mask_bias(qpos, kpos, *, causal: bool, window):
+    """Additive mask from broadcast position comparisons."""
+    qp, kp = qpos[:, :, None], kpos[:, None, :]
+    allowed = kp >= 0  # negative positions mark unwritten cache slots
+    if causal:
+        allowed = allowed & (kp <= qp)
+    if window is not None:
+        allowed = allowed & (kp > qp - window)
+    zero = torch.zeros((), dtype=torch.float32, device=kpos.device)
+    return torch.where(allowed, zero, torch.full_like(zero, -1e30))
 
-    * decode: ``cache_pos`` a scalar or (B,) position, all S rows written;
+
+def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
+              causal=True, window=None, cache=None, cache_pos=None,
+              cache_write_len=None):
+    """Self-attention.
+
+    * train / full-sequence forward: ``cache=None``, ``positions`` (B, S)
+      or (S,) -- query-chunked value-domain attention (``_attend``);
+    * decode: ``cache`` a packed MXSF KV cache, ``cache_pos`` a scalar or
+      (B,) position, all S rows written;
     * chunked prefill: ``cache_pos`` (B,) and ``cache_write_len`` (B,)
       valid tokens of this S-token chunk -- only columns pos..pos+len-1 are
       written, so a slot with len=0 leaves its cache untouched.  Queries
       past ``len`` produce rows the caller must ignore.
-    Returns (out, cache) -- the cache dict, updated in place."""
-    if (cache is None or "k_codes" not in cache
-            or not attn_kernel_eligible(cfg, policy)):
+    Returns (out, cache) -- the cache dict updated in place, or None."""
+    if cache is not None and ("k_codes" not in cache
+                              or not attn_kernel_eligible(cfg, policy)):
         raise NotImplementedError(
-            "only cached attention over a packed MXSF KV cache through the "
-            "kernel is ported (not backend 'torch', softcaps or SWA "
-            "patterns); see ROADMAP.md, deferred items 1 and 5")
+            "cached attention is ported only over a packed MXSF KV cache "
+            "through the kernel (not backend 'torch', softcaps or SWA "
+            "patterns); see ROADMAP.md, Deferred item 3")
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     dev = x.device
@@ -127,10 +145,20 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, window=None,
         v = (v + p["bv"]).to(x.dtype)
     k = _split_heads(k, kv, dh)
     v = _split_heads(v, kv, dh)
+    use_rope = cfg.rope_theta > 0 and cfg.family != "encdec"
+
+    if cache is None:
+        qpos = (positions if positions.ndim == 2
+                else positions[None, :]).expand(B, S)
+        if use_rope:
+            q = rope(q, qpos, cfg.rope_theta)
+            k = rope(k, qpos, cfg.rope_theta)
+        return _attend(q, k, v, qpos, qpos, causal, window, p, x, cfg,
+                       policy), None
 
     pos_vec = torch.as_tensor(cache_pos, dtype=torch.int64,
                               device=dev).expand(B)
-    if cfg.rope_theta > 0 and cfg.family != "encdec":
+    if use_rope:
         positions = pos_vec[:, None] + torch.arange(S, device=dev)[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -146,6 +174,58 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, window=None,
         _write_cache(cache[f"{nm}_codes"], qt.codes, slot, wl)
         _write_cache(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
     return _attend_packed(q, cache, pos_vec, window, p, cfg, policy), cache
+
+
+ATTN_CHUNK = 1024  # query-chunk target (flash-style; bounds score memory)
+
+
+def _pick_chunk(S: int) -> int:
+    for c in range(min(S, ATTN_CHUNK), 0, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def _scores_block(qg_c, kk, vv, qpos_c, kpos, causal, window, dh, cfg,
+                  policy, out_dtype):
+    """One query block: (B,kv,g,C,dh) x (B,kv,L,dh) -> (B,kv,g,C,dh)."""
+    scores = mx_einsum("bkgsd,bkld->bkgsl", qg_c, kk, policy,
+                       axes=(-1, -1), g_axes=(-1, -2))
+    scores = scores.float() / math.sqrt(dh)
+    if cfg.attn_softcap:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    bias = _attn_mask_bias(qpos_c, kpos, causal=causal, window=window)
+    scores = scores + bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(out_dtype)
+    return mx_einsum("bkgsl,bkld->bkgsd", probs, vv, policy,
+                     axes=(-1, -2), g_axes=(-1, -2))
+
+
+def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
+            policy: QuantPolicy):
+    """Query-chunked attention: the full (S x L) score tensor never exists
+    at once; each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
+    B, S, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(B, S, kv, g, dh).permute(0, 2, 3, 1, 4)
+    kk = k.permute(0, 2, 1, 3)   # (B, kv, L, dh)
+    vv = v.permute(0, 2, 1, 3)
+    chunk = _pick_chunk(S)
+    if S <= chunk:
+        ctx = _scores_block(qg, kk, vv, qpos, kpos, causal, window, dh, cfg,
+                            policy, x.dtype)
+    else:
+        parts = []
+        for c0 in range(0, S, chunk):
+            parts.append(ckpt.checkpoint(
+                _scores_block, qg[:, :, :, c0:c0 + chunk], kk, vv,
+                qpos[:, c0:c0 + chunk], kpos, causal, window, dh, cfg,
+                policy, x.dtype, use_reentrant=False))
+        ctx = torch.cat(parts, dim=3)
+    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, h * dh)
+    return dense(ctx, p["wo"], policy)
 
 
 def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,

@@ -19,8 +19,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
-from . import blocks as blk
-from .transformer import embed_tokens, layer_windows, lm_head
+from .transformer import (_apply_sublayer, embed_tokens, layer_windows,
+                          lm_head)
 
 __all__ = ["init_cache", "decode_step", "prefill_step", "kv_cache_rows",
            "layer_params"]
@@ -51,10 +51,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu",
     ``max_len`` width: the ring-shrunk all-SWA cache is not ported)."""
     if cfg.family != "decoder":
         raise NotImplementedError(f"family {cfg.family!r} has no ported "
-                                  "cache; see ROADMAP.md, deferred item 5")
+                                  "cache; see ROADMAP.md, Queue 1 item 9")
     if kv_fmt != "mxsf":
         raise NotImplementedError("only the packed MXSF KV cache is ported; "
-                                  "see ROADMAP.md, deferred item 1")
+                                  "see ROADMAP.md, Deferred item 3")
     lead = (cfg.n_layers // cfg.moe_every, cfg.moe_every, batch,
             max_len + cfg.frontend_tokens, cfg.n_kv)
     codes = lead + (cfg.head_dim,)
@@ -85,21 +85,10 @@ def _decoder_forward(params, tokens, cache, pos, cfg: ModelConfig,
     for i in range(n_super):
         lp = layer_params(params["layers"], i)
         for j in range(cfg.moe_every):
-            sp = lp[f"sub{j}"]
-            sub_c = {k: v[i, j] for k, v in cache.items()}
-            h = blk.rmsnorm(sp["ln1"], x)
-            a, _ = blk.attention(sp["attn"], h, cfg, policy,
-                                 window=windows[i * cfg.moe_every + j],
-                                 cache=sub_c, cache_pos=pos_eff,
-                                 cache_write_len=write_len)
-            if cfg.post_norms:
-                a = blk.rmsnorm(sp["pn1"], a)
-            x = x + a
-            h = blk.rmsnorm(sp["ln2"], x)
-            f = blk.mlp(sp["ffn"], h, cfg, policy)
-            if cfg.post_norms:
-                f = blk.rmsnorm(sp["pn2"], f)
-            x = x + f
+            x = _apply_sublayer(lp[f"sub{j}"], x, cfg, policy,
+                                window=windows[i * cfg.moe_every + j],
+                                cache={k: v[i, j] for k, v in cache.items()},
+                                cache_pos=pos_eff, cache_write_len=write_len)
     return _mask_pad(lm_head(params, x, cfg, policy), cfg), cache
 
 

@@ -1,7 +1,8 @@
-"""Decoder-family parameter tree, embedding, LM head and layer windows.
+"""Decoder-family parameter tree, embeddings, sublayer, forward, LM head.
 
 PyTorch counterpart of the decoder parts of the JAX package's
-``models/transformer.py``.  The parameter tree has the JAX layout -- layers
+``models/transformer.py``: the training forward (``forward_hidden``) and
+the pieces the cached decoder (``decoding.py``) shares with it.  The parameter tree has the JAX layout -- layers
 stacked on a leading ``(n_super, ...)`` axis with ``sub{j}`` keys per
 super-layer -- so ``convert.params_from_numpy`` carries a JAX tree across
 leaf for leaf.
@@ -19,6 +20,7 @@ import math
 from typing import Iterator, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core.policy import QuantPolicy
@@ -53,14 +55,18 @@ def _sublayer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
         yield ("pn2", "w"), (d,), "ones"
 
 
-def decoder_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
-    """Per-layer leaves of one super-layer, keyed ``(sub{j}, ...)``."""
+def _check_dense_decoder(cfg: ModelConfig):
     if cfg.family != "decoder":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  "see ROADMAP.md, deferred item 5")
+                                  "see ROADMAP.md, Queue 1 item 9")
     if cfg.n_experts > 0:
         raise NotImplementedError("MoE layers are not ported yet; see "
-                                  "ROADMAP.md, deferred item 5")
+                                  "ROADMAP.md, Queue 1 item 9")
+
+
+def decoder_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
+    """Per-layer leaves of one super-layer, keyed ``(sub{j}, ...)``."""
+    _check_dense_decoder(cfg)
     for j in range(cfg.moe_every):
         for path, shape, kind in _sublayer_leaves(cfg):
             yield (f"sub{j}",) + path, shape, kind
@@ -121,7 +127,8 @@ def layer_windows(cfg: ModelConfig, n: int):
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     """Embedding gather in the compute dtype (the cached decoder's order:
-    cast first, then gemma2's sqrt(d) scale in that dtype)."""
+    cast first, then gemma2's sqrt(d) scale in that dtype).  The training
+    forward scales first and casts after: ``_embed_tokens``."""
     x = params["emb"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
     if cfg.name.startswith("gemma2"):
         x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
@@ -137,3 +144,76 @@ def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def _embed_tokens(params, batch, cfg: ModelConfig):
+    """The training forward's embedding (the JAX package's
+    ``_embed_tokens``): gather in f32, gemma2's sqrt(d) scale in f32, then
+    the cast to the compute dtype -- not the cached decoder's order."""
+    if "embeds" in batch and cfg.frontend_tokens:
+        raise NotImplementedError("VLM prefix tokens are not ported yet; "
+                                  "see ROADMAP.md, Queue 1 item 9")
+    x = params["emb"][batch["tokens"].long()]
+    if cfg.name.startswith("gemma2"):
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
+                    window, positions=None, cache=None, cache_pos=None,
+                    cache_write_len=None):
+    """Pre-norm attention + MLP sublayer (dense decoders), uncached
+    (``positions``) or over a packed KV cache (``cache``...)."""
+    h = blk.rmsnorm(p["ln1"], x)
+    a, _ = blk.attention(p["attn"], h, cfg, policy, positions=positions,
+                         window=window, cache=cache, cache_pos=cache_pos,
+                         cache_write_len=cache_write_len)
+    if cfg.post_norms:
+        a = blk.rmsnorm(p["pn1"], a)
+    x = x + a
+    h = blk.rmsnorm(p["ln2"], x)
+    f = blk.mlp(p["ffn"], h, cfg, policy)
+    if cfg.post_norms:
+        f = blk.rmsnorm(p["pn2"], f)
+    return x + f
+
+
+def _unstack(tree, n: int):
+    """A stacked ``(n, ...)`` tree -> n per-layer trees (``torch.unbind``:
+    one backward node per leaf gathers the layers' gradients at once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
+                   remat: str = "none"):
+    """Pre-head hidden states (B, S, d) of a dense decoder -- the chunked
+    loss's entry point.  ``remat="full"`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``); the JAX package's ``"dots"``
+    policy has no PyTorch counterpart."""
+    _check_dense_decoder(cfg)
+    if remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={remat!r}: only 'none' and 'full' are ported; see "
+            "ROADMAP.md, Deferred item 2")
+    x = _embed_tokens(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    n_super = cfg.n_layers // cfg.moe_every
+    windows = layer_windows(cfg, cfg.n_layers)
+
+    def body(x, lp, i):
+        for j in range(cfg.moe_every):
+            x = _apply_sublayer(lp[f"sub{j}"], x, cfg, policy,
+                                positions=positions,
+                                window=windows[i * cfg.moe_every + j])
+        return x
+
+    for i, lp in enumerate(_unstack(params["layers"], n_super)):
+        if remat == "full":
+            x = ckpt.checkpoint(body, x, lp, i, use_reentrant=False)
+        else:
+            x = body(x, lp, i)
+    return x

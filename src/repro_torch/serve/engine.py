@@ -24,8 +24,8 @@ The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): ``device=None`` means ``"cuda"`` and
 raises when CUDA is absent.  ``backend="cuda"`` selects the kernel datapath;
 on CPU tensors the kernels' plain versions run.  Sharded serving (``mesh``)
-and ``from_checkpoint`` are not ported yet (ROADMAP.md, deferred items 4
-and 6).
+and ``from_checkpoint`` are not ported yet (ROADMAP.md, Queue 1 items 10
+and 7).
 """
 from __future__ import annotations
 
@@ -41,19 +41,10 @@ from ..configs.base import ModelConfig
 from ..core import packed_store
 from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
+from ..device import resolve_device
 from ..models import model as M
 
 __all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card; raises when CUDA is absent (no CPU fallback)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass device='cpu' to run on "
-                               "the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def auto_prefill_chunk(max_len: int, slots: int) -> int:
