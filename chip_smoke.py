@@ -11,24 +11,28 @@ Phases, each printed as one JSON line:
               kernel's registers, shared memory and spills.
 3. kernels -- each CUDA kernel against its plain PyTorch version at the
               serving path's shapes of qwen2.5-32b (bf16 activations, plus
-              edge blocks): max error against the stated tolerance, the
-              fused matmul also bit for bit against the same sum taken in
-              the kernel's order, its quantize prologue bit for bit against
-              the plain codec (identity weight: y == qdq(x)), the attention's
-              V decode bit for bit (one visible key: out == V), kernel time
-              (CUDA events, L2 flushed before every launch), plain time, one
-              PyTorch library call as a yardstick the port never calls, and
-              the bound (least time the card could take).  Then the
-              training kernels at the shapes of full-width h2o-danube-1.8b
-              at batch 4 x seq 512 (M = 2048): the quantizer ((8,8) on the
-              bf16 weight wg and on an f32 g, (64,1) on wg, (1,64) on x)
-              and the requantize ((64,1)->(1,64) on wg's codes,
-              (1,64)->(64,1) on x's) bit for bit, edge blocks included;
-              the packed x packed matmul (dx and dw of wg, (8,8)) within
-              tolerance and bit for bit against the kernel-order sum; the
-              fused matmul's training switches (emit_codes with (8,8) and
-              (1,64)/(64,1), codes bit for bit against the quantizer's;
-              quantize_lhs=False within tolerance).
+              edge blocks, which must reach the matmul kernels' f32 path):
+              max error against the stated tolerance; the fused matmul
+              also bit for bit on exact-sum operands of the same shape
+              (values whose every partial sum is exact in f32, so any
+              summation order gives the same bits) and its quantize
+              prologue bit for bit against the plain codec (identity
+              weight: y == qdq(x)); the attention's V decode bit for bit
+              (one visible key: out == V); kernel time (CUDA events, L2
+              flushed before every launch), plain time, one PyTorch
+              library call as a yardstick the port never calls, and the
+              bound (least time the card could take).  Then the training
+              kernels at the shapes of full-width h2o-danube-1.8b at batch
+              4 x seq 512 (M = 2048): the quantizer ((8,8) on the bf16
+              weight wg and on an f32 g, (64,1) on wg, (1,64) on x) and the
+              requantize ((64,1)->(1,64) on wg's codes, (1,64)->(64,1) on
+              x's) bit for bit, edge blocks included; the packed x packed
+              matmul (dx and dw of wg, (8,8)) within tolerance and bit for
+              bit on exact-sum operands; the fused matmul's training
+              switches (emit_codes with (8,8) and (1,64)/(64,1), codes bit
+              for bit against the quantizer's; quantize_lhs=False within
+              tolerance; each bit for bit on exact-sum operands); both
+              matmuls on edge blocks, through their f32 path.
 4. serve   -- the packed store of full-width qwen2.5-32b built leaf by leaf
               on the card from ``--seed``, then ``ServeEngine`` (kernel
               datapath, packed MXSF KV cache) on a few requests: tokens,
@@ -37,19 +41,18 @@ Phases, each printed as one JSON line:
 5. slice   -- the first prefill dispatch and two decode dispatches of one
               engine state through the kernels, each kernel call teacher-
               forced: its plain version runs on the same inputs and the
-              kernel must meet phase 3's tolerance there (the fused matmul
-              of the first layer and of the LM head bit for bit against the
-              kernel-order sum), so the logits match the plain head within
-              its tolerance and the tokens agree wherever the plain
-              top-1/top-2 gap is wider than twice it; the cache changes at
-              the written rows only.
+              kernel must meet phase 3's tolerance there, so the logits
+              match the plain head within its tolerance and the tokens
+              agree wherever the plain top-1/top-2 gap is wider than twice
+              it; the cache changes at the written rows only.
 6. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
               ``init_state`` from ``--seed``, batches from ``lm_batch``
               (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
               for 3 steps, then a fourth under the profiler: loss, grad
               norm, lr, step seconds (host clock, synchronised), tokens/s,
-              peak memory and each kernel's launches, which must equal the
-              path's count.  Then the 1D
+              peak memory, each kernel's launches, which must equal the
+              path's count, and the K steps the matmul kernels sent down
+              their f32 path.  Then the 1D
               layout (``block_mode="1d"``, ``quantize_bwd=True``) at the
               same width with the depth cut to 4 layers, for 2 steps.
 7. train_slice -- one more train step of each layout (on the state the
@@ -57,10 +60,9 @@ Phases, each printed as one JSON line:
               every quantize and requantize call and every set of emitted
               codes bit for bit against its plain version on the same
               inputs, every matmul call within ``train_rtol(K)`` =
-              TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version
-              and bit for bit against the kernel-order sum, and the loss
-              within the head's tolerance of the loss of the plain head's
-              logits.
+              TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version,
+              and the loss within the head's tolerance of the loss of the
+              plain head's logits.
 8. the ``kernels`` line (every CUDA kernel, its launches on the serving
    and both training paths), then the ``{"ok": true, ...}`` line.
 
@@ -220,34 +222,45 @@ def _tie_x(torch, m, k, gen, device):
     return x * sign * pow2.repeat_interleave(64, dim=1)
 
 
-def _kernel_order_matmul(torch, xq, wq):
-    """xq @ wq with K summed one term at a time from k = 0, as each thread
-    of the fused kernel sums it.  A product of two decoded MXSF values is
-    exact in f32, so each step rounds once, as the kernel's FMA does: the
-    result is the kernel's bit for bit."""
-    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.float32,
-                      device=xq.device)
-    for k in range(xq.shape[1]):
-        acc.addcmul_(xq[:, k:k + 1], wq[k:k + 1])
-    return acc
+def _exact_sum_values(torch, shape, block, gen, device):
+    """f32 values 0, +-1/2, +-1, +-2 times 2^b, b = 0 or 1 alternating
+    between neighbouring blocks of ``block`` (a checkerboard).  Each product
+    of two is a multiple of 2^-2 no larger than 2^4 in magnitude, so every
+    partial sum of up to 2^18 of them is a multiple of 2^-2 no larger than
+    2^22: exact in f32, in any order and any grouping, and so also in the
+    tensor cores' sums.  MXSF holds them exactly under any block (qdq is the
+    identity on them), so a matmul kernel must equal its plain version bit
+    for bit on them, whatever its order."""
+    r, c = shape
+    f = torch.randint(7, shape, generator=gen, device=device,
+                      dtype=torch.uint8).float()
+    # 0 -> 0; 1, 2 -> +-1/2; 3, 4 -> +-1; 5, 6 -> +-2
+    x = torch.exp2(torch.div(f + 1, 2, rounding_mode="floor") - 2)
+    x.mul_(1 - 2 * (f % 2 == 0).float()).masked_fill_(f == 0, 0.0)
+    del f
+    bi = torch.arange(r, device=device) // block[0]
+    bj = torch.arange(c, device=device) // block[1]
+    x.mul_(torch.exp2(((bi[:, None] + bj[None, :]) % 2).float()))
+    return x
 
 
-def held_to_plain(torch, y, y_ref, xq, wq, bitwise: bool, keep=False,
-                  rtol=MATMUL_RTOL):
+def _f32_steps(kind, reset=True):
+    """K steps that took the kernel's f32 path since the last reset."""
+    from repro_torch.kernels import common as C
+    return C.read_f32_steps(kind, reset=reset)
+
+
+def held_to_plain(torch, y, y_ref, xq, wq, keep=False, rtol=MATMUL_RTOL):
     """A matmul kernel's y against the plain version's y_ref on the same
-    inputs (xq, wq: the f32 operands both multiply): max error, its ratio
-    to rtol * sum_k |x_k w_k| and, with ``bitwise``, whether y equals the
-    kernel-order sum bit for bit; with ``keep`` also the plain output and
-    the tolerance (tensors)."""
+    inputs (xq, wq: the f32 operands both multiply): max error and its
+    ratio to rtol * sum_k |x_k w_k|; with ``keep`` also the plain output
+    and the tolerance (tensors)."""
     err = (y - y_ref).abs()
     tol = rtol * torch.matmul(xq.abs(), wq.abs()) + 1e-30
     out = dict(max_abs_err=float(err.max()),
                err_over_tol=float((err / tol).max()),
                finite=bool(torch.isfinite(y).all()
                            and torch.isfinite(y_ref).all()))
-    if bitwise:
-        out["bitwise"] = bool(torch.equal(y, _kernel_order_matmul(
-            torch, xq, wq)))
     if keep:
         out.update(y_ref=y_ref, tol=tol)
     return out
@@ -265,16 +278,50 @@ def fused_operands(torch, x, codes, scales, xblk=(1, 64), wblk=(64, 1),
     return xv, C.decode_packed(codes, scales, wblk)
 
 
-def matmul_against_plain(torch, x, codes, scales, y, bitwise: bool,
-                         keep: bool = False, xblk=(1, 64), wblk=(64, 1),
-                         quantize_lhs=True, rtol=MATMUL_RTOL):
+def matmul_against_plain(torch, x, codes, scales, y, keep: bool = False,
+                         xblk=(1, 64), wblk=(64, 1), quantize_lhs=True,
+                         rtol=MATMUL_RTOL):
     """The fused kernel's y against its plain version (``held_to_plain``)."""
     from repro_torch.kernels import mxsf_fused_matmul as FM
     y_ref = FM.mxsf_fused_matmul_plain(x, codes, scales, xblk, wblk,
                                        quantize_lhs)
     xq, wq = fused_operands(torch, x, codes, scales, xblk, wblk,
                             quantize_lhs)
-    return held_to_plain(torch, y, y_ref, xq, wq, bitwise, keep, rtol)
+    return held_to_plain(torch, y, y_ref, xq, wq, keep, rtol)
+
+
+def _gate(name, res):
+    if not res["finite"] or res["err_over_tol"] > 1.0:
+        raise AssertionError(f"{name}: error {res['max_abs_err']} is "
+                             f"{res['err_over_tol']:.3g}x the tolerance")
+
+
+def fused_exact_sum(torch, gen, device, m, k, n, xblk=(1, 64),
+                    wblk=(64, 1), quantize_lhs=True, dtype=None):
+    """The fused kernel bit for bit against its plain version on exact-sum
+    operands (``_exact_sum_values``): y, and with a quantized x the emitted
+    codes and scales."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    dtype = dtype or torch.bfloat16
+    x = _exact_sum_values(torch, (m, k), xblk, gen, device).to(dtype)
+    qt = B.quantize(_exact_sum_values(torch, (k, n), wblk, gen, device),
+                    "mxsf", wblk)
+    _f32_steps("mxsf_fused_matmul")
+    got = FM.mxsf_fused_matmul(x, qt.codes, qt.scale_e8m0, xblk, wblk,
+                               quantize_lhs, quantize_lhs)
+    want = FM.mxsf_fused_matmul_plain(x, qt.codes, qt.scale_e8m0, xblk,
+                                      wblk, quantize_lhs, quantize_lhs)
+    f32_steps = _f32_steps("mxsf_fused_matmul")
+    if quantize_lhs:
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        same = torch.equal(got, want)
+    if not same:
+        raise AssertionError(f"fused {m}x{k}x{n} {xblk}/{wblk} raw="
+                             f"{not quantize_lhs}: not bit for bit on the "
+                             "exact-sum operands")
+    return dict(exact_sum_bitwise=same, exact_sum_f32_steps=f32_steps)
 
 
 def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
@@ -293,24 +340,21 @@ def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
     qt = B.quantize(w.to(torch.bfloat16), "mxsf", (64, 1))
     del w
     codes, scales = qt.codes, qt.scale_e8m0
+    on_card = device.type == "cuda"
+    if on_card:
+        _f32_steps("mxsf_fused_matmul")
     y = FM.mxsf_fused_matmul(x, codes, scales)
-    # random inputs also bit for bit against the kernel-order sum (edge
-    # blocks make subnormal products, which the kernel's FMA keeps exact
-    # and a separate multiply rounds)
-    res = matmul_against_plain(torch, x, codes, scales, y,
-                               bitwise=device.type == "cuda" and not edge)
-    if not res["finite"]:
-        raise AssertionError(f"matmul {m}x{k}x{n}: non-finite output")
-    if res["err_over_tol"] > 1.0 or not res.get("bitwise", True):
-        raise AssertionError(f"matmul {m}x{k}x{n}: error "
-                             f"{res['max_abs_err']} is "
-                             f"{res['err_over_tol']:.3g}x the tolerance, "
-                             f"bitwise={res.get('bitwise')}")
+    f32_steps = _f32_steps("mxsf_fused_matmul") if on_card else None
+    res = matmul_against_plain(torch, x, codes, scales, y)
+    _gate(f"matmul {m}x{k}x{n} edge={edge}", res)
+    if edge and on_card and not f32_steps:
+        raise AssertionError(f"matmul {m}x{k}x{n}: the edge blocks did not "
+                             "reach the f32 path")
     row = dict(kernel="mxsf_fused_matmul", m=m, k=k, n=n, edge=edge,
                max_abs_err=res["max_abs_err"],
-               err_over_tol=res["err_over_tol"],
-               bitwise_kernel_order=res.get("bitwise"))
+               err_over_tol=res["err_over_tol"], f32_steps=f32_steps)
     if not edge:
+        row.update(fused_exact_sum(torch, gen, device, m, k, n))
         w_lib = B.dequantize(B.QuantizedTensor(
             codes, scales, "mxsf", (64, 1), tuple(codes.shape), "bfloat16"))
         row["ms"] = timer(lambda: FM.mxsf_fused_matmul(x, codes, scales), 10)
@@ -321,6 +365,7 @@ def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
         row["bound_ms"], row["bound_by"] = _bound_ms(
             nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["over_library"] = row["ms"] / row["library_ms"]
         del w_lib
     emit("kernels", **row)
     return row
@@ -558,30 +603,42 @@ def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None):
     return row
 
 
-def _gate(name, res, bitwise):
-    if not res["finite"] or res["err_over_tol"] > 1.0 or (
-            bitwise and not res.get("bitwise")):
-        raise AssertionError(f"{name}: error {res['max_abs_err']} is "
-                             f"{res['err_over_tol']:.3g}x the tolerance, "
-                             f"bitwise={res.get('bitwise')}")
+def mx_exact_sum(torch, gen, device, m, k, n, blk=(8, 8)):
+    """mx_matmul bit for bit against its plain version on exact-sum
+    operands, packed under ``blk``."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mx_matmul as MM
+    xq, wq = (B.quantize(_exact_sum_values(torch, shape, blk, gen, device),
+                         "mxsf", blk) for shape in ((m, k), (k, n)))
+    args = (xq.codes, xq.scale_e8m0, wq.codes, wq.scale_e8m0, blk, blk)
+    _f32_steps("mxsf_matmul")
+    same = torch.equal(MM.mxsf_matmul(*args), MM.mxsf_matmul_plain(*args))
+    f32_steps = _f32_steps("mxsf_matmul")
+    if not same:
+        raise AssertionError(f"mx_matmul {m}x{k}x{n}: not bit for bit on "
+                             "the exact-sum operands")
+    return dict(exact_sum_bitwise=same, exact_sum_f32_steps=f32_steps)
 
 
-def check_mx_matmul(torch, timer, name, x, w, blk=(8, 8)):
-    """Packed x packed kernel against its plain version within tolerance
-    and bit for bit against the kernel-order sum."""
+def check_mx_matmul(torch, timer, gen, name, x, w, blk=(8, 8)):
+    """Packed x packed kernel against its plain version: random operands
+    within tolerance, exact-sum operands of the same shape bit for bit."""
     from repro_torch.kernels import common as C
     from repro_torch.kernels import mx_matmul as MM
+    on_card = x[0].is_cuda
+    _f32_steps("mxsf_matmul")
     y = MM.mxsf_matmul(*x, *w, blk, blk)
+    f32_steps = _f32_steps("mxsf_matmul") if on_card else None
     y_ref = MM.mxsf_matmul_plain(*x, *w, blk, blk)
     xq, wq = C.decode_packed(*x, blk), C.decode_packed(*w, blk)
-    res = held_to_plain(torch, y, y_ref, xq, wq, bitwise=True)
-    _gate(f"mx_matmul {name}", res, True)
+    res = held_to_plain(torch, y, y_ref, xq, wq)
+    _gate(f"mx_matmul {name}", res)
     m, k = x[0].shape
     n = w[0].shape[1]
     row = dict(kernel="mxsf_matmul", operand=name, m=m, k=k, n=n,
                block=list(blk), max_abs_err=res["max_abs_err"],
-               err_over_tol=res["err_over_tol"],
-               bitwise_kernel_order=res["bitwise"])
+               err_over_tol=res["err_over_tol"], f32_steps=f32_steps,
+               **mx_exact_sum(torch, gen, x[0].device, m, k, n, blk))
     row["ms"] = timer(lambda: MM.mxsf_matmul(*x, *w, blk, blk), 10)
     row["plain_ms"] = timer(lambda: MM.mxsf_matmul_plain(*x, *w, blk, blk),
                             3, 1)
@@ -592,27 +649,56 @@ def check_mx_matmul(torch, timer, name, x, w, blk=(8, 8)):
     row["bound_ms"], row["bound_by"] = _bound_ms(
         nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["over_library"] = row["ms"] / row["library_ms"]
     emit("kernels", **row)
     return row
 
 
-def check_fused_train(torch, timer, name, x, codes, scales, xblk, wblk,
+def check_mx_matmul_edge(torch, gen, device, blk=(8, 8)):
+    """mx_matmul on edge blocks (zero, subnormal, 3e38 against 2^-100,
+    S_e near -120): within tolerance, and the f32 path must have run."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import common as C
+    from repro_torch.kernels import mx_matmul as MM
+    x = _edge_x(torch, 128, 256, gen, device)
+    w = torch.randn((256, 192), generator=gen, device=device)
+    w[64:128] *= 2.0 ** -100
+    xq, wq = B.quantize(x, "mxsf", blk), B.quantize(w, "mxsf", blk)
+    args = (xq.codes, xq.scale_e8m0, wq.codes, wq.scale_e8m0, blk, blk)
+    _f32_steps("mxsf_matmul")
+    y = MM.mxsf_matmul(*args)
+    f32_steps = _f32_steps("mxsf_matmul")
+    res = held_to_plain(torch, y, MM.mxsf_matmul_plain(*args),
+                        C.decode_packed(xq.codes, xq.scale_e8m0, blk),
+                        C.decode_packed(wq.codes, wq.scale_e8m0, blk))
+    _gate("mx_matmul edge", res)
+    if device.type == "cuda" and not f32_steps:
+        raise AssertionError("mx_matmul: the edge blocks did not reach the "
+                             "f32 path")
+    emit("kernels", kernel="mxsf_matmul", operand="edge", m=128, k=256,
+         n=192, block=list(blk), max_abs_err=res["max_abs_err"],
+         err_over_tol=res["err_over_tol"], f32_steps=f32_steps)
+
+
+def check_fused_train(torch, timer, gen, name, x, codes, scales, xblk, wblk,
                       quantize_lhs=True, want_codes=None):
     """The fused matmul's training switches: with ``emit_codes`` the codes
     must equal the quantizer kernel's (``want_codes``) and the plain
-    version's bit for bit, and y its plain version within tolerance and bit
-    for bit against the kernel-order sum; the raw-x path within tolerance
-    (its products round in f32, so no bitwise claim)."""
+    version's bit for bit, and y its plain version within tolerance; the
+    raw-x path within tolerance; and each mode bit for bit on exact-sum
+    operands of the same shape."""
     from repro_torch.kernels import mxsf_fused_matmul as FM
     emit_codes = quantize_lhs
     call = lambda: FM.mxsf_fused_matmul(x, codes, scales, xblk, wblk,
                                         quantize_lhs, emit_codes)
+    on_card = x.is_cuda
+    _f32_steps("mxsf_fused_matmul")
     out = call()
+    f32_steps = _f32_steps("mxsf_fused_matmul") if on_card else None
     y = out[0] if emit_codes else out
-    res = matmul_against_plain(torch, x, codes, scales, y, quantize_lhs,
-                               xblk=xblk, wblk=wblk,
-                               quantize_lhs=quantize_lhs)
-    _gate(f"fused {name}", res, quantize_lhs)
+    res = matmul_against_plain(torch, x, codes, scales, y, xblk=xblk,
+                               wblk=wblk, quantize_lhs=quantize_lhs)
+    _gate(f"fused {name}", res)
     codes_ok = None
     if emit_codes:
         plain = FM.mxsf_fused_matmul_plain(x, codes, scales, xblk, wblk,
@@ -630,8 +716,9 @@ def check_fused_train(torch, timer, name, x, codes, scales, xblk, wblk,
                emit_codes=emit_codes, emitted_codes_bitwise=codes_ok,
                dtype=str(x.dtype).split(".")[-1],
                max_abs_err=res["max_abs_err"],
-               err_over_tol=res["err_over_tol"],
-               bitwise_kernel_order=res.get("bitwise"))
+               err_over_tol=res["err_over_tol"], f32_steps=f32_steps,
+               **fused_exact_sum(torch, gen, x.device, m, k, n, xblk, wblk,
+                                 quantize_lhs, x.dtype))
     row["ms"] = timer(call, 10)
     row["plain_ms"] = timer(lambda: FM.mxsf_fused_matmul_plain(
         x, codes, scales, xblk, wblk, quantize_lhs, emit_codes), 3, 1)
@@ -648,8 +735,38 @@ def check_fused_train(torch, timer, name, x, codes, scales, xblk, wblk,
     row["bound_ms"], row["bound_by"] = _bound_ms(
         nbytes, (2.0 * m * k * n, rate))
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["over_library"] = row["ms"] / row["library_ms"]
     emit("kernels", **row)
     return row, out
+
+
+def check_fused_train_edge(torch, gen, device, xblk, wblk):
+    """The fused matmul's emit path on edge blocks: y within tolerance,
+    codes bit for bit, and the f32 path must have run."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    x = _edge_x(torch, 128, 256, gen, device)
+    w = torch.randn((256, 192), generator=gen, device=device)
+    w[64:128] *= 2.0 ** -100
+    qt = B.quantize(w, "mxsf", wblk)
+    _f32_steps("mxsf_fused_matmul")
+    out = FM.mxsf_fused_matmul(x, qt.codes, qt.scale_e8m0, xblk, wblk,
+                               emit_codes=True)
+    f32_steps = _f32_steps("mxsf_fused_matmul")
+    res = matmul_against_plain(torch, x, qt.codes, qt.scale_e8m0, out[0],
+                               xblk=xblk, wblk=wblk)
+    _gate(f"fused edge {xblk}", res)
+    plain = FM.mxsf_fused_matmul_plain(x, qt.codes, qt.scale_e8m0, xblk,
+                                       wblk, True, True)
+    if not (torch.equal(out[1], plain[1]) and torch.equal(out[2], plain[2])):
+        raise AssertionError(f"fused edge {xblk}: emitted codes differ")
+    if device.type == "cuda" and not f32_steps:
+        raise AssertionError(f"fused edge {xblk}: the edge blocks did not "
+                             "reach the f32 path")
+    emit("kernels", kernel="mxsf_fused_matmul", operand="edge", m=128,
+         k=256, n=192, xblk=list(xblk), wblk=list(wblk),
+         max_abs_err=res["max_abs_err"], err_over_tol=res["err_over_tol"],
+         emitted_codes_bitwise=True, f32_steps=f32_steps)
 
 
 def phase_train_kernels(torch, device, cfg, batch, seq, seed):
@@ -686,20 +803,23 @@ def phase_train_kernels(torch, device, cfg, batch, seq, seed):
                                           "bfloat16"))
     xT = B.transpose_qt(x8)
     rows["mx_matmul"] = check_mx_matmul(
-        torch, timer, "dx of wg", g8,
+        torch, timer, gen, "dx of wg", g8,
         (wT.codes.contiguous(), wT.scale_e8m0.contiguous()))
-    check_mx_matmul(torch, timer, "dw of wg",
+    check_mx_matmul(torch, timer, gen, "dw of wg",
                     (xT.codes.contiguous(), xT.scale_e8m0.contiguous()), g8)
+    check_mx_matmul_edge(torch, gen, device)
     # fused: emit_codes in both layouts, and the raw-g path
     rows["fused_emit_2d"], _ = check_fused_train(
-        torch, timer, "forward of wg, (8,8)", x, *w8, (8, 8), (8, 8),
+        torch, timer, gen, "forward of wg, (8,8)", x, *w8, (8, 8), (8, 8),
         want_codes=(x8.codes, x8.scale_e8m0))
-    check_fused_train(torch, timer, "forward of wg, (1,64)", x, *w64,
+    check_fused_train(torch, timer, gen, "forward of wg, (1,64)", x, *w64,
                       (1, 64), (64, 1), want_codes=(x64.codes,
                                                     x64.scale_e8m0))
-    check_fused_train(torch, timer, "dx of wg, raw g", g,
+    check_fused_train(torch, timer, gen, "dx of wg, raw g", g,
                       wT.codes.contiguous(), wT.scale_e8m0.contiguous(),
                       (8, 8), (8, 8), quantize_lhs=False)
+    for xblk, wblk in (((8, 8), (8, 8)), ((1, 64), (64, 1))):
+        check_fused_train_edge(torch, gen, device, xblk, wblk)
     del timer
     return rows
 
@@ -785,6 +905,8 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
     expect = train_launch_counts(cfg, policy)
     total = dict.fromkeys(expect, 0)
     losses = []
+    _f32_steps("mxsf_matmul")
+    _f32_steps("mxsf_fused_matmul")
     for i, b in enumerate(batches):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -815,6 +937,8 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
              max_memory_allocated=(torch.cuda.max_memory_allocated()
                                    if on_card else None),
              launches=got, expected_launches=expect,
+             f32_steps={k: _f32_steps(k) for k in ("mxsf_matmul",
+                                                   "mxsf_fused_matmul")},
              **({"profile": prof} if prof else {}))
         if not math.isfinite(loss):
             raise AssertionError(f"train {label} step {i}: loss {loss}")
@@ -844,23 +968,22 @@ class checked_kernels:
     on with, and runs the plain version on the same inputs: quantize,
     requantize and emitted codes bit for bit; attention within
     ``attention_against_plain``'s tolerance; a matmul over K terms within
-    ``rtol(K)`` * sum|x w| of the plain version and, where ``bitwise(kind,
-    i, N)`` says so for call i with N columns, bit for bit against the
-    kernel-order sum (the products are exact: the order is the kernel's
-    only freedom; a fused call on raw x never is).  The last fused call
+    ``rtol(K)`` * sum|x w| of the plain version (the products are exact:
+    the summation order is the kernel's only freedom, which phase
+    ``kernels`` pins down on exact-sum operands).  The last fused call
     with ``head_n`` columns keeps its plain output, tolerance and x's
     dtype in ``head``."""
 
-    def __init__(self, torch, bitwise, rtol, head_n):
-        self.torch, self.bitwise, self.rtol = torch, bitwise, rtol
+    def __init__(self, torch, rtol, head_n):
+        self.torch, self.rtol = torch, rtol
         self.head_n, self.head = head_n, None
         self.calls = {k: [] for k in ("mxsf_fused_matmul", "mxsf_attention",
                                       "mxsf_quantize", "mxsf_requantize",
                                       "mxsf_matmul")}
 
-    def _matmul(self, kind, y, y_ref, xq, wq, bitwise, keep=False):
+    def _matmul(self, kind, y, y_ref, xq, wq, keep=False):
         k = xq.shape[1]
-        res = held_to_plain(self.torch, y, y_ref, xq, wq, bitwise, keep,
+        res = held_to_plain(self.torch, y, y_ref, xq, wq, keep,
                             rtol=self.rtol(k))
         res.update(k=k, over_sum=res["err_over_tol"] * self.rtol(k))
         self.calls[kind].append(res)
@@ -896,8 +1019,7 @@ class checked_kernels:
             kind = "mxsf_matmul"
             self._matmul(
                 kind, y, MM.mxsf_matmul_plain(xc, xs, wc, ws, xblk, wblk),
-                C.decode_packed(xc, xs, xblk), C.decode_packed(wc, ws, wblk),
-                self.bitwise(kind, len(calls[kind]), wc.shape[1]))
+                C.decode_packed(xc, xs, xblk), C.decode_packed(wc, ws, wblk))
             return y
 
         def fused(x, codes, scales, xblk=(1, 64), wblk=(64, 1),
@@ -910,7 +1032,6 @@ class checked_kernels:
             res = self._matmul(
                 kind, y, FM.mxsf_fused_matmul_plain(
                     x, codes, scales, xblk, wblk, quantize_lhs), xq, wq,
-                quantize_lhs and self.bitwise(kind, len(calls[kind]), n),
                 keep=True)
             y_ref, tol = res.pop("y_ref"), res.pop("tol")
             if emit_codes:
@@ -945,7 +1066,7 @@ class checked_kernels:
         """Per kernel: its calls against the path's count ``expect``, the
         worst tolerance ratio with its call's K, for matmuls also the worst
         error over sum|x w| in units of MATMUL_RTOL and of sqrt(K) u, and
-        the bitwise results; then the list of faults."""
+        the codes' bitwise results; then the list of faults."""
         rows, faults = {}, []
         for kind, calls in self.calls.items():
             row = dict(calls=len(calls), expected=expect.get(kind, 0))
@@ -969,12 +1090,6 @@ class checked_kernels:
                 row["max_over_sqrt_k_u"] = max(
                     c["over_sum"] / (math.sqrt(c["k"]) * F32_EPS)
                     for c in calls)
-            order = [c["bitwise"] for c in calls if "bitwise" in c]
-            if order:
-                row["bitwise_checked"] = len(order)
-                row["bitwise_all"] = all(order)
-                if not all(order):
-                    faults.append(f"{kind} kernel-order bitwise")
             codes = [c["codes_bitwise"] for c in calls
                      if "codes_bitwise" in c]
             if codes:
@@ -993,22 +1108,14 @@ def _xent(torch, logits, labels):
 def phase_train_slice(torch, device, cfg, policy, state, batch, label):
     """One train step teacher-forced (``checked_kernels``): every kernel
     call is held against its plain version on the same inputs, every
-    matmul within ``train_rtol`` and bit for bit against the kernel-order
-    sum; the step's loss must match the loss of the plain head's logits
-    within the head's tolerance."""
+    matmul within ``train_rtol``; the step's loss must match the loss of
+    the plain head's logits within the head's tolerance."""
     from repro_torch.core.blocking import torch_dtype
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
-    on_card = device.type == "cuda"
-
-    def bitwise(kind, i, n):
-        """Every call: all operands are quantized on the training path."""
-        return on_card
-
     step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
     t0 = time.perf_counter()
-    with checked_kernels(torch, bitwise, train_rtol,
-                         cfg.padded_vocab) as chk:
+    with checked_kernels(torch, train_rtol, cfg.padded_vocab) as chk:
         _, metrics = step_fn(state, batch)
     seconds = time.perf_counter() - t0
     loss = float(metrics["loss"])
@@ -1058,9 +1165,11 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    _f32_steps("mxsf_fused_matmul")
     t0 = time.perf_counter()
     eng.run()
     sync()
+    f32_steps = _f32_steps("mxsf_fused_matmul")
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in read_launches().items()
                 if k in ("mxsf_fused_matmul", "mxsf_attention")}
@@ -1081,7 +1190,8 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
                               if st["decode_seconds"] else None),
          max_memory_allocated=(torch.cuda.max_memory_allocated()
                                if device.type == "cuda" else None),
-         launches=launches, expected_launches=expect)
+         launches=launches, expected_launches=expect,
+         fused_f32_steps=f32_steps)
     if device.type == "cuda" and launches != expect:
         raise AssertionError(f"launch counts {launches} != path {expect}")
     if device.type == "cuda":
@@ -1151,10 +1261,6 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     dev = eng.device
     B, W = eng.slots, eng.max_len
     per_layer = 7  # fused matmuls per decoder layer: q k v o gate up down
-    on_card = dev.type == "cuda"
-
-    def bitwise(kind, i, n):  # the first layer and the LM head
-        return on_card and (i < per_layer or n == cfg.padded_vocab)
 
     expect = {"mxsf_fused_matmul": per_layer * cfg.n_layers + 1,
               "mxsf_attention": cfg.n_layers}
@@ -1172,7 +1278,7 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     for i in range(3):
         kind, t, p, n = steps[i]
         start = {k: v.clone() for k, v in cache.items()}
-        with checked_kernels(torch, bitwise, lambda k: MATMUL_RTOL,
+        with checked_kernels(torch, lambda k: MATMUL_RTOL,
                              cfg.padded_vocab) as chk:
             if kind == "prefill":
                 lk = M.prefill_step(eng.params, t, cache, p, n, cfg,

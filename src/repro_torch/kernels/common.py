@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["flog2", "exp2i", "rne", "scale_by_exp2", "broadcast_block_scale",
-           "decode_mxsf", "encode_mxsf", "decode_packed"]
+           "decode_mxsf", "encode_mxsf", "decode_packed", "tc_scale_ok",
+           "mma_plan", "cp_width", "gemm_scratch", "read_f32_steps"]
 
 _I32 = torch.int32
 SCALE_BIAS = 127  # E8M0 storage bias
@@ -121,3 +122,108 @@ def decode_packed(codes: torch.Tensor, scales: torch.Tensor,
     (the decode of the kernels and of ``blocking.dequantize``, uncropped)."""
     se = scales.to(_I32) - SCALE_BIAS
     return decode_mxsf(codes) * exp2i(broadcast_block_scale(se, *block))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core matmul engine (csrc/mxsf_mma.cuh), mirrored as plain Python
+# ---------------------------------------------------------------------------
+
+K_STEP = 64       # kBK: K per step
+TC_MIN_EXP = -52  # kTcMinExp, kTcMaxExp: the S_e range of a nonzero block
+TC_MAX_EXP = 63   # that admits the tensor-core path
+MIN_CTAS = 264    # kMinCtas: two waves of 132 SMs
+N_SMS = 132       # the H100's streaming multiprocessors
+
+
+def tc_scale_ok(scale_byte: int) -> bool:
+    """The kernels' predicate for one nonzero block's E8M0 byte: S_e =
+    byte - 127 in [TC_MIN_EXP, TC_MAX_EXP].  Then every decoded value is a
+    normal bf16 and every product of two such values is exact and normal in
+    f32; a step with a nonzero block outside takes the f32 path."""
+    return (SCALE_BIAS + TC_MIN_EXP <= int(scale_byte)
+            <= SCALE_BIAS + TC_MAX_EXP)
+
+
+def mma_plan(m: int, kp: int, n: int, bm: int, bn: int,
+             prep: int = 0) -> dict:
+    """Grid of one launch: bm x bn output tiles, K in steps of K_STEP, and
+    where the tiles are fewer than MIN_CTAS, K split into whole steps
+    (``per`` steps a split) so that the grid reaches MIN_CTAS blocks where
+    K allows.  ``workspace``: f32 partials the wrapper allocates (splits x
+    m x n, none unsplit); ``counters``: one int32 per output tile.  With
+    ``prep`` (prepared A: that many K steps per producer block), producer
+    blocks build every A tile once into ``prep_bytes`` of bf16 tiles, each
+    published by a ``ready`` word (producers start at each split's first
+    step), and K is split, at most 4 ways, only where that fills the last
+    wave of output tiles clearly better."""
+    m_tiles, n_tiles = -(-m // bm), -(-n // bn)
+    steps = -(-kp // K_STEP)
+    tiles = m_tiles * n_tiles
+    if prep:
+        # the share of the last wave's SMs kept busy; a split (and its
+        # ordered reduction) must raise it by a tenth to be taken
+        fill = lambda s: tiles * s / N_SMS / -(-tiles * s // N_SMS)
+        cand = [s for s in range(2, 5) if steps >= 16 * s]
+        best = max(cand, key=fill, default=1)
+        per = -(-steps // (best if fill(best) >= fill(1) + 0.1 else 1))
+    else:
+        target = -(-MIN_CTAS // max(tiles, 1))
+        per = max(1, steps // target)
+    splits = max(1, -(-steps // per))
+    producers = m_tiles * splits * -(-per // prep) if prep else 0
+    return dict(bm=bm, bn=bn, m_tiles=m_tiles, n_tiles=n_tiles, steps=steps,
+                per=per, splits=splits, ctas=tiles * splits + producers,
+                producers=producers,
+                workspace=splits * m * n if splits > 1 else 0,
+                counters=tiles if splits > 1 else 0,
+                prep_bytes=m_tiles * bm * steps * K_STEP * 2 if prep else 0,
+                ready=m_tiles * steps if prep else 0)
+
+
+def cp_width(t: torch.Tensor, row_bytes: int) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that the rows of ``t`` allow."""
+    for w in (16, 8, 4):
+        if t.data_ptr() % w == 0 and row_bytes % w == 0:
+            return w
+    raise ValueError(f"rows of {row_bytes} bytes: the kernel copies 4-byte "
+                     f"aligned rows only")
+
+
+_SCRATCH: dict = {}
+
+
+def gemm_scratch(kind: str, device, plan: dict):
+    """Scratch of one launch of kernel ``kind``: (workspace or None, tile
+    counters, f32-step counter, prepared-A buffer or None, ready words,
+    epoch).  The counters persist per device: each launch leaves them zero
+    (the last block of a tile resets its own); the f32-step counter
+    accumulates until ``read_f32_steps(reset=True)``; the ready words
+    persist too, and each launch publishes its steps under a new epoch, so
+    no word of an earlier launch reads as ready."""
+    st = _SCRATCH.get((kind, device))
+    if (st is None or st[0].numel() < plan["counters"]
+            or st[2].numel() < plan["ready"]):
+        counters = torch.zeros(max(plan["counters"], 1), dtype=_I32,
+                               device=device)
+        ready = torch.zeros(max(plan["ready"], 1), dtype=_I32, device=device)
+        f32 = st[1] if st else torch.zeros(1, dtype=_I32, device=device)
+        st = _SCRATCH[(kind, device)] = [counters, f32, ready, 0]
+    work = (torch.empty(plan["workspace"], dtype=torch.float32,
+                        device=device) if plan["workspace"] else None)
+    prep = (torch.empty(plan["prep_bytes"], dtype=torch.uint8, device=device)
+            if plan["prep_bytes"] else None)
+    st[3] = st[3] % (1 << 29) + 1
+    return work, st[0], st[1], prep, st[2], st[3]
+
+
+def read_f32_steps(kind: str, reset: bool = False) -> int:
+    """Steps that took the f32 path in kernel ``kind`` on every device
+    (synchronises); with ``reset`` the counters go back to 0."""
+    total = 0
+    for (k, _), st in _SCRATCH.items():
+        f32 = st[1]
+        if k == kind:
+            total += int(f32.item())
+            if reset:
+                f32.zero_()
+    return total

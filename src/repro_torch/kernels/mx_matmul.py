@@ -8,13 +8,17 @@ its own block shape.  The training path takes it for the 2D backward
 (``dx = g @ w^T``, ``dw = x^T @ g`` on 8x8 tiles reused by
 ``transpose_qt``).
 
-CUDA tensors launch ``csrc/mx_matmul.cu`` (bound by operations at training
-shapes; see the source's note for the design) or raise; CPU tensors take
+CUDA tensors launch ``csrc/mx_matmul.cu`` for blocks (8,8)/(8,8),
+(1,64)/(64,1) or (1,32)/(32,1) (bound by operations at training shapes:
+bf16 tensor-core products of exactly decoded tiles, see the source's note)
+or raise; CPU tensors take
 ``mxsf_matmul_plain``, the counterpart of the JAX package's
 ``kernels/ref.py::mxsf_matmul_ref``: decode both operands through
 ``kernels/common.py`` (``decode_packed``), then an f32 matmul.  Operands
 are made contiguous (a ``transpose_qt`` view is copied).  ``launches``
-counts kernel launches (the CPU path does not count).
+counts kernel launches (the CPU path does not count);
+``common.read_f32_steps("mxsf_matmul")`` the K steps that took the kernel's
+f32 path.
 """
 from __future__ import annotations
 
@@ -24,11 +28,15 @@ import torch
 
 from . import common as C
 
-__all__ = ["mxsf_matmul", "mxsf_matmul_plain", "launches"]
+__all__ = ["mxsf_matmul", "mxsf_matmul_plain", "launches", "TILE", "BLOCKS"]
 
 launches = 0  # kernel launches; reset by whoever reads it
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+TILE = (128, 128)  # the kernel's output tile (kBM, kBN)
+PREP_STEPS = 16    # K steps per producer block (decoding A once per call)
+BLOCKS = (((8, 8), (8, 8)), ((1, 64), (64, 1)), ((1, 32), (32, 1)))
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def mxsf_matmul_plain(x_codes, x_scales, w_codes, w_scales, xblk=(1, 32),
@@ -67,6 +75,9 @@ def mxsf_matmul(x_codes, x_scales, w_codes, w_scales, xblk=(1, 32),
                                  wblk)
     if not x_codes.is_cuda:
         raise ValueError(f"unsupported device {x_codes.device}")
+    if (xblk, wblk) not in BLOCKS:
+        raise ValueError(f"the CUDA kernel takes blocks {BLOCKS}; got "
+                         f"{xblk}/{wblk}")
     ops = [t.contiguous() for t in (x_codes, x_scales, w_codes, w_scales)]
     for t in ops:
         if t.dtype != torch.uint8 or t.device != x_codes.device:
@@ -75,12 +86,21 @@ def mxsf_matmul(x_codes, x_scales, w_codes, w_scales, xblk=(1, 32),
     m, k = x_codes.shape
     n = w_codes.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
+    plan = C.mma_plan(m, k, n, *TILE, prep=PREP_STEPS)
+    work, counters, f32, pbuf, ready, epoch = C.gemm_scratch(
+        "mxsf_matmul", x_codes.device, plan)
+    a_cp, b_cp = C.cp_width(ops[0], k), C.cp_width(ops[2], n)
     from . import build
     lib = build.library("mx_matmul")
     fn = lib.mxsf_matmul
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), m, k, n, *xblk,
-             *wblk, torch.cuda.current_stream(x_codes.device).cuda_stream)
+    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(),
+             work.data_ptr() if work is not None else None,
+             counters.data_ptr(), f32.data_ptr(), m, k, n, *xblk, *wblk,
+             a_cp, b_cp, plan["per"], plan["splits"], *TILE,
+             pbuf.data_ptr() if pbuf is not None else None,
+             ready.data_ptr(), epoch, PREP_STEPS,
+             torch.cuda.current_stream(x_codes.device).cuda_stream)
     build.check(lib, err, "mxsf_matmul")
     launches += 1
     return y

@@ -20,10 +20,13 @@ training switches of the JAX kernel:
   come from ``blocking.quantize``.
 
 Bound on the H100: the weight bytes at serving shapes (a few to ~64 rows,
-below the ~295 op/byte ridge), operations at training shapes.  The kernel
-streams each weight byte once per M tile and keeps every product of
-quantized operands exact in f32; see the source's note for the design.
-``launches`` counts kernel launches (the CPU path does not count).
+below the ~295 op/byte ridge), operations at training shapes.  A quantized
+x runs on the tensor cores (bf16 products of exactly decoded tiles), with
+K split across blocks where the output tiles are few (``common.mma_plan``);
+a raw x keeps f32 FMAs.  See the source's note for the design.
+``launches`` counts kernel launches (the CPU path does not count);
+``common.read_f32_steps("mxsf_fused_matmul")`` the K steps that took the
+kernel's f32 path.
 """
 from __future__ import annotations
 
@@ -32,18 +35,38 @@ import ctypes
 import torch
 
 from ..core import blocking as B
+from . import common as C
 
-__all__ = ["mxsf_fused_matmul", "mxsf_fused_matmul_plain", "launches"]
+__all__ = ["mxsf_fused_matmul", "mxsf_fused_matmul_plain", "launches",
+           "tile"]
 
 launches = 0  # kernel launches; reset by whoever reads it
+PREP_STEPS = 8  # K steps per producer block (quantizing x once per call)
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 # the kernel's quantized-x modes by (xblk, wblk), and its weight blocks
 _XMODE = {((1, 64), (64, 1)): 1, ((8, 8), (8, 8)): 2}
 _WB8 = {(64, 1): 0, (8, 8): 1}
+
+
+def tile(xmode: int, m: int):
+    """The kernel's output tile for a mode and M rows: 128 x 128 for a raw
+    x (f32 FMAs); for a quantized x, 16 x 256 at 16 rows or fewer ((1,64)
+    only), 64 x 256 up to 64 rows, and beyond that 128 x 128 with x
+    prepared once per call by producer blocks (``prepared``)."""
+    if xmode == 0:
+        return 128, 128
+    if m > 64:
+        return 128, 128
+    return (16, 256) if xmode == 1 and m <= 16 else (64, 256)
+
+
+def prepared(xmode: int, m: int) -> bool:
+    """Whether the launch quantizes x once, in producer blocks."""
+    return xmode != 0 and m > 64
 
 
 def mxsf_fused_matmul_plain(x, w_codes, w_scales, xblk=(1, 64),
@@ -112,9 +135,11 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be contiguous on {x.device}")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    prep = prepared(xmode, m)
     codes = scales = None
     mb = kb = 0
-    if emit_codes:
+    if emit_codes or prep:  # a prepared launch keeps x's codes for its
+        # f32 path, emitted or not
         mb, kb = -(-m // xblk[0]) * xblk[0], -(-k // xblk[1]) * xblk[1]
         codes = torch.empty((mb, kb), dtype=torch.uint8, device=x.device)
         scales = torch.empty((mb // xblk[0], kb // xblk[1]),
@@ -123,17 +148,27 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
         if emit_codes and codes.numel():
             raise ValueError("emit_codes needs at least one output column")
         return (y, codes, scales) if emit_codes else y
-    vec_ok = int(n % 16 == 0 and w_codes.data_ptr() % 16 == 0
-                 and w_scales.data_ptr() % 16 == 0)
+    if xmode == 0:  # the raw-x kernel reads f32 rows
+        x = x.float().contiguous()
+    plan = C.mma_plan(m, kw, n, *tile(xmode, m),
+                      prep=PREP_STEPS if prep else 0)
+    work, counters, f32, pbuf, ready, epoch = C.gemm_scratch(
+        "mxsf_fused_matmul", x.device, plan)
+    a_cp = C.cp_width(x, k * x.element_size())
+    b_cp = C.cp_width(w_codes, n)
     from . import build
     lib = build.library("mxsf_fused_matmul")
     fn = lib.mxsf_fused_matmul
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
              w_codes.data_ptr(), w_scales.data_ptr(), y.data_ptr(),
-             m, k, kw, n, vec_ok, xmode, _WB8[wblk],
-             codes.data_ptr() if emit_codes else None,
-             scales.data_ptr() if emit_codes else None, mb, kb,
+             work.data_ptr() if work is not None else None,
+             counters.data_ptr(), f32.data_ptr(), m, k, kw, n, xmode,
+             _WB8[wblk], codes.data_ptr() if codes is not None else None,
+             scales.data_ptr() if codes is not None else None, mb, kb, a_cp,
+             b_cp, plan["per"], plan["splits"], plan["bm"], plan["bn"],
+             pbuf.data_ptr() if pbuf is not None else None, ready.data_ptr(),
+             epoch, PREP_STEPS,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "mxsf_fused_matmul")
     launches += 1

@@ -236,3 +236,28 @@ def test_cuda_fused_matmul_codec_bitwise(cuda_device, dtype):
         want = TB.qdq(torch.nn.functional.pad(xt.float(), (0, kp - k)),
                       "mxsf", (1, 64))
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_serving_matmul_exact_sum_bitwise(cuda_device):
+    """The serving instances (16 x 256 mma.sync tiles at 16 rows or fewer,
+    64 x 256 wgmma tiles up to 64) with K split across blocks and reduced
+    in order: bit for bit against the plain version on operands whose
+    every partial sum is exact in f32, so no summation order can differ."""
+    dev = cuda_device
+    rng = np.random.default_rng(11)
+    vals = np.array([0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0], np.float32)
+
+    def exact(shape, block):
+        x = vals[rng.integers(0, 7, size=shape)]
+        bi = np.arange(shape[0])[:, None] // block[0]
+        bj = np.arange(shape[1])[None, :] // block[1]
+        return x * np.exp2((bi + bj) % 2).astype(np.float32)
+
+    for m, k, n in ((4, 5120, 1024), (16, 2048, 520), (64, 5120, 1024)):
+        x = torch.from_numpy(exact((m, k), (1, 64))).to(dev, torch.bfloat16)
+        qt = TB.quantize(torch.from_numpy(exact((k, n), (64, 1))).to(dev),
+                         "mxsf", (64, 1))
+        got = TM.mxsf_fused_matmul(x, qt.codes, qt.scale_e8m0)
+        want = TM.mxsf_fused_matmul_plain(x, qt.codes, qt.scale_e8m0)
+        assert torch.equal(got, want), (m, k, n)

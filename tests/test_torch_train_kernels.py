@@ -377,3 +377,79 @@ def test_cuda_fused_training_switches_match_plain(cuda_device, dtype):
             assert torch.equal(got[1], want[1]) and torch.equal(got[2],
                                                                 want[2])
             _close(raw.cpu().numpy(), raw_want.cpu().numpy())
+
+
+def _exact_sum(shape, block, seed):
+    """0, +-1/2, +-1, +-2 times 2^b, b alternating between neighbouring
+    blocks: every partial sum of products is exact in f32 in any order
+    (``chip_smoke.py``'s exact-sum operands), and MXSF holds the values
+    exactly."""
+    rng = np.random.default_rng(seed)
+    vals = np.array([0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0], np.float32)
+    x = vals[rng.integers(0, 7, size=shape)]
+    bi = np.arange(shape[0])[:, None] // block[0]
+    bj = np.arange(shape[1])[None, :] // block[1]
+    return x * np.exp2((bi + bj) % 2).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_matmuls_exact_sum_bitwise(cuda_device):
+    """On exact-sum operands the tensor-core kernels equal their plain
+    versions bit for bit, whatever order they sum in: mx_matmul (every
+    block shape it takes, ragged tiles) and the fused matmul's training
+    switches (x prepared by producer blocks above 64 rows, quantized in
+    each block at 64 rows or fewer)."""
+    dev = cuda_device
+    for (m, k, n), xblk, wblk in (((200, 1088, 264), (8, 8), (8, 8)),
+                                  ((136, 640, 128), (1, 64), (64, 1)),
+                                  ((64, 320, 96), (1, 32), (32, 1))):
+        xq = TB.quantize(torch.from_numpy(_exact_sum((m, k), xblk, 1)).to(
+            dev), "mxsf", xblk)
+        wq = TB.quantize(torch.from_numpy(_exact_sum((k, n), wblk, 2)).to(
+            dev), "mxsf", wblk)
+        args = (xq.codes, xq.scale_e8m0, wq.codes, wq.scale_e8m0, xblk, wblk)
+        assert torch.equal(TMM.mxsf_matmul(*args),
+                           TMM.mxsf_matmul_plain(*args)), (m, k, n, xblk)
+    for m, k, n in ((200, 1000, 264), (48, 640, 520)):
+        for xblk, wblk in (((8, 8), (8, 8)), ((1, 64), (64, 1))):
+            kp = -(-k // wblk[0]) * wblk[0]
+            x = torch.from_numpy(_exact_sum((m, k), xblk, 3)).to(
+                dev, torch.bfloat16)
+            wq = TB.quantize(torch.from_numpy(_exact_sum((kp, n), wblk, 4)).to(
+                dev), "mxsf", wblk)
+            w = (wq.codes, wq.scale_e8m0)
+            got = TFM.mxsf_fused_matmul(x, *w, xblk, wblk, emit_codes=True)
+            want = TFM.mxsf_fused_matmul_plain(x, *w, xblk, wblk,
+                                               emit_codes=True)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (m, k, n, xblk)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_matmuls_take_the_f32_path(cuda_device):
+    """Edge blocks (zero, subnormal, 3e38 against 2^-100, S_e near -120)
+    send their steps to the kernels' f32 path, which must have run and
+    stay within the matmul tolerance; the codes stay bit for bit."""
+    from repro_torch.kernels import common as C
+    dev = cuda_device
+    x = _edge((136, 256), 5)
+    w = _rand((256, 192), 6)
+    w[16:32] *= np.float32(2.0 ** -100)  # meets x's 3e38 block
+    for xblk, wblk in (((8, 8), (8, 8)), ((1, 64), (64, 1))):
+        xq = TB.quantize(torch.from_numpy(x).to(dev), "mxsf", xblk)
+        wq = TB.quantize(torch.from_numpy(w).to(dev), "mxsf", wblk)
+        args = (xq.codes, xq.scale_e8m0, wq.codes, wq.scale_e8m0, xblk, wblk)
+        C.read_f32_steps("mxsf_matmul", reset=True)
+        got = TMM.mxsf_matmul(*args)
+        assert C.read_f32_steps("mxsf_matmul", reset=True) > 0
+        _close(got.cpu().numpy(), TMM.mxsf_matmul_plain(*args).cpu().numpy())
+        xt = torch.from_numpy(x).to(dev)
+        C.read_f32_steps("mxsf_fused_matmul", reset=True)
+        got = TFM.mxsf_fused_matmul(xt, wq.codes, wq.scale_e8m0, xblk, wblk,
+                                    emit_codes=True)
+        assert C.read_f32_steps("mxsf_fused_matmul", reset=True) > 0
+        want = TFM.mxsf_fused_matmul_plain(xt, wq.codes, wq.scale_e8m0, xblk,
+                                           wblk, emit_codes=True)
+        for r in range(x.shape[0]):  # edge rows differ in scale by far
+            _close(got[0][r].cpu().numpy(), want[0][r].cpu().numpy())
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
