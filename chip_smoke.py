@@ -18,13 +18,18 @@ Phases, each printed as one JSON line:
               summation order gives the same bits) and its quantize
               prologue bit for bit against the plain codec (identity
               weight: y == qdq(x)); the attention's V decode bit for bit
-              (one visible key: out == V); kernel time (CUDA events, L2
-              flushed before every launch), plain time, one PyTorch
-              library call as a yardstick the port never calls, and the
-              bound (least time the card could take).  Then the training
+              (one visible key: out == V), its key-split plan, two calls
+              giving the same bits, no tile of the path's data on its f32
+              path, and an edge-scale case (K/V rows at S_e = -127, -123
+              and 127, zero rows) held per slot that must reach it; kernel
+              time (CUDA events, L2 flushed before every launch), its
+              device time alone (the profiler), plain time, one PyTorch
+              library call as a yardstick the port never calls (also
+              both ways), and the bound (least time the card could take).  Then the training
               kernels at the shapes of full-width h2o-danube-1.8b at batch
               4 x seq 512 (M = 2048): the quantizer ((8,8) on the bf16
-              weight wg and on an f32 g, (64,1) on wg, (1,64) on x) and the
+              weight wg and on an f32 g, (64,1) on wg, (1,64) on x; each
+              row names the kernel instance that ran) and the
               requantize ((64,1)->(1,64) on wg's codes, (1,64)->(64,1) on
               x's) bit for bit, edge blocks included; the packed x packed
               matmul (dx and dw of wg, (8,8)) within tolerance and bit for
@@ -147,6 +152,27 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+    def device_time(self, fn, iters: int = 20):
+        """Mean device time of ``fn()`` in ms (the profiler's time of every
+        kernel it launches, L2 flushed before each call as above, the
+        flush's own kernel left out): the kernel without the host's share
+        of the call.  None on the CPU."""
+        if self.flush is None:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            self.torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if "FillFunctor<unsigned char>" not in e.key)
+        return us / iters / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -402,17 +428,23 @@ def _bf16_ulp(torch, t):
     return torch.ldexp(torch.ones_like(t), e - 8)
 
 
-def attention_against_plain(torch, out, q, kv_args, args):
+def attention_against_plain(torch, out, q, kv_args, args, per_slot=False):
     """The kernel's out against the plain version on the same inputs: max
-    error and its ratio to ATTN_ATOL * max|v| (plus one bf16 ulp of the
-    plain value for bf16 q: the f32 results may round to neighbours)."""
+    error and its ratio to ATTN_ATOL * max|v| (max over the row's slot with
+    ``per_slot``; plus one bf16 ulp of the plain value for bf16 q: the f32
+    results may round to neighbours)."""
     from repro_torch.core import blocking as B
     from repro_torch.kernels import mxsf_attention as MA
     ref = MA.mxsf_attention_plain(q, *kv_args, **args).float()
     vc, vs = kv_args[2], kv_args[3]
-    vmax = float(B.dequantize(B.QuantizedTensor(
+    vabs = B.dequantize(B.QuantizedTensor(
         vc, vs, "mxsf", (vc.shape[-1],), tuple(vc.shape),
-        "float32")).abs().max())
+        "float32")).abs()
+    if per_slot:  # (slots,) -> one per q row
+        vmax = vabs.flatten(1).amax(dim=1).repeat_interleave(
+            q.shape[0] // vc.shape[0])[:, None, None]
+    else:
+        vmax = float(vabs.max())
     tol = ATTN_ATOL * vmax
     if q.dtype == torch.bfloat16:
         tol = tol + _bf16_ulp(torch, ref)
@@ -442,6 +474,17 @@ def check_attention(torch, timer, gen, device, cfg, slots, L, S):
     kv_args = (cache["k"][0], cache["k"][1], cache["v"][0], cache["v"][1])
     call = lambda qq=q: MA.mxsf_attention(qq, *kv_args, **args)
     plain = lambda qq=q: MA.mxsf_attention_plain(qq, *kv_args, **args)
+    on_card = device.type == "cuda"
+    # the path's data (bf16 q, random K/V): no tile on the f32 path, and
+    # the same bits from two calls (the splits merge in a fixed order)
+    _f32_steps("mxsf_attention")
+    first, second = call(), call()
+    path_f32 = _f32_steps("mxsf_attention") if on_card else None
+    if path_f32:
+        raise AssertionError(f"attention S={S}: {path_f32} tiles of the "
+                             "path's data took the f32 path")
+    if not torch.equal(first, second):
+        raise AssertionError(f"attention S={S}: two calls differ")
     errs = {}
     for name, qq in (("bfloat16", q), ("float32", q32)):
         out = call(qq)
@@ -478,15 +521,31 @@ def check_attention(torch, timer, gen, device, cfg, slots, L, S):
     mask = mask.reshape(slots, h, S, L).to(device)
     qb = q.reshape(slots, h, S, dh)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    plan = MA.attention_plan(slots, kv, g, S, L, dh)
     row = dict(kernel="mxsf_attention", slots=slots, L=L, S=S, h=h, kv=kv,
                dh=dh, kv_len=lens, max_abs_err=errs["bfloat16"][0],
                err_over_tol=errs["bfloat16"][1],
                f32_max_abs_err=errs["float32"][0],
-               f32_err_over_tol=errs["float32"][1], v_decode_diff=v_diff)
+               f32_err_over_tol=errs["float32"][1], v_decode_diff=v_diff,
+               splits=plan["splits"], keys_per_split=plan["per"] * MA.KEY_TILE,
+               row_tile=plan["mt"], blocks=plan["ctas"],
+               f32_steps=path_f32, deterministic=True)
+    library = lambda: sdpa(qb, deq["k"], deq["v"], attn_mask=mask)
     row["ms"] = timer(call, 20)
     row["plain_ms"] = timer(plain, 5)
-    row["library_ms"] = timer(
-        lambda: sdpa(qb, deq["k"], deq["v"], attn_mask=mask), 20)
+    row["library_ms"] = timer(library, 20)
+    # device time alone (the profiler), without the host's share of a call,
+    # and that share: the host's time a call (calls queued back to back)
+    row["device_ms"] = timer.device_time(call)
+    row["library_device_ms"] = timer.device_time(library)
+    for key, fn in (("host_us", call), ("library_host_us", library)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        row[key] = (time.perf_counter() - t0) / 50 * 1e6
+        if on_card:
+            torch.cuda.synchronize()
     # bytes: the valid K/V rows of each (slot, kv head) once, q and out;
     # operations over the visible keys of every query row: QK^T at the bf16
     # tensor rate (on the path q is MXSF-quantized and decoded K has at most
@@ -502,6 +561,143 @@ def check_attention(torch, timer, gen, device, cfg, slots, L, S):
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit("kernels", **row)
     return row
+
+
+def check_attention_edge(torch, gen, device, cfg, slots, L, S):
+    """The attention kernel on edge scale bytes, held to its plain version
+    per slot (ATTN_ATOL of the slot's largest |v|), all inside the rows'
+    visible keys: in slots 1 and 2, K rows at S_e = -127 and -123 (bytes 0
+    and 4), V rows at S_e = -123 and zero rows carrying byte 255; in slot
+    3, two keys whose K and V rows are at S_e = 127 (byte 254) with the
+    smallest codes (+-2^-11: values +-2^116, every sum finite), which take
+    the softmax, so the slot's output is one of their V rows.  Their tiles
+    must take the f32 path."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_attention as MA
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    cache = {}
+    for nm in ("k", "v"):
+        qt = B.quantize(torch.randn((slots, L, kv, dh), generator=gen,
+                                    device=device), "mxsf", (dh,))
+        cache[nm] = [qt.codes.clone(), qt.scale_e8m0.clone()]
+    kc, ks = cache["k"]
+    vc, vs = cache["v"]
+    lens = [0, L // 3, L - 5, L][:slots] + [L] * max(0, slots - 4)
+    last = [n - 1 for n in lens]
+    small = torch.tensor([1, 129], dtype=torch.uint8, device=device)
+    for b in (1, 2):
+        kp = last[b] - 12
+        if b >= slots or kp < 0:
+            continue
+        ks[b, kp:kp + 2] = 0                    # S_e = -127
+        ks[b, kp + 2:kp + 4] = 4                # S_e = -123
+        vs[b, kp + 4:kp + 6] = 4
+        for c, sc in ((kc, ks), (vc, vs)):      # zero rows, byte 255
+            c[b, kp + 6:kp + 8] = 0
+            sc[b, kp + 6:kp + 8] = 255
+    kp = last[min(3, slots - 1)] - 3
+    if slots > 3 and kp >= 0:
+        for c, sc in ((kc, ks), (vc, vs)):      # S_e = 127, small codes
+            c[3, kp:kp + 2] = small.repeat(dh // 2)
+            sc[3, kp:kp + 2] = 254
+    q32 = torch.randn((slots * h, S, dh), generator=gen, device=device)
+    kvl = torch.tensor(lens, dtype=torch.int32).repeat_interleave(h)
+    off = torch.clamp(kvl - S, min=0)
+    win = torch.full_like(kvl, MA.NO_WINDOW)
+    win[h:2 * h] = 64
+    args = dict(causal=True, kv_len=kvl.to(device), q_offset=off.to(device),
+                window=win.to(device))
+    kv_args = (kc, ks, vc, vs)
+    row = dict(kernel="mxsf_attention", case="edge scales", S=S)
+    for name, qq in (("bfloat16", q32.to(torch.bfloat16)), ("float32", q32)):
+        _f32_steps("mxsf_attention")
+        out = MA.mxsf_attention(qq, *kv_args, **args)
+        steps = (_f32_steps("mxsf_attention") if device.type == "cuda"
+                 else None)
+        err, ratio = attention_against_plain(torch, out, qq, kv_args, args,
+                                             per_slot=True)
+        if ratio > 1.0 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attention edge S={S} {name}: error {err} "
+                                 f"is {ratio:.3g}x the tolerance")
+        if device.type == "cuda" and not steps:
+            raise AssertionError(f"attention edge S={S} {name}: no tile "
+                                 "took the f32 path")
+        row.update({f"{name}_max_abs_err": err,
+                    f"{name}_err_over_tol": ratio,
+                    f"{name}_f32_steps": steps})
+    emit("kernels", **row)
+    return row
+
+
+def check_attention_shapes(torch, gen, device):
+    """The attention kernel's other code paths against its plain version:
+    head dims that are not multiples of 16 (byte-wise K/V loads) or are
+    odd (scalar stores and merge), a q one element off 16-byte alignment
+    (element-wise q loads), ragged lengths with kv_len=0 rows and a
+    window, several key splits, and a group of 80 rows -- f32 and bf16 q,
+    within ATTN_ATOL of max|v| (plus one bf16 ulp of the output)."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_attention as MA
+    worst = 0.0
+    for dh, S, g, L in ((100, 1, 3, 70), (33, 7, 2, 130), (64, 20, 4, 200)):
+        Bc, kv = 2, 2
+        h = kv * g
+        kv_args = []
+        for _ in range(2):
+            qt = B.quantize(torch.randn((Bc, L, kv, dh), generator=gen,
+                                        device=device), "mxsf", (dh,))
+            kv_args += [qt.codes, qt.scale_e8m0]
+        kvl = torch.randint(S, L + 1, (Bc * h,), generator=gen,
+                            device=device).to(torch.int32)
+        kvl[1] = 0
+        args = dict(causal=True, kv_len=kvl, q_offset=torch.clamp(
+            kvl - S, min=0), window=torch.full_like(kvl, 9))
+        n = Bc * h * S * dh
+        for dt in (torch.float32, torch.bfloat16):
+            # one element past the start: q's rows leave 16-byte alignment
+            q = torch.randn(n + 1, generator=gen, device=device).to(dt)[1:]
+            q = q.view(Bc * h, S, dh)
+            out = MA.mxsf_attention(q, *kv_args, **args)
+            err, ratio = attention_against_plain(torch, out, q, kv_args,
+                                                 args)
+            if ratio > 1.0 or not bool((out[1] == 0).all()):
+                raise AssertionError(f"attention dh={dh} S={S} {dt}: error "
+                                     f"{err} is {ratio:.3g}x the tolerance")
+            worst = max(worst, ratio)
+    emit("kernels", kernel="mxsf_attention", case="ragged shapes",
+         worst_err_over_tol=worst)
+
+
+def check_division(torch, gen, device, n=1 << 24):
+    """The attention kernel's division (a branch-free sequence where the
+    operands allow) bit for bit against the IEEE division ``/`` on the
+    card: random bit patterns and moderate values over several decades, of
+    either sign, by random positive divisors."""
+    from repro_torch.kernels import mxsf_attention as MA
+    if device.type != "cuda":
+        return None
+    bits = lambda: torch.randint(0, 0x7F800000, (n,), generator=gen,
+                                 device=device, dtype=torch.int32).view(
+        torch.float32)
+    decades = 10.0 ** torch.randint(-4, 5, (n,), generator=gen,
+                                    device=device).float()
+    sign = torch.where(torch.rand(n, generator=gen, device=device) < 0.5,
+                       -1.0, 1.0)
+    mismatches = pairs = 0
+    for a in (bits() * sign, torch.randn(n, generator=gen, device=device)
+              * decades):
+        for b in (bits(), torch.rand(n, generator=gen, device=device) * 600
+                  + 1e-3):
+            q, ref = MA.division(a, b), a / b
+            same = q.view(torch.int32) == ref.view(torch.int32)
+            mismatches += int((~same & ~torch.isnan(ref)).sum())
+            pairs += n
+    emit("kernels", kernel="mxsf_attention", case="division",
+         pairs=pairs, mismatches=mismatches)
+    if mismatches:
+        raise AssertionError(f"attention division: {mismatches} of {pairs} "
+                             "quotients differ from IEEE division")
+    return mismatches
 
 
 def phase_kernels(torch, device, cfg, slots, chunk, max_len, seed):
@@ -521,6 +717,10 @@ def phase_kernels(torch, device, cfg, slots, chunk, max_len, seed):
     check_codec_exact(torch, gen, device, slots * chunk, d)
     attn = {S: check_attention(torch, timer, gen, device, cfg, slots,
                                max_len, S) for S in (1, chunk)}
+    for S in (1, chunk):
+        check_attention_edge(torch, gen, device, cfg, slots, max_len, S)
+    check_attention_shapes(torch, gen, device)
+    check_division(torch, gen, device)
     del timer
     return rows, attn
 
@@ -562,10 +762,12 @@ def check_quantize(torch, timer, x, block, name, edge=None):
     m, k = x.shape
     row = dict(kernel="mxsf_quantize", operand=name, m=m, k=k,
                block=list(block), dtype=str(x.dtype).split(".")[-1],
-               bitwise=same, edge_bitwise=edge_same, max_abs_err=0.0)
+               instance=MQ.quantize_instance(block), bitwise=same,
+               edge_bitwise=edge_same, max_abs_err=0.0)
     row["ms"] = timer(lambda: MQ.mxsf_quantize(x, block), 10)
     row["plain_ms"] = timer(lambda: MQ.mxsf_quantize_plain(x, block), 3, 1)
     row["library_ms"] = None  # no single PyTorch call computes it
+    row["device_ms"] = timer.device_time(lambda: MQ.mxsf_quantize(x, block))
     nbytes = x.numel() * x.element_size() + got[0].numel() + got[1].numel()
     row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
     row["bound_share"] = row["bound_ms"] / row["ms"]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time this checkout's two matmul kernels against another checkout's, in
-turns, on one CUDA device.
+"""Time this checkout's kernels against another checkout's, in turns, on
+one CUDA device.
 
     python3 scripts/compare_kernels.py --old DIR [--out FILE]
 
@@ -10,11 +10,16 @@ packages are imported side by side (the other one as ``repro_torch_old``)
 and each builds its own kernels.  At every shape of the kernel table --
 the fused matmul at the serving shapes of qwen2.5-32b (M = 4 and 64 rows,
 bf16 x) and at the training shapes of h2o-danube-1.8b (M = 2048: (8,8) and
-(1,64) x with emit_codes, raw f32 g), and mx_matmul's dx and dw of the gate
-projection -- each kernel is timed old, new, new, old (CUDA events, L2
+(1,64) x with emit_codes, raw f32 g), mx_matmul's dx and dw of the gate
+projection, the packed-KV attention at the serving shapes of
+``chip_smoke.py`` (qwen2.5-32b heads, 4 slots of 512 keys, S = 1 and 16)
+and the quantizer at its four training shapes ((8,8) on the bf16 gate
+weight and on an f32 gradient, (64,1) on the weight, (1,64) on the
+activations) -- each kernel is timed old, new, new, old (CUDA events, L2
 flushed before every launch, mean of 10 launches each), and the two
-outputs are compared.  One JSON line per shape, the card's name and power
-limit before them; ``--out`` also writes them to FILE.
+outputs are compared (codes and scales bit for bit).  One JSON line per
+shape, the card's name and power limit before them; ``--out`` also writes
+them to FILE.
 """
 from __future__ import annotations
 
@@ -54,10 +59,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     load_old(args.old.resolve())
     import importlib
+    names = ("mx_matmul", "mxsf_fused_matmul", "mxsf_attention",
+             "mxsf_quant")
     new = {n: importlib.import_module(f"repro_torch.kernels.{n}")
-           for n in ("mx_matmul", "mxsf_fused_matmul")}
+           for n in names}
     old = {n: importlib.import_module(f"repro_torch_old.kernels.{n}")
-           for n in ("mx_matmul", "mxsf_fused_matmul")}
+           for n in names}
     from repro_torch.core import blocking as B
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,6 +125,49 @@ def main(argv=None) -> int:
             *a, *b, (8, 8), (8, 8))) for v, mods in (("old", old),
                                                      ("new", new))}
         rows.append(run(torch, timeit, name, (m, k, n), calls, False))
+    # attention: qwen2.5-32b's heads over 4 slots of 512 keys
+    slots, L, h, kv, dh = 4, 512, 40, 8, 128
+    cache = []
+    for _ in range(2):
+        qt = B.quantize(torch.randn((slots, L, kv, dh), generator=gen,
+                                    device=dev), "mxsf", (dh,))
+        cache += [qt.codes, qt.scale_e8m0]
+    kvl = torch.tensor([0, 170, 507, 512],
+                       dtype=torch.int32).repeat_interleave(h)
+    win = torch.full_like(kvl, 1 << 30)
+    win[h:2 * h] = 64
+    for S in (1, 16):
+        q = torch.randn((slots * h, S, dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        kw = dict(causal=True, kv_len=kvl.to(dev),
+                  q_offset=torch.clamp(kvl - S, min=0).to(dev),
+                  window=win.to(dev))
+        calls = {v: (lambda mod=mods["mxsf_attention"]: mod.mxsf_attention(
+            q, *cache, **kw)) for v, mods in (("old", old), ("new", new))}
+        rows.append(run(torch, timeit, f"attention S={S}",
+                        (slots * h, S, L), calls, False))
+    # the quantizer at the training shapes of h2o-danube-1.8b
+    w = (torch.randn((2560, 6912), generator=gen, device=dev)
+         / 50.6).to(torch.bfloat16)
+    g = torch.randn((2048, 6912), generator=gen, device=dev) * 1e-4
+    x = torch.randn((2048, 2560), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for name, t, blk in (("quantize (8,8) wg", w, (8, 8)),
+                         ("quantize (8,8) g", g, (8, 8)),
+                         ("quantize (64,1) wg", w, (64, 1)),
+                         ("quantize (1,64) x", x, (1, 64))):
+        calls = {v: (lambda mod=mods["mxsf_quant"]: mod.mxsf_quantize(
+            t, blk)) for v, mods in (("old", old), ("new", new))}
+        row = run(torch, timeit, name, (*t.shape, 0), calls, False,
+                  codes=True)
+        nbytes = t.numel() * t.element_size() + t.numel() * (
+            1 + 1 / (blk[0] * blk[1]))
+        row["bound_ms"] = nbytes / 3.35e12 * 1e3  # HBM at 3.35 TB/s
+        row["new_bound_share"] = row["bound_ms"] / row["new_ms"]
+        print(json.dumps({"bound": name, "bound_ms": row["bound_ms"],
+                          "new_bound_share": row["new_bound_share"]}),
+              flush=True)
+        rows.append(row)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -125,14 +175,22 @@ def main(argv=None) -> int:
     return 0
 
 
-def run(torch, timeit, name, shape, calls, emit):
+def run(torch, timeit, name, shape, calls, emit, codes=False):
     """old, new, new, old; the outputs' largest difference relative to the
-    largest output (both take the same inputs)."""
+    largest output (both take the same inputs), or with ``codes`` whether
+    the (codes, scales) pairs are equal bit for bit."""
     y_old, y_new = calls["old"](), calls["new"]()
-    if emit:
-        y_old, y_new = y_old[0], y_new[0]
-    diff = float((y_old - y_new).abs().max() / y_old.abs().max().clamp_min(
-        1e-30))
+    if codes:
+        diff = 0.0 if all(torch.equal(a, b) for a, b in zip(y_old, y_new)) \
+            else float("nan")
+        if diff != 0.0:
+            raise AssertionError(f"{name}: old and new codes differ")
+    else:
+        if emit:
+            y_old, y_new = y_old[0], y_new[0]
+        y_old, y_new = y_old.float(), y_new.float()
+        diff = float((y_old - y_new).abs().max()
+                     / y_old.abs().max().clamp_min(1e-30))
     t = [timeit(calls[v]) for v in ("old", "new", "new", "old")]
     row = dict(kernel=name, m=shape[0], k=shape[1], n=shape[2],
                old_ms=(t[0] + t[3]) / 2, new_ms=(t[1] + t[2]) / 2,

@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["flog2", "exp2i", "rne", "scale_by_exp2", "broadcast_block_scale",
            "decode_mxsf", "encode_mxsf", "decode_packed", "tc_scale_ok",
-           "mma_plan", "cp_width", "gemm_scratch", "read_f32_steps"]
+           "mma_plan", "cp_width", "gemm_scratch", "split_scratch",
+           "read_f32_steps", "raw_stream"]
 
 _I32 = torch.int32
 SCALE_BIAS = 127  # E8M0 storage bias
@@ -214,6 +215,33 @@ def gemm_scratch(kind: str, device, plan: dict):
             if plan["prep_bytes"] else None)
     st[3] = st[3] % (1 << 29) + 1
     return work, st[0], st[1], prep, st[2], st[3]
+
+
+def split_scratch(kind: str, device, plan: dict):
+    """Scratch of one launch of kernel ``kind`` whose key splits are merged
+    by the last block of each group: (f32 workspace or None, group
+    counters, f32-step counter), kept per device and grown as needed.  The
+    counters are zero between launches (the merging block resets its own);
+    the workspace is rewritten by every launch before it is read, so
+    launches in stream order share it."""
+    st = _SCRATCH.get((kind, device))
+    if st is None:
+        zeros = lambda: torch.zeros(1, dtype=_I32, device=device)
+        st = _SCRATCH[(kind, device)] = [zeros(), zeros(), None, 0, None]
+    if st[0].numel() < plan["counters"]:
+        st[0] = torch.zeros(plan["counters"], dtype=_I32, device=device)
+    if plan["workspace"] and (st[4] is None
+                              or st[4].numel() < plan["workspace"]):
+        st[4] = torch.empty(plan["workspace"], dtype=torch.float32,
+                            device=device)
+    return (st[4] if plan["workspace"] else None), st[0], st[1]
+
+
+def raw_stream(device_index: int) -> int:
+    """The current CUDA stream of a device as an int handle -- what
+    ``torch.cuda.current_stream(d).cuda_stream`` returns, without building
+    a Stream object (5 us a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def read_f32_steps(kind: str, reset: bool = False) -> int:

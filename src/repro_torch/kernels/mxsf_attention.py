@@ -1,5 +1,5 @@
-"""Flash attention over an MXSF-packed KV cache: wrapper, plain version and
-launch count.
+"""Flash attention over an MXSF-packed KV cache: wrapper, launch plan, plain
+version and launch count.
 
 Replaces the JAX package's Pallas TPU kernel
 ``kernels/mxsf_attention.py::_flash_attention_jit`` (public
@@ -12,35 +12,101 @@ cached attention of S=1 decode steps and S=C prefill chunks.
              which is the same call on a (BKV, L, 1, dh) view.
   kv_len, q_offset, window : per-row runtime values (None / int / (BH,)).
 
-* CUDA tensors launch ``csrc/mxsf_attention.cu``; what it does not take
-  raises.  There is no fallback.
+* CUDA tensors launch ``csrc/mxsf_attention.cu`` (one block per slot, kv
+  head, row tile of the GQA group and key split; design in its header);
+  what it does not take raises.  There is no fallback.
 * CPU tensors take ``mxsf_attention_plain``, the counterpart of the JAX
   package's ``kernels/ref.py::mxsf_flash_attention_ref``.
 
-Bound on the H100: the bytes of the valid K/V codes and scales plus q and
-out, a few microseconds per layer at decode, where launch overhead is
-expected to dominate.  ``launches`` counts kernel launches (the CPU path
-does not count).
+``attention_plan`` is the launch's grid, computed from shapes alone (the
+per-row lengths stay on the device).  Bound on the H100: the bytes of the
+valid K/V codes and scales plus q and out, a few microseconds per layer.
+``launches`` counts kernel launches (the CPU path does not count); the
+tiles whose scores took the f32 path are read with
+``common.read_f32_steps("mxsf_attention")``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import types
 
 import torch
 
 from ..core import blocking as B
+from . import common as C
 
-__all__ = ["NO_WINDOW", "per_row_scalar", "mxsf_attention",
-           "mxsf_attention_plain", "launches"]
+__all__ = ["NO_WINDOW", "per_row_scalar", "attention_plan", "mxsf_attention",
+           "mxsf_attention_plain", "division", "launches"]
 
 NO_WINDOW = 1 << 30  # matches models/transformer.py sentinel
 NEG_INF = -1e30
 
 launches = 0  # kernel launches; reset by whoever reads it
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_LIB: dict = {}  # the loaded library and its function, set at first launch
+
+# the kernel's tiles (csrc/mxsf_attention.cu)
+KEY_TILE = 64     # kKT: keys per tile
+MAX_ROWS = 80     # kMaxMT: rows per row tile, at most (a multiple of 16)
+MAX_SPLITS = 32   # kMaxSplits
+MIN_CTAS = 264    # kMinCtas: two waves of 132 SMs
+ONE_WAVE_ROWS = 48  # kOneWaveRows: row tiles this tall take one wave
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(batch: int, kv: int, g: int, S: int, L: int,
+                   dh: int) -> dict:
+    """Grid of one launch.  The g * S query rows of a kv head's GQA group
+    go in row tiles of ``mt`` (16 .. MAX_ROWS, a multiple of 16);
+    ``groups`` = batch x kv x row tiles.  The cache length is cut into
+    ``splits`` ranges of ``per`` tiles of KEY_TILE keys, so that groups x
+    splits reaches MIN_CTAS blocks (two waves) where L allows, at most
+    MAX_SPLITS splits; row tiles of ONE_WAVE_ROWS or more, whose blocks
+    each keep an SM busy, take at most one wave (N_SMS blocks) instead.
+    ``workspace``: f32 partials (acc[dh], m, l per row and split; none
+    unsplit); ``counters``: one int32 per group.  Cached, so read-only."""
+    m = g * S
+    mt = 16 * min(MAX_ROWS // 16, max(1, -(-m // 16)))
+    m_tiles = max(1, -(-m // mt))
+    groups = batch * kv * m_tiles
+    tiles = max(1, -(-L // KEY_TILE))
+    if mt >= ONE_WAVE_ROWS:  # at most one block per SM
+        want = max(1, min(tiles, MAX_SPLITS, C.N_SMS // groups))
+        per = -(-tiles // want)
+    else:  # at least two waves
+        want = min(tiles, MAX_SPLITS, -(-MIN_CTAS // groups))
+        per = max(tiles // want, -(-tiles // MAX_SPLITS))
+    splits = -(-tiles // per)
+    return types.MappingProxyType(dict(
+        mt=mt, m_tiles=m_tiles, groups=groups, tiles=tiles, per=per,
+        splits=splits, ctas=groups * splits,
+        workspace=groups * splits * mt * (dh + 2) if splits > 1 else 0,
+        counters=groups if splits > 1 else 0))
+
+
+def _row_arg(val, BH: int, device):
+    """A per-row argument as the kernel takes it: (a (BH,) int32 tensor on
+    the device, or None, and the value every row takes without one).
+    Negative values mean the default; the kernel applies it, so a (BH,)
+    int32 tensor costs no torch op."""
+    if val is None:
+        return None, -1
+    if not isinstance(val, torch.Tensor):
+        return None, int(val)
+    if (val.dtype is torch.int32 and val.dim() == 1 and val.shape[0] == BH
+            and val.is_contiguous() and val.get_device() == device.index):
+        return val, -1
+    if val.dtype != torch.int32 or val.get_device() != device.index:
+        val = val.to(device=device, dtype=torch.int32)
+    if val.ndim == 0:
+        val = val.expand(BH)
+    return val.reshape(BH).contiguous(), -1
 
 
 def per_row_scalar(val, default: int, BH: int, device) -> torch.Tensor:
@@ -121,27 +187,64 @@ def mxsf_attention(q, k_codes, k_scales, v_codes, v_scales, *,
         raise TypeError(f"q dtype {q.dtype}: expected float32 or bfloat16")
     if dh > 128:
         raise ValueError(f"head dim {dh} > 128 is not supported")
+    dev = q.get_device()
     for name, t in (("q", q), ("k_codes", kc), ("k_scales", ks),
                     ("v_codes", vc), ("v_scales", vs)):
-        if not t.is_contiguous() or t.device != q.device:
+        if not t.is_contiguous() or t.get_device() != dev:
             raise ValueError(f"{name} must be contiguous on {q.device}")
         if name != "q" and t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8")
-    kvl = torch.clamp(per_row_scalar(kv_len, L, BH, q.device), max=L)
-    off = per_row_scalar(q_offset, 0, BH, q.device)
-    win = per_row_scalar(window, NO_WINDOW, BH, q.device)
+    rows = [_row_arg(v, BH, q.device) for v in (kv_len, q_offset, window)]
     out = torch.empty_like(q)
     if BH == 0 or S == 0:
         return out
-    from . import build
-    lib = build.library("mxsf_attention")
-    fn = lib.mxsf_attention
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    plan = attention_plan(Bc, KV, BH // Bc // KV, S, L, dh)
+    if plan["groups"] >= 1 << 31:
+        raise ValueError(f"{plan['groups']} row groups: too many blocks")
+    work, counters, f32 = C.split_scratch("mxsf_attention", q.device, plan)
+    vec = int(dh % 16 == 0 and kc.data_ptr() % 16 == 0
+              and vc.data_ptr() % 16 == 0)
+    q_vec = int(dh * q.element_size() % 16 == 0 and q.data_ptr() % 16 == 0)
+    if not _LIB:
+        from . import build
+        lib = build.library("mxsf_attention")
+        lib.mxsf_attention.argtypes = _ARGTYPES
+        lib.mxsf_attention.restype = ctypes.c_int
+        _LIB.update(lib=lib, fn=lib.mxsf_attention)
+    lib, fn = _LIB["lib"], _LIB["fn"]
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), kc.data_ptr(),
-             ks.data_ptr(), vc.data_ptr(), vs.data_ptr(), kvl.data_ptr(),
-             off.data_ptr(), win.data_ptr(), out.data_ptr(), BH, S, dh, Bc,
-             L, KV, int(causal), math.sqrt(dh),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, err, "mxsf_attention")
+             ks.data_ptr(), vc.data_ptr(), vs.data_ptr(),
+             ptr(rows[0][0]), rows[0][1], ptr(rows[1][0]), rows[1][1],
+             ptr(rows[2][0]), rows[2][1], out.data_ptr(), BH, S, dh, Bc,
+             L, KV, int(causal), math.sqrt(dh), plan["mt"], plan["m_tiles"],
+             plan["splits"], plan["per"], ptr(work), counters.data_ptr(),
+             f32.data_ptr(), vec, q_vec,
+             C.raw_stream(dev))
+    if err:
+        from . import build
+        build.check(lib, err, "mxsf_attention")
     launches += 1
     return out
+
+
+def division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` for contiguous f32 CUDA tensors of one shape, computed as
+    the kernel divides (scores by sqrt(dh), outputs by l): its branch-free
+    sequence where the operands allow, the IEEE division elsewhere -- for
+    the card's check that the two give the same bits."""
+    if (not a.is_cuda or a.dtype != torch.float32 or b.dtype != a.dtype
+            or a.shape != b.shape or not a.is_contiguous()
+            or not b.is_contiguous() or b.device != a.device):
+        raise ValueError("division takes two contiguous f32 CUDA tensors "
+                         "of one shape")
+    from . import build
+    lib = build.library("mxsf_attention")
+    fn = lib.mxsf_attention_division
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q = torch.empty_like(a)
+    err = fn(a.data_ptr(), b.data_ptr(), q.data_ptr(), a.numel(),
+             C.raw_stream(a.get_device()))
+    build.check(lib, err, "mxsf_attention_division")
+    return q

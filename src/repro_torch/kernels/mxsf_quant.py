@@ -16,10 +16,13 @@ amax -> shared exponent -> encode, through the bit-level codec of
   the code grid treated as the value domain (zero padding to the lcm of
   both blocks, output cropped to the to-block-padded shape).
 
-CUDA tensors launch ``csrc/mxsf_quant.cu`` (one thread per MX block; bound
-by bytes) or raise; CPU tensors take the plain versions.  There is no
-fallback.  ``launches`` counts kernel launches per wrapper (the CPU path
-does not count).
+CUDA tensors launch ``csrc/mxsf_quant.cu`` (bound by bytes) or raise; CPU
+tensors take the plain versions.  There is no fallback.  The quantizer's
+instance follows the block shape (``quantize_instance``): tiles of 32
+16-byte pieces per row for (8,8), (64,1) and (1,64) (``tile_plan``), one
+thread per MX block for any other shape, as for the requantizer.
+``launches`` counts kernel launches per wrapper (the CPU path does not
+count).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 from . import common as C
 
 __all__ = ["mxsf_quantize", "mxsf_quantize_plain", "mxsf_requantize",
-           "mxsf_requantize_plain", "launches"]
+           "mxsf_requantize_plain", "quantize_instance", "tile_plan",
+           "launches"]
 
 # kernel launches per wrapper; reset by whoever reads them
 launches = {"mxsf_quantize": 0, "mxsf_requantize": 0}
@@ -39,6 +43,34 @@ launches = {"mxsf_quantize": 0, "mxsf_requantize": 0}
 # elements per plain-codec pass: the elementwise codec keeps ~20 full-size
 # temporaries, so large operands are coded in slices of whole block rows
 _SLICE_ELEMENTS = 1 << 24
+
+
+# the quantizer's tiled instances (csrc/mxsf_quant.cu::quantize_tiled) and
+# the rows a thread holds in each
+TILED = {(8, 8): "tiled (8,8)", (64, 1): "tiled (64,1)",
+         (1, 64): "tiled (1,64)"}
+ROWS_PER_THREAD = {(8, 8): 8, (64, 1): 8, (1, 64): 2}
+PIECE_BYTES = 16   # bytes a lane reads at once
+
+
+def quantize_instance(block) -> str:
+    """The kernel instance the quantizer launches for ``block``."""
+    return TILED.get(tuple(int(b) for b in block), "one thread per block")
+
+
+def tile_plan(m: int, k: int, block, itemsize: int) -> dict:
+    """Grid of a tiled quantizer launch on an (m, k) operand of
+    ``itemsize``-byte elements: blocks of 8 warps over ``rows`` x ``cols``
+    tiles of the block-padded (mb, kb); thread (warp w, lane l) of block
+    (bx, by) holds rows ``rows`` by + ``rpt`` w .. + rpt - 1 of columns
+    ``cols`` bx + v l .. + v - 1 (``v`` elements a 16-byte piece)."""
+    bm, bk = block
+    rpt = ROWS_PER_THREAD[(bm, bk)]
+    v = PIECE_BYTES // itemsize
+    mb, kb = _ceil_to(m, bm), _ceil_to(k, bk)
+    rows, cols = 8 * rpt, 32 * v
+    return dict(v=v, rpt=rpt, rows=rows, cols=cols, mb=mb, kb=kb,
+                grid=(-(-kb // cols), -(-mb // rows)))
 
 
 def _ceil_to(n: int, mult: int) -> int:
@@ -108,12 +140,19 @@ def mxsf_requantize_plain(codes: torch.Tensor, scales: torch.Tensor,
             out_s[:mb // tbm, :kb // tbk].contiguous())
 
 
+_FNS: dict = {}  # entry point -> ctypes function, set at first launch
+
+
 def _launch(name: str, argtypes, *args):
     from . import build
-    lib = build.library("mxsf_quant")
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    build.check(lib, fn(*args), name)
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.library("mxsf_quant"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    err = fn(*args)
+    if err:
+        build.check(build.library("mxsf_quant"), err, name)
     launches[name] += 1
 
 
@@ -153,7 +192,7 @@ def mxsf_quantize(x: torch.Tensor, block=(1, 32)):
                          device=x.device)
     _launch("mxsf_quantize", _Q_ARGS, x.data_ptr(),
             int(x.dtype == torch.bfloat16), m, k, bm, bk, codes.data_ptr(),
-            scales.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            scales.data_ptr(), C.raw_stream(x.get_device()))
     return codes, scales
 
 
@@ -182,5 +221,5 @@ def mxsf_requantize(codes: torch.Tensor, scales: torch.Tensor,
                         device=codes.device)
     _launch("mxsf_requantize", _R_ARGS, codes.data_ptr(), scales.data_ptr(),
             m, k, fbm, fbk, tbm, tbk, out_c.data_ptr(), out_s.data_ptr(),
-            torch.cuda.current_stream(codes.device).cuda_stream)
+            C.raw_stream(codes.get_device()))
     return out_c, out_s
