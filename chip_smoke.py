@@ -31,7 +31,11 @@ Phases, each printed as one JSON line:
               weight wg and on an f32 g, (64,1) on wg, (1,64) on x; each
               row names the kernel instance that ran) and the
               requantize ((64,1)->(1,64) on wg's codes, (1,64)->(64,1) on
-              x's) bit for bit, edge blocks included; the packed x packed
+              x's, each plain and transposed, each row naming its
+              instance, with its device time) bit for bit, edge blocks
+              included, every tiled instance (B = 32 and 64) on ragged
+              grids, and its re-encode table against the float path on
+              every triple a block can hold; the packed x packed
               matmul (dx and dw of wg, (8,8)) within tolerance and bit for
               bit on exact-sum operands; the fused matmul's training
               switches (emit_codes with (8,8) and (1,64)/(64,1), codes bit
@@ -59,11 +63,14 @@ Phases, each printed as one JSON line:
               path's count, and the K steps the matmul kernels sent down
               their f32 path.  Then the 1D
               layout (``block_mode="1d"``, ``quantize_bwd=True``) at the
-              same width with the depth cut to 4 layers, for 2 steps.
+              same width with the depth cut to 4 layers, for 2 steps and
+              a third under the profiler (with the requantizer's summed
+              device time).
 7. train_slice -- one more train step of each layout (on the state the
               phase "train" left, with its first batch) teacher-forced:
-              every quantize and requantize call and every set of emitted
-              codes bit for bit against its plain version on the same
+              every quantize and requantize call (plain or transposed)
+              and every set of emitted codes bit for bit against its plain
+              version on the same
               inputs, every matmul call within ``train_rtol(K)`` =
               TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version,
               and the loss within the head's tolerance of the loss of the
@@ -775,34 +782,91 @@ def check_quantize(torch, timer, x, block, name, edge=None):
     return row, got
 
 
-def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None):
-    """Requantize kernel against its plain version, bit for bit."""
+def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None,
+                     transpose=False):
+    """Requantize kernel against its plain version, bit for bit (codes and
+    scales, plain or transposed), on the operand and on the edge blocks;
+    times at the operand's shape (event ms, device ms)."""
     from repro_torch.kernels import mxsf_quant as MQ
-    got = MQ.mxsf_requantize(codes, scales, fb, tb)
-    want = MQ.mxsf_requantize_plain(codes, scales, fb, tb)
+    call = lambda c, s: MQ.mxsf_requantize(c, s, fb, tb, transpose=transpose)
+    plain = lambda c, s: MQ.mxsf_requantize_plain(c, s, fb, tb,
+                                                  transpose=transpose)
+    got, want = call(codes, scales), plain(codes, scales)
     same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     edge_same = None
     if edge is not None:
-        eg = MQ.mxsf_requantize(*edge, fb, tb)
-        ew = MQ.mxsf_requantize_plain(*edge, fb, tb)
+        eg, ew = call(*edge), plain(*edge)
         edge_same = torch.equal(eg[0], ew[0]) and torch.equal(eg[1], ew[1])
     if not same or edge_same is False:
-        raise AssertionError(f"requantize {name} {fb}->{tb}: not bit for "
-                             f"bit (random {same}, edge {edge_same})")
+        raise AssertionError(f"requantize {name} {fb}->{tb} transpose="
+                             f"{transpose}: not bit for bit (random {same}, "
+                             f"edge {edge_same})")
     m, k = codes.shape
     row = dict(kernel="mxsf_requantize", operand=name, m=m, k=k,
-               from_block=list(fb), to_block=list(tb), bitwise=same,
+               from_block=list(fb), to_block=list(tb), transpose=transpose,
+               instance=MQ.requantize_instance(fb, tb), bitwise=same,
                edge_bitwise=edge_same, max_abs_err=0.0)
-    row["ms"] = timer(lambda: MQ.mxsf_requantize(codes, scales, fb, tb), 10)
-    row["plain_ms"] = timer(
-        lambda: MQ.mxsf_requantize_plain(codes, scales, fb, tb), 3, 1)
-    row["library_ms"] = None
+    row["ms"] = timer(lambda: call(codes, scales), 10)
+    row["plain_ms"] = timer(lambda: plain(codes, scales), 3, 1)
+    row["library_ms"] = None  # no single PyTorch call computes it
+    row["device_ms"] = timer.device_time(lambda: call(codes, scales))
     nbytes = (codes.numel() + scales.numel() + got[0].numel()
               + got[1].numel())
     row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    if row["device_ms"]:
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
     emit("kernels", **row)
     return row
+
+
+def check_requantize_shapes(torch, gen, device):
+    """Every tiled requantize instance -- both directions, B = 32 and 64 --
+    plain and transposed, bit for bit against the plain version on random
+    and edge operands whose grids are neither 512 nor 16 codes wide (and,
+    for B = 32, half a tile tall)."""
+    from repro_torch.core import blocking as B
+    from repro_torch.kernels import mxsf_quant as MQ
+    cases = 0
+    for shape in ((200, 1100), (96, 200), (40, 3000)):
+        x = torch.randn(shape, generator=gen, device=device) * 3.0
+        e = _codec_edge(torch, 128, 1152, gen, device)[:, :1100]
+        for fb, tb in MQ.REQUANT_TILED:
+            for t in (x, e):
+                qt = B.quantize(t, "mxsf", fb)
+                for transpose in (False, True):
+                    got = MQ.mxsf_requantize(qt.codes, qt.scale_e8m0, fb, tb,
+                                             transpose=transpose)
+                    want = MQ.mxsf_requantize_plain(qt.codes, qt.scale_e8m0,
+                                                    fb, tb, transpose)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(
+                            f"requantize {tuple(qt.codes.shape)} {fb}->{tb} "
+                            f"transpose={transpose}: not bit for bit")
+                    cases += 1
+    emit("kernels", kernel="mxsf_requantize", case="instances and shapes",
+         instances=sorted(MQ.REQUANT_TILED.values()), cases=cases,
+         bitwise=True)
+
+
+def check_reencode(torch, device):
+    """The tiled requantizer's re-encode table against its float path on
+    the card, on every (code, from-scale byte, block exponent) triple a
+    block can hold."""
+    from repro_torch.kernels import mxsf_quant as MQ
+    if device.type != "cuda":
+        return None
+    tab, flt, fits = MQ.reencode_check()
+    fits = fits.bool()
+    n, bad = int(fits.sum()), int(((tab != flt) & fits).sum())
+    emit("kernels", kernel="mxsf_requantize", case="re-encode table",
+         triples=tab.numel(), triples_a_block_can_hold=n, mismatches=bad)
+    if bad or n != 8583424:
+        raise AssertionError(f"re-encode table: {bad} of {n} triples differ "
+                             "from the float path")
+    del tab, flt, fits
+    return bad
 
 
 def mx_exact_sum(torch, gen, device, m, k, n, blk=(8, 8)):
@@ -990,15 +1054,22 @@ def phase_train_kernels(torch, device, cfg, batch, seq, seed):
     _, g8 = check_quantize(torch, timer, g, (8, 8), "grad g", edge)
     _, w64 = check_quantize(torch, timer, w, (64, 1), "weight wg", edge)
     check_quantize(torch, timer, x, (1, 64), "activation x", edge)
-    # requantize: w (64,1)->(1,64) and x (1,64)->(64,1), the 1D backward's
+    # requantize: w (64,1)->(1,64), written transposed (the 1D dx), and x
+    # (1,64)->(64,1) (the 1D dw); each also the other way round
     x64 = B.quantize(x, "mxsf", (1, 64))
     e64 = B.quantize(edge, "mxsf", (64, 1))
     e1 = B.quantize(edge, "mxsf", (1, 64))
-    rows["requantize"] = check_requantize(
-        torch, timer, *w64, (64, 1), (1, 64), "weight wg",
-        (e64.codes, e64.scale_e8m0))
-    check_requantize(torch, timer, x64.codes, x64.scale_e8m0, (1, 64),
-                     (64, 1), "activation x", (e1.codes, e1.scale_e8m0))
+    for transpose in (True, False):
+        row = check_requantize(torch, timer, *w64, (64, 1), (1, 64),
+                               "weight wg", (e64.codes, e64.scale_e8m0),
+                               transpose)
+        rows.setdefault("requantize", row)
+    for transpose in (False, True):
+        check_requantize(torch, timer, x64.codes, x64.scale_e8m0, (1, 64),
+                         (64, 1), "activation x", (e1.codes, e1.scale_e8m0),
+                         transpose)
+    check_requantize_shapes(torch, gen, device)
+    check_reencode(torch, device)
     # mx_matmul, the 2D backward of wg: dx = g @ w^T, dw = x^T @ g
     x8 = B.quantize(x, "mxsf", (8, 8))
     wT = B.transpose_qt(B.QuantizedTensor(*w8, "mxsf", (8, 8), (d, f),
@@ -1210,10 +1281,12 @@ class checked_kernels:
                 out, MQ.mxsf_quantize_plain(x, block))))
             return out
 
-        def requantize(codes, scales, fb, tb):
-            out = kr(codes, scales, fb, tb)
-            calls["mxsf_requantize"].append(dict(codes_bitwise=same(
-                out, MQ.mxsf_requantize_plain(codes, scales, fb, tb))))
+        def requantize(codes, scales, fb, tb, transpose=False):
+            out = kr(codes, scales, fb, tb, transpose=transpose)
+            calls["mxsf_requantize"].append(dict(
+                transpose=transpose, codes_bitwise=same(
+                    out, MQ.mxsf_requantize_plain(codes, scales, fb, tb,
+                                                  transpose))))
             return out
 
         def matmul(xc, xs, wc, ws, xblk, wblk):
@@ -1422,8 +1495,11 @@ def device_profile(torch, fn):
             by_name[evt.key] = (dev_us, evt.count)
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    requant = [v for k, v in by_name.items() if "requantize" in k]
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 idle_share=(1.0 - busy_ms / (wall * 1e3)) if wall else None,
+                requantize=dict(device_ms=sum(v[0] for v in requant) / 1e3,
+                                calls=sum(v[1] for v in requant)),
                 top_kernels=[dict(name=k[:80], device_ms=v[0] / 1e3,
                                   calls=v[1]) for k, v in top])
 
@@ -1568,10 +1644,13 @@ def kernels_line(rows, attn, train_rows, launches, slots, cfg):
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
+                    **{k: row[k] for k in ("device_ms", "bound_share",
+                                           "device_bound_share", "instance")
+                       if row.get(k) is not None},
                     "shape": {k: row[k] for k in row
                               if k in ("m", "k", "n", "slots", "L", "S",
                                        "block", "from_block", "to_block",
-                                       "operand")}})
+                                       "transpose", "operand")}})
     return {"kernels": out}
 
 
@@ -1636,7 +1715,7 @@ def main(argv=None) -> int:
     cfg1 = train_cfg.replace(n_layers=min(4, train_cfg.n_layers))
     pol1 = pol2.replace(block_mode="1d", quantize_bwd=True)
     state, batches, launches["train_1d"] = phase_train(
-        torch, device, cfg1, pol1, args, 2, batch, seq, "1d")
+        torch, device, cfg1, pol1, args, 2, batch, seq, "1d", profile=True)
     phase_train_slice(torch, device, cfg1, pol1, state, batches[0], "1d")
     del state, batches
     line = kernels_line(rows, attn, train_rows, launches, slots, cfg)

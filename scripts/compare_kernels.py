@@ -15,9 +15,12 @@ projection, the packed-KV attention at the serving shapes of
 ``chip_smoke.py`` (qwen2.5-32b heads, 4 slots of 512 keys, S = 1 and 16)
 and the quantizer at its four training shapes ((8,8) on the bf16 gate
 weight and on an f32 gradient, (64,1) on the weight, (1,64) on the
-activations) -- each kernel is timed old, new, new, old (CUDA events, L2
-flushed before every launch, mean of 10 launches each), and the two
-outputs are compared (codes and scales bit for bit).  One JSON line per
+activations) and the requantizer at the 1D backward's two shapes (the
+weight's (64,1)->(1,64) and the activations' (1,64)->(64,1), each written
+transposed -- the other tree's call followed by ``.T.contiguous()`` where
+it has no ``transpose`` -- and plain) -- each kernel is timed old, new,
+new, old (CUDA events, L2 flushed before every launch, mean of 10 launches
+each), and the two outputs are compared (codes and scales bit for bit).  One JSON line per
 shape, the card's name and power limit before them; ``--out`` also writes
 them to FILE.
 """
@@ -168,6 +171,35 @@ def main(argv=None) -> int:
                           "new_bound_share": row["new_bound_share"]}),
               flush=True)
         rows.append(row)
+    # the requantizer at the 1D backward's shapes: w (64,1)->(1,64) and x
+    # (1,64)->(64,1), each written transposed (the old tree's call followed
+    # by .T.contiguous() of codes and scales) and plain
+    w64 = B.quantize(w, "mxsf", (64, 1))
+    x64 = B.quantize(x, "mxsf", (1, 64))
+    for name, qt, fb, tb in (("requantize wg", w64, (64, 1), (1, 64)),
+                             ("requantize x", x64, (1, 64), (64, 1))):
+        c, sc = qt.codes, qt.scale_e8m0
+        for transpose in (True, False):
+            if transpose:
+                calls = {"old": lambda mq=old["mxsf_quant"]: tuple(
+                             t.T.contiguous() for t in mq.mxsf_requantize(
+                                 c, sc, fb, tb)),
+                         "new": lambda mq=new["mxsf_quant"]: mq.mxsf_requantize(
+                             c, sc, fb, tb, transpose=True)}
+            else:
+                calls = {v: (lambda mq=mods["mxsf_quant"]: mq.mxsf_requantize(
+                    c, sc, fb, tb)) for v, mods in (("old", old),
+                                                    ("new", new))}
+            label = f"{name} {fb}->{tb}{' transposed' if transpose else ''}"
+            row = run(torch, timeit, label, (*c.shape, 0), calls, False,
+                      codes=True)
+            nbytes = 2 * (c.numel() + sc.numel())
+            row["bound_ms"] = nbytes / 3.35e12 * 1e3  # HBM at 3.35 TB/s
+            row["new_bound_share"] = row["bound_ms"] / row["new_ms"]
+            print(json.dumps({"bound": label, "bound_ms": row["bound_ms"],
+                              "new_bound_share": row["new_bound_share"]}),
+                  flush=True)
+            rows.append(row)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -154,15 +154,16 @@ def _kernel_dx_2d(policy: QuantPolicy, qtw: B.QuantizedTensor, gm):
 
 def _kernel_dx_1d(policy: QuantPolicy, qtw: B.QuantizedTensor, gm):
     """Fig. 4a dx: re-block w along N packed->packed (codes in, codes out),
-    then g (quantized along N in the fused prologue) against it."""
+    written transposed by the requantizer as the (N, K) operand of
+    ``g @ w^T``, then g (quantized along N in the fused prologue) against
+    it."""
     b = policy.block_1d
     _tick()  # w re-blocked along N (one Fig. 4a quantize pass)
     wrc, wrs = MQ.mxsf_requantize(qtw.codes, qtw.scale_e8m0, qtw.block,
-                                  (1, b))
+                                  (1, b), transpose=True)
     if policy.quantize_bwd:
         _tick()  # g quantized along N inside the fused prologue
-    return FM.mxsf_fused_matmul(gm, wrc.T.contiguous(), wrs.T.contiguous(),
-                                (1, b), (b, 1),
+    return FM.mxsf_fused_matmul(gm, wrc, wrs, (1, b), (b, 1),
                                 quantize_lhs=policy.quantize_bwd)
 
 

@@ -19,6 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
+from ..device import resolve_device
 from .transformer import (_apply_sublayer, embed_tokens, layer_windows,
                           lm_head)
 
@@ -45,10 +46,11 @@ def kv_cache_rows(cache):
             rows(cache["v_codes"]), srows(cache["v_scales"]))
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu",
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                kv_fmt: str = "mxsf"):
     """Zeroed packed MXSF KV cache for a decoder config (the full
-    ``max_len`` width: the ring-shrunk all-SWA cache is not ported)."""
+    ``max_len`` width: the ring-shrunk all-SWA cache is not ported), on
+    ``device`` (``None``: the card; CPU callers pass ``device="cpu"``)."""
     if cfg.family != "decoder":
         raise NotImplementedError(f"family {cfg.family!r} has no ported "
                                   "cache; see ROADMAP.md, Queue 1 item 9")
@@ -59,6 +61,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu",
             max_len + cfg.frontend_tokens, cfg.n_kv)
     codes = lead + (cfg.head_dim,)
     scales = lead + (1,)
+    device = resolve_device(device)
     z = lambda shape: torch.zeros(shape, dtype=torch.uint8, device=device)
     return {"k_codes": z(codes), "k_scales": z(scales),
             "v_codes": z(codes), "v_scales": z(scales)}

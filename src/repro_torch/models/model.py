@@ -63,12 +63,15 @@ def _set_layer(stack, i: int, leaf):
 
 @torch.no_grad()
 def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
-                       generator: torch.Generator, device="cpu"):
+                       generator: torch.Generator, device=None):
     """The packed store of ``init_params(cfg, generator, device)``, built
     leaf by leaf: each weight is drawn in f32, packed, and freed before the
     next one is drawn, so the f32 tree never exists.  Draws the same values
     in the same order as ``init_params``, so on one device
-    ``pack_model_params(init_params(g))`` and this agree bitwise."""
+    ``pack_model_params(init_params(g))`` and this agree bitwise.
+    ``device=None`` is the generator's own device."""
+    if device is None:
+        device = generator.device
     if not packed_store.packable_policy(policy):
         raise ValueError("init_packed_params needs a quantizing policy")
     dtype = cfg.compute_dtype

@@ -97,8 +97,11 @@ def set_path(tree: dict, path, value):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cpu") -> dict:
-    """f32 parameter tree of a decoder config (the JAX layout)."""
+                device=None) -> dict:
+    """f32 parameter tree of a decoder config (the JAX layout), on
+    ``device`` (``None``: the generator's own device)."""
+    if device is None:
+        device = generator.device
     params = {"final_norm": {"w": torch.ones(cfg.d_model, device=device)}}
     params["emb"] = draw_embedding(cfg, generator, device)
     if not cfg.tie_embeddings:

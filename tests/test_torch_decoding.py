@@ -117,7 +117,7 @@ def steps(ref):
     out = {"jax": [], "torch": []}
     cache_j = JM.init_cache(cfg_j, B, W, dtype=jnp.float32, ring=False,
                             kv_fmt="mxsf")
-    cache_t = TM.init_cache(cfg_t, B, W)
+    cache_t = TM.init_cache(cfg_t, B, W, device="cpu")
     for kind, toks, p, n in calls:
         with JD.count_quant_passes() as cj:
             if kind == "decode":
@@ -205,7 +205,7 @@ def test_forward_quant_pass_counts_equal(ref, steps, kind):
     pos, nv = np.zeros(B, np.int32), np.full(B, C, np.int32)
     cache_j = JM.init_cache(cfg_j, B, 8, dtype=jnp.float32, ring=False,
                             kv_fmt="mxsf")
-    cache_t = TM.init_cache(cfg_t, B, 8)
+    cache_t = TM.init_cache(cfg_t, B, 8, device="cpu")
     with JD.count_quant_passes() as cj, TD.count_quant_passes() as ct:
         if kind == "decode":
             JM.decode_step(store_j, jnp.asarray(toks), cache_j,
@@ -234,7 +234,7 @@ def test_ring_position_regression(ref):
     prompt = np.random.default_rng(15).integers(0, cfg_j.vocab, size=P)
     cache_j = JM.init_cache(cfg_j, 1, W, dtype=jnp.float32, ring=False,
                             kv_fmt="mxsf")
-    cache_t = TM.init_cache(cfg_t, 1, W)
+    cache_t = TM.init_cache(cfg_t, 1, W, device="cpu")
     for start in range(0, P, C):
         n = min(C, P - start)
         toks = np.zeros((1, C), np.int32)

@@ -179,6 +179,35 @@ def test_requantize_tiny_scales_is_quantize_of_dequantize(fb, tb):
     assert torch.equal(got_s, want.scale_e8m0)
 
 
+@pytest.mark.parametrize("block_1d", [64, 32])
+def test_kernel_dx_1d_operands_unchanged_by_the_transposed_write(
+        monkeypatch, block_1d):
+    """_kernel_dx_1d hands the fused matmul the requantizer's transposed
+    output; those operands are bit for bit the ``.T.contiguous()`` copies
+    of the plain re-blocked weight that it took before (plain path)."""
+    from repro_torch.core import mx_dot as TD
+    from repro_torch.core.policy import QuantPolicy
+    policy = QuantPolicy(block_mode="1d", block_1d=block_1d, backend="cuda")
+    w = torch.from_numpy(_edge((192, 100), seed=13))
+    qtw = TB.quantize(w, "mxsf", (block_1d, 1))
+    gm = torch.from_numpy(_rand((24, 100), seed=14))
+    seen = []
+
+    def fused(*args, **kw):
+        seen.append((args, kw))
+        return torch.zeros(())
+
+    monkeypatch.setattr(TD.FM, "mxsf_fused_matmul", fused)
+    TD._kernel_dx_1d(policy, qtw, gm)
+    (g_arg, wc, ws, xblk, wblk), kw = seen[0]
+    rc, rs = TQ.mxsf_requantize(qtw.codes, qtw.scale_e8m0, qtw.block,
+                                (1, block_1d))
+    assert g_arg is gm and (xblk, wblk) == ((1, block_1d), (block_1d, 1))
+    assert kw == {"quantize_lhs": True}
+    assert torch.equal(wc, rc.T.contiguous()) and wc.is_contiguous()
+    assert torch.equal(ws, rs.T.contiguous()) and ws.is_contiguous()
+
+
 # ---------------------------------------------------------------------------
 # packed x packed matmul
 # ---------------------------------------------------------------------------
@@ -325,16 +354,35 @@ def test_cuda_quantize_matches_plain(cuda_device, dtype):
 
 @pytest.mark.gpu
 def test_cuda_requantize_matches_plain(cuda_device):
-    for shape in ((64, 128), (40, 100)):
+    """Every tiled instance (both directions, B = 32 and 64) and the
+    one-thread-per-block kernel, plain and transposed, on edge blocks and
+    on grids that are neither 512 nor 16 codes wide."""
+    pairs = list(TQ.REQUANT_TILED) + [((8, 8), (1, 8))]
+    for shape in ((64, 128), (40, 100), (200, 1100), (96, 40)):
         x = torch.from_numpy(_edge_with_subnormals(shape, 2)).to(cuda_device)
-        for fb, tb in (((64, 1), (1, 64)), ((1, 64), (64, 1)),
-                       ((8, 8), (1, 8)), ((1, 32), (32, 1))):
+        for fb, tb in pairs:
             qt = TB.quantize(x, "mxsf", fb)
-            got = TQ.mxsf_requantize(qt.codes, qt.scale_e8m0, fb, tb)
-            want = TQ.mxsf_requantize_plain(qt.codes, qt.scale_e8m0, fb, tb)
-            torch.cuda.synchronize()
-            assert torch.equal(got[0], want[0]), (shape, fb, tb)
-            assert torch.equal(got[1], want[1]), (shape, fb, tb)
+            for transpose in (False, True):
+                got = TQ.mxsf_requantize(qt.codes, qt.scale_e8m0, fb, tb,
+                                         transpose=transpose)
+                want = TQ.mxsf_requantize_plain(qt.codes, qt.scale_e8m0, fb,
+                                                tb, transpose=transpose)
+                torch.cuda.synchronize()
+                case = (shape, fb, tb, transpose,
+                        TQ.requantize_instance(fb, tb))
+                assert torch.equal(got[0], want[0]), case
+                assert torch.equal(got[1], want[1]), case
+
+
+@pytest.mark.gpu
+def test_cuda_reencode_table_matches_float_path(cuda_device):
+    """The card's re-encode table against its float path on every (code,
+    from-scale byte, block exponent) triple a block can hold."""
+    tab, flt, fits = TQ.reencode_check()
+    torch.cuda.synchronize()
+    fits = fits.bool()
+    assert int(fits.sum()) == 8583424
+    assert int(((tab != flt) & fits).sum()) == 0
 
 
 @pytest.mark.gpu
