@@ -54,7 +54,18 @@ Phases, each printed as one JSON line:
               match the plain head within its tolerance and the tokens
               agree wherever the plain top-1/top-2 gap is wider than twice
               it; the cache changes at the written rows only.
-6. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
+6. ckpt_serve -- the packed store of full-width qwen2.5-32b at the depth
+              the host's disk and memory allow (16 of 64 layers: no
+              checkpoint larger than half of either), ``ckpt.save`` of it
+              and ``ServeEngine.from_checkpoint`` on the card: every leaf
+              bitwise equal to the store in memory, the same prompts
+              giving identical token streams on an engine over each
+              store, the launch counts the path's, save and restore
+              seconds and GB/s beside the disk's own rates, and the card's
+              peak memory while the engine restores within the store's
+              and the cache's bytes plus RESTORE_SLACK.  The checkpoint is
+              removed when the phase ends.
+7. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
               ``init_state`` from ``--seed``, batches from ``lm_batch``
               (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
               for 3 steps, then a fourth under the profiler: loss, grad
@@ -66,7 +77,7 @@ Phases, each printed as one JSON line:
               same width with the depth cut to 4 layers, for 2 steps and
               a third under the profiler (with the requantizer's summed
               device time).
-7. train_slice -- one more train step of each layout (on the state the
+8. train_slice -- one more train step of each layout (on the state the
               phase "train" left, with its first batch) teacher-forced:
               every quantize and requantize call (plain or transposed)
               and every set of emitted codes bit for bit against its plain
@@ -75,8 +86,20 @@ Phases, each printed as one JSON line:
               TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version,
               and the loss within the head's tolerance of the loss of the
               plain head's logits.
-8. the ``kernels`` line (every CUDA kernel, its launches on the serving
-   and both training paths), then the ``{"ok": true, ...}`` line.
+9. train_resume -- ``fault.train_loop`` on 2 layers of full-width
+              h2o-danube-1.8b (2D, 4 x 512): 4 steps checkpointing every
+              2, uninterrupted; again with a failure injected at step 3
+              (``FailureInjected`` caught, and it must be raised) and
+              resumed; params and the whole AdamW state bitwise equal
+              between the two runs, the watchdog's step times printed.
+10. train_encoder -- full deit-tiny (12 layers, 196 patches + cls, 100
+              classes) at batch 64 from ``vision_batch``, in 2D and in the
+              1D layout: 3 steps, one more under the profiler (device idle
+              share) and one teacher-forced as in ``train_slice``; loss,
+              accuracy, step seconds, tokens/s, peak memory, launch
+              counts equal to the path's.
+11. the ``kernels`` line (every CUDA kernel, its launches on each path,
+   each counted from 0), then the ``{"ok": true, ...}`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -1102,10 +1125,12 @@ def phase_train_kernels(torch, device, cfg, batch, seq, seed):
 # ---------------------------------------------------------------------------
 
 def train_launch_counts(cfg, policy):
-    """Kernel launches of one train step of a dense decoder, from the path:
-    7 linears per layer plus the LM head (once: S <= xent_chunk), each one
+    """Kernel launches of one train step, from the path: q, k, v, o and the
+    MLP's 3 (gated) or 2 linears per layer plus the head (once: the LM
+    head's S <= xent_chunk; the encoder's on the cls row), each one
     raw-weight mx_dot with its backward."""
-    n = 7 * cfg.n_layers + 1
+    per_layer = 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+    n = per_layer * cfg.n_layers + 1
     if policy.block_mode == "2d":
         # w and g quantized; the fused forward emits x's codes; dx and dw
         return {"mxsf_quantize": 2 * n, "mxsf_fused_matmul": n,
@@ -1135,11 +1160,17 @@ def read_launches():
 
 
 def make_batches(torch, cfg, seed, steps, batch, seq, device):
-    """The steps' batches from the port's ``lm_batch``, built before the
-    run (the vocab^2 transition table is freed after each)."""
-    from repro_torch.data.pipeline import lm_batch
+    """The steps' batches from the port's ``lm_batch`` (the vocab^2
+    transition table is freed after each) or, for the encoder,
+    ``vision_batch``, built before the run."""
+    from repro_torch.data.pipeline import lm_batch, vision_batch
     out = []
     for i in range(steps):
+        if cfg.family == "encoder":
+            x, y = vision_batch(seed, i, batch, cfg.frontend_tokens,
+                                cfg.d_model, cfg.n_classes, device=device)
+            out.append({"embeds": x, "label": y})
+            continue
         toks, labs = lm_batch(seed, i, batch, seq, cfg.vocab, device=device)
         out.append({"tokens": toks, "labels": labs})
     if device.type == "cuda":
@@ -1147,17 +1178,23 @@ def make_batches(torch, cfg, seed, steps, batch, seq, device):
     return out
 
 
+def n_out(cfg):
+    """The head's real outputs: classes of the encoder, else the vocab."""
+    return cfg.n_classes if cfg.family == "encoder" else cfg.vocab
+
+
 def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
-                profile=False):
+                profile=False, phase="train"):
     """``steps`` AdamW steps of ``make_train_step`` from random parameters
-    (``init_state`` from ``--seed``): loss, grad norm, lr, step seconds
-    (host clock, synchronised), tokens/s, peak memory and each kernel's
-    launches, which must equal the path's count on the card; with
-    ``profile`` one more step, logged as the others are, runs under the
-    profiler (device busy time by kernel; its seconds are the profiled
-    wall time).  The step updates the state in place.  Returns the
-    state, the batches and the launches summed over the ``steps`` steps
-    (the profiled one not among them)."""
+    (``init_state`` from ``--seed``): loss (and the encoder's accuracy),
+    grad norm, lr, step seconds (host clock, synchronised), tokens/s
+    (``seq`` tokens a sample), peak memory and each kernel's launches,
+    which must equal the path's count on the card; with ``profile`` one
+    more step, logged as the others are, runs under the profiler (device
+    busy time by kernel; its seconds are the profiled wall time).  The
+    step updates the state in place.  Returns the state, the batches and
+    the launches summed over the ``steps`` steps (the profiled one not
+    among them)."""
     from repro_torch.core.packed_store import tree_leaves
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
@@ -1171,7 +1208,7 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
                            seq, device)
     sync()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    emit("train", layout=label, step="init", seconds=time.perf_counter() - t0,
+    emit(phase, layout=label, step="init", seconds=time.perf_counter() - t0,
          n_layers=cfg.n_layers, d_model=cfg.d_model, n_params=n_params,
          batch=batch, seq=seq, policy=str(policy))
     step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
@@ -1203,8 +1240,9 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
                 total[k] += got[k]
         loss = float(metrics["loss"])
         losses.append(loss)
-        emit("train", layout=label, step=i, profiled=prof is not None,
-             loss=loss,
+        emit(phase, layout=label, step=i, profiled=prof is not None,
+             loss=loss, **({"acc": float(metrics["acc"])}
+                          if "acc" in metrics else {}),
              grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
              seconds=dt, tokens_per_s=batch * seq / dt,
              max_memory_allocated=(torch.cuda.max_memory_allocated()
@@ -1218,10 +1256,11 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
         if on_card and got != expect:
             raise AssertionError(f"train {label} step {i}: launches {got} "
                                  f"!= path {expect}")
-    # random init: logits ~ N(0, ~1), so the first loss is ~ln(vocab) + 0.5
-    if abs(losses[0] - math.log(cfg.vocab)) > 1.5:
+    # random init: logits ~ N(0, <= 1), so the first loss is within ~0.5
+    # of ln(outputs)
+    if abs(losses[0] - math.log(n_out(cfg))) > 1.5:
         raise AssertionError(f"train {label}: step-0 loss {losses[0]} is "
-                             f"not near ln(vocab) = {math.log(cfg.vocab)}")
+                             f"not near ln({n_out(cfg)})")
     return state, batches, total
 
 
@@ -1380,38 +1419,43 @@ def _xent(torch, logits, labels):
         logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()))
 
 
-def phase_train_slice(torch, device, cfg, policy, state, batch, label):
+def phase_train_slice(torch, device, cfg, policy, state, batch, label,
+                      phase="train_slice"):
     """One train step teacher-forced (``checked_kernels``): every kernel
     call is held against its plain version on the same inputs, every
     matmul within ``train_rtol``; the step's loss must match the loss of
     the plain head's logits within the head's tolerance."""
     from repro_torch.core.blocking import torch_dtype
+    from repro_torch.models.transformer import head_shape
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
     step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
+    from repro_torch.core.packed_store import weight_block
+    V = head_shape(cfg)[1]
+    wb = weight_block(policy)[1]  # the head's codes are padded to it
     t0 = time.perf_counter()
-    with checked_kernels(torch, train_rtol, cfg.padded_vocab) as chk:
+    with checked_kernels(torch, train_rtol, -(-V // wb) * wb) as chk:
         _, metrics = step_fn(state, batch)
     seconds = time.perf_counter() - t0
     loss = float(metrics["loss"])
     # the loss of the plain head's logits, cast as the forward casts them
     y_ref, tol, _ = chk.head
-    V = cfg.padded_vocab
     cast = torch_dtype(cfg.compute_dtype)  # mx_dot's cast of the head
     logits = y_ref[:, :V].to(cast).float()
     ulp = _bf16_ulp(torch, logits) if cast == torch.bfloat16 else 0.0
-    logits = logits.reshape(*batch["labels"].shape, V)[..., :cfg.vocab]
-    loss_plain = _xent(torch, logits, batch["labels"])
+    labels = batch["label" if cfg.family == "encoder" else "labels"]
+    logits = logits.reshape(*labels.shape, V)[..., :n_out(cfg)]
+    loss_plain = _xent(torch, logits, labels)
     # logsumexp and the gold logit each move by at most max|d logit|
     loss_tol = 2.0 * float((tol[:, :V] + ulp).max())
     rows, faults = chk.rows(train_launch_counts(cfg, policy))
-    emit("train_slice", layout=label, n_layers=cfg.n_layers, loss=loss,
+    emit(phase, layout=label, n_layers=cfg.n_layers, loss=loss,
          loss_plain_head=loss_plain, loss_abs_err=abs(loss - loss_plain),
          loss_tol=loss_tol, seconds=seconds, kernels=rows)
     if abs(loss - loss_plain) > loss_tol:
         faults.append("loss")
     if faults:
-        raise AssertionError(f"train_slice {label}: {faults}")
+        raise AssertionError(f"{phase} {label}: {faults}")
     return rows
 
 
@@ -1436,14 +1480,27 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
     eng = ServeEngine(cfg, store, policy, slots=slots, max_len=max_len,
                       prefill_chunk=chunk, backend="cuda", device=device)
     prompts = _prompts(cfg, args.seed, lengths)
-    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    _, launches = serve_run(torch, eng, cfg, prompts, new_tokens, "serve")
     if device.type == "cuda":
+        profile_decode(torch, eng)
+    return eng, prompts, launches
+
+
+def serve_run(torch, eng, cfg, prompts, new_tokens, phase, **fields):
+    """Serve ``prompts`` on ``eng`` to the end: tokens, stats, host-clock
+    tokens/s, peak memory and the serving kernels' launches, which must
+    equal the path's count on the card.  Returns (token streams,
+    launches)."""
+    on_card = eng.device.type == "cuda"
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
     _f32_steps("mxsf_fused_matmul")
     t0 = time.perf_counter()
     eng.run()
-    sync()
+    if on_card:
+        torch.cuda.synchronize()
     f32_steps = _f32_steps("mxsf_fused_matmul")
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in read_launches().items()
@@ -1458,20 +1515,20 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
                 0 <= t < cfg.vocab for t in r.out):
             raise AssertionError(f"request {r.uid}: bad output {r.out}")
     decode_tokens = st["tokens_generated"] - len(reqs)
-    emit("serve", step="run", tokens=outs, prompt_lengths=lengths,
+    lengths = [len(p) for p in prompts]
+    emit(phase, step="run", tokens=outs, prompt_lengths=lengths,
          stats=st, wall_seconds=wall,
          prefill_tokens_per_s=sum(lengths) / st["prefill_seconds"],
          decode_tokens_per_s=(decode_tokens / st["decode_seconds"]
                               if st["decode_seconds"] else None),
          max_memory_allocated=(torch.cuda.max_memory_allocated()
-                               if device.type == "cuda" else None),
+                               if on_card else None),
          launches=launches, expected_launches=expect,
-         fused_f32_steps=f32_steps)
-    if device.type == "cuda" and launches != expect:
-        raise AssertionError(f"launch counts {launches} != path {expect}")
-    if device.type == "cuda":
-        profile_decode(torch, eng)
-    return eng, prompts, launches
+         fused_f32_steps=f32_steps, **fields)
+    if on_card and launches != expect:
+        raise AssertionError(f"{phase}: launch counts {launches} != path "
+                             f"{expect}")
+    return outs, launches
 
 
 def device_profile(torch, fn):
@@ -1617,6 +1674,246 @@ def phase_slice(torch, eng, cfg, prompts, chunk):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# checkpoints: the packed store round trip ("ckpt_serve") and the
+# fault-tolerant loop ("train_resume")
+# ---------------------------------------------------------------------------
+
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"  # removed when a phase ends
+RESTORE_SLACK = 256 << 20  # bytes the card may hold past store + cache
+                           # while an engine restores (an f32 copy of any
+                           # one packed leaf of the store would exceed it)
+
+
+def tree_mismatches(torch, got, want):
+    """Keys of the leaves of two trees (tensors, QuantizedTensors) that are
+    not bitwise equal (codes, scales and MX metadata for packed leaves),
+    and the number of leaves compared."""
+    from repro_torch.ckpt.ckpt import _iter_leaves
+    from repro_torch.core.blocking import QuantizedTensor
+    got, want = dict(_iter_leaves(got)), dict(_iter_leaves(want))
+    bad = sorted("/".join(k) for k in set(got) ^ set(want))
+    for key in set(got) & set(want):
+        a, b = got[key], want[key]
+        if isinstance(b, QuantizedTensor):
+            same = (isinstance(a, QuantizedTensor)
+                    and (a.fmt, tuple(a.block), tuple(a.shape), a.dtype)
+                    == (b.fmt, tuple(b.block), tuple(b.shape), b.dtype)
+                    and torch.equal(a.codes, b.codes)
+                    and torch.equal(a.scale_e8m0, b.scale_e8m0))
+        else:
+            same = a.dtype == b.dtype and torch.equal(a, b)
+        if not same:
+            bad.append("/".join(key))
+    return bad, len(want)
+
+
+def _host_bytes():
+    """Free bytes of the disk under CKPT_ROOT and the host's available
+    memory (a save holds the whole host copy)."""
+    import os
+    import shutil
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    return shutil.disk_usage(CKPT_ROOT).free, avail
+
+
+def phase_ckpt_serve(torch, device, cfg, policy, args, slots, chunk,
+                     max_len, new_tokens, lengths, max_layers=16):
+    """Full-width packed store at the depth the disk allows (at most
+    ``max_layers``; no checkpoint larger than half the free disk or half
+    the host's available memory), ``ckpt.save`` of it, then
+    ``ServeEngine.from_checkpoint`` on the card: every leaf bitwise equal
+    to the store in memory, the same prompts giving the same token streams
+    on an engine over each store, the launch counts the path's, save and
+    restore seconds and GB/s, and the card's peak memory while the engine
+    restores within the store's bytes plus the cache's plus
+    RESTORE_SLACK (no full-precision copy of a packed leaf).  Returns the
+    restored engine's launches."""
+    import shutil
+    from repro_torch.ckpt import ckpt
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import _nbytes as _tree_bytes
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    free_disk, avail_mem = _host_bytes()
+    one, two = (_tree_bytes(M.packed_model_specs(cfg.replace(n_layers=n),
+                                                 policy)) for n in (1, 2))
+    per_layer, fixed = two - one, 2 * one - two
+    budget = min(free_disk, avail_mem) // 2 - fixed
+    n_layers = min(max_layers, cfg.n_layers, budget // per_layer)
+    emit("ckpt_serve", step="plan", free_disk_bytes=free_disk,
+         mem_available_bytes=avail_mem, bytes_per_layer=per_layer,
+         bytes_fixed=fixed, n_layers=n_layers,
+         store_bytes=fixed + n_layers * per_layer)
+    if n_layers < 1:
+        raise AssertionError("ckpt_serve: no room for one layer's store")
+    cfg = cfg.replace(n_layers=n_layers)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    kw = dict(slots=slots, max_len=max_len, prefill_chunk=chunk,
+              backend="cuda", device=device)
+    prompts = _prompts(cfg, args.seed, lengths)
+    ckpt_dir = CKPT_ROOT / "store"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        ckpt.save(str(ckpt_dir), 1, store)
+        save_s = time.perf_counter() - t0
+        with open(ckpt_dir / "step_00000001" / "manifest.json") as f:
+            saved = json.load(f)["bytes"]
+        disk = _disk_rates(CKPT_ROOT)
+        outs_mem, _ = serve_run(torch, ServeEngine(cfg, store, policy, **kw),
+                                cfg, prompts, new_tokens, "ckpt_serve",
+                                store="in memory")
+        sync()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_checkpoint(cfg, str(ckpt_dir), policy, **kw)
+        sync()
+        restore_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) if on_card else None
+        store_b, cache_b = _tree_bytes(eng.params), _tree_bytes(eng.cache)
+        bad, n_leaves = tree_mismatches(torch, eng.params, store)
+        emit("ckpt_serve", step="save_restore", checkpoint_bytes=saved,
+             save_seconds=save_s, save_gb_per_s=saved / save_s / 1e9,
+             restore_seconds=restore_s,
+             restore_gb_per_s=saved / restore_s / 1e9, **disk,
+             restore_peak_bytes=peak, store_bytes=store_b,
+             cache_bytes=cache_b, slack_bytes=RESTORE_SLACK,
+             leaves=n_leaves, leaves_not_bitwise=bad)
+        if bad:
+            raise AssertionError(f"ckpt_serve: leaves differ: {bad[:8]}")
+        if on_card and peak > store_b + cache_b + RESTORE_SLACK:
+            raise AssertionError(f"ckpt_serve: restore peak {peak} B > "
+                                 f"store + cache + slack")
+        outs, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
+                                   "ckpt_serve", store="from_checkpoint")
+        if outs != outs_mem:
+            raise AssertionError(f"ckpt_serve: token streams differ: {outs} "
+                                 f"vs {outs_mem}")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    emit("ckpt_serve", step="done", n_layers=n_layers, same_tokens=True,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _disk_rates(where, nbytes=2 << 30):
+    """Sequential write (fsync'd) and read-back rates of one ``nbytes``
+    file under ``where``, the yardstick of the checkpoint's rates (the
+    read may come from the page cache, as the restore's may)."""
+    import os
+    path = where / "disk_probe.bin"
+    buf = os.urandom(64 << 20)
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(nbytes // len(buf)):
+            f.write(buf)
+        f.flush()
+        os.fsync(f.fileno())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        while f.read(64 << 20):
+            pass
+    read_s = time.perf_counter() - t0
+    path.unlink()
+    return dict(disk_write_gb_per_s=nbytes / write_s / 1e9,
+                disk_read_gb_per_s=nbytes / read_s / 1e9)
+
+
+def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
+                       steps=4, every=2, fail_at=3):
+    """``fault.train_loop`` for ``steps`` steps checkpointing every
+    ``every`` (async saves, as the training CLI runs it), uninterrupted;
+    then again with a failure injected at ``fail_at`` -- the one exception
+    caught, and it must be raised -- and resumed from the last checkpoint.
+    Params and the whole AdamW state must be bitwise equal between the two
+    runs; each run's launches the path's count times its steps.  Returns
+    the launches of the three runs together."""
+    import shutil
+    from repro_torch.ckpt import ckpt
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime import fault
+    from repro_torch.train import step as T
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    ocfg = OptConfig()
+    step_fn = T.make_train_step(cfg, policy, ocfg, T.TrainConfig())
+    batches = make_batches(torch, cfg, args.seed, steps, batch, seq, device)
+
+    def init_fn():
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return T.init_state(gen, cfg, ocfg, device=device)
+
+    per_step = train_launch_counts(cfg, policy)
+    total = dict.fromkeys(per_step, 0)
+
+    def run(name, fcfg, n_run):
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = fault.train_loop(fcfg, init_fn, step_fn, batches.__getitem__,
+                                   steps)
+        except fault.FailureInjected as e:
+            # the saves already in flight land before the restart reads
+            # the directory, as they would before a real job restarts
+            ckpt.wait_pending()
+            out, failed = None, str(e)
+        else:
+            failed = None
+        got = {k: v for k, v in read_launches().items() if k in per_step}
+        want = {k: v * n_run for k, v in per_step.items()}
+        for k in total:
+            total[k] += got[k]
+        emit("train_resume", run=name, seconds=time.perf_counter() - t0,
+             failed=failed, latest_step=ckpt.latest_step(fcfg.ckpt_dir),
+             step_seconds=out[1].times if out else None,
+             stragglers=out[1].straggler_steps if out else None,
+             launches=got, expected_launches=want)
+        if on_card and got != want:
+            raise AssertionError(f"train_resume {name}: launches {got} != "
+                                 f"path {want}")
+        return out
+
+    dirs = [CKPT_ROOT / "uninterrupted", CKPT_ROOT / "interrupted"]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        state_a, _ = run("uninterrupted", fault.FaultConfig(
+            ckpt_dir=str(dirs[0]), ckpt_every=every, async_save=True), steps)
+        with open(dirs[0] / f"step_{steps:08d}" / "manifest.json") as f:
+            ckpt_bytes = json.load(f)["bytes"]
+        shutil.rmtree(dirs[0])
+        fcfg = fault.FaultConfig(ckpt_dir=str(dirs[1]), ckpt_every=every,
+                                 async_save=True, fail_at_step=fail_at)
+        if run("interrupted", fcfg, fail_at) is not None:
+            raise AssertionError("train_resume: the injected failure was "
+                                 "not raised")
+        resumed_at = ckpt.latest_step(fcfg.ckpt_dir)
+        fcfg.fail_at_step = None
+        state_b, _ = run("resumed", fcfg, steps - resumed_at)
+    finally:
+        ckpt.wait_pending()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    bad, n_leaves = tree_mismatches(torch, state_b, state_a)
+    emit("train_resume", step="compare", resumed_at=resumed_at,
+         checkpoint_bytes=ckpt_bytes, leaves=n_leaves,
+         leaves_not_bitwise=bad,
+         opt_step=int(state_b["opt"]["step"]), n_layers=cfg.n_layers,
+         seconds=time.perf_counter() - t_phase)
+    if bad:
+        raise AssertionError(f"train_resume: resumed state differs from the "
+                             f"uninterrupted one at {bad[:8]}")
+    return total
+
+
 def kernels_line(rows, attn, train_rows, launches, slots, cfg):
     """One entry per CUDA kernel: its launches on the main paths (serving,
     2D and 1D training, each counted from 0) and the numbers of its row at
@@ -1700,9 +1997,13 @@ def main(argv=None) -> int:
         torch, device, cfg, policy, args, slots, chunk, max_len, new_tokens,
         lengths)
     phase_slice(torch, eng, cfg, prompts, chunk)
-    del eng  # the serving store (~36 GB) makes room for training
+    del eng  # the serving store (~36 GB) makes room for the next phases
     free_device(torch, device)
     launches = {"serve": serve_launches}
+    launches["ckpt_serve"] = phase_ckpt_serve(
+        torch, device, cfg, policy, args, slots, chunk, max_len, new_tokens,
+        lengths)
+    free_device(torch, device)
     # 2D (MXSF_TRAIN) at full depth, then the 1D layout at cut depth
     pol2 = MXSF_TRAIN.replace(backend="cuda")
     state, batches, launches["train_2d"] = phase_train(
@@ -1718,6 +2019,28 @@ def main(argv=None) -> int:
         torch, device, cfg1, pol1, args, 2, batch, seq, "1d", profile=True)
     phase_train_slice(torch, device, cfg1, pol1, state, batches[0], "1d")
     del state, batches
+    free_device(torch, device)
+    launches["train_resume"] = phase_train_resume(
+        torch, device, train_cfg.replace(n_layers=min(2, train_cfg.n_layers)),
+        pol2, args, batch, seq)
+    free_device(torch, device)
+    # deit-tiny at full size, both layouts, batch 64 (paper Table III)
+    enc_cfg = get_config("deit-tiny")
+    enc_batch = 64 if not rehearsal else 4
+    if rehearsal:
+        enc_cfg = enc_cfg.reduced()
+    for label, pol in (("2d", pol2), ("1d", pol1)):
+        t0 = time.perf_counter()
+        state, batches, launches[f"train_encoder_{label}"] = phase_train(
+            torch, device, enc_cfg, pol, args, 3, enc_batch,
+            enc_cfg.frontend_tokens + 1, label, profile=True,
+            phase="train_encoder")
+        phase_train_slice(torch, device, enc_cfg, pol, state, batches[0],
+                          label, phase="train_encoder")
+        emit("train_encoder", layout=label, step="done",
+             seconds=time.perf_counter() - t0)
+        del state, batches
+        free_device(torch, device)
     line = kernels_line(rows, attn, train_rows, launches, slots, cfg)
     if device.type == "cuda":
         never = [k["name"] for k in line["kernels"] if k["launches"] == 0]

@@ -4,7 +4,8 @@
 leaves were turned into numpy arrays (``jax.tree.map(np.asarray, params)``,
 done by the caller; this module imports nothing of JAX).  The tree keeps the
 JAX layout -- the stacked ``(n_super, ...)`` layer axis and the ``sub{j}``
-keys -- which is the port's layout too, so leaves map one to one.  A packed
+keys of a decoder, the ``(n_layers, ...)`` stack of the encoder -- which is
+the port's layout too, so leaves map one to one.  A packed
 leaf (any object with ``codes``, ``scale_e8m0``, ``fmt``, ``block``,
 ``shape`` and ``dtype``) goes through ``qt_from_numpy``.  After conversion
 both packages compute the same function.  ``train_state_from_numpy``
@@ -19,6 +20,7 @@ import torch
 from .configs.base import ModelConfig
 from .core.blocking import QuantizedTensor
 from .core.packed_store import tree_leaves
+from .models.transformer import n_stacked
 
 __all__ = ["tensor_from_numpy", "qt_from_numpy", "params_from_numpy",
            "train_state_from_numpy"]
@@ -58,13 +60,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
         return tensor_from_numpy(node, device)
 
     out = walk(tree)
-    n_super = cfg.n_layers // cfg.moe_every
+    n_lead = n_stacked(cfg)
     for leaf in tree_leaves(out.get("layers", {})):
         lead = (leaf.codes if isinstance(leaf, QuantizedTensor)
                 else leaf).shape[0]
-        if lead != n_super:
+        if lead != n_lead:
             raise ValueError(f"layer leaf has leading dim {lead}, expected "
-                             f"n_super={n_super} for {cfg.name}")
+                             f"{n_lead} for {cfg.name}")
     return out
 
 

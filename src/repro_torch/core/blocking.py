@@ -23,7 +23,7 @@ import torch.nn.functional as Fn
 from . import formats as F
 
 __all__ = ["QuantizedTensor", "quantize", "dequantize", "qdq", "transpose_qt",
-           "torch_dtype"]
+           "torch_dtype", "block_scaled_view", "exponent_gaps"]
 
 SCALE_BIAS = 127  # E8M0 storage bias
 
@@ -211,3 +211,20 @@ def transpose_qt(qt: QuantizedTensor) -> QuantizedTensor:
     return QuantizedTensor(qt.codes.transpose(-1, -2),
                            qt.scale_e8m0.transpose(-1, -2), qt.fmt, qt.block,
                            shape, qt.dtype)
+
+
+def block_scaled_view(qt: QuantizedTensor):
+    """Return (values_rel, se_per_element) decoded without applying scales."""
+    se = qt.scale_e8m0.to(torch.int32) - SCALE_BIAS
+    return F.decode_rel(qt.codes, qt.format), _se_per_element(se, qt.block)
+
+
+def exponent_gaps(x: torch.Tensor, block: Tuple[int, ...]) -> torch.Tensor:
+    """Per-element exponent distance S_e - e_x within blocks (paper Fig. 1a).
+
+    Returns gaps for nonzero elements; zero elements get gap = 127."""
+    xf = _pad_to_block(x.float(), block)
+    se_el = _se_per_element(F.shared_exponent(_block_amax(xf, block)), block)
+    gap = se_el - F.floor_log2(xf)
+    gap = torch.where(xf != 0, gap, torch.full_like(gap, 127))
+    return _crop(gap, x.shape)

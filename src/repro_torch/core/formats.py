@@ -28,6 +28,7 @@ __all__ = [
     "quantize_rel",
     "encode_rel",
     "decode_rel",
+    "max_quant_error_bound",
 ]
 
 
@@ -47,6 +48,30 @@ class MXFormat:
         if self.kind == "none":
             return 16
         return 1 + self.ebits + self.mbits
+
+    @property
+    def emax_offset(self) -> int:
+        """Largest representable exponent offset relative to S_e (always 0)."""
+        return 0
+
+    @property
+    def emin_offset(self) -> int:
+        """Smallest *normal* exponent offset relative to S_e."""
+        if self.kind == "fp":
+            return 2 - 2 ** self.ebits  # 1 - E,  E = 2^ebits - 1
+        if self.kind == "safe":
+            return -9  # E3M2 bias-10 regime bottom
+        return 0
+
+    @property
+    def max_rel(self) -> float:
+        """Largest representable magnitude relative to 2^S_e."""
+        if self.kind == "int":
+            return (2 ** (self.mbits - 1) - 1) / 2 ** (self.mbits - 2)
+        if self.kind in ("fp", "safe"):
+            mb = 5 if self.kind == "safe" else self.mbits
+            return 2.0 - 2.0 ** (-mb)
+        return float("inf")
 
 
 FORMATS = {
@@ -276,3 +301,31 @@ def decode_rel(code: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
     if fmt.kind == "int":
         return _decode_int_rel(code, fmt.mbits)
     raise ValueError(f"format {fmt.name} has no packed codec")
+
+
+# ---------------------------------------------------------------------------
+# analytical error bounds (paper Eq. 5-6), used by the Fig. 1 analysis
+# ---------------------------------------------------------------------------
+
+def max_quant_error_bound(gap, fmt: MXFormat, s_e=0) -> torch.Tensor:
+    """Paper Eq. (5-6): max quantization error vs exponent gap (S_e - e_x)."""
+    gap = torch.as_tensor(gap, dtype=torch.float32)
+    s_e = torch.as_tensor(s_e, dtype=torch.float32, device=gap.device)
+    if fmt.kind == "int":
+        return torch.pow(2.0, s_e - (fmt.mbits - 2) - 1).expand(gap.shape)
+    e_x = s_e - gap
+    if fmt.kind == "fp":
+        E = 2 ** fmt.ebits - 1
+        x_le = E - gap
+        # standard (continuous) subnormals sit one binade above Eq.(4)'s
+        # idealized grid: half-step doubles once x_le <= 0
+        sub = torch.where(x_le <= 0, 2.0, 1.0)
+        return (torch.pow(2.0, e_x - fmt.mbits - 1)
+                * torch.pow(2.0, -torch.clamp(x_le, max=0)) * sub)
+    if fmt.kind == "safe":
+        wide = gap < 3
+        err_wide = torch.pow(2.0, e_x - 5 - 1)
+        x_le3 = torch.clamp(10.0 - gap, min=1.0) - 10.0 + gap  # 0 if normal
+        err_narrow = torch.pow(2.0, e_x - 2 - 1) * torch.pow(2.0, x_le3)
+        return torch.where(wide, err_wide, err_narrow)
+    return torch.zeros_like(gap)

@@ -10,7 +10,7 @@ the block on the trailing dims, so a layer slice of the codes is that
 layer's packed weight.
 
 Sharded placement (``packed_spec``, ``shard_block_aligned``) waits for the
-multi-GPU slice (ROADMAP Queue 1 item 10).
+multi-GPU slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ from . import formats as F
 from .policy import QuantPolicy
 
 __all__ = ["PACKED_LEAF_NAMES", "packable_policy", "weight_block",
-           "pack_params", "unpack_params", "pack_leaf", "store_nbytes",
-           "tree_map"]
+           "pack_params", "unpack_params", "pack_leaf", "pack_leaf_spec",
+           "store_nbytes", "tree_map"]
 
 # dict keys of matmul-weight leaves; each is consumed through
 # blocks.dense -> mx_dot
@@ -78,6 +78,26 @@ def pack_leaf(w: torch.Tensor, policy: QuantPolicy,
     if dtype is not None:
         w = w.to(B.torch_dtype(dtype))
     return B.quantize(w, policy.fwd_fmt, weight_block(policy))
+
+
+def pack_leaf_spec(shape, policy: QuantPolicy,
+                   dtype) -> B.QuantizedTensor:
+    """What ``pack_leaf`` makes of a weight of ``shape``, with ``meta``
+    tensors for codes and scales: the block-padded codes, the block grid of
+    scale bytes and the static MX metadata, and no weight drawn or
+    quantized."""
+    block = weight_block(policy)
+    nb = len(block)
+    lead, tail = tuple(shape[:-nb]), tuple(shape[-nb:])
+    grid = tuple(-(-d // b) for d, b in zip(tail, block))
+    # the codes' dtype is the codec's (uint8 for MXSF): read it off one block
+    probe = B.quantize(torch.zeros(block), policy.fwd_fmt, block)
+    meta = lambda s, dt: torch.empty(s, dtype=dt, device="meta")
+    return B.QuantizedTensor(
+        meta(lead + tuple(g * b for g, b in zip(grid, block)),
+             probe.codes.dtype),
+        meta(lead + grid, probe.scale_e8m0.dtype), policy.fwd_fmt,
+        tuple(block), tuple(shape), B.dtype_name(B.torch_dtype(dtype)))
 
 
 def _packable(leaf) -> bool:

@@ -1,14 +1,17 @@
-"""Training entry point for decoder configs (the port of the JAX package's
+"""End-to-end training entry point (the port of the JAX package's
 ``launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
-        --arch h2o-danube-1.8b --steps 20 --batch 4 --seq 512
+        --arch h2o-danube-1.8b --steps 20 --batch 4 --seq 512 \
+        --ckpt-dir /tmp/run1
 
-Runs on the CUDA device unless ``--device cpu`` is given, through the
-kernel datapath (``backend="cuda"``: on CPU tensors the kernels' plain
-versions run).  The flags keep the JAX CLI's names.  Checkpointing and auto-resume
-(``--ckpt-dir``, ``--ckpt-every``) need ``ckpt/`` and ``runtime/fault.py``,
-which are not ported: either flag raises ``NotImplementedError``.
+Decoder configs train on ``lm_batch``, the encoder (``deit-tiny``) on
+``vision_batch``; append ``-reduced`` to an arch id for the CPU-scale
+variant.  Runs on the CUDA device unless ``--device cpu`` is given, through
+the kernel datapath (``backend="cuda"``: on CPU tensors the kernels' plain
+versions run).  The flags keep the JAX CLI's names.  Fault tolerance is on
+by default: the run checkpoints every ``--ckpt-every`` steps and
+auto-resumes from the latest checkpoint in ``--ckpt-dir``.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 
 from ..configs.base import get_config
 from ..core.policy import QuantPolicy
-from ..data.pipeline import lm_batch
+from ..data.pipeline import lm_batch, vision_batch
 from ..optim.adamw import OptConfig
+from ..runtime import fault
 from ..train import step as T
 
 
@@ -45,8 +49,8 @@ def parse_args(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=["none", "dots", "full"])
     ap.add_argument("--grad-compress", default=None)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_train")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
@@ -54,12 +58,29 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def make_batch_fn(cfg, args, device):
+    """``batch_fn(step)`` of the config's family."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("encoder-decoder training is not ported "
+                                  "yet; see ROADMAP.md, Queue 1 item 4d")
+    if cfg.family == "decoder" and cfg.frontend_tokens:
+        raise NotImplementedError("VLM prefix tokens are not ported yet; "
+                                  "see ROADMAP.md, Queue 1 item 4c")
+
+    def batch_fn(i):
+        if cfg.family == "encoder":
+            x, y = vision_batch(args.seed, i, args.batch, cfg.frontend_tokens,
+                                cfg.d_model, cfg.n_classes, device=device)
+            return {"embeds": x, "label": y}
+        toks, labs = lm_batch(args.seed, i, args.batch, args.seq, cfg.vocab,
+                              device=device)
+        return {"tokens": toks, "labels": labs}
+
+    return batch_fn
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.ckpt_dir is not None or args.ckpt_every is not None:
-        raise NotImplementedError(
-            "--ckpt-dir/--ckpt-every need checkpoints and runtime/fault.py, "
-            "not ported yet; see ROADMAP.md, Queue 1 item 7")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on "
@@ -72,23 +93,31 @@ def main(argv=None):
                          grad_compress=args.grad_compress,
                          xent_chunk=min(1024, args.seq))
     step_fn = T.make_train_step(cfg, policy, ocfg, tcfg)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = T.init_state(gen, cfg, ocfg, device=device)
+    batch_fn = make_batch_fn(cfg, args, device)
+
+    def init_fn():
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return T.init_state(gen, cfg, ocfg, device=device)
+
     log = []
     t0 = time.time()
-    for i in range(args.steps):
-        toks, labs = lm_batch(args.seed, i, args.batch, args.seq, cfg.vocab,
-                              device=device)
-        state, metrics = step_fn(state, {"tokens": toks, "labels": labs})
-        if i % args.log_every == 0 or i == args.steps - 1:
-            row = {k: float(v) for k, v in metrics.items()}
-            row["step"] = i
+
+    def on_metrics(step, metrics):
+        if step % args.log_every == 0 or step == args.steps - 1:
+            row = dict(metrics)
+            row["step"] = step
             row["wall_s"] = round(time.time() - t0, 1)
             log.append(row)
-            print(f"step {i:5d} " +
+            print(f"step {step:5d} " +
                   " ".join(f"{k}={v:.4g}" for k, v in row.items()
                            if k != "step"), flush=True)
-    print(f"done in {time.time() - t0:.1f}s", flush=True)
+
+    fcfg = fault.FaultConfig(ckpt_dir=args.ckpt_dir,
+                             ckpt_every=args.ckpt_every, async_save=True)
+    state, dog = fault.train_loop(fcfg, init_fn, step_fn, batch_fn,
+                                  args.steps, metrics_cb=on_metrics)
+    print(f"done in {time.time() - t0:.1f}s; "
+          f"stragglers at {dog.straggler_steps}", flush=True)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(log, f, indent=1)

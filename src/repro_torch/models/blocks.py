@@ -1,6 +1,6 @@
-"""Decoder model blocks: dense, norms, rotary embeddings, MLPs, attention.
+"""Model blocks: dense, norms, rotary embeddings, MLPs, attention.
 
-PyTorch counterpart of the decoder parts of the JAX package's
+PyTorch counterpart of the decoder and encoder parts of the JAX package's
 ``models/blocks.py``.  Every matmul goes through ``mx_dot`` /
 ``mx_einsum``; softmax, norms and residual math stay in f32 or the compute
 dtype as in the JAX package.
@@ -11,8 +11,8 @@ forward: ``_attend``/``_scores_block``, query-chunked with a
 a packed MXSF KV cache through the flash kernel
 (``kernels/mxsf_attention.py``), for S=1 decode steps and S=C prefill
 chunks.  Cross-attention, un-packed or value-domain caches, and ``moe``
-are not ported and raise ``NotImplementedError`` (ROADMAP.md, Deferred
-item 3).
+are not ported and raise ``NotImplementedError`` (ROADMAP.md, Queue 1
+items 4a, 4b and 4d).
 
 Where the JAX package returns a new cache, ``attention`` writes the new
 K/V codes into the given cache tensors in place and returns the same dict.
@@ -47,6 +47,18 @@ def rmsnorm(p, x, eps=1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["w"]).to(x.dtype)
+
+
+def layernorm_init(d, device=None):
+    return {"w": torch.ones(d, device=device),
+            "b": torch.zeros(d, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["w"] + p["b"]).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -129,7 +141,7 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
         raise NotImplementedError(
             "cached attention is ported only over a packed MXSF KV cache "
             "through the kernel (not backend 'torch', softcaps or SWA "
-            "patterns); see ROADMAP.md, Deferred item 3")
+            "patterns); see ROADMAP.md, Queue 1 item 4a")
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     dev = x.device

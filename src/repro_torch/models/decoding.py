@@ -53,10 +53,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     ``device`` (``None``: the card; CPU callers pass ``device="cpu"``)."""
     if cfg.family != "decoder":
         raise NotImplementedError(f"family {cfg.family!r} has no ported "
-                                  "cache; see ROADMAP.md, Queue 1 item 9")
+                                  "cache; see ROADMAP.md, Queue 1 item 4")
     if kv_fmt != "mxsf":
         raise NotImplementedError("only the packed MXSF KV cache is ported; "
-                                  "see ROADMAP.md, Deferred item 3")
+                                  "see ROADMAP.md, Queue 1 item 4a")
     lead = (cfg.n_layers // cfg.moe_every, cfg.moe_every, batch,
             max_len + cfg.frontend_tokens, cfg.n_kv)
     codes = lead + (cfg.head_dim,)

@@ -4,7 +4,8 @@ PyTorch counterpart of the serving parts of the JAX package's
 ``models/model.py``, plus ``init_packed_params``: a packed store drawn leaf
 by leaf, so a model whose f32 weights would not fit the device (qwen2.5-32b
 at full width: ~131 GB of f32 against ~36 GB packed) can be served from
-random weights.
+random weights.  ``packed_model_specs`` is the store's structure on the
+``meta`` device, the restore target of a packed checkpoint.
 """
 from __future__ import annotations
 
@@ -42,6 +43,41 @@ def pack_model_params(cfg: ModelConfig, params, policy: QuantPolicy,
                                     exclude=exclude)
 
 
+def packed_model_specs(cfg: ModelConfig, policy: QuantPolicy, dtype=None):
+    """The structure of ``pack_model_params(cfg, init_params(cfg, g),
+    policy, dtype)`` without drawing a weight: ``meta`` tensors for the
+    value leaves and for packed leaves' codes and scales, with the packed
+    leaves' static MX metadata -- the ``ckpt.restore`` target of a packed
+    checkpoint.  The JAX package gets it from ``jax.eval_shape``; here it
+    follows ``transformer.layer_leaves`` and ``packed_store``'s leaf rules
+    (tied configs get the injected packed ``"head"``)."""
+    pack = packed_store.packable_policy(policy)
+    dtype = cfg.compute_dtype if dtype is None else dtype
+    meta = lambda shape: torch.empty(shape, dtype=torch.float32,
+                                     device="meta")
+
+    def leaf(name, shape):
+        if pack and name in packed_store.PACKED_LEAF_NAMES and len(shape) > 1:
+            return packed_store.pack_leaf_spec(shape, policy, dtype)
+        return meta(shape)
+
+    specs = {"final_norm": {"w": meta((cfg.d_model,))}}
+    if cfg.family == "encoder":
+        specs["pos"] = meta((cfg.frontend_tokens + 1, cfg.d_model))
+        specs["cls"] = meta((1, 1, cfg.d_model))
+        specs["head"] = leaf("head", transformer.head_shape(cfg))
+    else:
+        specs["emb"] = meta((cfg.padded_vocab, cfg.d_model))
+        if pack or not cfg.tie_embeddings:
+            specs["head"] = leaf("head", transformer.head_shape(cfg))
+    n = transformer.n_stacked(cfg)
+    layers: dict = {}
+    for path, shape, _ in transformer.layer_leaves(cfg):
+        transformer.set_path(layers, path, leaf(path[-1], (n,) + shape))
+    specs["layers"] = layers
+    return specs
+
+
 def _empty_stack(leaf, n: int):
     """Uninitialized ``(n, ...)`` stack shaped like one layer's leaf."""
     empty = lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
@@ -70,6 +106,7 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     in the same order as ``init_params``, so on one device
     ``pack_model_params(init_params(g))`` and this agree bitwise.
     ``device=None`` is the generator's own device."""
+    transformer.check_ported(cfg)
     if device is None:
         device = generator.device
     if not packed_store.packable_policy(policy):
@@ -83,8 +120,8 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     else:
         params["head"] = packed_store.pack_leaf(params["emb"].T, policy,
                                                 dtype)
-    n_super = cfg.n_layers // cfg.moe_every
-    leaves = list(transformer.decoder_leaves(cfg))
+    n_super = transformer.n_stacked(cfg)
+    leaves = list(transformer.layer_leaves(cfg))
     stacked = [None] * len(leaves)
     for layer in range(n_super):
         for i, (path, shape, kind) in enumerate(leaves):

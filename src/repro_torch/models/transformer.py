@@ -1,18 +1,21 @@
-"""Decoder-family parameter tree, embeddings, sublayer, forward, LM head.
+"""Decoder- and encoder-family parameter trees, embeddings, sublayer,
+forward, LM head.
 
-PyTorch counterpart of the decoder parts of the JAX package's
-``models/transformer.py``: the training forward (``forward_hidden``) and
-the pieces the cached decoder (``decoding.py``) shares with it.  The parameter tree has the JAX layout -- layers
-stacked on a leading ``(n_super, ...)`` axis with ``sub{j}`` keys per
-super-layer -- so ``convert.params_from_numpy`` carries a JAX tree across
-leaf for leaf.
+PyTorch counterpart of the decoder and encoder parts of the JAX package's
+``models/transformer.py``: the training forward (``forward``,
+``forward_hidden``, ``_encoder_forward``) and the pieces the cached decoder
+(``decoding.py``) shares with it.  The parameter tree has the JAX layout --
+decoder layers stacked on a leading ``(n_super, ...)`` axis with ``sub{j}``
+keys per super-layer, encoder layers stacked ``(n_layers, ...)`` with no
+``sub{j}`` level -- so ``convert.params_from_numpy`` carries a JAX tree
+across leaf for leaf.
 
 ``init_params(cfg, generator, device)`` draws the same *distributions* as
-the JAX init (normal * 1/sqrt(d_in) for projections, * 0.02 for embedding
-and head, zero biases, unit norms), not the same bits.  Every weight is
-drawn one layer at a time in a fixed order (``decoder_leaves``), so
-``model.init_packed_params`` can draw the same values and pack each one as
-it is drawn, without ever holding the f32 tree.
+the JAX init (normal * 1/sqrt(d_in) for projections, * 0.02 for embedding,
+positions and head, zero biases and cls token, unit norms), not the same
+bits.  Every weight is drawn one layer at a time in a fixed order
+(``layer_leaves``), so ``model.init_packed_params`` can draw the same
+values and pack each one as it is drawn, without ever holding the f32 tree.
 """
 from __future__ import annotations
 
@@ -55,18 +58,40 @@ def _sublayer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
         yield ("pn2", "w"), (d,), "ones"
 
 
-def _check_dense_decoder(cfg: ModelConfig):
-    if cfg.family != "decoder":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  "see ROADMAP.md, Queue 1 item 9")
+# Queue 1 item (ROADMAP.md) that ports each family still missing
+_FAMILY_ITEM = {"encdec": "4d", "ssm": "4e", "hybrid": "4e"}
+
+
+def check_ported(cfg: ModelConfig, encoder: bool = False):
+    """Raise for a family the calling path does not have yet: dense
+    decoders everywhere, the encoder where ``encoder`` says the path takes
+    it, no MoE."""
+    if cfg.family not in (("decoder", "encoder") if encoder
+                          else ("decoder",)):
+        item = _FAMILY_ITEM.get(cfg.family, "4")
+        raise NotImplementedError(f"family {cfg.family!r} is not ported on "
+                                  f"this path; see ROADMAP.md, Queue 1 item "
+                                  f"{item}")
     if cfg.n_experts > 0:
         raise NotImplementedError("MoE layers are not ported yet; see "
-                                  "ROADMAP.md, Queue 1 item 9")
+                                  "ROADMAP.md, Queue 1 item 4b")
 
 
-def decoder_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
-    """Per-layer leaves of one super-layer, keyed ``(sub{j}, ...)``."""
-    _check_dense_decoder(cfg)
+def n_stacked(cfg: ModelConfig) -> int:
+    """Leading dim of the stacked layer leaves: n_layers for the encoder,
+    the super-layer count for a decoder."""
+    if cfg.family == "encoder":
+        return cfg.n_layers
+    return cfg.n_layers // cfg.moe_every
+
+
+def layer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
+    """Per-layer leaves of one stacked layer: ``(sub{j}, ...)`` keys for a
+    decoder super-layer, the sublayer's own keys for the encoder."""
+    check_ported(cfg, encoder=True)
+    if cfg.family == "encoder":
+        yield from _sublayer_leaves(cfg)
+        return
     for j in range(cfg.moe_every):
         for path, shape, kind in _sublayer_leaves(cfg):
             yield (f"sub{j}",) + path, shape, kind
@@ -85,9 +110,16 @@ def draw_embedding(cfg: ModelConfig, gen, device) -> torch.Tensor:
                        device=device, dtype=torch.float32) * 0.02
 
 
+def head_shape(cfg: ModelConfig) -> Tuple[int, int]:
+    """The head's (d, N): the classifier's for the encoder, else the LM's."""
+    if cfg.family == "encoder":
+        return (cfg.d_model, cfg.n_classes)
+    return (cfg.d_model, cfg.padded_vocab)
+
+
 def draw_head(cfg: ModelConfig, gen, device) -> torch.Tensor:
-    return torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen,
-                       device=device, dtype=torch.float32) * 0.02
+    return torch.randn(head_shape(cfg), generator=gen, device=device,
+                       dtype=torch.float32) * 0.02
 
 
 def set_path(tree: dict, path, value):
@@ -98,18 +130,24 @@ def set_path(tree: dict, path, value):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """f32 parameter tree of a decoder config (the JAX layout), on
-    ``device`` (``None``: the generator's own device)."""
+    """f32 parameter tree of a decoder or encoder config (the JAX layout),
+    on ``device`` (``None``: the generator's own device)."""
     if device is None:
         device = generator.device
     params = {"final_norm": {"w": torch.ones(cfg.d_model, device=device)}}
-    params["emb"] = draw_embedding(cfg, generator, device)
-    if not cfg.tie_embeddings:
+    if cfg.family == "encoder":
+        params["pos"] = torch.randn(
+            (cfg.frontend_tokens + 1, cfg.d_model), generator=generator,
+            device=device, dtype=torch.float32) * 0.02
+        params["cls"] = torch.zeros((1, 1, cfg.d_model), device=device)
         params["head"] = draw_head(cfg, generator, device)
-    n_super = cfg.n_layers // cfg.moe_every
-    leaves = list(decoder_leaves(cfg))
+    else:
+        params["emb"] = draw_embedding(cfg, generator, device)
+        if not cfg.tie_embeddings:
+            params["head"] = draw_head(cfg, generator, device)
+    leaves = list(layer_leaves(cfg))
     per_layer = [[] for _ in leaves]
-    for _ in range(n_super):
+    for _ in range(n_stacked(cfg)):
         for i, (_, shape, kind) in enumerate(leaves):
             per_layer[i].append(draw_leaf(shape, kind, generator, device))
     layers: dict = {}
@@ -155,7 +193,7 @@ def _embed_tokens(params, batch, cfg: ModelConfig):
     the cast to the compute dtype -- not the cached decoder's order."""
     if "embeds" in batch and cfg.frontend_tokens:
         raise NotImplementedError("VLM prefix tokens are not ported yet; "
-                                  "see ROADMAP.md, Queue 1 item 9")
+                                  "see ROADMAP.md, Queue 1 item 4c")
     x = params["emb"][batch["tokens"].long()]
     if cfg.name.startswith("gemma2"):
         x = x * math.sqrt(cfg.d_model)
@@ -164,13 +202,14 @@ def _embed_tokens(params, batch, cfg: ModelConfig):
 
 def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
                     window, positions=None, cache=None, cache_pos=None,
-                    cache_write_len=None):
-    """Pre-norm attention + MLP sublayer (dense decoders), uncached
-    (``positions``) or over a packed KV cache (``cache``...)."""
+                    cache_write_len=None, causal=True):
+    """Pre-norm attention + MLP sublayer (dense decoders; the encoder with
+    ``causal=False``), uncached (``positions``) or over a packed KV cache
+    (``cache``...)."""
     h = blk.rmsnorm(p["ln1"], x)
     a, _ = blk.attention(p["attn"], h, cfg, policy, positions=positions,
-                         window=window, cache=cache, cache_pos=cache_pos,
-                         cache_write_len=cache_write_len)
+                         causal=causal, window=window, cache=cache,
+                         cache_pos=cache_pos, cache_write_len=cache_write_len)
     if cfg.post_norms:
         a = blk.rmsnorm(p["pn1"], a)
     x = x + a
@@ -190,21 +229,43 @@ def _unstack(tree, n: int):
     return list(torch.unbind(tree, 0))
 
 
-def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
-                   remat: str = "none"):
-    """Pre-head hidden states (B, S, d) of a dense decoder -- the chunked
-    loss's entry point.  ``remat="full"`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``); the JAX package's ``"dots"``
-    policy has no PyTorch counterpart."""
-    _check_dense_decoder(cfg)
+def _run_layers(layers, n: int, body, x, remat: str):
+    """``x = body(x, layer_params, i)`` over the stacked layers;
+    ``remat="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``).  The JAX package's ``"dots"`` policy has
+    no PyTorch counterpart yet."""
     if remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={remat!r}: only 'none' and 'full' are ported; see "
-            "ROADMAP.md, Deferred item 2")
+            "ROADMAP.md, Queue 1 item 6")
+    for i, lp in enumerate(_unstack(layers, n)):
+        if remat == "full":
+            x = ckpt.checkpoint(body, x, lp, i, use_reentrant=False)
+        else:
+            x = body(x, lp, i)
+    return x
+
+
+def forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
+            remat: str = "none"):
+    """Full-sequence logits (f32) for training: the encoder's class logits
+    (B, n_classes), a decoder's LM logits (B, S, padded_vocab)."""
+    if cfg.family == "encoder":
+        return _encoder_forward(params, batch, cfg, policy, remat)
+    return lm_head(params, forward_hidden(params, batch, cfg, policy, remat),
+                   cfg, policy)
+
+
+def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
+                   remat: str = "none"):
+    """Pre-head hidden states (B, S, d) of a dense decoder -- the chunked
+    loss's entry point."""
+    if cfg.family == "encoder":
+        raise ValueError("the encoder has no LM hidden states; use forward")
+    check_ported(cfg)
     x = _embed_tokens(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    n_super = cfg.n_layers // cfg.moe_every
     windows = layer_windows(cfg, cfg.n_layers)
 
     def body(x, lp, i):
@@ -214,9 +275,25 @@ def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                                 window=windows[i * cfg.moe_every + j])
         return x
 
-    for i, lp in enumerate(_unstack(params["layers"], n_super)):
-        if remat == "full":
-            x = ckpt.checkpoint(body, x, lp, i, use_reentrant=False)
-        else:
-            x = body(x, lp, i)
-    return x
+    return _run_layers(params["layers"], n_stacked(cfg), body, x, remat)
+
+
+def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
+                     remat: str):
+    """Encoder classifier: the cls token and learned positions before
+    non-causal sublayers, the final rmsnorm, and the head on the cls row,
+    in f32."""
+    x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+    B = x.shape[0]
+    cls = params["cls"].to(x.dtype).expand(B, 1, cfg.d_model)
+    x = torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def body(x, lp, i):
+        return _apply_sublayer(lp, x, cfg, policy, positions=positions,
+                               window=NO_WINDOW, causal=False)
+
+    x = _run_layers(params["layers"], n_stacked(cfg), body, x, remat)
+    x = blk.rmsnorm(params["final_norm"], x)
+    return blk.dense(x[:, 0], params["head"], policy).float()

@@ -23,9 +23,9 @@ Generation stops at ``max_new`` tokens, a full cache, or the request's
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): ``device=None`` means ``"cuda"`` and
 raises when CUDA is absent.  ``backend="cuda"`` selects the kernel datapath;
-on CPU tensors the kernels' plain versions run.  Sharded serving (``mesh``)
-and ``from_checkpoint`` are not ported yet (ROADMAP.md, Queue 1 items 10
-and 7).
+on CPU tensors the kernels' plain versions run.  ``from_checkpoint`` builds
+an engine straight from a packed checkpoint; sharded serving (``mesh``) is
+not ported yet (ROADMAP.md, Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -162,6 +162,28 @@ class ServeEngine:
 
     def _sample(self, logits) -> np.ndarray:
         return self.sampler(logits).cpu().numpy()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: ModelConfig, ckpt_dir: str,
+                        policy: QuantPolicy, *, mesh=None,
+                        step: Optional[int] = None,
+                        backend: Optional[str] = None, device=None,
+                        **engine_kw):
+        """Build a serving engine straight from a packed checkpoint.
+
+        The restore target is ``models/model.packed_model_specs`` (``meta``
+        tensors: no weight is drawn), and every leaf goes to ``device``
+        (``None``: the card) in its stored dtype, so the uint8 codes and
+        scales are never widened on the host or the card."""
+        if mesh is not None:
+            raise NotImplementedError("sharded serving is not ported yet; "
+                                      "see ROADMAP.md, Queue 1 item 5")
+        from ..ckpt import ckpt as ckpt_lib
+        pol = policy if backend is None else policy.replace(backend=backend)
+        params, _ = ckpt_lib.restore(ckpt_dir, M.packed_model_specs(cfg, pol),
+                                     step=step, device=resolve_device(device))
+        return cls(cfg, params, policy, backend=backend, device=device,
+                   **engine_kw)
 
     def stats(self) -> dict:
         """Cumulative counters plus memory placement (the JAX engine's keys,

@@ -1,7 +1,7 @@
 """Loss + train-step factory: remat, microbatch gradient accumulation,
 AdamW, optional MXSF gradient compression (beyond-paper).
 
-PyTorch counterpart of the decoder parts of the JAX package's
+PyTorch counterpart of the decoder and encoder parts of the JAX package's
 ``train/step.py``.  ``make_train_step`` returns ``train_step(state, batch)
 -> (state, metrics)``; the state is updated in place (``optim/adamw.py``).
 Gradients come from ``torch.autograd.grad`` over detached copies of the
@@ -28,7 +28,7 @@ __all__ = ["TrainConfig", "loss_fn", "make_train_step", "init_state"]
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     # 'none' | 'full'; the JAX package defaults to 'dots', a checkpoint
-    # policy with no PyTorch counterpart (ROADMAP.md, Deferred item 2)
+    # policy with no PyTorch counterpart (ROADMAP.md, Queue 1 item 6)
     remat: str = "none"
     microbatches: int = 1          # gradient accumulation
     grad_compress: Optional[str] = None  # e.g. 'mxsf' -- quantize grads
@@ -78,7 +78,16 @@ def _chunked_lm_loss(params, hidden, labels, cfg: ModelConfig,
 
 def loss_fn(params, batch, cfg: ModelConfig, policy: QuantPolicy,
             tcfg: TrainConfig):
-    """LM loss of a decoder config: (loss, {"loss": loss})."""
+    """(loss, metrics): the encoder's softmax cross-entropy over its
+    classes with ``acc``, a decoder's LM loss."""
+    if cfg.family == "encoder":
+        logits = T.forward(params, batch, cfg, policy, remat=tcfg.remat)
+        label = batch["label"].long()
+        onehot = torch.nn.functional.one_hot(label, cfg.n_classes)
+        loss = -torch.mean(torch.sum(
+            torch.log_softmax(logits, dim=-1) * onehot, dim=-1))
+        acc = torch.mean((torch.argmax(logits, dim=-1) == label).float())
+        return loss, {"loss": loss, "acc": acc}
     hidden = T.forward_hidden(params, batch, cfg, policy, remat=tcfg.remat)
     loss = _chunked_lm_loss(params, hidden, batch["labels"], cfg, policy,
                             tcfg.xent_chunk)
