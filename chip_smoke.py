@@ -86,20 +86,50 @@ Phases, each printed as one JSON line:
               TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version,
               and the loss within the head's tolerance of the loss of the
               plain head's logits.
-9. train_resume -- ``fault.train_loop`` on 2 layers of full-width
+9. serve_gemma2 -- gemma2-9b at full width and all 42 layers (softcaps,
+              alternating 4096-token SWA: the value-domain cached
+              attention): one packed store (~13 GB) shared by two
+              ``ServeEngine``s of ``MXSF_INFER`` on the kernel datapath,
+              the policy's bf16 value cache and the packed MXSF cache
+              (dequantized into the value path), 2 slots x max_len 4352,
+              chunk 256, prompts of 4200 (past the window) and 37 tokens,
+              16 new tokens each: tokens/s, peak memory, store and cache
+              bytes, launches equal to the path's (no attention kernel),
+              a profiled decode dispatch; then the value-cache engine's
+              first prefill and two decode dispatches teacher-forced as in
+              ``slice``.
+10. ring_swa -- h2o-danube-1.8b at full width and all 24 layers on the
+              all-SWA ring cache: ``init_cache(ring=True)`` at max_len
+              8192 holds W = 4096 columns; 17 window-aligned prefill
+              chunks of 256 over 2 slots (the last writes ring columns
+              0-255 again), then 8 decode steps: finite logits, launches,
+              tokens/s, a profiled decode dispatch; the first and last
+              dispatch teacher-forced.
+11. serve_moe -- qwen2-moe-a2.7b at full width, experts in f32 values,
+              at the depth the card's free memory allows (printed):
+              ``MXSF_INFER`` with the packed MXSF cache, 4 slots, max_len
+              256, prompts of 8-24 tokens, 8 new tokens, token by token;
+              tokens/s, peak memory, launches equal to the path's, a
+              profiled decode dispatch, and the first dispatch teacher-
+              forced with the assignments each MoE layer dropped past
+              its capacity.
+12. train_resume -- ``fault.train_loop`` on 2 layers of full-width
               h2o-danube-1.8b (2D, 4 x 512): 4 steps checkpointing every
               2, uninterrupted; again with a failure injected at step 3
               (``FailureInjected`` caught, and it must be raised) and
               resumed; params and the whole AdamW state bitwise equal
               between the two runs, the watchdog's step times printed.
-10. train_encoder -- full deit-tiny (12 layers, 196 patches + cls, 100
+13. train_encoder -- full deit-tiny (12 layers, 196 patches + cls, 100
               classes) at batch 64 from ``vision_batch``, in 2D and in the
               1D layout: 3 steps, one more under the profiler (device idle
               share) and one teacher-forced as in ``train_slice``; loss,
               accuracy, step seconds, tokens/s, peak memory, launch
               counts equal to the path's.
-11. the ``kernels`` line (every CUDA kernel, its launches on each path,
+14. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
+
+Phases 9-11 run right after phase 6, and a ``done`` line with the whole
+run's seconds comes before the ``kernels`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -1486,6 +1516,22 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
     return eng, prompts, launches
 
 
+def serve_launch_counts(cfg, attn_backend):
+    """Kernel launches of one serving dispatch, from the path: the fused
+    matmul for q, k, v, o and each packed MLP linear (a dense sublayer's,
+    an MoE sublayer's shared expert; routed experts run in values) of every
+    sublayer, plus the head; the attention kernel once a layer where its
+    gate is open (``attn_backend`` ``"cuda-packed"``)."""
+    from repro_torch.models.transformer import is_moe_sublayer
+    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    fused = 1
+    for i in range(cfg.n_layers):
+        moe = is_moe_sublayer(cfg, i % cfg.moe_every)
+        fused += 4 + (mlp if not moe or cfg.n_shared_experts else 0)
+    attn = cfg.n_layers if attn_backend == "cuda-packed" else 0
+    return {"mxsf_fused_matmul": fused, "mxsf_attention": attn}
+
+
 def serve_run(torch, eng, cfg, prompts, new_tokens, phase, **fields):
     """Serve ``prompts`` on ``eng`` to the end: tokens, stats, host-clock
     tokens/s, peak memory and the serving kernels' launches, which must
@@ -1507,8 +1553,8 @@ def serve_run(torch, eng, cfg, prompts, new_tokens, phase, **fields):
                 if k in ("mxsf_fused_matmul", "mxsf_attention")}
     st = eng.stats()
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
-    expect = {"mxsf_fused_matmul": (7 * cfg.n_layers + 1) * dispatches,
-              "mxsf_attention": cfg.n_layers * dispatches}
+    expect = {k: v * dispatches for k, v in
+              serve_launch_counts(cfg, eng.attn_backend).items()}
     outs = [r.out for r in reqs]
     for r in reqs:
         if not r.done or len(r.out) != new_tokens or not all(
@@ -1531,20 +1577,40 @@ def serve_run(torch, eng, cfg, prompts, new_tokens, phase, **fields):
     return outs, launches
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, ranges=()):
     """Run ``fn`` once under the profiler: host wall time (synchronised),
-    device busy time summed over device kernels, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    device busy time summed over device kernels, and the top kernels.
+    ``ranges``: (module, function name) pairs wrapped in a profiler range
+    of that name for the run, each reported with the device time of the
+    kernels launched inside it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = [(mod, name, getattr(mod, name)) for mod, name in ranges]
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        for mod, name, orig in saved:
+            setattr(mod, name, ranged(name, orig))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    labels = {name for _, name, _ in saved}
     by_name = {}  # device kernels only: an aten op's device time is that
     for evt in prof.key_averages():  # of the kernels it launched
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        if evt.key in labels:  # a range's span on the device timeline
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
@@ -1553,7 +1619,16 @@ def device_profile(torch, fn):
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     requant = [v for k, v in by_name.items() if "requantize" in k]
+    in_ranges = {}  # each range's host event: the kernels launched in it
+    for evt in prof.events():
+        if evt.name in labels and not str(evt.device_type).endswith("CUDA"):
+            ms, n = in_ranges.get(evt.name, (0.0, 0))
+            in_ranges[evt.name] = (ms + evt.device_time_total / 1e3, n + 1)
+    in_ranges = {k: dict(device_ms=ms, calls=n,
+                         share_of_busy=ms / busy_ms if busy_ms else None)
+                 for k, (ms, n) in in_ranges.items()}
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                ranges=in_ranges,
                 idle_share=(1.0 - busy_ms / (wall * 1e3)) if wall else None,
                 requantize=dict(device_ms=sum(v[0] for v in requant) / 1e3,
                                 calls=sum(v[1] for v in requant)),
@@ -1561,15 +1636,29 @@ def device_profile(torch, fn):
                                   calls=v[1]) for k, v in top])
 
 
-def profile_decode(torch, eng):
+def profile_decode(torch, eng, phase="serve", **fields):
     """One more decode dispatch on the final engine state under the
-    profiler: device busy time by kernel name against the host wall time
-    (after the launch counts were read, so it counts nowhere)."""
+    profiler (after the launch counts were read, so it counts nowhere):
+    ``profile_dispatch``."""
     toks = eng._tensor(eng.last_tok)[:, None]
     pos = eng._tensor(eng.pos)
-    eng._decode(eng.params, toks, eng.cache, pos)  # warm
-    emit("serve", step="profile_decode", **device_profile(
-        torch, lambda: eng._decode(eng.params, toks, eng.cache, pos)))
+    return profile_dispatch(
+        torch, lambda: eng._decode(eng.params, toks, eng.cache, pos),
+        phase, **fields)
+
+
+def profile_dispatch(torch, fn, phase, **fields):
+    """``fn`` (one dispatch) once to warm, then once under the profiler:
+    device busy time by kernel name against the host wall time, and the
+    device time of the value path's MX quantize-dequantize (``_qdq``:
+    attention operands, routed experts) and of the packed cache's
+    dequantize."""
+    from repro_torch.core import blocking, mx_dot
+    fn()
+    prof = device_profile(torch, fn, ranges=((mx_dot, "_qdq"),
+                                             (blocking, "dequantize")))
+    emit(phase, step="profile_decode", **fields, **prof)
+    return prof
 
 
 def _cache_fault(torch, start, cache, written):
@@ -1587,90 +1676,110 @@ def _cache_fault(torch, start, cache, written):
     return None
 
 
-def phase_slice(torch, eng, cfg, prompts, chunk):
+def checked_dispatch(torch, params, cfg, policy, kind, t, cache, p, n,
+                     expect, phase, **fields):
+    """One dispatch (``prefill_step`` with ``n`` valid tokens, or
+    ``decode_step``) through the kernels with every kernel call teacher-
+    forced (``checked_kernels``): each call meets phase 3's tolerance
+    against its plain version on its inputs, so the logits match the
+    plain head's (after the final softcap where the config has one)
+    within its tolerance and the tokens agree wherever the plain
+    top-1/top-2 gap is wider than twice it; the cache changes at the
+    written rows only; each kernel's calls equal ``expect``.  Updates
+    ``cache`` in place; returns (row, kernel tokens)."""
+    from repro_torch.core.blocking import torch_dtype
+    from repro_torch.models import model as M
+    dev = t.device
+    B, W = t.shape[0], next(iter(cache.values())).shape[3]
+    start = {k: v.clone() for k, v in cache.items()}
+    with checked_kernels(torch, lambda k: MATMUL_RTOL,
+                         cfg.padded_vocab) as chk:
+        if kind == "prefill":
+            lk = M.prefill_step(params, t, cache, p, n, cfg, policy)[0]
+        else:
+            lk = M.decode_step(params, t, cache, p, cfg, policy)[0]
+    # the logits against the plain LM head's output on the same input,
+    # cast as mx_dot's packed forward casts (one ulp more where that cast
+    # rounds to bf16); the final softcap is 1-Lipschitz, so it keeps the
+    # tolerance
+    y_ref, tol, x_dtype = chk.head
+    head = params["head"]
+    cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
+    y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
+    tol = tol[:, :head.shape[-1]]
+    if cast == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch, y_ref)
+    if cfg.final_softcap:
+        y_ref = cfg.final_softcap * torch.tanh(y_ref / cfg.final_softcap)
+    y_ref, tol = (v.reshape(B, t.shape[1], -1) for v in (y_ref, tol))
+    last = (torch.clamp(n - 1, 0, t.shape[1] - 1) if kind == "prefill"
+            else torch.zeros(B, dtype=torch.int64, device=dev))
+    sel = torch.arange(B, device=dev)
+    y_ref, tol = y_ref[sel, last], tol[sel, last]
+    live = (n > 0 if kind == "prefill"
+            else torch.ones(B, dtype=torch.bool, device=dev))
+    real = slice(0, cfg.vocab)
+    lk, lp, tol = (v[live][:, real].float() for v in (lk, y_ref, tol))
+    logit_ratio = float(((lk - lp).abs() / tol).max())
+    top2 = lp.topk(2, dim=-1)
+    gap = top2.values[:, 0] - top2.values[:, 1]
+    tk, tp = lk.argmax(-1), lp.argmax(-1)
+    decided = gap > 2 * tol.max(dim=-1).values
+    agree = bool((tk[decided] == tp[decided]).all())
+    # the rows this step writes: pos .. pos+n-1 of each slot (ring W)
+    span = n if kind == "prefill" else torch.ones_like(p)
+    at = torch.arange(W, device=dev)[None, :]
+    written = ((at - p[:, None]) % W) < span[:, None]
+    kernels, faults = chk.rows(expect)
+    row = dict(
+        kind=kind, **fields, kernels=kernels,
+        logits_max_abs_err=float((lk - lp).abs().max()),
+        logits_err_over_tol=logit_ratio,
+        max_abs_logit=float(lp.abs().max()),
+        tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
+        decided=decided.tolist(), agree_where_decided=agree,
+        cache_fault=_cache_fault(torch, start, cache, written))
+    emit(phase, **row)
+    faults += [f for f in (logit_ratio > 1.0 and "logits tolerance",
+                           not agree and "tokens", row["cache_fault"]) if f]
+    if faults:
+        raise AssertionError(f"{phase} {fields} ({kind}): {faults}")
+    nxt = torch.zeros(B, dtype=torch.int64, device=dev)
+    nxt[live] = tk
+    return row, nxt
+
+
+def phase_slice(torch, eng, cfg, prompts, chunk, phase="slice"):
     """Teacher-force one prefill dispatch and two decode dispatches from
-    one engine state: the path runs through the kernels and every kernel
-    call is held against its plain version on the same inputs."""
+    one engine state (a fresh cache of the engine's kind): the path runs
+    through the kernels and every kernel call is held against its plain
+    version on the same inputs (``checked_dispatch``)."""
     from repro_torch.core.blocking import torch_dtype
     from repro_torch.models import model as M
     dev = eng.device
     B, W = eng.slots, eng.max_len
-    per_layer = 7  # fused matmuls per decoder layer: q k v o gate up down
-
-    expect = {"mxsf_fused_matmul": per_layer * cfg.n_layers + 1,
-              "mxsf_attention": cfg.n_layers}
-
-    cache = M.init_cache(cfg, B, W, device=dev)
+    expect = serve_launch_counts(cfg, eng.attn_backend)
+    cache = M.init_cache(cfg, B, W, dtype=torch_dtype(cfg.compute_dtype),
+                         ring=False, kv_fmt=eng.policy.kv_cache_fmt,
+                         device=dev)
     toks = torch.zeros((B, chunk), dtype=torch.int64)
     nv = torch.zeros(B, dtype=torch.int64)
     for s, p in enumerate(prompts[:B]):
         n = min(chunk, len(p))
         toks[s, :n] = torch.tensor(p[:n])
         nv[s] = n
-    pos = torch.zeros(B, dtype=torch.int64)
-    steps = [("prefill", toks.to(dev), pos.to(dev), nv.to(dev))]
+    step = ("prefill", toks.to(dev), torch.zeros(B, dtype=torch.int64,
+                                                 device=dev), nv.to(dev))
     rows = []
     for i in range(3):
-        kind, t, p, n = steps[i]
-        start = {k: v.clone() for k, v in cache.items()}
-        with checked_kernels(torch, lambda k: MATMUL_RTOL,
-                             cfg.padded_vocab) as chk:
-            if kind == "prefill":
-                lk = M.prefill_step(eng.params, t, cache, p, n, cfg,
-                                    eng.policy)[0]
-            else:
-                lk = M.decode_step(eng.params, t, cache, p, cfg,
-                                   eng.policy)[0]
-        # the logits against the plain LM head's output on the same input,
-        # cast as mx_dot's packed forward casts (one ulp more where that
-        # cast rounds to bf16)
-        y_ref, tol, x_dtype = chk.head
-        head = eng.params["head"]
-        cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
-        y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
-        tol = tol[:, :head.shape[-1]]
-        if cast == torch.bfloat16:
-            tol = tol + _bf16_ulp(torch, y_ref)
-        y_ref, tol = (v.reshape(B, t.shape[1], -1) for v in (y_ref, tol))
-        last = (torch.clamp(n - 1, 0, t.shape[1] - 1) if kind == "prefill"
-                else torch.zeros(B, dtype=torch.int64, device=dev))
-        sel = torch.arange(B, device=dev)
-        y_ref, tol = y_ref[sel, last], tol[sel, last]
-        live = (n > 0 if kind == "prefill"
-                else torch.ones(B, dtype=torch.bool, device=dev))
-        real = slice(0, cfg.vocab)
-        lk, lp, tol = (v[live][:, real].float() for v in (lk, y_ref, tol))
-        logit_ratio = float(((lk - lp).abs() / tol).max())
-        top2 = lp.topk(2, dim=-1)
-        gap = top2.values[:, 0] - top2.values[:, 1]
-        tk, tp = lk.argmax(-1), lp.argmax(-1)
-        decided = gap > 2 * tol.max(dim=-1).values
-        agree = bool((tk[decided] == tp[decided]).all())
-        # the rows this step writes: pos .. pos+n-1 of each slot (ring W)
-        span = n if kind == "prefill" else torch.ones_like(p)
-        at = torch.arange(W, device=dev)[None, :]
-        written = ((at - p[:, None]) % W) < span[:, None]
-        kernels, faults = chk.rows(expect)
-        row = dict(
-            step=i, kind=kind, kernels=kernels,
-            logits_max_abs_err=float((lk - lp).abs().max()),
-            logits_err_over_tol=logit_ratio,
-            max_abs_logit=float(lp.abs().max()),
-            tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
-            decided=decided.tolist(), agree_where_decided=agree,
-            cache_fault=_cache_fault(torch, start, cache, written))
+        kind, t, p, n = step
+        row, nxt = checked_dispatch(torch, eng.params, cfg, eng.policy,
+                                    kind, t, cache, p, n, expect, phase,
+                                    step=i)
         rows.append(row)
-        emit("slice", **row)
-        faults += [f for f in (logit_ratio > 1.0 and "logits tolerance",
-                               not agree and "tokens", row["cache_fault"])
-                   if f]
-        if faults:
-            raise AssertionError(f"slice step {i} ({kind}): {faults}")
         # teacher-force the kernel path's tokens into the next step
-        nxt = torch.zeros(B, dtype=torch.int64, device=dev)
-        nxt[live] = tk
-        p_next = (p + n) if kind == "prefill" else (p + 1)
-        steps.append(("decode", nxt[:, None], p_next, None))
+        step = ("decode", nxt[:, None], (p + n) if kind == "prefill"
+                else (p + 1), None)
     return rows
 
 
@@ -1914,6 +2023,257 @@ def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
     return total
 
 
+# ---------------------------------------------------------------------------
+# the other decoder families: value-domain cached attention ("serve_gemma2",
+# "ring_swa") and MoE ("serve_moe")
+# ---------------------------------------------------------------------------
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_serve_gemma2(torch, device, args, rehearsal):
+    """gemma2-9b at full width and depth (softcaps, alternating 4096-token
+    SWA): one packed store shared by two engines of ``MXSF_INFER`` on the
+    kernel datapath, A with the policy's bf16 value cache and B with the
+    packed MXSF cache (dequantized into the value path, ``kv_prequant``);
+    a 4200-token prompt (the local layers' window masks) and a 37-token
+    one, 16 new tokens each, chunk 256; a profiled decode dispatch each;
+    then engine A's first prefill and two decode dispatches teacher-forced.
+    Returns the launches of each engine's run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.packed_store import store_nbytes
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import _nbytes as tree_bytes
+    cfg = get_config("gemma2-9b")
+    slots, chunk, max_len, new_tokens = 2, 256, 4352, 16
+    lengths = [4200, 37]
+    if rehearsal:
+        cfg = cfg.reduced()
+        chunk, max_len, new_tokens, lengths = 8, 40, 4, [21, 5]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, MXSF_INFER, gen, device=device)
+    _sync(torch, device)
+    emit("serve_gemma2", step="store", seconds=time.perf_counter() - t0,
+         n_layers=cfg.n_layers, store_nbytes=store_nbytes(store))
+    prompts = _prompts(cfg, args.seed, lengths)
+    launches = {}
+    packed = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+    for label, pol in (("bf16_cache", MXSF_INFER), ("mxsf_cache", packed)):
+        eng = ServeEngine(cfg, store, pol, slots=slots, max_len=max_len,
+                          prefill_chunk=chunk, backend="cuda", device=device)
+        if eng.attn_backend != "torch":
+            raise AssertionError(f"serve_gemma2: attn_backend "
+                                 f"{eng.attn_backend}")
+        _, launches[f"serve_gemma2_{label}"] = serve_run(
+            torch, eng, cfg, prompts, new_tokens, "serve_gemma2",
+            cache=label, cache_bytes=tree_bytes(eng.cache))
+        if device.type == "cuda":
+            profile_decode(torch, eng, "serve_gemma2", cache=label)
+        if label == "bf16_cache":
+            phase_slice(torch, eng, cfg, prompts, chunk, "serve_gemma2")
+        del eng
+        free_device(torch, device)
+    return launches
+
+
+def phase_ring_swa(torch, device, args, rehearsal):
+    """h2o-danube-1.8b at full width and depth (every layer a 4096-token
+    window) on the ring cache: ``init_cache(ring=True)`` at max_len 8192
+    holds W = 4096 columns; 17 window-aligned ``prefill_step`` chunks of
+    256 over two slots (the 17th starts at position 4096 and writes ring
+    columns 0-255), then 8 greedy ``decode_step``s; launches the path's,
+    logits finite, tokens/s; the last decode dispatch profiled on a copy of
+    the cache; then the first and the last dispatch again, teacher-forced,
+    on the cache as each found it.  Returns the launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.packed_store import store_nbytes
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.models import model as M
+    cfg = get_config("h2o-danube-1.8b")
+    B, chunk, max_len, n_chunks, n_decode = 2, 256, 8192, 17, 8
+    if rehearsal:
+        cfg = cfg.reduced()
+        chunk, max_len, n_chunks, n_decode = 8, 32, 3, 4
+    policy = MXSF_INFER.replace(backend="cuda")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    cache = M.init_cache(cfg, B, max_len, ring=True, device=device)
+    W = cache["k"].shape[3]
+    if W != min(cfg.swa_window, max_len):
+        raise AssertionError(f"ring_swa: cache width {W}")
+    gen = torch.Generator().manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab, (B, chunk * n_chunks),
+                           generator=gen).to(device)
+    nv = torch.full((B,), chunk, dtype=torch.int64, device=device)
+    steps = [("prefill", prompt[:, c * chunk:(c + 1) * chunk],
+              torch.full((B,), c * chunk, dtype=torch.int64, device=device),
+              nv) for c in range(n_chunks)]
+    starts = {}
+    reset_launches()
+    t_pre = t_dec = 0.0
+    finite = True
+    tok = None
+    for i in range(n_chunks + n_decode):
+        if i >= n_chunks:
+            pos = torch.full((B,), n_chunks * chunk + i - n_chunks,
+                             dtype=torch.int64, device=device)
+            steps.append(("decode", tok[:, None], pos, None))
+        kind, t, p, n = steps[i]
+        if i in (0, n_chunks + n_decode - 1):
+            starts[i] = {k: v.clone() for k, v in cache.items()}
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        if kind == "prefill":
+            logits, cache = M.prefill_step(store, t, cache, p, n, cfg, policy)
+        else:
+            logits, cache = M.decode_step(store, t, cache, p, cfg, policy)
+        tok = logits.argmax(-1)
+        finite &= bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+        dt = time.perf_counter() - t0
+        if kind == "prefill":
+            t_pre += dt
+        else:
+            t_dec += dt
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("mxsf_fused_matmul", "mxsf_attention")}
+    per = serve_launch_counts(cfg, M.decode_attn_backend(cfg, policy))
+    expect = {k: v * len(steps) for k, v in per.items()}
+    emit("ring_swa", step="run", n_layers=cfg.n_layers, cache_width=W,
+         max_len=max_len, slots=B, chunks=n_chunks, chunk=chunk,
+         decode_steps=n_decode, last_chunk_start=(n_chunks - 1) * chunk,
+         last_chunk_ring_columns=[((n_chunks - 1) * chunk) % W,
+                                  ((n_chunks - 1) * chunk) % W + chunk - 1],
+         store_nbytes=store_nbytes(store),
+         cache_bytes=sum(v.numel() * v.element_size()
+                         for v in cache.values()),
+         prefill_tokens_per_s=B * chunk * n_chunks / t_pre,
+         decode_tokens_per_s=B * n_decode / t_dec, finite=finite,
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if device.type == "cuda" else None),
+         launches=launches, expected_launches=expect)
+    if not finite:
+        raise AssertionError("ring_swa: non-finite logits")
+    if device.type == "cuda" and launches != expect:
+        raise AssertionError(f"ring_swa: launch counts {launches} != path "
+                             f"{expect}")
+    if device.type == "cuda":  # the last decode again, on a copy
+        _, t, p, _ = steps[-1]
+        probe = {k: v.clone() for k, v in starts[len(steps) - 1].items()}
+        profile_dispatch(torch, lambda: M.decode_step(store, t, probe, p, cfg,
+                                                      policy), "ring_swa")
+        del probe
+    for i, start in starts.items():
+        kind, t, p, n = steps[i]
+        checked_dispatch(torch, store, cfg, policy, kind, t, start, p, n,
+                         per, "ring_swa", step=i)
+    return launches
+
+
+def phase_serve_moe(torch, device, args, rehearsal):
+    """qwen2-moe-a2.7b at full width (60 routed experts padded to 64, top
+    4, 4 shared), expert stacks in f32 values as in the JAX package's
+    store, at the depth the card's free memory allows (store + cache + 4
+    GiB); ``MXSF_INFER`` with the packed MXSF cache on the kernel
+    datapath, 4 slots, max_len 256, prompts of 8-24 tokens, 8 new tokens
+    each, token by token (chunk 1, as the JAX engine serves MoE); a
+    profiled decode dispatch; then, teacher-forced, the first dispatch
+    with the tokens each MoE layer dropped past capacity, and a prefill of
+    the whole prompts with a decode after it, over rows of 9-25 keys.
+    Returns the launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.packed_store import store_nbytes
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import _nbytes as tree_bytes
+    cfg = get_config("qwen2-moe-a2.7b")
+    slots, max_len, new_tokens = 4, 256, 8
+    lengths = [8, 13, 19, 24]
+    if rehearsal:
+        cfg = cfg.reduced()
+        max_len, new_tokens, lengths = 32, 3, [3, 5, 2, 7]
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+    one, two = (tree_bytes(M.packed_model_specs(cfg.replace(n_layers=n),
+                                                policy)) for n in (1, 2))
+    per_layer, fixed = two - one, 2 * one - two
+    cache_layer = 2 * slots * max_len * cfg.n_kv * (cfg.head_dim + 1)
+    free = (torch.cuda.mem_get_info()[0] if device.type == "cuda"
+            else 1 << 62)
+    budget = free - fixed - (4 << 30)
+    n_layers = min(cfg.n_layers, budget // (per_layer + cache_layer))
+    emit("serve_moe", step="plan", free_bytes=free, bytes_per_layer=per_layer,
+         bytes_fixed=fixed, cache_bytes_per_layer=cache_layer,
+         n_layers=n_layers, of=cfg.n_layers)
+    if n_layers < 1:
+        raise AssertionError("serve_moe: no room for one layer")
+    cfg = cfg.replace(n_layers=n_layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    _sync(torch, device)
+    emit("serve_moe", step="store", seconds=time.perf_counter() - t0,
+         n_layers=n_layers, store_nbytes=store_nbytes(store))
+    eng = ServeEngine(cfg, store, policy, slots=slots, max_len=max_len,
+                      backend="cuda", device=device)
+    if eng.prefill_chunk != 1:
+        raise AssertionError("serve_moe: MoE engines serve token by token")
+    prompts = _prompts(cfg, args.seed, lengths)
+    _, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
+                            "serve_moe", cache_bytes=tree_bytes(eng.cache))
+    if device.type == "cuda":
+        profile_decode(torch, eng, "serve_moe")
+    # the engine's first dispatch (every slot's first prompt token, routed
+    # across the batch), teacher-forced, counting the dropped assignments
+    cache = M.init_cache(cfg, slots, max_len, kv_fmt="mxsf", device=device)
+    t = torch.tensor([[p[0]] for p in prompts], device=device)
+    pos = torch.zeros(slots, dtype=torch.int64, device=device)
+    dropped, dispatch = [], TB._row_dispatch
+
+    def counting(*a):
+        out = dispatch(*a)
+        dropped.append(int((~out[2]).sum()))
+        return out
+
+    TB._row_dispatch = counting
+    try:
+        checked_dispatch(torch, eng.params, cfg, eng.policy, "decode", t,
+                         cache, pos, None,
+                         serve_launch_counts(cfg, eng.attn_backend),
+                         "serve_moe", step=0)
+    finally:
+        TB._row_dispatch = dispatch
+    C = max(1, math.ceil(slots * cfg.top_k * cfg.capacity_factor
+                         / cfg.n_experts))
+    emit("serve_moe", step="capacity", capacity=C,
+         assignments_per_layer=slots * cfg.top_k,
+         dropped_per_layer=dropped, dropped_total=sum(dropped))
+    # every slot's whole prompt in one prefill dispatch, then a decode over
+    # rows of 9-25 keys (the first dispatch's rows hold one key, where
+    # softmax gives weight 1 whatever the scores), both teacher-forced
+    cache = M.init_cache(cfg, slots, max_len, kv_fmt="mxsf", device=device)
+    width = max(lengths)
+    t = torch.tensor([p + [0] * (width - len(p)) for p in prompts],
+                     device=device)
+    n = torch.tensor(lengths, device=device)
+    pos = torch.zeros(slots, dtype=torch.int64, device=device)
+    expect = serve_launch_counts(cfg, eng.attn_backend)
+    _, nxt = checked_dispatch(torch, eng.params, cfg, eng.policy, "prefill",
+                              t, cache, pos, n, expect, "serve_moe",
+                              step="prefill")
+    checked_dispatch(torch, eng.params, cfg, eng.policy, "decode",
+                     nxt[:, None], cache, n, None, expect, "serve_moe",
+                     step="decode", keys_per_row=[v + 1 for v in lengths])
+    del eng, store
+    free_device(torch, device)
+    return launches
+
+
 def kernels_line(rows, attn, train_rows, launches, slots, cfg):
     """One entry per CUDA kernel: its launches on the main paths (serving,
     2D and 1D training, each counted from 0) and the numbers of its row at
@@ -1959,6 +2319,7 @@ def free_device(torch, device):
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     args = parse_args(argv)
     import torch
     if not args.cpu_rehearsal and not torch.cuda.is_available():
@@ -2004,6 +2365,12 @@ def main(argv=None) -> int:
         torch, device, cfg, policy, args, slots, chunk, max_len, new_tokens,
         lengths)
     free_device(torch, device)
+    launches.update(phase_serve_gemma2(torch, device, args, rehearsal))
+    free_device(torch, device)
+    launches["ring_swa"] = phase_ring_swa(torch, device, args, rehearsal)
+    free_device(torch, device)
+    launches["serve_moe"] = phase_serve_moe(torch, device, args, rehearsal)
+    free_device(torch, device)
     # 2D (MXSF_TRAIN) at full depth, then the 1D layout at cut depth
     pol2 = MXSF_TRAIN.replace(backend="cuda")
     state, batches, launches["train_2d"] = phase_train(
@@ -2042,6 +2409,7 @@ def main(argv=None) -> int:
         del state, batches
         free_device(torch, device)
     line = kernels_line(rows, attn, train_rows, launches, slots, cfg)
+    emit("done", seconds=time.perf_counter() - t_start)
     if device.type == "cuda":
         never = [k["name"] for k in line["kernels"] if k["launches"] == 0]
         if never:

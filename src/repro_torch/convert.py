@@ -8,9 +8,12 @@ keys of a decoder, the ``(n_layers, ...)`` stack of the encoder -- which is
 the port's layout too, so leaves map one to one.  A packed
 leaf (any object with ``codes``, ``scale_e8m0``, ``fmt``, ``block``,
 ``shape`` and ``dtype``) goes through ``qt_from_numpy``.  After conversion
-both packages compute the same function.  ``train_state_from_numpy``
-carries a JAX train state (``{"params", "opt": {"m", "v", "step"}}``, and
-``"master"`` where the JAX state has it) across the same way.
+both packages compute the same function; MoE routers and expert stacks
+(``router``, ``we_*``) stay values and a shared expert's MLP (``shared``)
+maps like any other.  ``train_state_from_numpy`` carries a JAX train state
+(``{"params", "opt": {"m", "v", "step"}}``, and ``"master"`` where the JAX
+state has it) across the same way, and ``cache_from_numpy`` a decoder KV
+cache (a value cache ``{k, v}`` or the packed codes and scales).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from .core.packed_store import tree_leaves
 from .models.transformer import n_stacked
 
 __all__ = ["tensor_from_numpy", "qt_from_numpy", "params_from_numpy",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "cache_from_numpy"]
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -80,3 +83,9 @@ def train_state_from_numpy(state, cfg: ModelConfig, device="cpu"):
                                   dtype=torch.int32, device=device)
     return {"params": params_from_numpy(state["params"], cfg, device),
             "opt": opt}
+
+
+def cache_from_numpy(cache, device="cpu"):
+    """The JAX package's decoder KV cache (numpy leaves; bf16 values
+    included) as the port's: the same keys, shapes and dtypes."""
+    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}

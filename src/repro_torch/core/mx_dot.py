@@ -462,12 +462,14 @@ def _einsum_vjp_subs(subs: str) -> Tuple[str, str]:
 class _MxEinsum(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, a, b, subs, policy, axes, g_axes):
-        qa = qdq_along(a, policy.fwd_fmt, policy, axes[0])
-        qb = qdq_along(b, policy.fwd_fmt, policy, axes[1])
+    def forward(ctx, a, b, subs, policy, axes, g_axes, quant_ops):
+        qa = qdq_along(a, policy.fwd_fmt, policy, axes[0]) \
+            if quant_ops[0] else a
+        qb = qdq_along(b, policy.fwd_fmt, policy, axes[1]) \
+            if quant_ops[1] else b
         ctx.save_for_backward(qa, qb)
         ctx.subs, ctx.policy, ctx.g_axes = subs, policy, g_axes
-        return torch.einsum(subs, qa, qb)
+        return _einsum(subs, qa, qb)
 
     @staticmethod
     def backward(ctx, g):
@@ -480,19 +482,31 @@ class _MxEinsum(torch.autograd.Function):
             gb = qdq_along(g, policy.bwd_fmt, policy, ctx.g_axes[1])
         else:
             ga = gb = g
-        da = torch.einsum(da_subs, ga, qb)
-        db = torch.einsum(db_subs, gb, qa)
-        return da, db, None, None, None, None
+        da = _einsum(da_subs, ga, qb).to(qa.dtype)
+        db = _einsum(db_subs, gb, qa).to(qb.dtype)
+        return da, db, None, None, None, None, None
+
+
+def _einsum(subs: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with the JAX package's type promotion (a bf16 query against
+    an f32 value cache computes in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(subs, a.to(dt), b.to(dt))
 
 
 def mx_einsum(subs: str, a: torch.Tensor, b: torch.Tensor,
               policy: QuantPolicy, axes: Tuple[int, int] = (-1, -1),
-              g_axes: Tuple[int, int] = (-1, -2)) -> torch.Tensor:
+              g_axes: Tuple[int, int] = (-1, -2),
+              quant_ops: Tuple[bool, bool] = (True, True)) -> torch.Tensor:
     """Two-operand einsum with MX-quantized operands (and gradients).
 
     ``axes``: contraction axis of each forward operand (-1 or -2), which
     orients the 1D quantization blocks; ``g_axes``: contraction axis of the
-    incoming gradient for (da, db)."""
+    incoming gradient for (da, db); ``quant_ops``: per-operand
+    quantization -- False marks an operand that is already quantized (a
+    dequantized MXSF KV cache), which skips the forward qdq and is saved
+    as it is."""
     if not policy.enabled or not policy.attn_matmuls:
-        return torch.einsum(subs, a, b)
-    return _MxEinsum.apply(a, b, subs, policy, tuple(axes), tuple(g_axes))
+        return _einsum(subs, a, b)
+    return _MxEinsum.apply(a, b, subs, policy, tuple(axes), tuple(g_axes),
+                           tuple(quant_ops))

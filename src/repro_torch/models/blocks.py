@@ -1,21 +1,28 @@
-"""Model blocks: dense, norms, rotary embeddings, MLPs, attention.
+"""Model blocks: dense, norms, rotary embeddings, MLPs, attention, MoE.
 
 PyTorch counterpart of the decoder and encoder parts of the JAX package's
 ``models/blocks.py``.  Every matmul goes through ``mx_dot`` /
-``mx_einsum``; softmax, norms and residual math stay in f32 or the compute
-dtype as in the JAX package.
+``mx_einsum``; softmax, norms, router and residual math stay in f32 or the
+compute dtype as in the JAX package.
 
 Attention covers uncached self-attention (training and full-sequence
 forward: ``_attend``/``_scores_block``, query-chunked with a
-``torch.utils.checkpoint`` per chunk) and cached causal self-attention over
-a packed MXSF KV cache through the flash kernel
-(``kernels/mxsf_attention.py``), for S=1 decode steps and S=C prefill
-chunks.  Cross-attention, un-packed or value-domain caches, and ``moe``
-are not ported and raise ``NotImplementedError`` (ROADMAP.md, Queue 1
-items 4a, 4b and 4d).
+``torch.utils.checkpoint`` per chunk) and cached causal self-attention for
+S=1 decode steps and S=C prefill chunks, over a value cache (``k``/``v``)
+or a packed MXSF KV cache.  A packed cache is read in place by the flash
+kernel (``kernels/mxsf_attention.py``) where ``attn_kernel_eligible``
+allows, else dequantized into the value path (``kv_prequant``).  The
+value path is ring-aware (``kpos``), so softcaps and SWA windows take it.
+Cross-attention is not ported and raises ``NotImplementedError``
+(ROADMAP.md, Queue 1 item 4d).
+
+``moe`` is the JAX package's capacity-based per-row dispatch
+(``_row_dispatch``) with its combine; the router and the expert FFNs run
+in values through ``mx_einsum``.
 
 Where the JAX package returns a new cache, ``attention`` writes the new
-K/V codes into the given cache tensors in place and returns the same dict.
+K/V rows (values or codes) into the given cache tensors in place and
+returns the same dict.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import blocking as mxblk
-from ..core.blocking import QuantizedTensor
+from ..core.blocking import QuantizedTensor, dtype_name
 from ..core.mx_dot import mx_dot, mx_einsum, qdq_along
 from ..core.policy import QuantPolicy
 from ..kernels import mxsf_attention as MA
@@ -129,19 +136,15 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
 
     * train / full-sequence forward: ``cache=None``, ``positions`` (B, S)
       or (S,) -- query-chunked value-domain attention (``_attend``);
-    * decode: ``cache`` a packed MXSF KV cache, ``cache_pos`` a scalar or
-      (B,) position, all S rows written;
+    * decode: ``cache`` a value cache ``{k, v}`` or a packed MXSF cache
+      ``{k_codes, k_scales, v_codes, v_scales}``, ``cache_pos`` a scalar
+      or (B,) position, all S rows written at ``pos % W`` (a ring when the
+      cache is narrower than the sequence);
     * chunked prefill: ``cache_pos`` (B,) and ``cache_write_len`` (B,)
       valid tokens of this S-token chunk -- only columns pos..pos+len-1 are
       written, so a slot with len=0 leaves its cache untouched.  Queries
       past ``len`` produce rows the caller must ignore.
     Returns (out, cache) -- the cache dict updated in place, or None."""
-    if cache is not None and ("k_codes" not in cache
-                              or not attn_kernel_eligible(cfg, policy)):
-        raise NotImplementedError(
-            "cached attention is ported only over a packed MXSF KV cache "
-            "through the kernel (not backend 'torch', softcaps or SWA "
-            "patterns); see ROADMAP.md, Queue 1 item 4a")
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     dev = x.device
@@ -170,22 +173,47 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
 
     pos_vec = torch.as_tensor(cache_pos, dtype=torch.int64,
                               device=dev).expand(B)
+    ar = torch.arange(S, device=dev)
     if use_rope:
-        positions = pos_vec[:, None] + torch.arange(S, device=dev)[None, :]
+        positions = pos_vec[:, None] + ar[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    W = cache["k_codes"].shape[1]
+    packed = "k_codes" in cache
+    W = cache["k_codes" if packed else "k"].shape[1]
     slot = pos_vec % W
     wl = (None if cache_write_len is None else
           torch.as_tensor(cache_write_len, dtype=torch.int64,
                           device=dev).expand(B))
-    fmt = policy.kv_cache_fmt or "mxsf"
-    for nm, val in (("k", k), ("v", v)):
-        qt = mxblk.quantize(val, fmt, (dh,))
-        _write_cache(cache[f"{nm}_codes"], qt.codes, slot, wl)
-        _write_cache(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
-    return _attend_packed(q, cache, pos_vec, window, p, cfg, policy), cache
+    if packed:
+        fmt = policy.kv_cache_fmt or "mxsf"
+        for nm, val in (("k", k), ("v", v)):
+            qt = mxblk.quantize(val, fmt, (dh,))
+            _write_cache(cache[f"{nm}_codes"], qt.codes, slot, wl)
+            _write_cache(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
+        if attn_kernel_eligible(cfg, policy) and causal:
+            return _attend_packed(q, cache, pos_vec, window, p, cfg,
+                                  policy), cache
+        k, v = (mxblk.dequantize(QuantizedTensor(
+            cache[f"{nm}_codes"], cache[f"{nm}_scales"], fmt, (dh,),
+            tuple(cache[f"{nm}_codes"].shape), dtype_name(x.dtype)))
+            for nm in ("k", "v"))
+    else:
+        _write_cache(cache["k"], k.to(cache["k"].dtype), slot, wl)
+        _write_cache(cache["v"], v.to(cache["v"].dtype), slot, wl)
+        k, v = cache["k"], cache["v"]
+    # the last absolute position written this call: all S rows on the
+    # slice path, only write_len on the masked-chunk path (a partial
+    # chunk's padded tail would push ``end`` past the ring and relabel its
+    # earliest columns as future positions)
+    end = pos_vec + (S if wl is None else wl) - 1
+    idx = torch.arange(W, device=dev)
+    # absolute position each ring column holds (unwritten columns < 0);
+    # tensor % is floor modulo, as in the JAX package
+    kpos = end[:, None] - ((end[:, None] - idx[None, :]) % W)
+    qpos = pos_vec[:, None] + ar[None, :]
+    return _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg, policy,
+                   kv_prequant=packed), cache
 
 
 ATTN_CHUNK = 1024  # query-chunk target (flash-style; bounds score memory)
@@ -199,10 +227,14 @@ def _pick_chunk(S: int) -> int:
 
 
 def _scores_block(qg_c, kk, vv, qpos_c, kpos, causal, window, dh, cfg,
-                  policy, out_dtype):
-    """One query block: (B,kv,g,C,dh) x (B,kv,L,dh) -> (B,kv,g,C,dh)."""
+                  policy, out_dtype, kv_prequant=False):
+    """One query block: (B,kv,g,C,dh) x (B,kv,L,dh) -> (B,kv,g,C,dh).
+    ``kv_prequant``: K and V are a dequantized MXSF cache, fed to the
+    matmuls as they are (re-quantizing V along L would change it: the
+    cache blocks it along dh)."""
+    quant_ops = (True, not kv_prequant)
     scores = mx_einsum("bkgsd,bkld->bkgsl", qg_c, kk, policy,
-                       axes=(-1, -1), g_axes=(-1, -2))
+                       axes=(-1, -1), g_axes=(-1, -2), quant_ops=quant_ops)
     scores = scores.float() / math.sqrt(dh)
     if cfg.attn_softcap:
         scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
@@ -210,11 +242,11 @@ def _scores_block(qg_c, kk, vv, qpos_c, kpos, causal, window, dh, cfg,
     scores = scores + bias[:, None, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(out_dtype)
     return mx_einsum("bkgsl,bkld->bkgsd", probs, vv, policy,
-                     axes=(-1, -2), g_axes=(-1, -2))
+                     axes=(-1, -2), g_axes=(-1, -2), quant_ops=quant_ops)
 
 
 def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
-            policy: QuantPolicy):
+            policy: QuantPolicy, kv_prequant: bool = False):
     """Query-chunked attention: the full (S x L) score tensor never exists
     at once; each chunk is recomputed in the backward
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
@@ -227,14 +259,14 @@ def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
     chunk = _pick_chunk(S)
     if S <= chunk:
         ctx = _scores_block(qg, kk, vv, qpos, kpos, causal, window, dh, cfg,
-                            policy, x.dtype)
+                            policy, x.dtype, kv_prequant)
     else:
         parts = []
         for c0 in range(0, S, chunk):
             parts.append(ckpt.checkpoint(
                 _scores_block, qg[:, :, :, c0:c0 + chunk], kk, vv,
                 qpos[:, c0:c0 + chunk], kpos, causal, window, dh, cfg,
-                policy, x.dtype, use_reentrant=False))
+                policy, x.dtype, kv_prequant, use_reentrant=False))
         ctx = torch.cat(parts, dim=3)
     ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, h * dh)
     return dense(ctx, p["wo"], policy)
@@ -272,9 +304,96 @@ def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy):
     return dense(hdn, p["wd"], policy)
 
 
-def dense_init(gen, d_in, d_out, device, scale=None):
-    """normal * 1/sqrt(d_in) -- the JAX package's ``_dense_init``
-    distribution (not its bits)."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return torch.randn((d_in, d_out), generator=gen, device=device,
-                       dtype=torch.float32) * scale
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties to the lower
+    index (a stable descending sort; ``torch.topk`` promises no tie order,
+    and dead padded experts tie at probability 0)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _row_dispatch(x, topi, topv, E: int, C: int):
+    """Dispatch each row of tokens into (E, C, d) expert buffers: the JAX
+    package's ``_row_dispatch`` over every row at once.
+
+    x: (R, S, d); topi/topv: (R, S, k).  Returns (xe (R, E, C, d), slot,
+    valid, st, sw), each (R, S*k) in expert order: a token's assignment
+    past its expert's capacity C goes to the dummy row E*C, which is
+    written (several times) and never read."""
+    R, S, k = topi.shape
+    dev = x.device
+    flat_e = topi.reshape(R, S * k)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    se = torch.gather(flat_e, 1, order)
+    st = torch.arange(S, device=dev).repeat_interleave(k)[order]
+    sw = torch.gather(topv.reshape(R, S * k), 1, order)
+    first = torch.searchsorted(se.contiguous(), se.contiguous(), side="left")
+    pos_in_e = torch.arange(S * k, device=dev) - first
+    valid = pos_in_e < C
+    slot = torch.where(valid, se * C + pos_in_e, E * C)
+    rows = torch.arange(R, device=dev)[:, None].expand(R, S * k)
+    buf = x.new_zeros((R, E * C + 1, x.shape[-1]))
+    buf = buf.index_put((rows, slot), x[rows, st])
+    return buf[:, :E * C].reshape(R, E, C, x.shape[-1]), slot, valid, st, sw
+
+
+def _combine(ye, slot, valid, st, sw, S: int, k: int):
+    """Back to tokens: each token's k weighted expert outputs summed in
+    the dispatch's (expert) order, one addition at a time from zero -- the
+    order of XLA's scatter-add on the CPU, and the same bits on every run
+    (``index_add_`` would add in the card's atomic order)."""
+    R, E, C, d = ye.shape
+    flat = torch.cat([ye.reshape(R, E * C, d), ye.new_zeros((R, 1, d))], 1)
+    rows = torch.arange(R, device=ye.device)[:, None]
+    w = torch.where(valid, sw, torch.zeros((), dtype=sw.dtype,
+                                           device=sw.device))
+    contrib = flat[rows, slot] * w[..., None]
+    # each token's k entries, in dispatch order (a stable sort by token)
+    per_tok = torch.sort(st, dim=-1, stable=True).indices.reshape(R, S, k)
+    ordered = contrib[rows[:, :, None], per_tok]  # (R, S, k, d)
+    y = ye.new_zeros((R, S, d))
+    for j in range(k):
+        y = y + ordered[:, :, j]
+    return y
+
+
+def moe(p, x, cfg: ModelConfig, policy: QuantPolicy):
+    """x: (B, S, d) -> (B, S, d).  Row = sequence (decode regroups the
+    batch into one row upstream)."""
+    B, S, d = x.shape
+    E, k = cfg.padded_experts, cfg.top_k
+    C = max(1, int(math.ceil(S * k * cfg.capacity_factor / cfg.n_experts)))
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    if E != cfg.n_experts:  # mask padded (dead) experts out of routing
+        dead = torch.arange(E, device=x.device) >= cfg.n_experts
+        logits = logits + torch.where(dead, -1e30, 0.0)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = _top_k(probs, k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    xe, slot, valid, st, sw = _row_dispatch(x, topi, topv, E, C)
+    act = Fn.silu if cfg.mlp != "gelu" else \
+        (lambda v: Fn.gelu(v, approximate="tanh"))
+    # one expert stack cast to the activation dtype at a time (each cast
+    # is a full copy of the stack)
+    gate = act(mx_einsum("becd,edf->becf", xe, p["we_g"].to(xe.dtype),
+                         policy, axes=(-1, -2), g_axes=(-1, -2)))
+    up = mx_einsum("becd,edf->becf", xe, p["we_u"].to(xe.dtype), policy,
+                   axes=(-1, -2), g_axes=(-1, -2))
+    ye = mx_einsum("becf,efd->becd", gate * up, p["we_d"].to(xe.dtype),
+                   policy, axes=(-1, -2), g_axes=(-1, -2))
+    y = _combine(ye, slot, valid, st, sw.to(x.dtype), S, k)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, cfg, policy)
+    return y
+
+
+def moe_aux_loss(x, p, cfg: ModelConfig):
+    """Switch-style load-balancing loss (fraction * probability per
+    expert)."""
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.mean(Fn.one_hot(top1, cfg.padded_experts).float(),
+                      dim=(0, 1))
+    pmean = torch.mean(probs, dim=(0, 1))
+    return cfg.n_experts * torch.sum(frac * pmean)

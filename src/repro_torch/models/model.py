@@ -21,6 +21,7 @@ init_params = transformer.init_params
 init_cache = decoding.init_cache
 decode_step = decoding.decode_step
 prefill_step = decoding.prefill_step
+prefill = decoding.prefill
 
 
 def pack_model_params(cfg: ModelConfig, params, policy: QuantPolicy,
@@ -104,7 +105,9 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     leaf by leaf: each weight is drawn in f32, packed, and freed before the
     next one is drawn, so the f32 tree never exists.  Draws the same values
     in the same order as ``init_params``, so on one device
-    ``pack_model_params(init_params(g))`` and this agree bitwise.
+    ``pack_model_params(init_params(g))`` and this agree bitwise.  MoE
+    routers and expert stacks stay f32 values, as in the JAX package's
+    store (only their shared expert's MLP is packed).
     ``device=None`` is the generator's own device."""
     transformer.check_ported(cfg)
     if device is None:
@@ -141,9 +144,11 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
 
 def decode_attn_backend(cfg: ModelConfig, policy: QuantPolicy) -> str:
     """Which datapath cached attention takes (decode steps and prefill
-    chunks share one gate): ``'cuda-packed'`` -- the flash kernel reads the
-    packed cache codes directly -- or ``'torch'``, the value-domain path
-    (not ported yet)."""
+    chunks share one gate, ``blocks.attn_kernel_eligible``):
+    ``'cuda-packed'`` -- the flash kernel reads the packed cache codes
+    directly -- or ``'torch'``, the value-domain path (the JAX package's
+    ``'jnp'``): ``mx_einsum`` over a value cache, or over the dequantized
+    packed cache, with the ring-aware window and softcap math."""
     from . import blocks
     return "cuda-packed" if blocks.attn_kernel_eligible(cfg, policy) \
         else "torch"

@@ -11,11 +11,12 @@ keys per super-layer, encoder layers stacked ``(n_layers, ...)`` with no
 across leaf for leaf.
 
 ``init_params(cfg, generator, device)`` draws the same *distributions* as
-the JAX init (normal * 1/sqrt(d_in) for projections, * 0.02 for embedding,
-positions and head, zero biases and cls token, unit norms), not the same
-bits.  Every weight is drawn one layer at a time in a fixed order
-(``layer_leaves``), so ``model.init_packed_params`` can draw the same
-values and pack each one as it is drawn, without ever holding the f32 tree.
+the JAX init (normal * 1/sqrt(d_in) for projections and each expert's
+matrices, * 0.02 for embedding, router, positions and head, zero biases
+and cls token, unit norms), not the same bits.  Every weight is drawn one
+layer at a time in a fixed order (``layer_leaves``), so
+``model.init_packed_params`` can draw the same values and pack each one as
+it is drawn, without ever holding the f32 tree.
 """
 from __future__ import annotations
 
@@ -36,9 +37,17 @@ NO_WINDOW = 1 << 30
 _Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str]
 
 
-def _sublayer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
-    d, dh, h, kv, f = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv,
-                       cfg.d_ff)
+def _mlp_leaves(cfg: ModelConfig, d_ff: int, prefix=("ffn",)):
+    d = cfg.d_model
+    if cfg.mlp in ("swiglu", "geglu"):
+        yield prefix + ("wg",), (d, d_ff), "dense"
+    yield prefix + ("wu",), (d, d_ff), "dense"
+    yield prefix + ("wd",), (d_ff, d), "dense"
+
+
+def _sublayer_leaves(cfg: ModelConfig, is_moe: bool = False
+                     ) -> Iterator[_Leaf]:
+    d, dh, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     yield ("ln1", "w"), (d,), "ones"
     yield ("attn", "wq"), (d, h * dh), "dense"
     yield ("attn", "wk"), (d, kv * dh), "dense"
@@ -49,10 +58,17 @@ def _sublayer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
         yield ("attn", "bk"), (kv * dh,), "zeros"
         yield ("attn", "bv"), (kv * dh,), "zeros"
     yield ("ln2", "w"), (d,), "ones"
-    if cfg.mlp in ("swiglu", "geglu"):
-        yield ("ffn", "wg"), (d, f), "dense"
-    yield ("ffn", "wu"), (d, f), "dense"
-    yield ("ffn", "wd"), (f, d), "dense"
+    if is_moe:  # the JAX package's moe_init leaves
+        E, f = cfg.padded_experts, cfg.expert_ff
+        yield ("ffn", "router"), (d, E), "router"
+        yield ("ffn", "we_g"), (E, d, f), "dense"
+        yield ("ffn", "we_u"), (E, d, f), "dense"
+        yield ("ffn", "we_d"), (E, f, d), "dense"
+        if cfg.n_shared_experts:
+            yield from _mlp_leaves(cfg, f * cfg.n_shared_experts,
+                                   ("ffn", "shared"))
+    else:
+        yield from _mlp_leaves(cfg, cfg.d_ff)
     if cfg.post_norms:
         yield ("pn1", "w"), (d,), "ones"
         yield ("pn2", "w"), (d,), "ones"
@@ -63,18 +79,20 @@ _FAMILY_ITEM = {"encdec": "4d", "ssm": "4e", "hybrid": "4e"}
 
 
 def check_ported(cfg: ModelConfig, encoder: bool = False):
-    """Raise for a family the calling path does not have yet: dense
-    decoders everywhere, the encoder where ``encoder`` says the path takes
-    it, no MoE."""
+    """Raise for a family the calling path does not have yet: decoders
+    (dense and MoE) everywhere, the encoder where ``encoder`` says the
+    path takes it."""
     if cfg.family not in (("decoder", "encoder") if encoder
                           else ("decoder",)):
         item = _FAMILY_ITEM.get(cfg.family, "4")
         raise NotImplementedError(f"family {cfg.family!r} is not ported on "
                                   f"this path; see ROADMAP.md, Queue 1 item "
                                   f"{item}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet; see "
-                                  "ROADMAP.md, Queue 1 item 4b")
+
+
+def is_moe_sublayer(cfg: ModelConfig, j: int) -> bool:
+    """Whether sublayer ``j`` of a super-layer is the MoE one (the last)."""
+    return cfg.n_experts > 0 and j == cfg.moe_every - 1
 
 
 def n_stacked(cfg: ModelConfig) -> int:
@@ -93,16 +111,21 @@ def layer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
         yield from _sublayer_leaves(cfg)
         return
     for j in range(cfg.moe_every):
-        for path, shape, kind in _sublayer_leaves(cfg):
+        for path, shape, kind in _sublayer_leaves(cfg,
+                                                  is_moe_sublayer(cfg, j)):
             yield (f"sub{j}",) + path, shape, kind
 
 
 def draw_leaf(shape, kind: str, gen, device) -> torch.Tensor:
+    """One leaf: constants, "dense" normal * 1/sqrt(rows) (per expert for
+    a stacked (E, rows, cols) leaf), the "router" normal * 0.02."""
     if kind == "ones":
         return torch.ones(shape, dtype=torch.float32, device=device)
     if kind == "zeros":
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    return blk.dense_init(gen, shape[0], shape[1], device)
+    scale = 0.02 if kind == "router" else 1.0 / math.sqrt(shape[-2])
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * scale
 
 
 def draw_embedding(cfg: ModelConfig, gen, device) -> torch.Tensor:
@@ -200,12 +223,20 @@ def _embed_tokens(params, batch, cfg: ModelConfig):
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
+def _apply_ffn(p, x, cfg: ModelConfig, policy: QuantPolicy, is_moe: bool):
+    if not is_moe:
+        return blk.mlp(p, x, cfg, policy)
+    if x.shape[1] == 1:  # decode: route across the batch, not the row
+        return blk.moe(p, x.transpose(0, 1), cfg, policy).transpose(0, 1)
+    return blk.moe(p, x, cfg, policy)
+
+
 def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
-                    window, positions=None, cache=None, cache_pos=None,
-                    cache_write_len=None, causal=True):
-    """Pre-norm attention + MLP sublayer (dense decoders; the encoder with
-    ``causal=False``), uncached (``positions``) or over a packed KV cache
-    (``cache``...)."""
+                    window, is_moe=False, positions=None, cache=None,
+                    cache_pos=None, cache_write_len=None, causal=True):
+    """Pre-norm attention + FFN sublayer (decoders, MoE ones included; the
+    encoder with ``causal=False``), uncached (``positions``) or over a KV
+    cache (``cache``...)."""
     h = blk.rmsnorm(p["ln1"], x)
     a, _ = blk.attention(p["attn"], h, cfg, policy, positions=positions,
                          causal=causal, window=window, cache=cache,
@@ -214,7 +245,7 @@ def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
         a = blk.rmsnorm(p["pn1"], a)
     x = x + a
     h = blk.rmsnorm(p["ln2"], x)
-    f = blk.mlp(p["ffn"], h, cfg, policy)
+    f = _apply_ffn(p["ffn"], h, cfg, policy, is_moe)
     if cfg.post_norms:
         f = blk.rmsnorm(p["pn2"], f)
     return x + f
@@ -258,8 +289,8 @@ def forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
 
 def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                    remat: str = "none"):
-    """Pre-head hidden states (B, S, d) of a dense decoder -- the chunked
-    loss's entry point."""
+    """Pre-head hidden states (B, S, d) of a decoder -- the chunked loss's
+    entry point."""
     if cfg.family == "encoder":
         raise ValueError("the encoder has no LM hidden states; use forward")
     check_ported(cfg)
@@ -272,7 +303,8 @@ def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         for j in range(cfg.moe_every):
             x = _apply_sublayer(lp[f"sub{j}"], x, cfg, policy,
                                 positions=positions,
-                                window=windows[i * cfg.moe_every + j])
+                                window=windows[i * cfg.moe_every + j],
+                                is_moe=is_moe_sublayer(cfg, j))
         return x
 
     return _run_layers(params["layers"], n_stacked(cfg), body, x, remat)

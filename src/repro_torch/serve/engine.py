@@ -39,7 +39,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import packed_store
-from ..core.blocking import QuantizedTensor
+from ..core.blocking import QuantizedTensor, torch_dtype
 from ..core.policy import QuantPolicy
 from ..device import resolve_device
 from ..models import model as M
@@ -103,8 +103,12 @@ class ServeEngine:
             policy = policy.replace(backend=backend)
             _ = policy.use_kernels  # validate at construction
         self.cfg = cfg
-        self.cache = M.init_cache(cfg, slots, max_len, device=self.device,
-                                  kv_fmt=policy.kv_cache_fmt)
+        # the cache's precision follows the compute dtype, as in the JAX
+        # engine: a bf16 cache under an f32 config would round K/V
+        self.cache = M.init_cache(cfg, slots, max_len,
+                                  dtype=torch_dtype(cfg.compute_dtype),
+                                  ring=False, kv_fmt=policy.kv_cache_fmt,
+                                  device=self.device)
         can_pack = packed_store.packable_policy(policy)
         if pack_weights and not can_pack:
             raise ValueError(

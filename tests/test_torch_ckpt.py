@@ -199,11 +199,13 @@ def test_packed_ckpt_restore_decode_identical(tmp_path):
     _assert_same(_flat(restored), _flat(packed))
 
     pol = INFER.replace(backend="cuda")
-    cache = M.init_cache(cfg, 1, 8, device="cpu")
+    cache = M.init_cache(cfg, 1, 8, dtype=torch.float32, ring=False,
+                          kv_fmt="mxsf", device="cpu")
     toks = torch.zeros((1, 1), dtype=torch.int64)
     pos = torch.zeros(1, dtype=torch.int64)
     l_pack = M.decode_step(packed, toks, cache, pos, cfg, pol)[0]
-    cache = M.init_cache(cfg, 1, 8, device="cpu")
+    cache = M.init_cache(cfg, 1, 8, dtype=torch.float32, ring=False,
+                          kv_fmt="mxsf", device="cpu")
     l_rest = M.decode_step(restored, toks, cache, pos, cfg, pol)[0]
     assert torch.equal(l_pack, l_rest)
 

@@ -32,9 +32,10 @@ def test_init_packed_params_follow_the_generators_device(cfg):
             for t in tree_leaves(store)} == {"cpu"}
 
 
-def test_init_cache_without_a_device_takes_the_card(cfg, monkeypatch):
+@pytest.mark.parametrize("kv_fmt", ["mxsf", ""])
+def test_init_cache_without_a_device_takes_the_card(cfg, monkeypatch, kv_fmt):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TM.init_cache(cfg, 1, 8)
-    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+        TM.init_cache(cfg, 1, 8, kv_fmt=kv_fmt)
+    cache = TM.init_cache(cfg, 1, 8, kv_fmt=kv_fmt, device="cpu")
     assert {t.device.type for t in cache.values()} == {"cpu"}

@@ -143,17 +143,29 @@ def test_engine_without_device_needs_cuda(ref, monkeypatch):
                     backend="cuda")
 
 
-def test_torch_backend_is_not_ported(ref):
-    eng = ServeEngine(ref["cfg_t"], ref["params_t"], ref["pol"],
-                      device="cpu")  # default backend: "torch"
-    eng.submit(ref["prompts"][0], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run()
+def test_default_policy_serves_like_the_jax_engine(ref):
+    """``MXSF_INFER`` as it stands -- the value cache (``kv_cache_fmt=""``)
+    and the value-domain backend -- on both engines: the JAX engine's token
+    streams and dispatch counts."""
+    jeng = JaxEngine(ref["cfg_j"], ref["params_j"], JAX_INFER, slots=2,
+                     max_len=MAX_LEN, prefill_chunk=7)
+    eng = ServeEngine(ref["cfg_t"], ref["params_t"], TORCH_INFER, slots=2,
+                      max_len=MAX_LEN, prefill_chunk=7, device="cpu")
+    assert eng.attn_backend == "torch" and set(eng.cache) == {"k", "v"}
+    outs = []
+    for e in (jeng, eng):
+        reqs = [e.submit(p, MAX_NEW) for p in ref["prompts"]]
+        e.run()
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    assert eng.prefill_dispatches == jeng.prefill_dispatches
+    assert eng.decode_dispatches == jeng.decode_dispatches
 
 
 def test_moe_configs_pin_token_by_token():
-    """Expert capacity is sized per dispatch, so MoE engines take chunk=1
-    (as the JAX engine does); MoE layers themselves are not ported yet."""
+    """Expert capacity is sized per dispatch, so MoE engines take chunk=1,
+    as the JAX engine does (their tokens against the JAX engine's:
+    ``test_torch_moe.py``)."""
     cfg = torch_config("qwen2-moe-a2.7b").reduced()
     eng = ServeEngine(cfg, {}, TORCH_INFER.replace(kv_cache_fmt="mxsf"),
                       backend="cuda", slots=2, max_len=16, prefill_chunk=16,
