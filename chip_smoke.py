@@ -50,10 +50,12 @@ Phases, each printed as one JSON line:
 5. slice   -- the first prefill dispatch and two decode dispatches of one
               engine state through the kernels, each kernel call teacher-
               forced: its plain version runs on the same inputs and the
-              kernel must meet phase 3's tolerance there, so the logits
-              match the plain head within its tolerance and the tokens
-              agree wherever the plain top-1/top-2 gap is wider than twice
-              it; the cache changes at the written rows only.
+              kernel must meet phase 3's tolerance there (a matmul of the
+              exact sum of the plain version's products, computed in
+              f64), so the logits match the plain head within its
+              tolerance and the tokens agree wherever the plain
+              top-1/top-2 gap is wider than twice it; the cache changes at
+              the written rows only.
 6. ckpt_serve -- the packed store of full-width qwen2.5-32b at the depth
               the host's disk and memory allow (16 of 64 layers: no
               checkpoint larger than half of either), ``ckpt.save`` of it
@@ -68,11 +70,13 @@ Phases, each printed as one JSON line:
 7. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
               ``init_state`` from ``--seed``, batches from ``lm_batch``
               (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
-              for 3 steps, then a fourth under the profiler: loss, grad
+              under the default remat ``"dots"`` for 3 steps, then a
+              fourth under the profiler: loss, grad
               norm, lr, step seconds (host clock, synchronised), tokens/s,
               peak memory, each kernel's launches, which must equal the
               path's count, and the K steps the matmul kernels sent down
-              their f32 path.  Then the 1D
+              their f32 path; after phase 8's 2D slice one more step of
+              the same state at remat ``"none"``.  Then the 1D
               layout (``block_mode="1d"``, ``quantize_bwd=True``) at the
               same width with the depth cut to 4 layers, for 2 steps and
               a third under the profiler (with the requantizer's summed
@@ -83,9 +87,10 @@ Phases, each printed as one JSON line:
               and every set of emitted codes bit for bit against its plain
               version on the same
               inputs, every matmul call within ``train_rtol(K)`` =
-              TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the plain version,
-              and the loss within the head's tolerance of the loss of the
-              plain head's logits.
+              TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the exact sum of
+              the plain version's products (the plain f32 version's own
+              distance from it printed beside), and the loss within the
+              head's tolerance of the loss of the plain head's logits.
 9. serve_gemma2 -- gemma2-9b at full width and all 42 layers (softcaps,
               alternating 4096-token SWA: the value-domain cached
               attention): one packed store (~13 GB) shared by two
@@ -125,11 +130,35 @@ Phases, each printed as one JSON line:
               share) and one teacher-forced as in ``train_slice``; loss,
               accuracy, step seconds, tokens/s, peak memory, launch
               counts equal to the path's.
-14. the ``kernels`` line (every CUDA kernel, its launches on each path,
+14. serve_ssm, serve_hybrid, serve_encdec, serve_vlm -- the other
+              families at full width on ``--seed`` weights: mamba2-780m
+              (48 SSD layers, 4 x 256-token prompts, 32 decode steps),
+              zamba2-7b (81 SSD layers and 13 applications of the shared
+              attention block over the packed cache, 2 x 256, 16 steps),
+              whisper-medium (24 + 24 layers, 1500 bf16 frames through
+              ``prefill``, a 4-token prompt fed by ``decode_step``, 16 new
+              tokens) and internvl2-1b (256 patch embeddings and a
+              64-token prompt through ``prefill``, 16 steps, then the
+              text-only engine on the same store).  Each first holds the
+              fused matmul at its widest linear and the attention kernel
+              at its head shape against their plain versions, then
+              prints store and cache bytes, tokens/s, peak memory, the
+              launches (equal to the path's), a profiled decode step, and
+              its first prefill and decode step teacher-forced as in
+              ``slice``.
+15. train_families -- ``MXSF_TRAIN`` (2D, remat ``"dots"``), 2 steps and
+              one profiled, of mamba2-780m (4 x 512), whisper-medium (2 x
+              448 over 1500 frames), internvl2-1b (4 x 512 behind its
+              256-embedding prefix) and zamba2-7b at 12 of its 81 layers
+              (printed), with launches equal to the path's; then one
+              step of each teacher-forced as in ``train_slice``, and for
+              mamba2-780m and whisper-medium two more steps at remat
+              ``"none"`` (peak and seconds beside ``"dots"``').
+16. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11 run right after phase 6, and a ``done`` line with the whole
-run's seconds comes before the ``kernels`` line.
+Phases 9-11 and 14 run right after phase 6, phase 15 last, and a ``done``
+line with the whole run's seconds comes before the ``kernels`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -1154,19 +1183,58 @@ def phase_train_kernels(torch, device, cfg, batch, seq, seed):
 # training (phase "train") and its teacher-forced slice ("train_slice")
 # ---------------------------------------------------------------------------
 
-def train_launch_counts(cfg, policy):
-    """Kernel launches of one train step, from the path: q, k, v, o and the
-    MLP's 3 (gated) or 2 linears per layer plus the head (once: the LM
-    head's S <= xent_chunk; the encoder's on the cls row), each one
-    raw-weight mx_dot with its backward."""
-    per_layer = 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
-    n = per_layer * cfg.n_layers + 1
+def stack_linears(cfg):
+    """The linears of one pass over the model's layers, from the path, by
+    kind: ``ssd`` the in_proj and out_proj of each SSD layer; ``attn`` the
+    self-attention sublayers (q, k, v, o each; a hybrid's one shared block
+    counted at each application); ``mlp`` the packed MLP linears (3 gated
+    or 2 for each dense sublayer, and an MoE sublayer's shared expert:
+    routed experts run in values); ``enc`` the encoder's linears of an
+    encoder-decoder; ``cross`` its decoder's cross-attention sublayers
+    (q, k, v, o in training; q and o against the cached K/V in decoding).
+    Training, serving and prefill counts all derive from this."""
+    from repro_torch.models.transformer import hybrid_split, is_moe_sublayer
+    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return dict(ssd=2 * L, attn=0, mlp=0, enc=0, cross=0)
+    if cfg.family == "hybrid":
+        G = hybrid_split(cfg)[0]
+        return dict(ssd=2 * L, attn=G, mlp=mlp * G, enc=0, cross=0)
+    if cfg.family == "encdec":
+        return dict(ssd=0, attn=L, mlp=mlp * L,
+                    enc=cfg.n_enc_layers * (4 + mlp), cross=L)
+    dense = sum(not is_moe_sublayer(cfg, i % cfg.moe_every)
+                or cfg.n_shared_experts > 0 for i in range(L))
+    return dict(ssd=0, attn=L, mlp=mlp * dense, enc=0, cross=0)
+
+
+def layer_matmuls(cfg):
+    """Raw-weight ``mx_dot`` calls of one training forward inside the
+    layers (each a remat region): every linear of ``stack_linears``, the
+    cross-attention's K/V projection among them."""
+    n = stack_linears(cfg)
+    return n["ssd"] + 4 * n["attn"] + n["mlp"] + n["enc"] + 4 * n["cross"]
+
+
+def train_launch_counts(cfg, policy, remat="dots"):
+    """Kernel launches of one train step, from the path: the layers' raw-
+    weight mx_dots (``layer_matmuls``) plus the head (once: the LM head's
+    S <= xent_chunk; the encoder's on the cls row), each with its
+    backward.  Remat ``"dots"`` recomputes each layer's forward but its
+    matmuls: x and w of each layer matmul are quantized again;
+    ``"full"`` runs the layers' forward again."""
+    nl = layer_matmuls(cfg)
+    n = nl + 1
+    redo_q, redo_f = {"none": (0, 0), "dots": (2 * nl, 0),
+                      "full": (nl, nl)}[remat]
     if policy.block_mode == "2d":
         # w and g quantized; the fused forward emits x's codes; dx and dw
-        return {"mxsf_quantize": 2 * n, "mxsf_fused_matmul": n,
+        return {"mxsf_quantize": 2 * n + redo_q,
+                "mxsf_fused_matmul": n + redo_f,
                 "mxsf_matmul": 2 * n, "mxsf_requantize": 0}
     # 1d: w quantized; forward, dx and dw fused; w and x re-blocked
-    return {"mxsf_quantize": n, "mxsf_fused_matmul": 3 * n,
+    return {"mxsf_quantize": n + redo_q, "mxsf_fused_matmul": 3 * n + redo_f,
             "mxsf_matmul": 0, "mxsf_requantize": 2 * n}
 
 
@@ -1189,20 +1257,58 @@ def read_launches():
             "mxsf_matmul": MM.launches, **MQ.launches}
 
 
+LM_TABLE_MAX = 16 << 30  # bytes of lm_batch's f32 vocab^2 table
+
+
+def lm_source(cfg):
+    """``lm_batch`` where its vocab x vocab f32 transition table fits
+    LM_TABLE_MAX (h2o-danube's 32000: 4.1 GB), else uniform tokens from a
+    seeded generator (internvl2's 151655 would need 92 GB, in either
+    package's pipeline)."""
+    return ("lm_batch" if 4 * cfg.vocab ** 2 <= LM_TABLE_MAX
+            else "uniform")
+
+
+def _stub(torch, device, seed, shape, scale):
+    """Seeded bf16 N(0, scale^2) values: the stubbed frontends' frames
+    and patch embeddings."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(torch.bfloat16)
+
+
 def make_batches(torch, cfg, seed, steps, batch, seq, device):
     """The steps' batches from the port's ``lm_batch`` (the vocab^2
-    transition table is freed after each) or, for the encoder,
+    transition table is freed after each) or uniform tokens
+    (``lm_source``) -- with seeded bf16 frames for an encoder-decoder and
+    patch embeddings (std 0.02, the token embeddings' scale) for a VLM,
+    the stubbed frontends' outputs -- or, for the encoder,
     ``vision_batch``, built before the run."""
     from repro_torch.data.pipeline import lm_batch, vision_batch
     out = []
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
     for i in range(steps):
         if cfg.family == "encoder":
             x, y = vision_batch(seed, i, batch, cfg.frontend_tokens,
                                 cfg.d_model, cfg.n_classes, device=device)
             out.append({"embeds": x, "label": y})
             continue
-        toks, labs = lm_batch(seed, i, batch, seq, cfg.vocab, device=device)
+        if lm_source(cfg) == "lm_batch":
+            toks, labs = lm_batch(seed, i, batch, seq, cfg.vocab,
+                                  device=device)
+        else:
+            walk = torch.randint(0, cfg.vocab, (batch, seq + 1),
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+            toks, labs = walk[:, :seq], walk[:, 1:]
         out.append({"tokens": toks, "labels": labs})
+        if cfg.family == "encdec":
+            out[-1]["frames"] = _stub(torch, device, seed + 100 + i,
+                                      (batch, cfg.enc_seq, cfg.d_model), 1.0)
+        elif cfg.frontend_tokens:
+            out[-1]["embeds"] = _stub(
+                torch, device, seed + 100 + i,
+                (batch, cfg.frontend_tokens, cfg.d_model), 0.02)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -1214,7 +1320,8 @@ def n_out(cfg):
 
 
 def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
-                profile=False, phase="train"):
+                profile=False, phase="train", remat="dots", state=None,
+                batches=None):
     """``steps`` AdamW steps of ``make_train_step`` from random parameters
     (``init_state`` from ``--seed``): loss (and the encoder's accuracy),
     grad norm, lr, step seconds (host clock, synchronised), tokens/s
@@ -1222,27 +1329,33 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
     which must equal the path's count on the card; with ``profile`` one
     more step, logged as the others are, runs under the profiler (device
     busy time by kernel; its seconds are the profiled wall time).  The
-    step updates the state in place.  Returns the state, the batches and
-    the launches summed over the ``steps`` steps (the profiled one not
-    among them)."""
+    step updates the state in place; ``state`` and ``batches`` continue an
+    earlier run (another remat on the same state).  Returns the state, the
+    batches and the launches summed over the ``steps`` steps (the profiled
+    one not among them)."""
     from repro_torch.core.packed_store import tree_leaves
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = T.init_state(gen, cfg, OptConfig(), device=device)
     profile = profile and on_card
-    batches = make_batches(torch, cfg, args.seed, steps + profile, batch,
-                           seq, device)
+    fresh = state is None
+    if fresh:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        state = T.init_state(gen, cfg, OptConfig(), device=device)
+        batches = make_batches(torch, cfg, args.seed, steps + profile, batch,
+                               seq, device)
     sync()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     emit(phase, layout=label, step="init", seconds=time.perf_counter() - t0,
-         n_layers=cfg.n_layers, d_model=cfg.d_model, n_params=n_params,
-         batch=batch, seq=seq, policy=str(policy))
-    step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
-    expect = train_launch_counts(cfg, policy)
+         family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=n_params, batch=batch, seq=seq, remat=remat,
+         data=(None if cfg.family == "encoder" else lm_source(cfg)),
+         policy=str(policy))
+    step_fn = T.make_train_step(cfg, policy, OptConfig(),
+                                T.TrainConfig(remat=remat))
+    expect = train_launch_counts(cfg, policy, remat)
     total = dict.fromkeys(expect, 0)
     losses = []
     _f32_steps("mxsf_matmul")
@@ -1271,7 +1384,7 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
         loss = float(metrics["loss"])
         losses.append(loss)
         emit(phase, layout=label, step=i, profiled=prof is not None,
-             loss=loss, **({"acc": float(metrics["acc"])}
+             remat=remat, loss=loss, **({"acc": float(metrics["acc"])}
                           if "acc" in metrics else {}),
              grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
              seconds=dt, tokens_per_s=batch * seq / dt,
@@ -1287,8 +1400,8 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
             raise AssertionError(f"train {label} step {i}: launches {got} "
                                  f"!= path {expect}")
     # random init: logits ~ N(0, <= 1), so the first loss is within ~0.5
-    # of ln(outputs)
-    if abs(losses[0] - math.log(n_out(cfg))) > 1.5:
+    # of ln(outputs) (a continued state has trained already)
+    if fresh and abs(losses[0] - math.log(n_out(cfg))) > 1.5:
         raise AssertionError(f"train {label}: step-0 loss {losses[0]} is "
                              f"not near ln({n_out(cfg)})")
     return state, batches, total
@@ -1297,9 +1410,9 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
 def train_rtol(k: int) -> float:
     """The train slice's matmul tolerance, of sum_k |x_k w_k|: TRAIN_SUM_C
     sqrt(K) u.  Gradient sums run over up to 32768 exact products, often
-    of one sign, where two f32 orders (the kernel's and cuBLAS's) drift
-    apart like a random walk of K roundings: MATMUL_RTOL is too tight at
-    large K, and the worst case 2 (K - 1) u would not discriminate."""
+    of one sign, where an f32 order drifts from the exact sum like a
+    random walk of K roundings: MATMUL_RTOL is too tight at large K, and
+    the worst case 2 (K - 1) u would not discriminate."""
     return TRAIN_SUM_C * math.sqrt(k) * F32_EPS
 
 
@@ -1310,11 +1423,17 @@ class checked_kernels:
     on with, and runs the plain version on the same inputs: quantize,
     requantize and emitted codes bit for bit; attention within
     ``attention_against_plain``'s tolerance; a matmul over K terms within
-    ``rtol(K)`` * sum|x w| of the plain version (the products are exact:
-    the summation order is the kernel's only freedom, which phase
-    ``kernels`` pins down on exact-sum operands).  The last fused call
-    with ``head_n`` columns keeps its plain output, tolerance and x's
-    dtype in ``head``."""
+    ``rtol(K)`` * sum|x w| of the exact sum of the plain version's
+    products (its decoded operands multiplied in f64; the products are
+    exact in f32 too, so the summation order is the kernel's only
+    freedom, which phase ``kernels`` pins down on exact-sum operands).
+    The plain f32 version's own distance from that sum is printed beside
+    (``plain_max_err_over_tol``), not gated: cuBLAS's f32 order is no
+    better a sum than the kernel's (on whisper-medium's head dw, K = 896,
+    one dominant product and ~900 small ones of one sign, it is 2.5x
+    ``train_rtol(K)`` from the exact sum where the kernel's two-level sum
+    is 0.1x).  The last fused call with ``head_n`` columns keeps the exact
+    output, tolerance and x's dtype in ``head``."""
 
     def __init__(self, torch, rtol, head_n):
         self.torch, self.rtol = torch, rtol
@@ -1323,11 +1442,14 @@ class checked_kernels:
                                       "mxsf_quantize", "mxsf_requantize",
                                       "mxsf_matmul")}
 
-    def _matmul(self, kind, y, y_ref, xq, wq, keep=False):
-        k = xq.shape[1]
-        res = held_to_plain(self.torch, y, y_ref, xq, wq, keep,
-                            rtol=self.rtol(k))
-        res.update(k=k, over_sum=res["err_over_tol"] * self.rtol(k))
+    def _matmul(self, kind, y, y_plain, xq, wq, keep=False):
+        k, torch = xq.shape[1], self.torch
+        exact = torch.matmul(xq.double(), wq.double())
+        res = held_to_plain(torch, y, exact, xq, wq, keep, rtol=self.rtol(k))
+        plain = held_to_plain(torch, y_plain, exact, xq, wq,
+                              rtol=self.rtol(k))
+        res.update(k=k, over_sum=res["err_over_tol"] * self.rtol(k),
+                   plain_err_over_tol=plain["err_over_tol"])
         self.calls[kind].append(res)
         return res
 
@@ -1426,6 +1548,9 @@ class checked_kernels:
                            finite=all(c["finite"] for c in calls))
                 if row["max_err_over_tol"] > 1.0 or not row["finite"]:
                     faults.append(f"{kind} tolerance")
+            if calls and "plain_err_over_tol" in calls[0]:
+                row["plain_max_err_over_tol"] = max(
+                    c["plain_err_over_tol"] for c in calls)
             if calls and "over_sum" in calls[0]:
                 j = max(range(len(calls)), key=lambda j: calls[j]["over_sum"])
                 row["worst_over_matmul_rtol"] = dict(
@@ -1517,19 +1642,10 @@ def phase_serve(torch, device, cfg, policy, args, slots, chunk, max_len,
 
 
 def serve_launch_counts(cfg, attn_backend):
-    """Kernel launches of one serving dispatch, from the path: the fused
-    matmul for q, k, v, o and each packed MLP linear (a dense sublayer's,
-    an MoE sublayer's shared expert; routed experts run in values) of every
-    sublayer, plus the head; the attention kernel once a layer where its
-    gate is open (``attn_backend`` ``"cuda-packed"``)."""
-    from repro_torch.models.transformer import is_moe_sublayer
-    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
-    fused = 1
-    for i in range(cfg.n_layers):
-        moe = is_moe_sublayer(cfg, i % cfg.moe_every)
-        fused += 4 + (mlp if not moe or cfg.n_shared_experts else 0)
-    attn = cfg.n_layers if attn_backend == "cuda-packed" else 0
-    return {"mxsf_fused_matmul": fused, "mxsf_attention": attn}
+    """Fused-matmul and attention launches of one decoder dispatch
+    (``family_launch_counts``' decode count without the quantizer)."""
+    n = family_launch_counts(cfg, attn_backend)
+    return {k: n[k] for k in ("mxsf_fused_matmul", "mxsf_attention")}
 
 
 def serve_run(torch, eng, cfg, prompts, new_tokens, phase, **fields):
@@ -1676,18 +1792,56 @@ def _cache_fault(torch, start, cache, written):
     return None
 
 
+def logits_against_plain(torch, chk, head, cfg, lk, S, last, live):
+    """The kernel path's logits ``lk`` (B, vocab) against the plain LM
+    head's output on the same input (``chk.head``: all B x S rows; row
+    ``last`` (B,) of each slot is the one returned), cast as mx_dot's
+    packed forward casts (one ulp more where that cast rounds to bf16);
+    the final softcap is 1-Lipschitz, so it keeps the tolerance.  Only
+    the ``live`` slots count.  Returns (fields, faults, kernel tokens of
+    the live slots)."""
+    from repro_torch.core.blocking import torch_dtype
+    B, dev = lk.shape[0], lk.device
+    y_ref, tol, x_dtype = chk.head
+    cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
+    y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
+    tol = tol[:, :head.shape[-1]]
+    if cast == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch, y_ref)
+    if cfg.final_softcap:
+        y_ref = cfg.final_softcap * torch.tanh(y_ref / cfg.final_softcap)
+    y_ref, tol = (v.reshape(B, S, -1) for v in (y_ref, tol))
+    sel = torch.arange(B, device=dev)
+    y_ref, tol = y_ref[sel, last], tol[sel, last]
+    real = slice(0, cfg.vocab)
+    lk, lp, tol = (v[live][:, real].float() for v in (lk, y_ref, tol))
+    logit_ratio = float(((lk - lp).abs() / tol).max())
+    top2 = lp.topk(2, dim=-1)
+    gap = top2.values[:, 0] - top2.values[:, 1]
+    tk, tp = lk.argmax(-1), lp.argmax(-1)
+    decided = gap > 2 * tol.max(dim=-1).values
+    agree = bool((tk[decided] == tp[decided]).all())
+    fields = dict(logits_max_abs_err=float((lk - lp).abs().max()),
+                  logits_err_over_tol=logit_ratio,
+                  max_abs_logit=float(lp.abs().max()),
+                  tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
+                  decided=decided.tolist(), agree_where_decided=agree)
+    faults = [f for f in (logit_ratio > 1.0 and "logits tolerance",
+                          not agree and "tokens") if f]
+    return fields, faults, tk
+
+
 def checked_dispatch(torch, params, cfg, policy, kind, t, cache, p, n,
                      expect, phase, **fields):
     """One dispatch (``prefill_step`` with ``n`` valid tokens, or
     ``decode_step``) through the kernels with every kernel call teacher-
     forced (``checked_kernels``): each call meets phase 3's tolerance
     against its plain version on its inputs, so the logits match the
-    plain head's (after the final softcap where the config has one)
-    within its tolerance and the tokens agree wherever the plain
-    top-1/top-2 gap is wider than twice it; the cache changes at the
-    written rows only; each kernel's calls equal ``expect``.  Updates
-    ``cache`` in place; returns (row, kernel tokens)."""
-    from repro_torch.core.blocking import torch_dtype
+    plain head's within its tolerance and the tokens agree wherever the
+    plain top-1/top-2 gap is wider than twice it
+    (``logits_against_plain``); the cache changes at the written rows
+    only; each kernel's calls equal ``expect``.  Updates ``cache`` in
+    place; returns (row, kernel tokens)."""
     from repro_torch.models import model as M
     dev = t.device
     B, W = t.shape[0], next(iter(cache.values())).shape[3]
@@ -1698,50 +1852,21 @@ def checked_dispatch(torch, params, cfg, policy, kind, t, cache, p, n,
             lk = M.prefill_step(params, t, cache, p, n, cfg, policy)[0]
         else:
             lk = M.decode_step(params, t, cache, p, cfg, policy)[0]
-    # the logits against the plain LM head's output on the same input,
-    # cast as mx_dot's packed forward casts (one ulp more where that cast
-    # rounds to bf16); the final softcap is 1-Lipschitz, so it keeps the
-    # tolerance
-    y_ref, tol, x_dtype = chk.head
-    head = params["head"]
-    cast = torch.promote_types(x_dtype, torch_dtype(head.dtype))
-    y_ref = y_ref[:, :head.shape[-1]].to(cast).float()
-    tol = tol[:, :head.shape[-1]]
-    if cast == torch.bfloat16:
-        tol = tol + _bf16_ulp(torch, y_ref)
-    if cfg.final_softcap:
-        y_ref = cfg.final_softcap * torch.tanh(y_ref / cfg.final_softcap)
-    y_ref, tol = (v.reshape(B, t.shape[1], -1) for v in (y_ref, tol))
     last = (torch.clamp(n - 1, 0, t.shape[1] - 1) if kind == "prefill"
             else torch.zeros(B, dtype=torch.int64, device=dev))
-    sel = torch.arange(B, device=dev)
-    y_ref, tol = y_ref[sel, last], tol[sel, last]
     live = (n > 0 if kind == "prefill"
             else torch.ones(B, dtype=torch.bool, device=dev))
-    real = slice(0, cfg.vocab)
-    lk, lp, tol = (v[live][:, real].float() for v in (lk, y_ref, tol))
-    logit_ratio = float(((lk - lp).abs() / tol).max())
-    top2 = lp.topk(2, dim=-1)
-    gap = top2.values[:, 0] - top2.values[:, 1]
-    tk, tp = lk.argmax(-1), lp.argmax(-1)
-    decided = gap > 2 * tol.max(dim=-1).values
-    agree = bool((tk[decided] == tp[decided]).all())
+    logit_fields, faults, tk = logits_against_plain(
+        torch, chk, params["head"], cfg, lk, t.shape[1], last, live)
     # the rows this step writes: pos .. pos+n-1 of each slot (ring W)
     span = n if kind == "prefill" else torch.ones_like(p)
     at = torch.arange(W, device=dev)[None, :]
     written = ((at - p[:, None]) % W) < span[:, None]
-    kernels, faults = chk.rows(expect)
-    row = dict(
-        kind=kind, **fields, kernels=kernels,
-        logits_max_abs_err=float((lk - lp).abs().max()),
-        logits_err_over_tol=logit_ratio,
-        max_abs_logit=float(lp.abs().max()),
-        tokens_kernel=tk.tolist(), tokens_plain=tp.tolist(),
-        decided=decided.tolist(), agree_where_decided=agree,
-        cache_fault=_cache_fault(torch, start, cache, written))
+    kernels, kernel_faults = chk.rows(expect)
+    row = dict(kind=kind, **fields, kernels=kernels, **logit_fields,
+               cache_fault=_cache_fault(torch, start, cache, written))
     emit(phase, **row)
-    faults += [f for f in (logit_ratio > 1.0 and "logits tolerance",
-                           not agree and "tokens", row["cache_fault"]) if f]
+    faults = kernel_faults + faults + [f for f in (row["cache_fault"],) if f]
     if faults:
         raise AssertionError(f"{phase} {fields} ({kind}): {faults}")
     nxt = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -2274,6 +2399,380 @@ def phase_serve_moe(torch, device, args, rehearsal):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, encoder-decoder and VLM families ("serve_ssm",
+# "serve_hybrid", "serve_encdec", "serve_vlm", "train_families")
+# ---------------------------------------------------------------------------
+
+def family_launch_counts(cfg, attn_backend, kind="decode"):
+    """Kernel launches of one dispatch of the cached path, from the path
+    (``stack_linears``): the fused matmul for each packed linear plus the
+    head; the attention kernel at each cached causal self-attention where
+    its gate is open (``attn_backend`` ``"cuda-packed"``); the quantizer
+    for the weights that stay values and are quantized per call (an
+    encoder-decoder's cross q and o).  An encoder-decoder's prefill runs
+    ``encode`` alone through the kernels (its cross K/V are plain
+    matmuls); any other prefill launches what a decode step does."""
+    n = stack_linears(cfg)
+    if kind == "prefill" and cfg.family == "encdec":
+        return {"mxsf_fused_matmul": n["enc"], "mxsf_attention": 0,
+                "mxsf_quantize": 0}
+    return {"mxsf_fused_matmul": (1 + n["ssd"] + 4 * n["attn"] + n["mlp"]
+                                  + 2 * n["cross"]),
+            "mxsf_attention": (n["attn"] if attn_backend == "cuda-packed"
+                               else 0),
+            "mxsf_quantize": 2 * n["cross"]}
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _tree_bytes(tree):
+    from repro_torch.serve.engine import _nbytes
+    return _nbytes(tree)
+
+
+def _finite_tree(torch, tree):
+    from repro_torch.core.packed_store import tree_leaves
+    return all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(tree) if t.is_floating_point())
+
+
+def family_store(torch, device, cfg, policy, args, phase):
+    """The packed store drawn leaf by leaf on the card from ``--seed``."""
+    from repro_torch.core.packed_store import store_nbytes
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    _sync(torch, device)
+    emit(phase, step="store", seconds=time.perf_counter() - t0,
+         family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         store_nbytes=store_nbytes(store))
+    return store
+
+
+def serve_family(torch, device, cfg, policy, store, prefill_batch, feed,
+                 new_tokens, max_len, phase, **fields):
+    """``prefill`` of ``prefill_batch`` into a fresh cache, then greedy
+    ``decode_step``s: first the ``feed`` tokens (B, n) (an encoder-
+    decoder's prompt; None for none), then ``new_tokens`` generated ones.
+    Prints store and cache bytes, peak memory, prefill and decode
+    tokens/s (host clock, synchronised), the launches of each kernel
+    (which must equal the path's), finiteness of logits and cache; then a
+    profiled decode step on a copy of the final cache.  Returns (launches,
+    tokens)."""
+    from repro_torch.models import model as M
+    on_card = device.type == "cuda"
+    B = next(iter(prefill_batch.values())).shape[0]
+    cache = M.init_cache(cfg, B, max_len, ring=False,
+                         kv_fmt=policy.kv_cache_fmt, device=device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(store, prefill_batch, cache, cfg, policy)
+    _sync(torch, device)
+    t_pre = time.perf_counter() - t0
+    pos = 0 if cfg.family == "encdec" else prefill_batch["tokens"].shape[1]
+    tok = None if logits is None else logits.argmax(-1)[:, None]
+    steps = list(feed.unbind(1)) if feed is not None else []
+    finite = logits is None or bool(torch.isfinite(
+        logits[:, :cfg.vocab]).all())
+    out = [] if tok is None else [tok[:, 0]]
+    t_dec = 0.0
+    for i in range(len(steps) + new_tokens):
+        t = steps[i][:, None] if i < len(steps) else tok
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(store, t, cache, pos + i, cfg, policy)
+        tok = logits.argmax(-1)[:, None]
+        finite &= bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+        t_dec += time.perf_counter() - t0
+        if i >= len(steps) - 1:
+            out.append(tok[:, 0])
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("mxsf_fused_matmul", "mxsf_attention",
+                         "mxsf_quantize")}
+    backend = M.decode_attn_backend(cfg, policy)
+    n_dec = len(steps) + new_tokens
+    expect = {k: v + n_dec * family_launch_counts(cfg, backend)[k]
+              for k, v in family_launch_counts(cfg, backend,
+                                               "prefill").items()}
+    tokens = torch.stack(out[:new_tokens], 1).tolist()
+    prompt = sum(v.shape[1] for v in prefill_batch.values())
+    finite &= _finite_tree(torch, cache)
+    emit(phase, step="run", batch=B, prefill_positions=prompt,
+         decode_steps=n_dec, max_len=max_len, tokens=tokens,
+         store_bytes=_tree_bytes(store), cache_bytes=_tree_bytes(cache),
+         prefill_seconds=t_pre, decode_seconds=t_dec,
+         prefill_tokens_per_s=B * prompt / t_pre,
+         decode_tokens_per_s=B * n_dec / t_dec, finite=finite,
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if on_card else None),
+         attn_backend=backend, launches=launches, expected_launches=expect,
+         **fields)
+    if not finite:
+        raise AssertionError(f"{phase}: non-finite logits or cache")
+    if on_card and launches != expect:
+        raise AssertionError(f"{phase}: launch counts {launches} != path "
+                             f"{expect}")
+    if on_card:  # one more decode step on a copy, profiled
+        probe = _clone_tree(cache)
+        t = tok.clone()
+        profile_dispatch(torch, lambda: M.decode_step(
+            store, t, probe, pos + n_dec, cfg, policy), phase)
+        del probe
+    return launches, tokens
+
+
+def checked_family(torch, device, cfg, policy, store, prefill_batch, feed,
+                   max_len, phase):
+    """The first prefill and the first decode step of ``serve_family``'s
+    run again on a fresh cache, teacher-forced (``checked_kernels``):
+    every kernel call within phase 3's tolerance of its plain version on
+    its inputs, the calls the path's count, and the logits within the
+    plain head's tolerance (``logits_against_plain``; an encoder-
+    decoder's prefill has none).  The decode step feeds the kernel path's
+    token (an encoder-decoder's first prompt token)."""
+    from repro_torch.models import model as M
+    backend = M.decode_attn_backend(cfg, policy)
+    B = next(iter(prefill_batch.values())).shape[0]
+    cache = M.init_cache(cfg, B, max_len, ring=False,
+                         kv_fmt=policy.kv_cache_fmt, device=device)
+    every = torch.ones(B, dtype=torch.bool, device=device)
+    nxt, pos = None, 0
+    for kind in ("prefill", "decode"):
+        with checked_kernels(torch, lambda k: MATMUL_RTOL,
+                             cfg.padded_vocab) as chk:
+            if kind == "prefill":
+                lk, cache = M.prefill(store, prefill_batch, cache, cfg,
+                                      policy)
+            else:
+                lk, cache = M.decode_step(store, nxt, cache, pos, cfg,
+                                          policy)
+        kernels, faults = chk.rows(family_launch_counts(cfg, backend, kind))
+        row = dict(kind=kind, kernels=kernels)
+        if lk is not None:
+            S = (sum(v.shape[1] for k, v in prefill_batch.items())
+                 if kind == "prefill" else 1)
+            last = torch.full((B,), S - 1, dtype=torch.int64, device=device)
+            fields, logit_faults, tk = logits_against_plain(
+                torch, chk, store["head"], cfg, lk, S, last, every)
+            row.update(fields)
+            faults += logit_faults
+        emit(phase, step="slice", **row)
+        if faults:
+            raise AssertionError(f"{phase} slice ({kind}): {faults}")
+        if kind == "prefill":
+            nxt = feed[:, :1] if feed is not None else tk[:, None]
+            pos = 0 if cfg.family == "encdec" else \
+                prefill_batch["tokens"].shape[1]
+
+
+def phase_family_kernels(torch, device, cfg, slots, chunk, L, phase):
+    """The fused matmul at the family's widest packed linear (an SSD's
+    in_proj, N not a multiple of 64 for mamba2 and zamba2) for a decode
+    step's and a prefill's rows, and the attention kernel at its head
+    shape (dh, group) for S = 1 and S = chunk over L keys, each against
+    its plain version with the rows of phase ``kernels``."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    timer = Timer(torch, device)
+    rows = []
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.ssd import ssd_leaves
+        n = dict((p[-1], s) for p, s, _ in ssd_leaves(cfg))["in_proj"][1]
+        for m in (slots, slots * chunk):
+            rows.append(check_matmul(torch, timer, gen, device, m,
+                                     cfg.d_model, n))
+    if cfg.family != "ssm":
+        for S in (1, chunk):
+            rows.append(check_attention(torch, timer, gen, device, cfg,
+                                        slots, L, S))
+    emit(phase, step="kernels", rows=len(rows))
+    del timer
+    return rows
+
+
+def phase_serve_ssm(torch, device, args, rehearsal):
+    """mamba2-780m at full width and depth (48 SSD layers, tied head) on
+    the packed store (``MXSF_INFER``): batch 4, a 256-token prompt (two
+    SSD chunks) through ``prefill``, 32 greedy decode steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    cfg = get_config("mamba2-780m")
+    B, prompt, steps = 4, 256, 32
+    if rehearsal:
+        cfg, prompt, steps = cfg.reduced(), 32, 4
+    policy = MXSF_INFER.replace(backend="cuda")
+    phase_family_kernels(torch, device, cfg, B, prompt, prompt + steps,
+                         "serve_ssm")
+    store = family_store(torch, device, cfg, policy, args, "serve_ssm")
+    batch = {"tokens": torch.tensor(_prompts(cfg, args.seed, [prompt] * B),
+                                    device=device)}
+    launches, _ = serve_family(torch, device, cfg, policy, store, batch,
+                               None, steps, prompt + steps + 1, "serve_ssm")
+    checked_family(torch, device, cfg, policy, store, batch, None,
+                   prompt + 2, "serve_ssm")
+    del store
+    free_device(torch, device)
+    return launches
+
+
+def phase_serve_hybrid(torch, device, args, rehearsal):
+    """zamba2-7b at full width and depth (81 SSD layers: 13 groups of 6,
+    each followed by the one shared attention block, dh 112, MHA, and a
+    tail of 3) on the packed store with the packed MXSF KV cache
+    (``MXSF_INFER.replace(kv_cache_fmt="mxsf")``): batch 2, a 256-token
+    prompt, max_len 512, 16 greedy decode steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    cfg = get_config("zamba2-7b")
+    B, prompt, steps, max_len = 2, 256, 16, 512
+    if rehearsal:
+        cfg, prompt, steps, max_len = cfg.reduced(), 32, 4, 48
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf", backend="cuda")
+    phase_family_kernels(torch, device, cfg, B, prompt, max_len,
+                         "serve_hybrid")
+    store = family_store(torch, device, cfg, policy, args, "serve_hybrid")
+    batch = {"tokens": torch.tensor(_prompts(cfg, args.seed, [prompt] * B),
+                                    device=device)}
+    launches, _ = serve_family(torch, device, cfg, policy, store, batch,
+                               None, steps, max_len, "serve_hybrid")
+    checked_family(torch, device, cfg, policy, store, batch, None, max_len,
+                   "serve_hybrid")
+    del store
+    free_device(torch, device)
+    return launches
+
+
+def phase_serve_encdec(torch, device, args, rehearsal):
+    """whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers) on the packed store (cross-attention in values, as in the JAX
+    package's) with the packed MXSF self cache: batch 2, 1500 seeded bf16
+    frames through ``prefill`` (``encode`` and the cross K/V), a 4-token
+    prompt fed by ``decode_step``, 16 new tokens, max_len 448."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    cfg = get_config("whisper-medium")
+    B, prompt, steps, max_len = 2, 4, 16, 448
+    if rehearsal:
+        cfg, steps, max_len = cfg.reduced(), 4, 32
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf", backend="cuda")
+    phase_family_kernels(torch, device, cfg, B, 16, max_len, "serve_encdec")
+    store = family_store(torch, device, cfg, policy, args, "serve_encdec")
+    frames = {"frames": _stub(torch, device, args.seed + 1,
+                              (B, cfg.enc_seq, cfg.d_model), 1.0)}
+    feed = torch.tensor(_prompts(cfg, args.seed, [prompt] * B),
+                        device=device)
+    launches, _ = serve_family(torch, device, cfg, policy, store, frames,
+                               feed, steps, max_len, "serve_encdec",
+                               frames=cfg.enc_seq, prompt=prompt)
+    checked_family(torch, device, cfg, policy, store, frames, feed, max_len,
+                   "serve_encdec")
+    del store
+    free_device(torch, device)
+    return launches
+
+
+def phase_serve_vlm(torch, device, args, rehearsal):
+    """internvl2-1b at full width and depth (24 layers, GQA 14/2, dh 64,
+    tied head) on the packed store with the packed MXSF cache: batch 2,
+    256 seeded bf16 patch embeddings and a 64-token prompt through
+    ``prefill``, 16 greedy decode steps; then the text-only
+    ``ServeEngine`` on the same store (positions shifted past the prefix,
+    whose columns stay unwritten) on the same prompts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("internvl2-1b")
+    B, prompt, steps, chunk = 2, 64, 16, 16
+    if rehearsal:
+        cfg, prompt, steps, chunk = cfg.reduced(), 12, 4, 4
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf", backend="cuda")
+    T = cfg.frontend_tokens
+    max_len = prompt + steps + 1
+    phase_family_kernels(torch, device, cfg, B, T + prompt, T + max_len,
+                         "serve_vlm")
+    store = family_store(torch, device, cfg, policy, args, "serve_vlm")
+    toks = torch.tensor(_prompts(cfg, args.seed, [prompt] * B),
+                        device=device)
+    batch = {"tokens": toks,
+             "embeds": _stub(torch, device, args.seed + 2,
+                             (B, T, cfg.d_model), 0.02)}
+    launches = {}
+    launches["serve_vlm"], _ = serve_family(
+        torch, device, cfg, policy, store, batch, None, steps, max_len,
+        "serve_vlm", prefix=T)
+    checked_family(torch, device, cfg, policy, store, batch, None, max_len,
+                   "serve_vlm")
+    eng = ServeEngine(cfg, store, policy, slots=B, max_len=max_len,
+                      prefill_chunk=chunk, backend="cuda", device=device)
+    _, launches["serve_vlm_text"] = serve_run(
+        torch, eng, cfg, toks.tolist(), steps, "serve_vlm",
+        engine="text-only", cache_bytes=_tree_bytes(eng.cache))
+    unwritten = not bool((eng.cache["k_scales"][:, :, :, :T] > 0).any())
+    emit("serve_vlm", step="prefix_columns_unwritten", ok=unwritten)
+    if not unwritten:
+        raise AssertionError("serve_vlm: the text-only engine wrote a "
+                             "prefix column")
+    del eng, store
+    free_device(torch, device)
+    return launches
+
+
+def phase_train_families(torch, device, args, rehearsal):
+    """``MXSF_TRAIN`` (2D) under the default remat ``"dots"``, 2 steps and
+    one profiled, at full width: mamba2-780m (48 layers, 4 x 512),
+    whisper-medium (24 + 24 layers, 2 x 448 over 1500 frames),
+    internvl2-1b (24 layers, 4 x 512 behind the 256-embedding prefix) and
+    zamba2-7b cut to 12 of its 81 layers (2 groups of 6: f32 weights and
+    AdamW state at full depth exceed the card; printed).  Each step
+    prints loss (finite, within 1.5 of ln(vocab) at init), seconds,
+    tokens/s, peak memory and launches equal to the path's; then one step
+    teacher-forced (``phase_train_slice``: every kernel call against its
+    plain version, the calls the path's count).  mamba2 and whisper, whose
+    activations are a large share of their peak, take two more steps at
+    remat ``"none"`` (the first grows the allocator to the new peak): their
+    peak and seconds beside ``"dots"``'."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_TRAIN
+    policy = MXSF_TRAIN.replace(backend="cuda")
+    launches = {}
+    runs = (("mamba2-780m", 4, 512, None, True),
+            ("whisper-medium", 2, 448, None, True),
+            ("internvl2-1b", 4, 512, None, False),
+            ("zamba2-7b", 4, 512, 12, False))
+    for arch, batch, seq, depth, no_remat in runs:
+        cfg = get_config(arch)
+        if rehearsal:
+            cfg, batch, seq = cfg.reduced(), 2, 32
+        elif depth:
+            emit("train_families", arch=arch, step="cut",
+                 n_layers=depth, of=cfg.n_layers)
+            cfg = cfg.replace(n_layers=depth)
+        t0 = time.perf_counter()
+        state, batches, launches[f"train_{arch}"] = phase_train(
+            torch, device, cfg, policy, args, 2, batch, seq, arch,
+            profile=True, phase="train_families")
+        phase_train_slice(torch, device, cfg, policy, state, batches[0],
+                          arch, phase="train_families")
+        if no_remat:
+            state, _, launches[f"train_{arch}_no_remat"] = phase_train(
+                torch, device, cfg, policy, args, 2, batch, seq, arch,
+                phase="train_families", remat="none", state=state,
+                batches=batches[:2])
+        emit("train_families", arch=arch, step="done",
+             seconds=time.perf_counter() - t0)
+        del state, batches
+        free_device(torch, device)
+    return launches
+
+
 def kernels_line(rows, attn, train_rows, launches, slots, cfg):
     """One entry per CUDA kernel: its launches on the main paths (serving,
     2D and 1D training, each counted from 0) and the numbers of its row at
@@ -2371,6 +2870,12 @@ def main(argv=None) -> int:
     free_device(torch, device)
     launches["serve_moe"] = phase_serve_moe(torch, device, args, rehearsal)
     free_device(torch, device)
+    launches["serve_ssm"] = phase_serve_ssm(torch, device, args, rehearsal)
+    launches["serve_hybrid"] = phase_serve_hybrid(torch, device, args,
+                                                  rehearsal)
+    launches["serve_encdec"] = phase_serve_encdec(torch, device, args,
+                                                  rehearsal)
+    launches.update(phase_serve_vlm(torch, device, args, rehearsal))
     # 2D (MXSF_TRAIN) at full depth, then the 1D layout at cut depth
     pol2 = MXSF_TRAIN.replace(backend="cuda")
     state, batches, launches["train_2d"] = phase_train(
@@ -2378,6 +2883,10 @@ def main(argv=None) -> int:
         profile=True)
     phase_train_slice(torch, device, train_cfg, pol2, state, batches[0],
                       "2d")
+    # one more step without remat: its peak and seconds beside "dots"
+    state, _, launches["train_2d_no_remat"] = phase_train(
+        torch, device, train_cfg, pol2, args, 1, batch, seq, "2d",
+        remat="none", state=state, batches=batches[:1])
     del state, batches
     free_device(torch, device)
     cfg1 = train_cfg.replace(n_layers=min(4, train_cfg.n_layers))
@@ -2408,6 +2917,7 @@ def main(argv=None) -> int:
              seconds=time.perf_counter() - t0)
         del state, batches
         free_device(torch, device)
+    launches.update(phase_train_families(torch, device, args, rehearsal))
     line = kernels_line(rows, attn, train_rows, launches, slots, cfg)
     emit("done", seconds=time.perf_counter() - t_start)
     if device.type == "cuda":

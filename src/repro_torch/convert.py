@@ -3,17 +3,18 @@
 ``params_from_numpy(tree, cfg, device)`` takes a JAX parameter tree whose
 leaves were turned into numpy arrays (``jax.tree.map(np.asarray, params)``,
 done by the caller; this module imports nothing of JAX).  The tree keeps the
-JAX layout -- the stacked ``(n_super, ...)`` layer axis and the ``sub{j}``
-keys of a decoder, the ``(n_layers, ...)`` stack of the encoder -- which is
-the port's layout too, so leaves map one to one.  A packed
+JAX layout -- each stack of ``models.transformer.stacks`` on its leading
+axes (a decoder's ``(n_super, ...)`` with ``sub{j}`` keys, a hybrid's
+``(groups, per, ...)`` SSM layers, ...) -- which is the port's layout too,
+so leaves map one to one.  A packed
 leaf (any object with ``codes``, ``scale_e8m0``, ``fmt``, ``block``,
 ``shape`` and ``dtype``) goes through ``qt_from_numpy``.  After conversion
 both packages compute the same function; MoE routers and expert stacks
 (``router``, ``we_*``) stay values and a shared expert's MLP (``shared``)
 maps like any other.  ``train_state_from_numpy`` carries a JAX train state
 (``{"params", "opt": {"m", "v", "step"}}``, and ``"master"`` where the JAX
-state has it) across the same way, and ``cache_from_numpy`` a decoder KV
-cache (a value cache ``{k, v}`` or the packed codes and scales).
+state has it) across the same way, and ``cache_from_numpy`` a cache of
+any family (KV values or packed codes and scales, SSM states, cross K/V).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from .configs.base import ModelConfig
 from .core.blocking import QuantizedTensor
 from .core.packed_store import tree_leaves
-from .models.transformer import n_stacked
+from .models.transformer import stacks
 
 __all__ = ["tensor_from_numpy", "qt_from_numpy", "params_from_numpy",
            "train_state_from_numpy", "cache_from_numpy"]
@@ -63,13 +64,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
         return tensor_from_numpy(node, device)
 
     out = walk(tree)
-    n_lead = n_stacked(cfg)
-    for leaf in tree_leaves(out.get("layers", {})):
-        lead = (leaf.codes if isinstance(leaf, QuantizedTensor)
-                else leaf).shape[0]
-        if lead != n_lead:
-            raise ValueError(f"layer leaf has leading dim {lead}, expected "
-                             f"{n_lead} for {cfg.name}")
+    for name, lead, _ in stacks(cfg):
+        for leaf in tree_leaves(out.get(name, {})):
+            got = tuple((leaf.codes if isinstance(leaf, QuantizedTensor)
+                         else leaf).shape[:len(lead)])
+            if got != lead:
+                fmt = lambda dims: ", ".join(map(str, dims))
+                raise ValueError(f"{name} leaf has leading dim {fmt(got)}, "
+                                 f"expected {fmt(lead)} for {cfg.name}")
     return out
 
 
@@ -86,6 +88,9 @@ def train_state_from_numpy(state, cfg: ModelConfig, device="cpu"):
 
 
 def cache_from_numpy(cache, device="cpu"):
-    """The JAX package's decoder KV cache (numpy leaves; bf16 values
-    included) as the port's: the same keys, shapes and dtypes."""
-    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+    """The JAX package's cache of any family (numpy leaves, nested dicts;
+    bf16 values included) as the port's: the same keys, shapes and
+    dtypes."""
+    if isinstance(cache, dict):
+        return {k: cache_from_numpy(v, device) for k, v in cache.items()}
+    return tensor_from_numpy(cache, device)

@@ -33,6 +33,15 @@ Kernels are called through their module attributes (``FM.``, ``MQ.``,
 
 ``count_quant_passes`` counts the quantize passes (paper Fig. 4
 accounting), ticking where the JAX package ticks.
+
+``save_dots`` is the ``torch.utils.checkpoint`` ``context_fn`` of the
+``"dots"`` remat policy (the JAX package's
+``dots_with_no_batch_dims_saveable``): inside a checkpointed region the
+forward keeps each raw-weight ``mx_dot``'s output, and the recompute
+returns the kept output and quantizes the operands again for the
+backward's residuals without running the matmul.  (PyTorch's selective
+checkpointing picks ops by aten name; the kernel datapath's matmul is a
+kernel launch, not an aten op, so the policy is applied here.)
 """
 from __future__ import annotations
 
@@ -48,9 +57,11 @@ from ..kernels import mx_matmul as MM
 from ..kernels import mxsf_fused_matmul as FM
 from ..kernels import mxsf_quant as MQ
 
-__all__ = ["mx_dot", "mx_einsum", "qdq_along", "count_quant_passes"]
+__all__ = ["mx_dot", "mx_einsum", "qdq_along", "count_quant_passes",
+           "save_dots"]
 
 _COUNTER = {"n": 0, "active": False}
+_DOTS = {"mode": None}  # the "dots" region being run or recomputed
 
 
 @contextlib.contextmanager
@@ -86,6 +97,35 @@ def qdq_along(x: torch.Tensor, fmt: str, policy: QuantPolicy, axis: int = -1):
     blk = ((policy.block_1d,) if axis in (-1, x.ndim - 1)
            else (policy.block_1d, 1))
     return _qdq(x, fmt, blk)
+
+
+class _DotsMode:
+    """One remat region's ``mx_dot`` outputs: ``record`` appends each
+    output, ``replay`` hands them back in call order (re-entrant: every
+    recompute starts from the first)."""
+
+    def __init__(self, saved: list, replay: bool):
+        self.saved, self.replay, self.i, self.prev = saved, replay, 0, None
+
+    def __enter__(self):
+        self.prev, self.i = _DOTS["mode"], 0
+        _DOTS["mode"] = self
+        return self
+
+    def __exit__(self, *exc):
+        _DOTS["mode"] = self.prev
+
+    def next(self) -> torch.Tensor:
+        self.i += 1
+        return self.saved[self.i - 1]
+
+
+def save_dots():
+    """``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for remat
+    ``"dots"``: (the forward's recording context, the recompute's replaying
+    context) over one list of kept ``mx_dot`` outputs."""
+    saved: list = []
+    return _DotsMode(saved, False), _DotsMode(saved, True)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -134,6 +174,19 @@ def _kernel_fwd(policy: QuantPolicy, xm, w, with_residuals: bool):
         res = None
     y = y[:, :w.shape[-1]].to(torch.promote_types(xm.dtype, w.dtype))
     return y, res
+
+
+def _kernel_residuals(policy: QuantPolicy, xm, w):
+    """The forward's residuals without its matmul (remat ``"dots"``
+    recompute): w by the quantizer kernel, x too (the codes the fused
+    prologue emits, bit for bit)."""
+    xblk, wblk = _pol_blocks(policy)
+    wc, ws = MQ.mxsf_quantize(w.contiguous(), wblk)
+    xc, xs = MQ.mxsf_quantize(xm.contiguous(), xblk)
+    return (B.QuantizedTensor(xc, xs, policy.fwd_fmt, xblk, tuple(xm.shape),
+                              B.dtype_name(xm.dtype)),
+            B.QuantizedTensor(wc, ws, policy.fwd_fmt, wblk, tuple(w.shape),
+                              B.dtype_name(w.dtype)))
 
 
 def _kernel_dx_2d(policy: QuantPolicy, qtw: B.QuantizedTensor, gm):
@@ -210,8 +263,9 @@ def _kernel_shapes_ok(x, w) -> bool:
 # raw weight: quantized per call, custom backward
 # ---------------------------------------------------------------------------
 
-def _value_fwd(policy: QuantPolicy, xm, w):
-    """Value-domain forward (backend="torch"): (y, residuals)."""
+def _value_residuals(policy: QuantPolicy, xm, w):
+    """Value-domain residuals (backend="torch") and the quantized
+    operands: (residuals, xq, wq)."""
     if policy.block_mode == "2d":
         xblk = wblk = (policy.tile, policy.tile)
     else:  # 1d: x blocks along K (last), w blocks along K (rows)
@@ -219,12 +273,15 @@ def _value_fwd(policy: QuantPolicy, xm, w):
     if policy.save_packed:
         qtx = _quantize(xm, policy.fwd_fmt, xblk)
         qtw = _quantize(w, policy.fwd_fmt, wblk)
-        xq, wq = B.dequantize(qtx), B.dequantize(qtw)
-        res = (qtx, qtw)
-    else:
-        xq = _qdq(xm, policy.fwd_fmt, xblk)
-        wq = _qdq(w, policy.fwd_fmt, wblk)
-        res = (xq, wq)
+        return (qtx, qtw), B.dequantize(qtx), B.dequantize(qtw)
+    xq = _qdq(xm, policy.fwd_fmt, xblk)
+    wq = _qdq(w, policy.fwd_fmt, wblk)
+    return (xq, wq), xq, wq
+
+
+def _value_fwd(policy: QuantPolicy, xm, w):
+    """Value-domain forward (backend="torch"): (y, residuals)."""
+    res, xq, wq = _value_residuals(policy, xm, w)
     return _mm(xq, wq), res
 
 
@@ -285,10 +342,19 @@ class _MxDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, policy):
         xm, lead = _flatten_lead(x)
-        if policy.use_kernels and _kernel_shapes_ok(x, w):
-            y, res = _kernel_fwd(policy, xm, w, with_residuals=True)
+        dots = _DOTS["mode"]
+        kernels = policy.use_kernels and _kernel_shapes_ok(x, w)
+        if dots is not None and dots.replay:  # remat "dots" recompute
+            y = dots.next()
+            res = (_kernel_residuals(policy, xm, w) if kernels else
+                   _value_residuals(policy, xm, w)[0])
         else:
-            y, res = _value_fwd(policy, xm, w)
+            if kernels:
+                y, res = _kernel_fwd(policy, xm, w, with_residuals=True)
+            else:
+                y, res = _value_fwd(policy, xm, w)
+            if dots is not None:
+                dots.saved.append(y)
         _save(ctx, res)
         ctx.policy, ctx.lead = policy, lead
         return y.reshape(*lead, w.shape[-1])

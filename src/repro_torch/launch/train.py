@@ -5,8 +5,9 @@
         --arch h2o-danube-1.8b --steps 20 --batch 4 --seq 512 \
         --ckpt-dir /tmp/run1
 
-Decoder configs train on ``lm_batch``, the encoder (``deit-tiny``) on
-``vision_batch``; append ``-reduced`` to an arch id for the CPU-scale
+Language models train on ``lm_batch`` -- an encoder-decoder with zero
+frames, a VLM with zero patch embeddings, as in the JAX CLI (the frontends
+are stubs) -- and the encoder (``deit-tiny``) on ``vision_batch``; append ``-reduced`` to an arch id for the CPU-scale
 variant.  Runs on the CUDA device unless ``--device cpu`` is given, through
 the kernel datapath (``backend="cuda"``: on CPU tensors the kernels' plain
 versions run).  The flags keep the JAX CLI's names.  Fault tolerance is on
@@ -60,12 +61,6 @@ def parse_args(argv=None):
 
 def make_batch_fn(cfg, args, device):
     """``batch_fn(step)`` of the config's family."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder training is not ported "
-                                  "yet; see ROADMAP.md, Queue 1 item 4d")
-    if cfg.family == "decoder" and cfg.frontend_tokens:
-        raise NotImplementedError("VLM prefix tokens are not ported yet; "
-                                  "see ROADMAP.md, Queue 1 item 4c")
 
     def batch_fn(i):
         if cfg.family == "encoder":
@@ -74,7 +69,14 @@ def make_batch_fn(cfg, args, device):
             return {"embeds": x, "label": y}
         toks, labs = lm_batch(args.seed, i, args.batch, args.seq, cfg.vocab,
                               device=device)
-        return {"tokens": toks, "labels": labs}
+        batch = {"tokens": toks, "labels": labs}
+        zeros = lambda n: torch.zeros((args.batch, n, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
+        if cfg.family == "encdec":
+            batch["frames"] = zeros(cfg.enc_seq)
+        if cfg.frontend == "vision" and cfg.frontend_tokens:
+            batch["embeds"] = zeros(cfg.frontend_tokens)
+        return batch
 
     return batch_fn
 

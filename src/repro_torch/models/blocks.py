@@ -13,8 +13,9 @@ or a packed MXSF KV cache.  A packed cache is read in place by the flash
 kernel (``kernels/mxsf_attention.py``) where ``attn_kernel_eligible``
 allows, else dequantized into the value path (``kv_prequant``).  The
 value path is ring-aware (``kpos``), so softcaps and SWA windows take it.
-Cross-attention is not ported and raises ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 4d).
+Cross-attention (encoder-decoder) takes the value path too: keys and
+values projected from ``kv_x`` (training, ``encode``) or read from a
+precomputed cross cache (``kv_cached``, decode), no rope and no mask.
 
 ``moe`` is the JAX package's capacity-based per-row dispatch
 (``_row_dispatch``) with its combine; the router and the expert FFNs run
@@ -118,21 +119,24 @@ def _write_cache(buf, upd, slot, write_len):
 
 
 def _attn_mask_bias(qpos, kpos, *, causal: bool, window):
-    """Additive mask from broadcast position comparisons."""
-    qp, kp = qpos[:, :, None], kpos[:, None, :]
+    """Additive mask from broadcast position comparisons (``qpos`` None:
+    cross-attention, only ``kpos`` masks)."""
+    kp = kpos[:, None, :]
     allowed = kp >= 0  # negative positions mark unwritten cache slots
-    if causal:
-        allowed = allowed & (kp <= qp)
-    if window is not None:
-        allowed = allowed & (kp > qp - window)
+    if qpos is not None:
+        qp = qpos[:, :, None]
+        if causal:
+            allowed = allowed & (kp <= qp)
+        if window is not None:
+            allowed = allowed & (kp > qp - window)
     zero = torch.zeros((), dtype=torch.float32, device=kpos.device)
     return torch.where(allowed, zero, torch.full_like(zero, -1e30))
 
 
 def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
-              causal=True, window=None, cache=None, cache_pos=None,
-              cache_write_len=None):
-    """Self-attention.
+              kv_x=None, kv_cached=None, causal=True, window=None,
+              cache=None, cache_pos=None, cache_write_len=None):
+    """Self- and cross-attention.
 
     * train / full-sequence forward: ``cache=None``, ``positions`` (B, S)
       or (S,) -- query-chunked value-domain attention (``_attend``);
@@ -143,7 +147,10 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     * chunked prefill: ``cache_pos`` (B,) and ``cache_write_len`` (B,)
       valid tokens of this S-token chunk -- only columns pos..pos+len-1 are
       written, so a slot with len=0 leaves its cache untouched.  Queries
-      past ``len`` produce rows the caller must ignore.
+      past ``len`` produce rows the caller must ignore;
+    * cross-attention: keys and values from ``kv_x`` (B, L, d) -- the
+      encoder's states -- or from ``kv_cached`` ``{k, v}`` (B, L, kv, dh),
+      the precomputed cross cache; no rope, every key visible.
     Returns (out, cache) -- the cache dict updated in place, or None."""
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -153,16 +160,28 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     if "bq" in p:
         q = (q + p["bq"]).to(x.dtype)
     q = _split_heads(q, h, dh)
-    k = dense(x, p["wk"], policy)
-    v = dense(x, p["wv"], policy)
+    if kv_cached is not None:
+        k, v = (kv_cached[n].to(x.dtype) for n in ("k", "v"))
+        kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64, device=dev)
+        return _attend(q, k, v, None, kpos, False, None, p, x, cfg,
+                       policy), None
+    src = x if kv_x is None else kv_x
+    k = dense(src, p["wk"], policy)
+    v = dense(src, p["wv"], policy)
     if "bk" in p:
         k = (k + p["bk"]).to(x.dtype)
         v = (v + p["bv"]).to(x.dtype)
     k = _split_heads(k, kv, dh)
     v = _split_heads(v, kv, dh)
-    use_rope = cfg.rope_theta > 0 and cfg.family != "encdec"
+    use_rope = (kv_x is None and cfg.rope_theta > 0
+                and cfg.family != "encdec")
 
     if cache is None:
+        if kv_x is not None:  # cross-attention: all encoder slots valid
+            kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64,
+                               device=dev)
+            return _attend(q, k, v, None, kpos, False, window, p, x, cfg,
+                           policy), None
         qpos = (positions if positions.ndim == 2
                 else positions[None, :]).expand(B, S)
         if use_rope:
@@ -257,7 +276,7 @@ def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
     kk = k.permute(0, 2, 1, 3)   # (B, kv, L, dh)
     vv = v.permute(0, 2, 1, 3)
     chunk = _pick_chunk(S)
-    if S <= chunk:
+    if S <= chunk or qpos is None:  # cross-attention: one block
         ctx = _scores_block(qg, kk, vv, qpos, kpos, causal, window, dh, cfg,
                             policy, x.dtype, kv_prequant)
     else:

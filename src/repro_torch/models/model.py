@@ -9,6 +9,8 @@ random weights.  ``packed_model_specs`` is the store's structure on the
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -29,9 +31,11 @@ def pack_model_params(cfg: ModelConfig, params, policy: QuantPolicy,
     """Quantize the model's weight tree ONCE into the serving format.
 
     Tied embeddings get a packed ``"head"`` (the transposed table quantized
-    at pack time) while ``"emb"`` stays a gatherable value table; leaves are
-    cast to ``cfg.compute_dtype`` before quantizing, matching
-    ``blocks.dense``.  Idempotent: already-packed leaves pass through."""
+    at pack time) while ``"emb"`` stays a gatherable value table; an
+    encoder-decoder's cross-attention stays in values (its prefill
+    consumes the raw ``wk``/``wv``); leaves are cast to
+    ``cfg.compute_dtype`` before quantizing, matching ``blocks.dense``.
+    Idempotent: already-packed leaves pass through."""
     if not packed_store.packable_policy(policy):
         return params
     dtype = cfg.compute_dtype if dtype is None else dtype
@@ -39,9 +43,21 @@ def pack_model_params(cfg: ModelConfig, params, policy: QuantPolicy,
     if cfg.tie_embeddings and "head" not in params and "emb" in params:
         params["head"] = packed_store.pack_leaf(params["emb"].T, policy,
                                                 dtype)
-    exclude = ("cross",) if cfg.family == "encdec" else ()
     return packed_store.pack_params(params, policy, dtype=dtype,
-                                    exclude=exclude)
+                                    exclude=_excluded(cfg))
+
+
+def _excluded(cfg: ModelConfig):
+    """Subtrees ``pack_model_params`` leaves in values: an encoder-decoder's
+    cross-attention (its prefill projects the encoder's states through the
+    raw ``wk``/``wv``)."""
+    return ("cross",) if cfg.family == "encdec" else ()
+
+
+def _packs(cfg: ModelConfig, path) -> bool:
+    """Whether the store packs the stacked leaf at ``path``."""
+    return (path[-1] in packed_store.PACKED_LEAF_NAMES
+            and not set(path) & set(_excluded(cfg)))
 
 
 def packed_model_specs(cfg: ModelConfig, policy: QuantPolicy, dtype=None):
@@ -50,15 +66,15 @@ def packed_model_specs(cfg: ModelConfig, policy: QuantPolicy, dtype=None):
     value leaves and for packed leaves' codes and scales, with the packed
     leaves' static MX metadata -- the ``ckpt.restore`` target of a packed
     checkpoint.  The JAX package gets it from ``jax.eval_shape``; here it
-    follows ``transformer.layer_leaves`` and ``packed_store``'s leaf rules
+    follows ``transformer.stacks`` and ``packed_store``'s leaf rules
     (tied configs get the injected packed ``"head"``)."""
     pack = packed_store.packable_policy(policy)
     dtype = cfg.compute_dtype if dtype is None else dtype
     meta = lambda shape: torch.empty(shape, dtype=torch.float32,
                                      device="meta")
 
-    def leaf(name, shape):
-        if pack and name in packed_store.PACKED_LEAF_NAMES and len(shape) > 1:
+    def leaf(packs, shape):
+        if pack and packs and len(shape) > 1:
             return packed_store.pack_leaf_spec(shape, policy, dtype)
         return meta(shape)
 
@@ -66,16 +82,17 @@ def packed_model_specs(cfg: ModelConfig, policy: QuantPolicy, dtype=None):
     if cfg.family == "encoder":
         specs["pos"] = meta((cfg.frontend_tokens + 1, cfg.d_model))
         specs["cls"] = meta((1, 1, cfg.d_model))
-        specs["head"] = leaf("head", transformer.head_shape(cfg))
+        specs["head"] = leaf(True, transformer.head_shape(cfg))
     else:
         specs["emb"] = meta((cfg.padded_vocab, cfg.d_model))
         if pack or not cfg.tie_embeddings:
-            specs["head"] = leaf("head", transformer.head_shape(cfg))
-    n = transformer.n_stacked(cfg)
-    layers: dict = {}
-    for path, shape, _ in transformer.layer_leaves(cfg):
-        transformer.set_path(layers, path, leaf(path[-1], (n,) + shape))
-    specs["layers"] = layers
+            specs["head"] = leaf(True, transformer.head_shape(cfg))
+    for name, lead, leaves in transformer.stacks(cfg):
+        tree: dict = {}
+        for path, shape, _ in leaves:
+            transformer.set_path(tree, path,
+                                 leaf(_packs(cfg, path), lead + shape))
+        specs[name] = tree
     return specs
 
 
@@ -98,6 +115,17 @@ def _set_layer(stack, i: int, leaf):
         stack[i] = leaf
 
 
+def _with_lead(stack, lead):
+    """A ``(prod(lead), ...)`` stack viewed with the ``lead`` dims (none:
+    the single layer's leaf itself)."""
+    if isinstance(stack, QuantizedTensor):
+        view = lambda t: t.reshape(lead + tuple(t.shape[1:]))
+        return QuantizedTensor(view(stack.codes), view(stack.scale_e8m0),
+                               stack.fmt, stack.block,
+                               lead + tuple(stack.shape[1:]), stack.dtype)
+    return stack.reshape(lead + tuple(stack.shape[1:]))
+
+
 @torch.no_grad()
 def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
                        generator: torch.Generator, device=None):
@@ -107,9 +135,12 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     in the same order as ``init_params``, so on one device
     ``pack_model_params(init_params(g))`` and this agree bitwise.  MoE
     routers and expert stacks stay f32 values, as in the JAX package's
-    store (only their shared expert's MLP is packed).
-    ``device=None`` is the generator's own device."""
-    transformer.check_ported(cfg)
+    store (only their shared expert's MLP is packed), and so does an
+    encoder-decoder's cross-attention.  ``device=None`` is the generator's
+    own device."""
+    if cfg.family == "encoder":
+        raise ValueError("init_packed_params builds LM stores; pack an "
+                         "encoder with pack_model_params")
     if device is None:
         device = generator.device
     if not packed_store.packable_policy(policy):
@@ -123,22 +154,22 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     else:
         params["head"] = packed_store.pack_leaf(params["emb"].T, policy,
                                                 dtype)
-    n_super = transformer.n_stacked(cfg)
-    leaves = list(transformer.layer_leaves(cfg))
-    stacked = [None] * len(leaves)
-    for layer in range(n_super):
-        for i, (path, shape, kind) in enumerate(leaves):
-            val = transformer.draw_leaf(shape, kind, generator, device)
-            if path[-1] in packed_store.PACKED_LEAF_NAMES:
-                val = packed_store.pack_leaf(val, policy, dtype)
-            if stacked[i] is None:
-                stacked[i] = _empty_stack(val, n_super)
-            _set_layer(stacked[i], layer, val)
-            del val
-    layers: dict = {}
-    for (path, _, _), val in zip(leaves, stacked):
-        transformer.set_path(layers, path, val)
-    params["layers"] = layers
+    for name, lead, leaves in transformer.stacks(cfg):
+        n = math.prod(lead)
+        stacked = [None] * len(leaves)
+        for layer in range(n):
+            for i, (path, shape, kind) in enumerate(leaves):
+                val = transformer.draw_leaf(shape, kind, generator, device)
+                if _packs(cfg, path):
+                    val = packed_store.pack_leaf(val, policy, dtype)
+                if stacked[i] is None:
+                    stacked[i] = _empty_stack(val, n)
+                _set_layer(stacked[i], layer, val)
+                del val
+        tree: dict = {}
+        for (path, _, _), val in zip(leaves, stacked):
+            transformer.set_path(tree, path, _with_lead(val, lead))
+        params[name] = tree
     return params
 
 

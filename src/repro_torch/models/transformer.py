@@ -1,22 +1,25 @@
-"""Decoder- and encoder-family parameter trees, embeddings, sublayer,
-forward, LM head.
+"""Parameter trees, embeddings, sublayers, forwards and the LM head of
+every family: decoders (dense, GQA, SWA, softcap, MoE, VLM prefix), the
+SSM stack (mamba2), the hybrid (zamba2: SSM groups around one shared
+attention sublayer), the encoder-decoder (whisper, frontend stubbed) and
+the encoder classifier (deit).
 
-PyTorch counterpart of the decoder and encoder parts of the JAX package's
-``models/transformer.py``: the training forward (``forward``,
-``forward_hidden``, ``_encoder_forward``) and the pieces the cached decoder
-(``decoding.py``) shares with it.  The parameter tree has the JAX layout --
-decoder layers stacked on a leading ``(n_super, ...)`` axis with ``sub{j}``
-keys per super-layer, encoder layers stacked ``(n_layers, ...)`` with no
-``sub{j}`` level -- so ``convert.params_from_numpy`` carries a JAX tree
-across leaf for leaf.
+PyTorch counterpart of the JAX package's ``models/transformer.py``: the
+training forward (``forward``, ``forward_hidden``) and the pieces the
+cached decoder (``decoding.py``) shares with it.  The parameter tree has
+the JAX layout -- each stack of ``stacks(cfg)`` on its leading axes (a
+decoder's super-layers with ``sub{j}`` keys, a hybrid's ``(groups, per)``
+SSM layers, ...) -- so ``convert.params_from_numpy`` carries a JAX tree
+across leaf for leaf.  The JAX package scans over layers; here a Python
+loop runs them (``_run_layers``), one remat region per layer.
 
 ``init_params(cfg, generator, device)`` draws the same *distributions* as
 the JAX init (normal * 1/sqrt(d_in) for projections and each expert's
 matrices, * 0.02 for embedding, router, positions and head, zero biases
-and cls token, unit norms), not the same bits.  Every weight is drawn one
-layer at a time in a fixed order (``layer_leaves``), so
-``model.init_packed_params`` can draw the same values and pack each one as
-it is drawn, without ever holding the f32 tree.
+and cls token, unit norms, the SSD's own, ``ssd.ssd_leaves``), not the
+same bits.  Every weight is drawn one layer at a time in a fixed order
+(``stacks``), so ``model.init_packed_params`` can draw the same values and
+pack each one as it is drawn, without ever holding the f32 tree.
 """
 from __future__ import annotations
 
@@ -27,13 +30,16 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..core.blocking import QuantizedTensor
+from ..core.mx_dot import save_dots
 from ..core.policy import QuantPolicy
 from . import blocks as blk
+from . import ssd
 
 NO_WINDOW = 1 << 30
 
-# (path under the super-layer, per-layer shape, init kind); kind "dense" is
-# normal * 1/sqrt(rows), "ones"/"zeros" are constants
+# (path under the stacked layer, per-layer shape, init kind): see
+# ``draw_leaf``
 _Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str]
 
 
@@ -45,18 +51,23 @@ def _mlp_leaves(cfg: ModelConfig, d_ff: int, prefix=("ffn",)):
     yield prefix + ("wd",), (d_ff, d), "dense"
 
 
+def _attn_leaves(cfg: ModelConfig, prefix):
+    d, dh, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    yield prefix + ("wq",), (d, h * dh), "dense"
+    yield prefix + ("wk",), (d, kv * dh), "dense"
+    yield prefix + ("wv",), (d, kv * dh), "dense"
+    yield prefix + ("wo",), (h * dh, d), "dense"
+    if cfg.qkv_bias:
+        yield prefix + ("bq",), (h * dh,), "zeros"
+        yield prefix + ("bk",), (kv * dh,), "zeros"
+        yield prefix + ("bv",), (kv * dh,), "zeros"
+
+
 def _sublayer_leaves(cfg: ModelConfig, is_moe: bool = False
                      ) -> Iterator[_Leaf]:
-    d, dh, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    d = cfg.d_model
     yield ("ln1", "w"), (d,), "ones"
-    yield ("attn", "wq"), (d, h * dh), "dense"
-    yield ("attn", "wk"), (d, kv * dh), "dense"
-    yield ("attn", "wv"), (d, kv * dh), "dense"
-    yield ("attn", "wo"), (h * dh, d), "dense"
-    if cfg.qkv_bias:
-        yield ("attn", "bq"), (h * dh,), "zeros"
-        yield ("attn", "bk"), (kv * dh,), "zeros"
-        yield ("attn", "bv"), (kv * dh,), "zeros"
+    yield from _attn_leaves(cfg, ("attn",))
     yield ("ln2", "w"), (d,), "ones"
     if is_moe:  # the JAX package's moe_init leaves
         E, f = cfg.padded_experts, cfg.expert_ff
@@ -74,20 +85,22 @@ def _sublayer_leaves(cfg: ModelConfig, is_moe: bool = False
         yield ("pn2", "w"), (d,), "ones"
 
 
-# Queue 1 item (ROADMAP.md) that ports each family still missing
-_FAMILY_ITEM = {"encdec": "4d", "ssm": "4e", "hybrid": "4e"}
+def _declayer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
+    """An encoder-decoder's decoder layer: self- and cross-attention and
+    the MLP, each behind its rmsnorm."""
+    d = cfg.d_model
+    yield ("ln1", "w"), (d,), "ones"
+    yield from _attn_leaves(cfg, ("self",))
+    yield ("ln2", "w"), (d,), "ones"
+    yield from _attn_leaves(cfg, ("cross",))
+    yield ("ln3", "w"), (d,), "ones"
+    yield from _mlp_leaves(cfg, cfg.d_ff, ("mlp",))
 
 
-def check_ported(cfg: ModelConfig, encoder: bool = False):
-    """Raise for a family the calling path does not have yet: decoders
-    (dense and MoE) everywhere, the encoder where ``encoder`` says the
-    path takes it."""
-    if cfg.family not in (("decoder", "encoder") if encoder
-                          else ("decoder",)):
-        item = _FAMILY_ITEM.get(cfg.family, "4")
-        raise NotImplementedError(f"family {cfg.family!r} is not ported on "
-                                  f"this path; see ROADMAP.md, Queue 1 item "
-                                  f"{item}")
+def _ssm_layer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
+    yield ("ln", "w"), (cfg.d_model,), "ones"
+    for path, shape, kind in ssd.ssd_leaves(cfg):
+        yield ("ssd",) + path, shape, kind
 
 
 def is_moe_sublayer(cfg: ModelConfig, j: int) -> bool:
@@ -95,37 +108,64 @@ def is_moe_sublayer(cfg: ModelConfig, j: int) -> bool:
     return cfg.n_experts > 0 and j == cfg.moe_every - 1
 
 
-def n_stacked(cfg: ModelConfig) -> int:
-    """Leading dim of the stacked layer leaves: n_layers for the encoder,
-    the super-layer count for a decoder."""
-    if cfg.family == "encoder":
-        return cfg.n_layers
-    return cfg.n_layers // cfg.moe_every
+def hybrid_split(cfg: ModelConfig):
+    """(groups, SSM layers per group, tail SSM layers) of a hybrid."""
+    per = cfg.hybrid_attn_every
+    n_groups = cfg.n_layers // per
+    return n_groups, per, cfg.n_layers - n_groups * per
 
 
-def layer_leaves(cfg: ModelConfig) -> Iterator[_Leaf]:
-    """Per-layer leaves of one stacked layer: ``(sub{j}, ...)`` keys for a
-    decoder super-layer, the sublayer's own keys for the encoder."""
-    check_ported(cfg, encoder=True)
+def stacks(cfg: ModelConfig):
+    """The stacked subtrees of the parameter tree, in draw order:
+    ``(key, lead dims, per-layer leaves)``.  A decoder's layers are
+    super-layers with ``sub{j}`` keys, the encoder's plain sublayers; a
+    hybrid stacks its SSM layers ``(groups, per)`` plus a ``tail`` and
+    holds ONE ``shared`` attention sublayer (lead ``()``); an
+    encoder-decoder stacks ``enc_layers`` and ``dec_layers`` and has an
+    ``enc_norm``."""
     if cfg.family == "encoder":
-        yield from _sublayer_leaves(cfg)
-        return
-    for j in range(cfg.moe_every):
-        for path, shape, kind in _sublayer_leaves(cfg,
-                                                  is_moe_sublayer(cfg, j)):
-            yield (f"sub{j}",) + path, shape, kind
+        return [("layers", (cfg.n_layers,), list(_sublayer_leaves(cfg)))]
+    if cfg.family == "decoder":
+        leaves = [((f"sub{j}",) + path, shape, kind)
+                  for j in range(cfg.moe_every)
+                  for path, shape, kind in _sublayer_leaves(
+                      cfg, is_moe_sublayer(cfg, j))]
+        return [("layers", (cfg.n_layers // cfg.moe_every,), leaves)]
+    if cfg.family == "ssm":
+        return [("layers", (cfg.n_layers,), list(_ssm_layer_leaves(cfg)))]
+    if cfg.family == "hybrid":
+        G, per, tail = hybrid_split(cfg)
+        out = [("layers", (G, per), list(_ssm_layer_leaves(cfg)))]
+        if tail:
+            out.append(("tail", (tail,), list(_ssm_layer_leaves(cfg))))
+        return out + [("shared", (), list(_sublayer_leaves(cfg)))]
+    if cfg.family == "encdec":
+        return [("enc_layers", (cfg.n_enc_layers,),
+                 list(_sublayer_leaves(cfg))),
+                ("dec_layers", (cfg.n_layers,),
+                 list(_declayer_leaves(cfg))),
+                ("enc_norm", (), [(("w",), (cfg.d_model,), "ones")])]
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def draw_leaf(shape, kind: str, gen, device) -> torch.Tensor:
-    """One leaf: constants, "dense" normal * 1/sqrt(rows) (per expert for
-    a stacked (E, rows, cols) leaf), the "router" normal * 0.02."""
+    """One leaf: constants ("ones", "zeros", the SSD's "a_log" and
+    "dt_bias"), "dense" normal * 1/sqrt(rows) (per expert for a stacked
+    (E, rows, cols) leaf), the "router" normal * 0.02, the SSD's "conv"
+    normal * 0.2."""
+    f32 = dict(dtype=torch.float32, device=device)
     if kind == "ones":
-        return torch.ones(shape, dtype=torch.float32, device=device)
+        return torch.ones(shape, **f32)
     if kind == "zeros":
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    scale = 0.02 if kind == "router" else 1.0 / math.sqrt(shape[-2])
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+        return torch.zeros(shape, **f32)
+    if kind == "a_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[-1], **f32))
+    if kind == "dt_bias":
+        return torch.log(torch.expm1(torch.full(shape, 0.01, **f32)))
+    scale = {"router": 0.02, "conv": 0.2}.get(kind)
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[-2])
+    return torch.randn(shape, generator=gen, **f32) * scale
 
 
 def draw_embedding(cfg: ModelConfig, gen, device) -> torch.Tensor:
@@ -153,8 +193,8 @@ def set_path(tree: dict, path, value):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """f32 parameter tree of a decoder or encoder config (the JAX layout),
-    on ``device`` (``None``: the generator's own device)."""
+    """f32 parameter tree of any family (the JAX layout), on ``device``
+    (``None``: the generator's own device)."""
     if device is None:
         device = generator.device
     params = {"final_norm": {"w": torch.ones(cfg.d_model, device=device)}}
@@ -168,15 +208,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["emb"] = draw_embedding(cfg, generator, device)
         if not cfg.tie_embeddings:
             params["head"] = draw_head(cfg, generator, device)
-    leaves = list(layer_leaves(cfg))
-    per_layer = [[] for _ in leaves]
-    for _ in range(n_stacked(cfg)):
-        for i, (_, shape, kind) in enumerate(leaves):
-            per_layer[i].append(draw_leaf(shape, kind, generator, device))
-    layers: dict = {}
-    for (path, _, _), vals in zip(leaves, per_layer):
-        set_path(layers, path, torch.stack(vals))
-    params["layers"] = layers
+    for name, lead, leaves in stacks(cfg):
+        per_layer = [[] for _ in leaves]
+        for _ in range(math.prod(lead)):
+            for i, (_, shape, kind) in enumerate(leaves):
+                per_layer[i].append(draw_leaf(shape, kind, generator,
+                                              device))
+        tree: dict = {}
+        for (path, shape, _), vals in zip(leaves, per_layer):
+            set_path(tree, path, torch.stack(vals).reshape(lead + shape))
+        params[name] = tree
     return params
 
 
@@ -212,14 +253,14 @@ def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
 
 def _embed_tokens(params, batch, cfg: ModelConfig):
     """The training forward's embedding (the JAX package's
-    ``_embed_tokens``): gather in f32, gemma2's sqrt(d) scale in f32, then
-    the cast to the compute dtype -- not the cached decoder's order."""
-    if "embeds" in batch and cfg.frontend_tokens:
-        raise NotImplementedError("VLM prefix tokens are not ported yet; "
-                                  "see ROADMAP.md, Queue 1 item 4c")
+    ``_embed_tokens``): gather in f32, gemma2's sqrt(d) scale in f32, a
+    VLM's patch embeddings (``batch["embeds"]``) prepended, then the cast
+    to the compute dtype -- not the cached decoder's order."""
     x = params["emb"][batch["tokens"].long()]
     if cfg.name.startswith("gemma2"):
         x = x * math.sqrt(cfg.d_model)
+    if "embeds" in batch and cfg.frontend_tokens:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
@@ -235,8 +276,8 @@ def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
                     window, is_moe=False, positions=None, cache=None,
                     cache_pos=None, cache_write_len=None, causal=True):
     """Pre-norm attention + FFN sublayer (decoders, MoE ones included; the
-    encoder with ``causal=False``), uncached (``positions``) or over a KV
-    cache (``cache``...)."""
+    encoder with ``causal=False``; a hybrid's shared block), uncached
+    (``positions``) or over a KV cache (``cache``...)."""
     h = blk.rmsnorm(p["ln1"], x)
     a, _ = blk.attention(p["attn"], h, cfg, policy, positions=positions,
                          causal=causal, window=window, cache=cache,
@@ -251,36 +292,51 @@ def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,
     return x + f
 
 
+def _ssm_layer(lp, x, cfg: ModelConfig, policy: QuantPolicy):
+    return x + ssd.ssd_forward(lp["ssd"], blk.rmsnorm(lp["ln"], x), cfg,
+                               policy)
+
+
 def _unstack(tree, n: int):
-    """A stacked ``(n, ...)`` tree -> n per-layer trees (``torch.unbind``:
-    one backward node per leaf gathers the layers' gradients at once)."""
+    """A stacked ``(n, ...)`` tree (values or packed leaves) -> n per-layer
+    trees (``torch.unbind``: one backward node per leaf gathers the
+    layers' gradients at once)."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, QuantizedTensor):
+        return [QuantizedTensor(c, s, tree.fmt, tree.block,
+                                tuple(tree.shape[1:]), tree.dtype)
+                for c, s in zip(torch.unbind(tree.codes, 0),
+                                torch.unbind(tree.scale_e8m0, 0))]
     return list(torch.unbind(tree, 0))
 
 
 def _run_layers(layers, n: int, body, x, remat: str):
-    """``x = body(x, layer_params, i)`` over the stacked layers;
-    ``remat="full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``).  The JAX package's ``"dots"`` policy has
-    no PyTorch counterpart yet."""
-    if remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={remat!r}: only 'none' and 'full' are ported; see "
-            "ROADMAP.md, Queue 1 item 6")
+    """``x = body(x, layer_params, i)`` over the stacked layers.  Each
+    layer is one remat region, as each scan step is in the JAX package:
+    ``"full"`` recomputes it whole in the backward
+    (``torch.utils.checkpoint``); ``"dots"`` (the JAX package's
+    ``dots_with_no_batch_dims_saveable``) keeps every ``mx_dot`` output of
+    the layer and recomputes the rest -- including the quantization of
+    each matmul's operands, but no matmul (``mx_dot.save_dots``)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or "
+                         "'full'")
     for i, lp in enumerate(_unstack(layers, n)):
-        if remat == "full":
-            x = ckpt.checkpoint(body, x, lp, i, use_reentrant=False)
-        else:
+        if remat == "none":
             x = body(x, lp, i)
+        else:
+            x = ckpt.checkpoint(
+                body, x, lp, i, use_reentrant=False,
+                **({"context_fn": save_dots} if remat == "dots" else {}))
     return x
 
 
 def forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
             remat: str = "none"):
     """Full-sequence logits (f32) for training: the encoder's class logits
-    (B, n_classes), a decoder's LM logits (B, S, padded_vocab)."""
+    (B, n_classes), an LM's logits (B, S, padded_vocab)."""
     if cfg.family == "encoder":
         return _encoder_forward(params, batch, cfg, policy, remat)
     return lm_head(params, forward_hidden(params, batch, cfg, policy, remat),
@@ -289,14 +345,21 @@ def forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
 
 def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                    remat: str = "none"):
-    """Pre-head hidden states (B, S, d) of a decoder -- the chunked loss's
-    entry point."""
+    """Pre-head hidden states (B, S, d) of an LM -- the chunked loss's
+    entry point (a VLM's include its prefix positions)."""
     if cfg.family == "encoder":
         raise ValueError("the encoder has no LM hidden states; use forward")
-    check_ported(cfg)
+    if cfg.family == "encdec":
+        return _encdec_forward(params, batch, cfg, policy, remat)
     x = _embed_tokens(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cfg.family == "ssm":
+        return _run_layers(params["layers"], cfg.n_layers,
+                           lambda x, lp, i: _ssm_layer(lp, x, cfg, policy),
+                           x, remat)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(params, x, positions, cfg, policy, remat)
     windows = layer_windows(cfg, cfg.n_layers)
 
     def body(x, lp, i):
@@ -307,7 +370,29 @@ def forward_hidden(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                                 is_moe=is_moe_sublayer(cfg, j))
         return x
 
-    return _run_layers(params["layers"], n_stacked(cfg), body, x, remat)
+    return _run_layers(params["layers"], cfg.n_layers // cfg.moe_every, body,
+                       x, remat)
+
+
+def _hybrid_forward(params, x, positions, cfg: ModelConfig,
+                    policy: QuantPolicy, remat: str):
+    """Groups of ``per`` SSM layers, each followed by the ONE shared
+    attention sublayer (its gradient sums over the applications), then the
+    tail; each group and each tail layer is one remat region."""
+    G, per, tail = hybrid_split(cfg)
+
+    def group(x, glp, i):
+        for lp in _unstack(glp, per):
+            x = _ssm_layer(lp, x, cfg, policy)
+        return _apply_sublayer(params["shared"], x, cfg, policy,
+                               positions=positions, window=NO_WINDOW)
+
+    x = _run_layers(params["layers"], G, group, x, remat)
+    if tail:
+        x = _run_layers(params["tail"], tail,
+                        lambda x, lp, i: _ssm_layer(lp, x, cfg, policy),
+                        x, remat)
+    return x
 
 
 def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
@@ -326,6 +411,60 @@ def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         return _apply_sublayer(lp, x, cfg, policy, positions=positions,
                                window=NO_WINDOW, causal=False)
 
-    x = _run_layers(params["layers"], n_stacked(cfg), body, x, remat)
+    x = _run_layers(params["layers"], cfg.n_layers, body, x, remat)
     x = blk.rmsnorm(params["final_norm"], x)
     return blk.dense(x[:, 0], params["head"], policy).float()
+
+
+def sinusoid_pos(S: int, d: int, offset: int = 0, device=None):
+    """Whisper-style sinusoidal positions (S, d) in f32: the JAX package's
+    ``_sinusoid_pos``."""
+    pos = torch.arange(offset, offset + S, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, frames, cfg: ModelConfig, policy: QuantPolicy,
+           remat: str = "none"):
+    """The encoder-decoder's encoder: (B, enc_seq, d) frame embeddings
+    (the stubbed frontend's output) plus sinusoidal positions through
+    non-causal sublayers, then ``enc_norm``."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    B, S, _ = x.shape
+    x = x + sinusoid_pos(S, cfg.d_model, device=x.device).to(x.dtype)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def body(x, lp, i):
+        return _apply_sublayer(lp, x, cfg, policy, positions=positions,
+                               window=NO_WINDOW, causal=False)
+
+    x = _run_layers(params["enc_layers"], cfg.n_enc_layers, body, x, remat)
+    return blk.rmsnorm(params["enc_norm"], x)
+
+
+def _encdec_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
+                    remat: str):
+    """Decoder hidden states of an encoder-decoder: ``encode`` the
+    ``frames``, then causal self-attention, cross-attention to the
+    encoder's states and the MLP per layer."""
+    enc = encode(params, batch["frames"], cfg, policy, remat)
+    x = params["emb"][batch["tokens"].long()].to(
+        getattr(torch, cfg.compute_dtype))
+    B, S, _ = x.shape
+    x = x + sinusoid_pos(S, cfg.d_model, device=x.device).to(x.dtype)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def body(x, lp, i):
+        h = blk.rmsnorm(lp["ln1"], x)
+        a, _ = blk.attention(lp["self"], h, cfg, policy, positions=positions,
+                             causal=True)
+        x = x + a
+        h = blk.rmsnorm(lp["ln2"], x)
+        c, _ = blk.attention(lp["cross"], h, cfg, policy, kv_x=enc,
+                             causal=False)
+        x = x + c
+        return x + blk.mlp(lp["mlp"], blk.rmsnorm(lp["ln3"], x), cfg, policy)
+
+    return _run_layers(params["dec_layers"], cfg.n_layers, body, x, remat)

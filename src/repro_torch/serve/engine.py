@@ -20,6 +20,12 @@ decode dispatch); MoE configs always take it, as in the JAX package.
 Generation stops at ``max_new`` tokens, a full cache, or the request's
 ``eos_id`` (kept in ``Request.out``).
 
+Decoder families only, as in the JAX package (an SSM or hybrid state
+advances per token; an encoder-decoder prefills its frames first): serve
+those through ``models.prefill`` + ``decode_step``.  A VLM serves text
+only: its positions shift past the ``frontend_tokens`` prefix columns,
+which stay unwritten.
+
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): ``device=None`` means ``"cuda"`` and
 raises when CUDA is absent.  ``backend="cuda"`` selects the kernel datapath;

@@ -1,8 +1,8 @@
 """Loss + train-step factory: remat, microbatch gradient accumulation,
 AdamW, optional MXSF gradient compression (beyond-paper).
 
-PyTorch counterpart of the decoder and encoder parts of the JAX package's
-``train/step.py``.  ``make_train_step`` returns ``train_step(state, batch)
+PyTorch counterpart of the JAX package's ``train/step.py``, every family
+(a VLM's loss runs over its text positions only).  ``make_train_step`` returns ``train_step(state, batch)
 -> (state, metrics)``; the state is updated in place (``optim/adamw.py``).
 Gradients come from ``torch.autograd.grad`` over detached copies of the
 parameter leaves, so the state itself never carries ``.grad`` buffers.
@@ -27,9 +27,7 @@ __all__ = ["TrainConfig", "loss_fn", "make_train_step", "init_state"]
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    # 'none' | 'full'; the JAX package defaults to 'dots', a checkpoint
-    # policy with no PyTorch counterpart (ROADMAP.md, Queue 1 item 6)
-    remat: str = "none"
+    remat: str = "dots"            # 'none' | 'dots' | 'full'
     microbatches: int = 1          # gradient accumulation
     grad_compress: Optional[str] = None  # e.g. 'mxsf' -- quantize grads
     grad_compress_block: int = 64
@@ -79,7 +77,8 @@ def _chunked_lm_loss(params, hidden, labels, cfg: ModelConfig,
 def loss_fn(params, batch, cfg: ModelConfig, policy: QuantPolicy,
             tcfg: TrainConfig):
     """(loss, metrics): the encoder's softmax cross-entropy over its
-    classes with ``acc``, a decoder's LM loss."""
+    classes with ``acc``, else the LM loss (a VLM's over its text
+    positions, after the ``embeds`` prefix)."""
     if cfg.family == "encoder":
         logits = T.forward(params, batch, cfg, policy, remat=tcfg.remat)
         label = batch["label"].long()
@@ -89,6 +88,8 @@ def loss_fn(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         acc = torch.mean((torch.argmax(logits, dim=-1) == label).float())
         return loss, {"loss": loss, "acc": acc}
     hidden = T.forward_hidden(params, batch, cfg, policy, remat=tcfg.remat)
+    if cfg.frontend_tokens and "embeds" in batch:
+        hidden = hidden[:, cfg.frontend_tokens:]  # loss over text positions
     loss = _chunked_lm_loss(params, hidden, batch["labels"], cfg, policy,
                             tcfg.xent_chunk)
     return loss, {"loss": loss}

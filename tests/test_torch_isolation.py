@@ -58,3 +58,12 @@ print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
                          text=True, env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("module", ["models/ssd.py", "models/transformer.py",
+                                    "models/decoding.py", "models/model.py",
+                                    "models/blocks.py", "convert.py"])
+def test_the_family_modules_are_checked(module):
+    """The modules of the SSM, hybrid, encoder-decoder and VLM families are
+    among the files the source check walks."""
+    assert PORT / module in _port_files()

@@ -169,19 +169,25 @@ def test_chunked_attention_matches_jax(state0, monkeypatch):
 
 
 def test_remat_full_equals_none_and_dots_raises(state0):
+    """Every remat policy gives the same step-0 loss and gradients bit for
+    bit; ``"dots"`` is ported (``tests/test_torch_remat.py``) and is the
+    default, as in the JAX package."""
     _, ct = _cfgs()
     params = convert.params_from_numpy(jax.tree.map(np.array,
                                                     state0["params"]), ct)
     batch = _torch_batch(_jax_batch(0))
     pol = TORCH_TRAIN.replace(backend="cuda")
-    l0, g0 = _port_value_and_grad(params, batch, ct, pol, TT.TrainConfig())
-    l1, g1 = _port_value_and_grad(params, batch, ct, pol,
-                                  TT.TrainConfig(remat="full"))
-    assert l0 == l1
-    for k in g0:
-        np.testing.assert_array_equal(g0[k], g1[k])
-    with pytest.raises(NotImplementedError, match="dots"):
-        TT.loss_fn(params, batch, ct, pol, TT.TrainConfig(remat="dots"))
+    assert TT.TrainConfig().remat == "dots"
+    l0, g0 = _port_value_and_grad(params, batch, ct, pol,
+                                  TT.TrainConfig(remat="none"))
+    for remat in ("full", "dots"):
+        l1, g1 = _port_value_and_grad(params, batch, ct, pol,
+                                      TT.TrainConfig(remat=remat))
+        assert l0 == l1
+        for k in g0:
+            np.testing.assert_array_equal(g0[k], g1[k])
+    with pytest.raises(ValueError, match="remat"):
+        TT.loss_fn(params, batch, ct, pol, TT.TrainConfig(remat="some"))
 
 
 def _run_steps(cj, ct, jpol, tpol, tk, steps, teacher_forced):
