@@ -154,11 +154,28 @@ Phases, each printed as one JSON line:
               step of each teacher-forced as in ``train_slice``, and for
               mamba2-780m and whisper-medium two more steps at remat
               ``"none"`` (peak and seconds beside ``"dots"``').
-16. the ``kernels`` line (every CUDA kernel, its launches on each path,
+16. dryrun -- ``launch/dryrun.py`` traces, on ``meta`` tensors with the
+              kernel datapath, phase 7's training shape (h2o-danube-1.8b,
+              4 x 512, 2D, remat ``"dots"``) and the decode cells that may
+              fit one card (decode_32k and long_500k of h2o-danube-1.8b
+              and mamba2-780m, decode_32k of internvl2-1b, long_500k of
+              zamba2-7b; packed MXSF cache), in worker processes started
+              after the build, which keep off the card and trace while
+              the card phases run.  Each cell the trace says fits then
+              runs one real step of the same program on the card from
+              ``--seed`` inputs: argument bytes equal to the allocator's
+              requested bytes after the inputs are built, exactly; each
+              kernel's launches equal to the trace's; measured peak
+              memory beside the predicted one with their ratio; step
+              seconds no less than the roofline's; finite outputs.
+17. examples -- each ``examples/torch_*.py`` once as a subprocess on the
+              card at a small size: exit 0 and its key lines printed.
+18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11 and 14 run right after phase 6, phase 15 last, and a ``done``
-line with the whole run's seconds comes before the ``kernels`` line.
+Phases 9-11 and 14 run right after phase 6, phase 15 after phase 13,
+phases 16-17 last, and a ``done`` line with the whole run's seconds comes
+before the ``kernels`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -177,11 +194,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
 
 MATMUL_RTOL = 1e-5      # of sum_k |x_k w_k|: f32 summation order only
 TRAIN_SUM_C = 4.0       # train_rtol's multiple of sqrt(K) u: twice the
@@ -294,15 +306,6 @@ def phase_build():
         emit("build", source=f"src/repro_torch/kernels/csrc/{name}.cu",
              seconds=round(res.seconds, 2), ptxas=info)
     emit("build", wall_seconds=round(wall, 2))
-
-
-def _bound_ms(nbytes: float, *work):
-    """Least time for the work: the larger of its bytes over the memory rate
-    and its operations, given as (count, peak rate) pairs, at their rates."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(ops / peak for ops, peak in work)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def _edge_x(torch, m, k, gen, device):
@@ -440,6 +443,7 @@ def fused_exact_sum(torch, gen, device, m, k, n, xblk=(1, 64),
 
 
 def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
+    from repro_torch.launch import cost
     from repro_torch.core import blocking as B
     from repro_torch.kernels import mxsf_fused_matmul as FM
     x = (_edge_x(torch, m, k, gen, device) if edge else
@@ -476,9 +480,9 @@ def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
         row["plain_ms"] = timer(
             lambda: FM.mxsf_fused_matmul_plain(x, codes, scales), 3, 1)
         row["library_ms"] = timer(lambda: torch.matmul(x, w_lib), 10)
-        nbytes = m * k * 2 + codes.numel() + scales.numel() + m * n * 4
-        row["bound_ms"], row["bound_by"] = _bound_ms(
-            nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
+        row["bound_ms"], row["bound_by"] = cost.bound_ms(
+            cost.fused_matmul_work(m, k, codes.shape[0], n,
+                                   x.element_size()))
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["over_library"] = row["ms"] / row["library_ms"]
         del w_lib
@@ -542,6 +546,7 @@ def attention_against_plain(torch, out, q, kv_args, args, per_slot=False):
 
 
 def check_attention(torch, timer, gen, device, cfg, slots, L, S):
+    from repro_torch.launch import cost
     from repro_torch.core import blocking as B
     from repro_torch.kernels import mxsf_attention as MA
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -643,10 +648,9 @@ def check_attention(torch, timer, gen, device, cfg, slots, L, S):
     vis = mask.reshape(slots * h, S, L)
     rows_needed = [int(vis[b * h:(b + 1) * h].any(dim=(0, 1)).sum())
                    for b in range(slots)]
-    nbytes = sum(rows_needed) * kv * 2 * (dh + 1) + 2 * q.numel() * 2
-    ops = 2.0 * dh * float(vis.sum())
-    row["bound_ms"], row["bound_by"] = _bound_ms(
-        nbytes, (ops, BF16_TENSOR_FLOPS), (ops, F32_FLOPS))
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(cost.attention_work(
+        sum(rows_needed), kv, dh, q.numel(), q.element_size(),
+        float(vis.sum())))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit("kernels", **row)
     return row
@@ -836,6 +840,7 @@ def _codec_edge(torch, m, k, gen, device):
 def check_quantize(torch, timer, x, block, name, edge=None):
     """Quantizer kernel against its plain version, bit for bit (codes and
     scales), on x and on the edge inputs; times at x's shape."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import mxsf_quant as MQ
     got = MQ.mxsf_quantize(x, block)
     want = MQ.mxsf_quantize_plain(x, block)
@@ -857,8 +862,8 @@ def check_quantize(torch, timer, x, block, name, edge=None):
     row["plain_ms"] = timer(lambda: MQ.mxsf_quantize_plain(x, block), 3, 1)
     row["library_ms"] = None  # no single PyTorch call computes it
     row["device_ms"] = timer.device_time(lambda: MQ.mxsf_quantize(x, block))
-    nbytes = x.numel() * x.element_size() + got[0].numel() + got[1].numel()
-    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(
+        cost.quantize_work(m, k, block, x.element_size()))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit("kernels", **row)
     return row, got
@@ -869,6 +874,7 @@ def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None,
     """Requantize kernel against its plain version, bit for bit (codes and
     scales, plain or transposed), on the operand and on the edge blocks;
     times at the operand's shape (event ms, device ms)."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import mxsf_quant as MQ
     call = lambda c, s: MQ.mxsf_requantize(c, s, fb, tb, transpose=transpose)
     plain = lambda c, s: MQ.mxsf_requantize_plain(c, s, fb, tb,
@@ -892,9 +898,8 @@ def check_requantize(torch, timer, codes, scales, fb, tb, name, edge=None,
     row["plain_ms"] = timer(lambda: plain(codes, scales), 3, 1)
     row["library_ms"] = None  # no single PyTorch call computes it
     row["device_ms"] = timer.device_time(lambda: call(codes, scales))
-    nbytes = (codes.numel() + scales.numel() + got[0].numel()
-              + got[1].numel())
-    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes)
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(
+        cost.requantize_work(m, k, fb, tb))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     if row["device_ms"]:
         row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
@@ -971,6 +976,7 @@ def mx_exact_sum(torch, gen, device, m, k, n, blk=(8, 8)):
 def check_mx_matmul(torch, timer, gen, name, x, w, blk=(8, 8)):
     """Packed x packed kernel against its plain version: random operands
     within tolerance, exact-sum operands of the same shape bit for bit."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import common as C
     from repro_torch.kernels import mx_matmul as MM
     on_card = x[0].is_cuda
@@ -993,9 +999,8 @@ def check_mx_matmul(torch, timer, gen, name, x, w, blk=(8, 8)):
     xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
     row["library_ms"] = timer(lambda: torch.matmul(xb, wb), 10)
     del xq, wq, xb, wb
-    nbytes = sum(t.numel() for t in (*x, *w)) + m * n * 4
-    row["bound_ms"], row["bound_by"] = _bound_ms(
-        nbytes, (2.0 * m * k * n, BF16_TENSOR_FLOPS))
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(
+        cost.mx_matmul_work(m, k, n, blk, blk))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["over_library"] = row["ms"] / row["library_ms"]
     emit("kernels", **row)
@@ -1035,6 +1040,7 @@ def check_fused_train(torch, timer, gen, name, x, codes, scales, xblk, wblk,
     version's bit for bit, and y its plain version within tolerance; the
     raw-x path within tolerance; and each mode bit for bit on exact-sum
     operands of the same shape."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import mxsf_fused_matmul as FM
     emit_codes = quantize_lhs
     call = lambda: FM.mxsf_fused_matmul(x, codes, scales, xblk, wblk,
@@ -1075,13 +1081,9 @@ def check_fused_train(torch, timer, gen, name, x, codes, scales, xblk, wblk,
     xl, wl = x.to(lib_dt), wq[:k].to(lib_dt)
     row["library_ms"] = timer(lambda: torch.matmul(xl, wl), 10)
     del wq, xl, wl
-    nbytes = (x.numel() * x.element_size() + codes.numel() + scales.numel()
-              + m * n * 4)
-    if emit_codes:
-        nbytes += out[1].numel() + out[2].numel()
-    rate = BF16_TENSOR_FLOPS if quantize_lhs else F32_FLOPS
-    row["bound_ms"], row["bound_by"] = _bound_ms(
-        nbytes, (2.0 * m * k * n, rate))
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(cost.fused_matmul_work(
+        m, k, codes.shape[0], n, x.element_size(), xblk, wblk, quantize_lhs,
+        emit_codes))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["over_library"] = row["ms"] / row["library_ms"]
     emit("kernels", **row)
@@ -2773,6 +2775,243 @@ def phase_train_families(torch, device, args, rehearsal):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dry run held against the card ("dryrun") and the examples ("examples")
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+# the cells traced (the decode cells that may fit one card, and phase
+# "train"'s shape), in the workers that trace them
+DRYRUN_WORKERS = ((("h2o-danube-1.8b", "smoke_train"),),
+                  (("h2o-danube-1.8b", "decode_32k"),
+                   ("h2o-danube-1.8b", "long_500k")),
+                  (("mamba2-780m", "decode_32k"), ("mamba2-780m", "long_500k"),
+                   ("internvl2-1b", "decode_32k"), ("zamba2-7b", "long_500k")))
+DRYRUN_WAIT_S = 900  # a worker's time limit
+_REHEARSAL_SHAPES = {"decode_32k": "rehearsal_decode",
+                     "long_500k": "rehearsal_long"}
+
+
+def dryrun_shapes(rehearsal: bool) -> dict:
+    """The shapes the dry-run cells add to ``SHAPES``: phase "train"'s
+    batch x seq; the rehearsal's tiny stand-ins for the rest."""
+    from repro_torch.configs.base import ShapeConfig
+    if not rehearsal:
+        return {"smoke_train": ShapeConfig("smoke_train", 512, 4, "train")}
+    return {"smoke_train": ShapeConfig("smoke_train", 32, 2, "train"),
+            "rehearsal_decode": ShapeConfig("rehearsal_decode", 64, 2,
+                                            "decode"),
+            "rehearsal_long": ShapeConfig("rehearsal_long", 128, 1,
+                                          "decode")}
+
+
+def dryrun_cell(arch: str, shape: str, rehearsal: bool):
+    return ((arch + "-reduced", _REHEARSAL_SHAPES.get(shape, shape))
+            if rehearsal else (arch, shape))
+
+
+def dryrun_worker(out_dir: str, rehearsal: str, *cells: str):
+    """A worker process: ``launch.dryrun`` of each "arch:shape" cell with
+    the kernel datapath (``--backend cuda``) and the packed KV cache, on
+    ``meta`` tensors, its record written to ``out_dir``."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    SHAPES.update(dryrun_shapes(rehearsal == "1"))
+    for cell in cells:
+        arch, shape = cell.split(":")
+        dryrun.main(["--arch", arch, "--shape", shape, "--backend", "cuda",
+                     "--kv-cache", "mxsf", "--out", out_dir])
+
+
+def start_dryrun(rehearsal: bool):
+    """Start the dry-run workers (they need no card, so they trace on the
+    host's cores while the card phases run; ``CUDA_VISIBLE_DEVICES`` is
+    empty there, so none makes a CUDA context).  Returns the processes."""
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for i, cells in enumerate(DRYRUN_WORKERS):
+        names = [":".join(dryrun_cell(a, s, rehearsal)) for a, s in cells]
+        log = open(DRYRUN_DIR / f"worker{i}.log", "w")
+        code = ("import sys, chip_smoke; "
+                "chip_smoke.dryrun_worker(*sys.argv[1:])")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, str(DRYRUN_DIR),
+             str(int(rehearsal)), *names], cwd=str(ROOT), env=env,
+            stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    emit("dryrun", step="start", workers=len(procs),
+         cells=[list(c) for w in DRYRUN_WORKERS for c in w])
+    return procs
+
+
+def stop_processes(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def _allocator(torch):
+    """(bytes requested by live allocations, bytes allocated) on the card:
+    the caching allocator's counters (allocated rounds each block up)."""
+    stats = torch.cuda.memory_stats()
+    return (stats["requested_bytes.all.current"],
+            torch.cuda.memory_allocated())
+
+
+def phase_dryrun(torch, device, args, rehearsal, procs):
+    """Wait for the dry-run workers, then hold each traced cell that the
+    trace says fits one card against one real step of the same program on
+    the card, from ``--seed`` inputs (``dryrun.cell_inputs``): the
+    argument bytes equal the allocator's requested bytes after the inputs
+    are built (and the bytes of their storages), exactly; each kernel's
+    launches equal the trace's; the step's ``max_memory_allocated`` printed
+    beside the predicted peak with their ratio (an out-of-memory in a cell
+    predicted to fit fails the phase); the step's seconds no less than the
+    roofline's (the larger of compute and memory).  The outputs must be
+    finite.  Returns the launches of each cell's step."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.core.packed_store import tree_leaves
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    for i, proc in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_WAIT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            log = (DRYRUN_DIR / f"worker{i}.log").read_text()[-3000:]
+            raise AssertionError(f"dry-run worker {i} exited {rc}:\n{log}")
+    emit("dryrun", step="traced", wait_seconds=time.perf_counter() - t0)
+    SHAPES.update(dryrun_shapes(rehearsal))
+    launches = {}
+    for arch, shape_name in (dryrun_cell(a, s, rehearsal)
+                             for w in DRYRUN_WORKERS for a, s in w):
+        rec = json.loads((DRYRUN_DIR / f"{arch}__{shape_name}__1x1.json")
+                         .read_text())
+        mem, roof = rec["memory"], rec["roofline"]
+        roof_s = max(roof["compute_s"], roof["memory_s"])
+        row = dict(arch=arch, shape=shape_name,
+                   trace_seconds=rec["trace_seconds"], fits=rec["fits"],
+                   predicted=dict(mem, launches=rec["cost"]["launches"],
+                                  flops=rec["cost"]["flops_per_device"],
+                                  hbm_bytes=rec["cost"]
+                                  ["hbm_bytes_per_device"],
+                                  aten_ops=rec["cost"]["aten_ops"],
+                                  roofline_s=roof_s,
+                                  dominant=roof["dominant"]))
+        if not rec["fits"]:
+            emit("dryrun", step="cell", ran=False, **row)
+            continue
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        pol = dryrun.cell_policy("mxsf", shape.kind, kv_cache="mxsf",
+                                 backend="cuda")
+        tcfg, ocfg = dryrun.cell_config(arch.replace("-reduced", ""))
+        free_device(torch, device)
+        if on_card:
+            base = _allocator(torch)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        inputs = dryrun.cell_inputs(cfg, shape, pol, ocfg, device=device,
+                                    generator=gen)
+        _sync(torch, device)
+        row["argument_storage_bytes"] = cost.storage_bytes(inputs)
+        if on_card:
+            now = _allocator(torch)
+            row["argument_requested_bytes"] = now[0] - base[0]
+            row["argument_allocated_bytes"] = now[1] - base[1]
+        run = dryrun.cell_program(cfg, shape, pol, tcfg, ocfg)
+        reset_launches()
+        _sync(torch, device)
+        if on_card:  # the step's peak, not the inputs' construction's
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = run(inputs)
+        _sync(torch, device)
+        row["seconds"] = time.perf_counter() - t1
+        got = {k: v for k, v in read_launches().items() if v}
+        launches[f"dryrun_{arch}_{shape_name}"] = got
+        row["launches"] = got
+        row["seconds_over_roofline"] = row["seconds"] / roof_s
+        if on_card:
+            row["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                           - base[1])
+            row["peak_over_predicted"] = (row["max_memory_allocated"]
+                                          / mem["peak_bytes_per_device"])
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in tree_leaves(out[0] if shape.kind != "train"
+                                          else out[1])
+                     if isinstance(t, torch.Tensor))
+        emit("dryrun", step="cell", ran=True, finite=finite, **row)
+        faults = []
+        if row["argument_storage_bytes"] != mem["argument_bytes"]:
+            faults.append("argument storage bytes")
+        if on_card:
+            if row["argument_requested_bytes"] != mem["argument_bytes"]:
+                faults.append("argument bytes requested on the card")
+            if got != rec["cost"]["launches"]:
+                faults.append(f"launches {got} != traced "
+                              f"{rec['cost']['launches']}")
+            if row["seconds"] < roof_s:
+                faults.append("a step faster than its roofline")
+        if not finite:
+            faults.append("non-finite outputs")
+        if faults:
+            raise AssertionError(f"dryrun {arch} {shape_name}: {faults}")
+        del inputs, out, run
+        free_device(torch, device)
+    return launches
+
+
+EXAMPLES = (
+    ("torch_quickstart.py", [], ("codes      :", "grad finite: True",
+                                 "packed bytes:")),
+    ("torch_serve_decode.py", ["--requests", "4", "--gen", "8"],
+     ("weight store:", "generated 32 tokens", "sample:")),
+    ("torch_train_lm.py", ["--small", "--steps", "3"],
+     ("step     0", "done in")),
+    ("torch_directcast_inference.py", ["--steps", "60"],
+     ("BF16 baseline accuracy", "direct-cast mxsf")))
+
+
+def phase_examples(torch, device, rehearsal):
+    """Each of the port's examples once, as a subprocess on the card (on
+    the CPU in the rehearsal) at a small size: it must exit 0 and print
+    its key lines."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ckpt = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        for name, argv, lines in EXAMPLES:
+            argv = list(argv)
+            if name == "torch_train_lm.py":
+                argv += ["--ckpt-dir", str(ckpt)]
+            argv += ["--device", "cpu" if rehearsal else "cuda"]
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                                  *argv], capture_output=True, text=True,
+                                 env=env, cwd=str(ROOT), timeout=600)
+            missing = [ln for ln in lines if ln not in res.stdout]
+            emit("examples", example=name, argv=argv,
+                 returncode=res.returncode,
+                 seconds=time.perf_counter() - t0, missing=missing,
+                 tail=res.stdout.strip().splitlines()[-3:])
+            if res.returncode != 0 or missing:
+                raise AssertionError(f"example {name}: exit "
+                                     f"{res.returncode}, missing {missing}"
+                                     f"\n{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    free_device(torch, device)
+
+
 def kernels_line(rows, attn, train_rows, launches, slots, cfg):
     """One entry per CUDA kernel: its launches on the main paths (serving,
     2D and 1D training, each counted from 0) and the numbers of its row at
@@ -2826,7 +3065,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.base import get_config
-    from repro_torch.core.policy import MXSF_INFER, MXSF_TRAIN
+    from repro_torch.core.policy import MXSF_INFER
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rehearsal = args.cpu_rehearsal
@@ -2843,6 +3082,38 @@ def main(argv=None) -> int:
     kind = phase_device(torch, rehearsal)
     if not rehearsal:
         phase_build()
+    procs = start_dryrun(rehearsal)
+    try:
+        line = run_phases(torch, device, args, rehearsal, cfg, policy, slots,
+                          chunk, max_len, new_tokens, lengths, procs)
+    finally:
+        stop_processes(procs)
+    emit("done", seconds=time.perf_counter() - t_start)
+    if device.type == "cuda":
+        never = [k["name"] for k in line["kernels"] if k["launches"] == 0]
+        if never:
+            raise AssertionError(f"kernels never launched on a main path: "
+                                 f"{never}")
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(dict(RESULTS, kernels_line=line),
+                                  indent=1, default=str))
+    print(json.dumps(line), flush=True)
+    if rehearsal:
+        print("chip_smoke: CPU rehearsal done (no result line)", flush=True)
+        return 0
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
+               max_len, new_tokens, lengths, procs):
+    """Phases 3-17 in their order; returns the ``kernels`` line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_TRAIN
     train_cfg = get_config("h2o-danube-1.8b")
     batch, seq = (4, 512) if not rehearsal else (2, 32)
     if rehearsal:
@@ -2918,26 +3189,9 @@ def main(argv=None) -> int:
         del state, batches
         free_device(torch, device)
     launches.update(phase_train_families(torch, device, args, rehearsal))
-    line = kernels_line(rows, attn, train_rows, launches, slots, cfg)
-    emit("done", seconds=time.perf_counter() - t_start)
-    if device.type == "cuda":
-        never = [k["name"] for k in line["kernels"] if k["launches"] == 0]
-        if never:
-            raise AssertionError(f"kernels never launched on a main path: "
-                                 f"{never}")
-    if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(dict(RESULTS, kernels_line=line),
-                                  indent=1, default=str))
-    print(json.dumps(line), flush=True)
-    if rehearsal:
-        print("chip_smoke: CPU rehearsal done (no result line)", flush=True)
-        return 0
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    launches.update(phase_dryrun(torch, device, args, rehearsal, procs))
+    phase_examples(torch, device, rehearsal)
+    return kernels_line(rows, attn, train_rows, launches, slots, cfg)
 
 
 if __name__ == "__main__":

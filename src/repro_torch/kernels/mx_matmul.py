@@ -11,7 +11,8 @@ its own block shape.  The training path takes it for the 2D backward
 CUDA tensors launch ``csrc/mx_matmul.cu`` for blocks (8,8)/(8,8),
 (1,64)/(64,1) or (1,32)/(32,1) (bound by operations at training shapes:
 bf16 tensor-core products of exactly decoded tiles, see the source's note)
-or raise; CPU tensors take
+or raise; ``meta`` tensors pass the same checks, get an empty output and
+record the launch with ``launch/cost.py``; CPU tensors take
 ``mxsf_matmul_plain``, the counterpart of the JAX package's
 ``kernels/ref.py::mxsf_matmul_ref``: decode both operands through
 ``kernels/common.py`` (``decode_packed``), then an f32 matmul.  Operands
@@ -26,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..launch import cost
 from . import common as C
 
 __all__ = ["mxsf_matmul", "mxsf_matmul_plain", "launches", "TILE", "BLOCKS"]
@@ -73,7 +75,7 @@ def mxsf_matmul(x_codes, x_scales, w_codes, w_scales, xblk=(1, 32),
     if x_codes.device.type == "cpu":
         return mxsf_matmul_plain(x_codes, x_scales, w_codes, w_scales, xblk,
                                  wblk)
-    if not x_codes.is_cuda:
+    if not (x_codes.is_cuda or x_codes.is_meta):
         raise ValueError(f"unsupported device {x_codes.device}")
     if (xblk, wblk) not in BLOCKS:
         raise ValueError(f"the CUDA kernel takes blocks {BLOCKS}; got "
@@ -87,6 +89,11 @@ def mxsf_matmul(x_codes, x_scales, w_codes, w_scales, xblk=(1, 32),
     n = w_codes.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
     plan = C.mma_plan(m, k, n, *TILE, prep=PREP_STEPS)
+    if y.is_meta:
+        cost.record_launch("mxsf_matmul", cost.mx_matmul_work(
+            m, k, n, xblk, wblk),
+            scratch=4 * plan["workspace"] + plan["prep_bytes"])
+        return y
     work, counters, f32, pbuf, ready, epoch = C.gemm_scratch(
         "mxsf_matmul", x_codes.device, plan)
     a_cp, b_cp = C.cp_width(ops[0], k), C.cp_width(ops[2], n)

@@ -15,6 +15,10 @@ cached attention of S=1 decode steps and S=C prefill chunks.
 * CUDA tensors launch ``csrc/mxsf_attention.cu`` (one block per slot, kv
   head, row tile of the GQA group and key split; design in its header);
   what it does not take raises.  There is no fallback.
+* ``meta`` tensors pass the same checks and get an empty output; the
+  launch is recorded with ``launch/cost.py`` (``meta_visible``: the
+  lengths are not known there, so every row counts its keys up to the
+  cache's end) and nothing is computed.
 * CPU tensors take ``mxsf_attention_plain``, the counterpart of the JAX
   package's ``kernels/ref.py::mxsf_flash_attention_ref``.
 
@@ -35,10 +39,11 @@ import types
 import torch
 
 from ..core import blocking as B
+from ..launch import cost
 from . import common as C
 
 __all__ = ["NO_WINDOW", "per_row_scalar", "attention_plan", "mxsf_attention",
-           "mxsf_attention_plain", "division", "launches"]
+           "mxsf_attention_plain", "meta_visible", "division", "launches"]
 
 NO_WINDOW = 1 << 30  # matches models/transformer.py sentinel
 NEG_INF = -1e30
@@ -122,6 +127,22 @@ def per_row_scalar(val, default: int, BH: int, device) -> torch.Tensor:
         val.reshape(BH).contiguous()
 
 
+def meta_visible(S: int, L: int, causal: bool, kv_len, q_offset, window):
+    """(keys a row reads, visible (query, key) pairs of one row) for a
+    launch whose per-row values may be unknown (tensors on ``meta``):
+    ``kv_len`` all of L, the S queries at the end of the keys, no window
+    -- what a decode step at the cache's last position needs.  Python
+    ints are taken as given."""
+    n = min(kv_len, L) if isinstance(kv_len, int) and kv_len >= 0 else L
+    off = q_offset if isinstance(q_offset, int) else max(n - S, 0)
+    win = window if isinstance(window, int) else NO_WINDOW
+    vis = 0
+    for i in range(S):
+        hi = min(n, off + i + 1) if causal else n
+        vis += max(0, hi - max(0, off + i - win + 1))
+    return n, vis
+
+
 def _cache_layout(k_codes, k_scales, v_codes, v_scales):
     """Row layout (BKV, L, dh) -> the cache layout view (BKV, L, 1, dh)."""
     if k_codes.ndim == 4:
@@ -181,7 +202,7 @@ def mxsf_attention(q, k_codes, k_scales, v_codes, v_scales, *,
         return mxsf_attention_plain(q, kc, ks, vc, vs, causal=causal,
                                     kv_len=kv_len, q_offset=q_offset,
                                     window=window)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: expected float32 or bfloat16")
@@ -194,11 +215,17 @@ def mxsf_attention(q, k_codes, k_scales, v_codes, v_scales, *,
             raise ValueError(f"{name} must be contiguous on {q.device}")
         if name != "q" and t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8")
-    rows = [_row_arg(v, BH, q.device) for v in (kv_len, q_offset, window)]
     out = torch.empty_like(q)
     if BH == 0 or S == 0:
         return out
     plan = attention_plan(Bc, KV, BH // Bc // KV, S, L, dh)
+    if q.is_meta:
+        n, vis = meta_visible(S, L, causal, kv_len, q_offset, window)
+        cost.record_launch("mxsf_attention", cost.attention_work(
+            Bc * n, KV, dh, q.numel(), q.element_size(), BH * vis),
+            scratch=4 * plan["workspace"])
+        return out
+    rows = [_row_arg(v, BH, q.device) for v in (kv_len, q_offset, window)]
     if plan["groups"] >= 1 << 31:
         raise ValueError(f"{plan['groups']} row groups: too many blocks")
     work, counters, f32 = C.split_scratch("mxsf_attention", q.device, plan)

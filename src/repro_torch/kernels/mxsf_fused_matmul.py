@@ -15,6 +15,9 @@ training switches of the JAX kernel:
 * CUDA tensors launch ``csrc/mxsf_fused_matmul.cu`` (blocks (1,64)/(64,1)
   or (8,8)/(8,8); a raw x against either weight block); anything else the
   kernel does not take raises.  There is no fallback.
+* ``meta`` tensors (a dry run, ``launch/dryrun.py``) pass the same checks
+  and get empty outputs of the kernel's shapes; the launch is recorded
+  with ``launch/cost.py`` and nothing is computed.
 * CPU tensors take ``mxsf_fused_matmul_plain``, the counterpart of the JAX
   package's ``kernels/ref.py::mxsf_fused_matmul_ref``; its emitted codes
   come from ``blocking.quantize``.
@@ -35,6 +38,7 @@ import ctypes
 import torch
 
 from ..core import blocking as B
+from ..launch import cost
 from . import common as C
 
 __all__ = ["mxsf_fused_matmul", "mxsf_fused_matmul_plain", "launches",
@@ -118,7 +122,7 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
     if x.device.type == "cpu":
         return mxsf_fused_matmul_plain(x, w_codes, w_scales, xblk, wblk,
                                        quantize_lhs, emit_codes)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"unsupported device {x.device}")
     m, k = x.shape
     kw, n = w_codes.shape
@@ -152,6 +156,11 @@ def mxsf_fused_matmul(x, w_codes, w_scales, xblk=(1, 64), wblk=(64, 1),
         x = x.float().contiguous()
     plan = C.mma_plan(m, kw, n, *tile(xmode, m),
                       prep=PREP_STEPS if prep else 0)
+    if x.is_meta:
+        cost.record_launch("mxsf_fused_matmul", cost.fused_matmul_work(
+            m, k, kw, n, x.element_size(), xblk, wblk, quantize_lhs,
+            emit_codes), scratch=4 * plan["workspace"] + plan["prep_bytes"])
+        return (y, codes, scales) if emit_codes else y
     work, counters, f32, pbuf, ready, epoch = C.gemm_scratch(
         "mxsf_fused_matmul", x.device, plan)
     a_cp = C.cp_width(x, k * x.element_size())

@@ -18,8 +18,11 @@ amax -> shared exponent -> encode, through the bit-level codec of
   ``transpose=True`` returns both grids transposed (what ``.T.contiguous()``
   of each would give), written so by the kernel.
 
-CUDA tensors launch ``csrc/mxsf_quant.cu`` (bound by bytes) or raise; CPU
-tensors take the plain versions.  There is no fallback.  The quantizer's
+CUDA tensors launch ``csrc/mxsf_quant.cu`` (bound by bytes) or raise;
+``meta`` tensors pass the same checks, get empty outputs of the kernel's
+shapes (the transposed layout too) and record the launch with
+``launch/cost.py``; CPU tensors take the plain versions.  There is no
+fallback.  The quantizer's
 instance follows the block shape (``quantize_instance``): tiles of 32
 16-byte pieces per row for (8,8), (64,1) and (1,64) (``tile_plan``), one
 thread per MX block for any other shape.  The requantizer's follows the
@@ -36,6 +39,7 @@ import math
 
 import torch
 
+from ..launch import cost
 from . import common as C
 
 __all__ = ["mxsf_quantize", "mxsf_quantize_plain", "mxsf_requantize",
@@ -246,10 +250,10 @@ def _launch(name: str, argtypes, *args):
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
     """False for a CPU tensor (plain version), True for a contiguous CUDA
-    tensor; anything else raises."""
+    or ``meta`` tensor; anything else raises."""
     if t.device.type == "cpu":
         return False
-    if not t.is_cuda:
+    if not (t.is_cuda or t.is_meta):
         raise ValueError(f"{name}: unsupported device {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
@@ -278,6 +282,10 @@ def mxsf_quantize(x: torch.Tensor, block=(1, 32)):
     codes = torch.empty((mb, kb), dtype=torch.uint8, device=x.device)
     scales = torch.empty((mb // bm, kb // bk), dtype=torch.uint8,
                          device=x.device)
+    if x.is_meta:
+        cost.record_launch("mxsf_quantize", cost.quantize_work(
+            m, k, (bm, bk), x.element_size()))
+        return codes, scales
     _launch("mxsf_quantize", _Q_ARGS, x.data_ptr(),
             int(x.dtype == torch.bfloat16), m, k, bm, bk, codes.data_ptr(),
             scales.data_ptr(), C.raw_stream(x.get_device()))
@@ -312,6 +320,10 @@ def mxsf_requantize(codes: torch.Tensor, scales: torch.Tensor,
         shape_c, shape_s = shape_c[::-1], shape_s[::-1]
     out_c = torch.empty(shape_c, dtype=torch.uint8, device=codes.device)
     out_s = torch.empty(shape_s, dtype=torch.uint8, device=codes.device)
+    if codes.is_meta:
+        cost.record_launch("mxsf_requantize", cost.requantize_work(
+            m, k, (fbm, fbk), (tbm, tbk)))
+        return out_c, out_s
     _launch("mxsf_requantize", _R_ARGS, codes.data_ptr(), scales.data_ptr(),
             m, k, fbm, fbk, tbm, tbk, int(bool(transpose)), out_c.data_ptr(),
             out_s.data_ptr(), C.raw_stream(codes.get_device()))

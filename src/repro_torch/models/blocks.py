@@ -103,19 +103,26 @@ def _write_cache(buf, upd, slot, write_len):
     start clamped to W-S as ``lax.dynamic_update_slice`` clamps it.
     Otherwise rows past ``write_len`` are dropped, as are rows whose column
     falls past the cache end -- never clamped, so a masked slot deep in its
-    sequence cannot shift a chunk onto live history."""
+    sequence cannot shift a chunk onto live history.  A dropped row writes
+    back what its column (taken modulo W, which no kept row of its slot
+    reaches) already holds, so the write has a fixed shape: no
+    data-dependent index set, no host sync, and a ``meta`` trace passes."""
     Bsz, S = upd.shape[:2]
     W = buf.shape[1]
-    ar = torch.arange(S, device=buf.device)
+    bi = torch.arange(Bsz, device=buf.device)[:, None]
     if write_len is None:
+        ar = torch.arange(S, device=buf.device)
         start = torch.clamp(slot, max=W - S)
-        cols = start[:, None] + ar[None, :]
-        buf[torch.arange(Bsz, device=buf.device)[:, None], cols] = upd
+        buf[bi, start[:, None] + ar[None, :]] = upd
         return
+    S = min(S, W)  # rows past W never land
+    upd = upd[:, :S]
+    ar = torch.arange(S, device=buf.device)
     cols = slot[:, None] + ar[None, :]
     keep = (ar[None, :] < write_len[:, None]) & (cols < W)
-    bi, si = keep.nonzero(as_tuple=True)
-    buf[bi, cols[bi, si]] = upd[bi, si]
+    cols = cols % W
+    keep = keep.reshape(keep.shape + (1,) * (upd.ndim - 2))
+    buf[bi, cols] = torch.where(keep, upd, buf[bi, cols])
 
 
 def _attn_mask_bias(qpos, kpos, *, causal: bool, window):

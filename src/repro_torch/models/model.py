@@ -1,25 +1,31 @@
-"""Public model API: init, pack-once store, cached decode entry points.
+"""Public model API: init, pack-once store, cached decode entry points and
+the input specs of an (arch x shape) cell.
 
-PyTorch counterpart of the serving parts of the JAX package's
-``models/model.py``, plus ``init_packed_params``: a packed store drawn leaf
-by leaf, so a model whose f32 weights would not fit the device (qwen2.5-32b
-at full width: ~131 GB of f32 against ~36 GB packed) can be served from
-random weights.  ``packed_model_specs`` is the store's structure on the
-``meta`` device, the restore target of a packed checkpoint.
+PyTorch counterpart of the JAX package's ``models/model.py``, plus
+``init_packed_params``: a packed store drawn leaf by leaf, so a model whose
+f32 weights would not fit the device (qwen2.5-32b at full width: ~131 GB
+of f32 against ~36 GB packed) can be served from random weights.
+``packed_model_specs`` is the store's structure on the ``meta`` device, the
+restore target of a packed checkpoint; ``train_specs`` and
+``decode_specs`` give a cell's inputs as ``meta`` tensors where the JAX
+package has ``ShapeDtypeStruct``s -- the dry run (``launch/dryrun.py``)
+runs against them.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core import packed_store
 from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
 from . import decoding, transformer
 
 init_params = transformer.init_params
+forward = transformer.forward
 init_cache = decoding.init_cache
 decode_step = decoding.decode_step
 prefill_step = decoding.prefill_step
@@ -183,3 +189,70 @@ def decode_attn_backend(cfg: ModelConfig, policy: QuantPolicy) -> str:
     from . import blocks
     return "cuda-packed" if blocks.attn_kernel_eligible(cfg, policy) \
         else "torch"
+
+
+def param_count(params) -> int:
+    """Elements of every leaf (a packed leaf: its codes and scales)."""
+    total = 0
+    for leaf in packed_store.tree_leaves(params):
+        if isinstance(leaf, QuantizedTensor):
+            total += leaf.codes.numel() + leaf.scale_e8m0.numel()
+        else:
+            total += leaf.numel()
+    return total
+
+
+def active_param_count(cfg: ModelConfig, params) -> int:
+    """Active params per token (MoE: top_k + shared experts only)."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+    expert_p = 3 * cfg.d_model * cfg.expert_ff  # gate/up/down per expert
+    n_moe_layers = cfg.n_layers // cfg.moe_every
+    inactive = n_moe_layers * (cfg.n_experts - cfg.top_k) * expert_p
+    return total - inactive
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """``meta`` tensors for one train/prefill step's batch."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {}
+    if cfg.family == "encoder":
+        specs["embeds"] = _spec((B, cfg.frontend_tokens, cfg.d_model),
+                                torch.bfloat16)
+        specs["label"] = _spec((B,), torch.int32)
+        return specs
+    specs["tokens"] = _spec((B, S), torch.int32)
+    if shape.kind == "train":
+        specs["labels"] = _spec((B, S), torch.int32)
+    if cfg.family == "encdec":
+        specs["frames"] = _spec((B, cfg.enc_seq, cfg.d_model), torch.bfloat16)
+    if cfg.frontend == "vision" and cfg.frontend_tokens:
+        specs["embeds"] = _spec((B, cfg.frontend_tokens, cfg.d_model),
+                                torch.bfloat16)
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig, ring: bool = True,
+                 kv_fmt: str = "") -> Dict:
+    """``meta`` tensors for one serve step: the new token, the KV/state
+    cache at seq_len and the position."""
+    B = shape.global_batch
+    return {
+        "tokens": _spec((B, 1), torch.int32),
+        "cache": decoding.init_cache(cfg, B, shape.seq_len, ring=ring,
+                                     kv_fmt=kv_fmt, device="meta"),
+        "pos": _spec((), torch.int32),
+    }
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig):
+    """(supported, reason) for an (arch x shape) cell -- DESIGN.md §5 rules."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 524k-token decode cache is the "
+                       "quadratic regime the assignment skips")
+    return True, ""

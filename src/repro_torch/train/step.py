@@ -19,10 +19,12 @@ from ..core import blocking as B
 from ..core.packed_store import tree_map
 from ..core.policy import QuantPolicy
 from ..device import resolve_device
+from ..models import model as M
 from ..models import transformer as T
 from ..optim import adamw
 
-__all__ = ["TrainConfig", "loss_fn", "make_train_step", "init_state"]
+__all__ = ["TrainConfig", "loss_fn", "make_train_step", "make_serve_step",
+           "init_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,3 +188,12 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy,
         return {"params": params, "opt": opt}, dict(metrics, **opt_metrics)
 
     return train_step
+
+
+def make_serve_step(cfg: ModelConfig, policy: QuantPolicy):
+    """Returns serve_step(params, tokens, cache, pos) -> (logits, cache)."""
+
+    def serve_step(params, tokens, cache, pos):
+        return M.decode_step(params, tokens, cache, pos, cfg, policy)
+
+    return serve_step

@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -47,11 +48,15 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+import glob, importlib.util
+for path in sorted(glob.glob(%r)):
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
-""" % (str(ROOT / "src"), str(ROOT))
+""" % (str(ROOT / "src"), str(ROOT), str(ROOT / "examples" / "torch_*.py"))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -62,8 +67,19 @@ print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 
 @pytest.mark.parametrize("module", ["models/ssd.py", "models/transformer.py",
                                     "models/decoding.py", "models/model.py",
-                                    "models/blocks.py", "convert.py"])
+                                    "models/blocks.py", "convert.py",
+                                    "launch/cost.py", "launch/dryrun.py",
+                                    "hw/energy.py"])
 def test_the_family_modules_are_checked(module):
-    """The modules of the SSM, hybrid, encoder-decoder and VLM families are
-    among the files the source check walks."""
+    """The modules of the SSM, hybrid, encoder-decoder and VLM families and
+    the tools are among the files the source check walks."""
     assert PORT / module in _port_files()
+
+
+@pytest.mark.parametrize("example", ["torch_quickstart.py",
+                                     "torch_serve_decode.py",
+                                     "torch_train_lm.py",
+                                     "torch_directcast_inference.py"])
+def test_the_examples_are_checked(example):
+    """The port's examples are among the files the source check walks."""
+    assert ROOT / "examples" / example in _port_files()
