@@ -10,7 +10,8 @@ Phases, each printed as one JSON line:
 2. build   -- ``nvcc`` for every CUDA source (in parallel) with each
               kernel's registers, shared memory and spills.
 3. kernels -- each CUDA kernel against its plain PyTorch version at the
-              serving path's shapes of qwen2.5-32b (bf16 activations, plus
+              serving path's shapes of qwen2.5-32b and their shard-local
+              shapes at SHARD_TP ranks (bf16 activations, plus
               edge blocks, which must reach the matmul kernels' f32 path):
               max error against the stated tolerance; the fused matmul
               also bit for bit on exact-sum operands of the same shape
@@ -67,6 +68,31 @@ Phases, each printed as one JSON line:
               peak memory while the engine restores within the store's
               and the cache's bytes plus RESTORE_SLACK.  The checkpoint is
               removed when the phase ends.
+6b. serve_sharded -- the engine on a mesh, from phase 6's checkpoint
+              (removed after this phase): first a world of one rank in this
+              process on NCCL, ``ServeEngine.from_checkpoint(mesh=
+              make_test_mesh(1, 1))`` giving phase 6's token streams bit for
+              bit, its launches and collectives (NCCL) against their
+              formulas; then the same engine teacher-forced on those streams
+              with every fused matmul on its plain version (a pure f32
+              reorder: how far that moves the logits calibrates the next
+              step), ``make_compressed_allreduce`` over a gradient-sized tree
+              equal to ``blocking.qdq`` of it bit for bit, and a one-stage
+              ``pipeline_apply`` against the sequential run.  Then SHARD_TP
+              ranks sharing the card on a (1, SHARD_TP) mesh, each a process
+              started after the build, over gloo (NCCL refuses two ranks on
+              one device; collectives go through host memory): each restores
+              only its slices (store bytes equal to ``MeshRules``'
+              prediction, restore peak within store + cache +
+              RESTORE_SLACK), holds every kernel call of its first dispatch
+              against the plain version at its shard-local shape (column-
+              parallel N / tp, row-parallel K / tp, 20 / 4 heads), serves the
+              prompts teacher-forced on phase 6's streams (each step's logits
+              within REORDER_FACTOR times the baseline's largest move, the
+              top-1 equal wherever phase 6's top-1/top-2 gap exceeds twice
+              that), launches and collectives against their formulas; rank 0
+              profiles one decode dispatch (idle share, collectives' share).
+              A rank that fails or outlives SHARD_WAIT_S fails the phase.
 7. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
               ``init_state`` from ``--seed``, batches from ``lm_batch``
               (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
@@ -442,7 +468,7 @@ def fused_exact_sum(torch, gen, device, m, k, n, xblk=(1, 64),
     return dict(exact_sum_bitwise=same, exact_sum_f32_steps=f32_steps)
 
 
-def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
+def check_matmul(torch, timer, gen, device, m, k, n, edge=False, **fields):
     from repro_torch.launch import cost
     from repro_torch.core import blocking as B
     from repro_torch.kernels import mxsf_fused_matmul as FM
@@ -470,12 +496,13 @@ def check_matmul(torch, timer, gen, device, m, k, n, edge=False):
         raise AssertionError(f"matmul {m}x{k}x{n}: the edge blocks did not "
                              "reach the f32 path")
     row = dict(kernel="mxsf_fused_matmul", m=m, k=k, n=n, edge=edge,
-               max_abs_err=res["max_abs_err"],
+               **fields, max_abs_err=res["max_abs_err"],
                err_over_tol=res["err_over_tol"], f32_steps=f32_steps)
     if not edge:
         row.update(fused_exact_sum(torch, gen, device, m, k, n))
         w_lib = B.dequantize(B.QuantizedTensor(
-            codes, scales, "mxsf", (64, 1), tuple(codes.shape), "bfloat16"))
+            codes, scales, "mxsf", (64, 1), tuple(codes.shape),
+            "bfloat16"))[:k]  # K short of a block: the padded rows drop
         row["ms"] = timer(lambda: FM.mxsf_fused_matmul(x, codes, scales), 10)
         row["plain_ms"] = timer(
             lambda: FM.mxsf_fused_matmul_plain(x, codes, scales), 3, 1)
@@ -805,6 +832,13 @@ def phase_kernels(torch, device, cfg, slots, chunk, max_len, seed):
     for m in (slots, slots * chunk):
         for k, n in shapes:
             rows[(m, k, n)] = check_matmul(torch, timer, gen, device, m, k, n)
+    # phase serve_sharded's shard-local shapes (SHARD_TP ranks on the
+    # model axis): column-parallel N / tp, row-parallel K / tp
+    for m in (slots, slots * chunk):
+        for k, n in shard_local_shapes(cfg):
+            if (m, k, n) not in rows:
+                rows[(m, k, n)] = check_matmul(torch, timer, gen, device, m,
+                                               k, n, shard=f"tp{SHARD_TP}")
     check_matmul(torch, timer, gen, device, slots, d, kvd, edge=True)
     check_matmul(torch, timer, gen, device, slots * chunk, d, kvd, edge=True)
     check_codec_exact(torch, gen, device, slots * chunk, d)
@@ -1502,6 +1536,7 @@ class checked_kernels:
                     x, codes, scales, xblk, wblk, quantize_lhs), xq, wq,
                 keep=True)
             y_ref, tol = res.pop("y_ref"), res.pop("tol")
+            res.update(m=x.shape[0], n=n)
             if emit_codes:
                 res["codes_bitwise"] = same(
                     out[1:], MQ.mxsf_quantize_plain(x, xblk))
@@ -1513,9 +1548,10 @@ class checked_kernels:
             out = ka(q, *kv_args, **args)
             err, ratio = attention_against_plain(torch, out, q, kv_args,
                                                  args)
+            b, kv = kv_args[0].shape[0], kv_args[0].shape[-2]
             calls["mxsf_attention"].append(dict(
-                max_abs_err=err, err_over_tol=ratio,
-                finite=bool(torch.isfinite(out).all())))
+                max_abs_err=err, err_over_tol=ratio, heads=q.shape[0] // b,
+                kv_heads=kv, finite=bool(torch.isfinite(out).all())))
             return out
 
         self.saved = [(MQ, "mxsf_quantize", kq), (MQ, "mxsf_requantize", kr),
@@ -1915,6 +1951,33 @@ def phase_slice(torch, eng, cfg, prompts, chunk, phase="slice"):
 # fault-tolerant loop ("train_resume")
 # ---------------------------------------------------------------------------
 
+def tap_emits(eng, cfg, teacher=None):
+    """This script's hook on an engine (as ``checked_kernels`` is on the
+    kernels): each token the engine emits keeps the logits row it was
+    sampled from (the real vocab, f32, on the host) and the engine's own
+    choice, keyed (request uid, token index).  With ``teacher`` ({uid:
+    token stream}) the engine emits those tokens instead of its own
+    (teacher forcing), so its later dispatches see the same inputs as the
+    run that produced them.  Returns (rows, choices)."""
+    rows, choices, last = {}, {}, {}
+    sample, emit_token = eng.sampler, eng._emit
+
+    def sampler(logits):
+        last["logits"] = logits
+        return sample(logits)
+
+    def _emit(s, tok, done):
+        req = eng.live[s]
+        key = (req.uid, len(req.out))
+        rows[key] = last["logits"][s, :cfg.vocab].float().cpu()
+        choices[key] = tok
+        emit_token(s, tok if teacher is None else teacher[req.uid][key[1]],
+                   done)
+
+    eng.sampler, eng._emit = sampler, _emit
+    return rows, choices
+
+
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"  # removed when a phase ends
 RESTORE_SLACK = 256 << 20  # bytes the card may hold past store + cache
                            # while an engine restores (an f32 copy of any
@@ -1965,7 +2028,9 @@ def phase_ckpt_serve(torch, device, cfg, policy, args, slots, chunk,
     restore seconds and GB/s, and the card's peak memory while the engine
     restores within the store's bytes plus the cache's plus
     RESTORE_SLACK (no full-precision copy of a packed leaf).  Returns the
-    restored engine's launches."""
+    restored engine's launches, its token streams, the config at the
+    checkpoint's depth and the checkpoint, which the caller removes (with
+    CKPT_ROOT) after phase serve_sharded has read it."""
     import shutil
     from repro_torch.ckpt import ckpt
     from repro_torch.models import model as M
@@ -2028,16 +2093,19 @@ def phase_ckpt_serve(torch, device, cfg, policy, args, slots, chunk,
         if on_card and peak > store_b + cache_b + RESTORE_SLACK:
             raise AssertionError(f"ckpt_serve: restore peak {peak} B > "
                                  f"store + cache + slack")
+        rows, _ = tap_emits(eng, cfg)
         outs, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
                                    "ckpt_serve", store="from_checkpoint")
+        torch.save(rows, CKPT_ROOT / "logits.pt")  # serve_sharded's reference
         if outs != outs_mem:
             raise AssertionError(f"ckpt_serve: token streams differ: {outs} "
                                  f"vs {outs_mem}")
-    finally:
+    except BaseException:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        raise
     emit("ckpt_serve", step="done", n_layers=n_layers, same_tokens=True,
          seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, outs, cfg, ckpt_dir
 
 
 def _disk_rates(where, nbytes=2 << 30):
@@ -2062,6 +2130,426 @@ def _disk_rates(where, nbytes=2 << 30):
     path.unlink()
     return dict(disk_write_gb_per_s=nbytes / write_s / 1e9,
                 disk_read_gb_per_s=nbytes / read_s / 1e9)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving ("serve_sharded"): the checkpoint of "ckpt_serve" on a
+# mesh of one rank (NCCL) and of two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+SHARD_TP = 2  # the two-rank run's model axis
+SHARD_DIR = ROOT / "build" / "chip_smoke_sharded"  # the ranks' results
+SHARD_WAIT_S = 480  # the two-rank run's time limit, restore included
+REORDER_FACTOR = 2.0  # the two-rank logits' tolerance: this many times the
+                      # largest move a pure f32 reorder of the matmuls
+                      # caused on one device (``reorder_baseline``)
+
+
+def shard_local_shapes(cfg, tp=SHARD_TP):
+    """(K, N) of each fused matmul of a layer and the head at ``tp`` ranks
+    on the model axis: column-parallel q, k, v, gate, up and head at N /
+    tp, row-parallel o and down at K / tp."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    return [(d, hd // tp), (d, kvd // tp), (hd // tp, d), (d, f // tp),
+            (f // tp, d), (d, v // tp)]
+
+
+def sharded_collectives(cfg, eng):
+    """Collectives of one dispatch of a sharded engine, from the path: an
+    f32 all-reduce after each row-parallel linear (o and down: 2 a layer)
+    and one for the vocab-parallel embedding; with more than one rank on
+    the model axis, one all-gather of the head's logits and one of each
+    norm weight the store splits (2 a layer and the final norm).  Checked
+    for the layouts this phase runs: a full TP plan, one rank on the DP
+    axes."""
+    r, plan = eng.rules, eng.tp_plan
+    if r.dp_size != 1 or not all(plan):
+        raise AssertionError(f"no count formula for dp {r.dp_size}, {plan}")
+    L = cfg.n_layers
+    norm_split = eng._layout["specs"]["w"][0] != (None,)
+    gathers = (1 + (2 * L + 1) * norm_split) if r.tp_size > 1 else 0
+    return {"all_reduce": 2 * L + 1, "all_gather": gathers}
+
+
+def _sharded_engine(torch, cfg, policy, ckpt_dir, mesh, device, slots,
+                    chunk, max_len):
+    """``ServeEngine.from_checkpoint`` on ``mesh``: (engine, restore
+    seconds, the restore's peak bytes on the card above what was there)."""
+    from repro_torch.serve.engine import ServeEngine
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_checkpoint(cfg, str(ckpt_dir), policy, mesh=mesh,
+                                      backend="cuda", device=device,
+                                      slots=slots, max_len=max_len,
+                                      prefill_chunk=chunk)
+    if on_card:
+        torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) if on_card else None
+    return eng, time.perf_counter() - t0, peak
+
+
+def logit_check(torch, rows, choices, want, ref_logits, floor_tol=0.0):
+    """Teacher-forced logits (``tap_emits``' rows and choices, fed
+    ``want``) against the one-device reference rows: each row's max
+    deviation must lie within its tolerance, max(``floor_tol``, one bf16
+    ulp of the reference row's largest |logit|).  That implies the
+    engine's own top-1 is the reference token wherever the reference's
+    top-1/top-2 gap exceeds twice the tolerance (a different choice needs
+    a deviation of half the gap); those decided tokens and the
+    disagreements are counted."""
+    worst, max_dev, disagree, decided = 0.0, 0.0, [], 0
+    for key, ls in rows.items():
+        lr = ref_logits[key]
+        tol = max(floor_tol, float(_bf16_ulp(torch, lr.abs().max())))
+        dev = float((ls - lr).abs().max())
+        worst, max_dev = max(worst, dev / tol), max(max_dev, dev)
+        top2 = lr.topk(2).values
+        gap = float(top2[0] - top2[1])
+        decided += gap > 2 * tol
+        if choices[key] != want[key[0] - 1][key[1]]:
+            disagree.append(dict(uid=key[0], i=key[1], gap=gap, tol=tol,
+                                 decided=gap > 2 * tol))
+    faults = ["logits off the tolerance"] if worst > 1.0 else []
+    return dict(tokens=len(rows), agree=len(rows) - len(disagree),
+                decided=decided, max_dev=max_dev, max_err_over_tol=worst,
+                disagree=disagree, free_running_equal=not disagree), faults
+
+
+def sharded_serve(torch, eng, cfg, prompts, new_tokens, want, phase,
+                  ref_logits=None, floor_tol=0.0, **fields):
+    """``serve_run`` on a sharded engine (launches checked there), then its
+    collectives against ``sharded_collectives``.  Without ``ref_logits``
+    the token streams must equal ``want``.  With them (the one-device
+    engine's logits row of each token of ``want``) the engine runs
+    teacher-forced on ``want`` (``tap_emits``) and its logits are held to
+    ``logit_check``.  Returns (token streams, launches, collectives, the
+    teacher-forced check)."""
+    from repro_torch.core import sharding as shd
+    if ref_logits is not None:
+        rows, choices = tap_emits(eng, cfg, {i + 1: t
+                                             for i, t in enumerate(want)})
+    shd.reset_counts()
+    outs, launches = serve_run(torch, eng, cfg, prompts, new_tokens, phase,
+                               **fields)
+    got = {k: v["calls"] for k, v in shd.counts().items()
+           if k in ("all_reduce", "all_gather")}
+    st = eng.stats()
+    n = st["prefill_dispatches"] + st["decode_dispatches"]
+    expect = {k: v * n for k, v in sharded_collectives(cfg, eng).items()
+              if v}
+    check, faults = None, []
+    if ref_logits is None:
+        if outs != want:
+            faults.append(f"token streams {outs} != ckpt_serve's {want}")
+    else:
+        check, faults = logit_check(torch, rows, choices, want, ref_logits,
+                                    floor_tol)
+    if got != expect:
+        faults.append(f"collectives {got} != {expect}")
+    emit(phase, step="collectives", **fields, collectives=got,
+         expected=expect, collective_seconds={
+             k: v["seconds"] for k, v in shd.counts().items()},
+         same_tokens=outs == want, teacher_forced=check)
+    if faults:
+        raise AssertionError(f"{phase} {fields}: {faults}")
+    return outs, launches, got, check
+
+
+def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
+                     ref_logits):
+    """How far the logits move when only the matmuls' f32 summation order
+    changes, on one device: ``eng`` (a one-rank engine) serves the prompts
+    again teacher-forced on ``want`` with every fused matmul call running
+    its plain version (cuBLAS's f32 order over the same exact products;
+    this script's hook, as ``checked_kernels`` is).  Returns
+    ``logit_check``'s record (no gate): its ``max_dev`` calibrates the
+    two-rank run's tolerance."""
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    kernel = FM.mxsf_fused_matmul
+    eng._uid = 0  # the requests' uids again 1.., as ref_logits keys them
+    rows, choices = tap_emits(eng, cfg, {i + 1: t
+                                         for i, t in enumerate(want)})
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    FM.mxsf_fused_matmul = FM.mxsf_fused_matmul_plain
+    try:
+        eng.run()
+    finally:
+        FM.mxsf_fused_matmul = kernel
+    if not all(r.done for r in reqs):
+        raise AssertionError("reorder baseline: requests left unfinished")
+    check, _ = logit_check(torch, rows, choices, want, ref_logits)
+    return check
+
+
+def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
+               prompts, new_tokens, want, seed):
+    """Phase serve_sharded, step 1: a world of one rank in this process on
+    the production backend (nccl on the card, gloo in the rehearsal)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import blocking as B
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.compress import make_compressed_allreduce
+    from repro_torch.runtime.pipeline_par import pipeline_apply
+    on_card = device.type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = mesh_lib.make_test_mesh(1, 1)
+        eng, restore_s, _ = _sharded_engine(torch, cfg, policy, ckpt_dir,
+                                            mesh, device, slots, chunk,
+                                            max_len)
+        _, launches, collectives, _ = sharded_serve(
+            torch, eng, cfg, prompts, new_tokens, want, "serve_sharded",
+            mesh="1x1", backend=backend, restore_seconds=restore_s)
+        baseline = reorder_baseline(torch, eng, cfg, prompts, new_tokens,
+                                    want, torch.load(CKPT_ROOT / "logits.pt"))
+        emit("serve_sharded", step="reorder_baseline", **baseline)
+        del eng
+        free_device(torch, device)
+        # the DP gradient mean over MXSF on the wire: one rank's sum is its
+        # own qdq, bit for bit
+        gen = torch.Generator(device=device).manual_seed(seed)
+        grads = {"wg": torch.randn((2560, 6912), generator=gen,
+                                   device=device),
+                 "norm": torch.randn((2560,), generator=gen, device=device)}
+        out, stats = make_compressed_allreduce(mesh_lib.make_mesh(
+            (1,), ("data",)), "data")(grads)
+        same = all(torch.equal(out[k], B.qdq(g.reshape(-1), "mxsf", (64,))
+                               .reshape(g.shape)) for k, g in grads.items())
+        # a one-stage GPipe schedule against the sequential run
+        ws = torch.randn((1, 2, 64, 64), generator=gen, device=device) / 8
+        xs = torch.randn((8, 4, 64), generator=gen, device=device)
+
+        def layer_fn(stage_w, x):
+            for w in stage_w:
+                x = torch.tanh(x @ w)
+            return x
+
+        y = pipeline_apply(mesh_lib.make_mesh((1,), ("pod",)), "pod",
+                           layer_fn, ws, xs)
+        pipe_err = float((y - layer_fn(ws[0], xs)).abs().max())
+        emit("serve_sharded", step="runtime", backend=backend,
+             compressed_allreduce_bitwise=same, **stats,
+             pipeline_max_abs_err=pipe_err)
+        if not same or pipe_err > 2e-5:
+            raise AssertionError("serve_sharded: compressed all-reduce or "
+                                 "pipeline off its reference")
+    finally:
+        dist.destroy_process_group()
+    return launches, baseline
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
+                 spec_file: str):
+    """One rank of phase serve_sharded's two-rank run (started after the
+    build, so it loads the built kernels): restore its slices of the
+    checkpoint, hold every kernel call of its first dispatch against the
+    plain version, serve the prompts, profile one decode dispatch on rank
+    0, and write its results to SHARD_DIR."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    rank, world = int(rank), int(world)
+    spec = json.loads(Path(spec_file).read_text())
+    device = torch.device("cpu" if rehearsal == "1" else "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(0)  # the ranks share the one card
+    else:
+        torch.set_num_threads(2)
+    out = {"rank": rank}
+    # NCCL refuses two ranks on one device: gloo, through host memory
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = get_config("qwen2.5-32b")
+        cfg = (cfg.reduced() if rehearsal == "1" else cfg).replace(
+            n_layers=spec["n_layers"])
+        policy = MXSF_INFER.replace(kv_cache_fmt="mxsf",
+                                    block_1d=spec["block_1d"])
+        mesh = mesh_lib.make_test_mesh(1, world)
+        eng, restore_s, peak = _sharded_engine(
+            torch, cfg, policy, spec["ckpt_dir"], mesh, device,
+            spec["slots"], spec["chunk"], spec["max_len"])
+        store_b, cache_b = _tree_bytes(eng.params), _tree_bytes(eng.cache)
+        predicted = eng.rules.shard_nbytes(
+            M.packed_model_specs(cfg, eng.policy), eng._store_sh)
+        out.update(restore_seconds=restore_s, restore_peak_bytes=peak,
+                   store_bytes=store_b, predicted_store_bytes=predicted,
+                   cache_bytes=cache_b, slack_bytes=RESTORE_SLACK,
+                   tp_plan=eng.tp_plan._asdict(),
+                   attn_backend=eng.attn_backend,
+                   shard_fallback=eng.shard_fallback)
+        if store_b != predicted:
+            raise AssertionError(f"store {store_b} B != MeshRules' "
+                                 f"{predicted} B")
+        if peak is not None and peak > store_b + cache_b + RESTORE_SLACK:
+            raise AssertionError(f"restore peak {peak} B > store + cache + "
+                                 "slack")
+        out["first_dispatch"] = sharded_first_dispatch(torch, eng, cfg,
+                                                       spec["prompts"])
+        outs, launches, collectives, check = sharded_serve(
+            torch, eng, cfg, spec["prompts"], spec["new_tokens"],
+            spec["want"], "serve_sharded",
+            ref_logits=torch.load(spec["ref_logits"]),
+            floor_tol=spec["floor_tol"], mesh=f"1x{world}", rank=rank,
+            backend="gloo")
+        out.update(tokens=outs, launches=launches, collectives=collectives,
+                   teacher_forced=check, stats=eng.stats())
+        if rank == 0 and device.type == "cuda":
+            from repro_torch.core import sharding as shd
+            shd.reset_counts()
+            prof = profile_decode(torch, eng, "serve_sharded", rank=rank)
+            coll = sum(v["seconds"] for v in shd.counts().values())
+            # profile_decode runs the dispatch twice (warm-up, profiled)
+            out["profile"] = dict(
+                wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
+                device_busy_ms=prof["device_busy_ms"],
+                collective_share=coll / 2 * 1e3 / prof["wall_ms"])
+        else:
+            # the other rank runs the same two dispatches alongside
+            toks = eng._tensor(eng.last_tok)[:, None]
+            pos = eng._tensor(eng.pos)
+            for _ in range(2):
+                eng._decode(eng.params, toks, eng.cache, pos)
+    except BaseException as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        SHARD_DIR.mkdir(parents=True, exist_ok=True)
+        (SHARD_DIR / f"rank{rank}.json").write_text(json.dumps(
+            out, default=str))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_first_dispatch(torch, eng, cfg, prompts):
+    """The first prefill dispatch of a fresh cache through ``eng``'s
+    sharded path, every kernel call teacher-forced (``checked_kernels``):
+    each call against its plain version at its shard-local shape, the
+    calls against the path's count (``serve_launch_counts``), and the
+    shapes against ``shard_local_shapes`` and the local heads."""
+    from repro_torch.core import sharding as shd
+    B, C = eng.slots, eng.prefill_chunk
+    toks = torch.zeros((B, C), dtype=torch.int64)
+    nv = torch.zeros(B, dtype=torch.int64)
+    for s, p in enumerate(prompts[:B]):
+        n = min(C, len(p))
+        toks[s, :n] = torch.tensor(p[:n])
+        nv[s] = n
+    cache = {k: torch.zeros_like(v) for k, v in eng.cache.items()}
+    dev = eng.device
+    with checked_kernels(torch, lambda k: MATMUL_RTOL, None) as chk:
+        eng._prefill(eng.params, toks.to(dev), cache,
+                     torch.zeros(B, dtype=torch.int64, device=dev),
+                     nv.to(dev))
+    expect = serve_launch_counts(cfg, eng.attn_backend)
+    rows, faults = chk.rows(expect)
+    tp = eng.rules.tp_size
+    shapes = sorted({(c["k"], c["n"]) for c in chk.calls["mxsf_fused_matmul"]})
+    want = sorted({(k, n) for k, n in shard_local_shapes(cfg, tp)})
+    heads = sorted({(c["heads"], c["kv_heads"])
+                    for c in chk.calls["mxsf_attention"]})
+    want_heads = [(cfg.n_heads // tp, cfg.n_kv // tp)]
+    if shapes != want:
+        faults.append(f"fused shapes {shapes} != {want}")
+    if eng.attn_backend == "cuda-packed" and heads != want_heads:
+        faults.append(f"attention heads {heads} != {want_heads}")
+    if faults:
+        raise AssertionError(f"serve_sharded first dispatch: {faults}")
+    return dict(kernels=rows, fused_shapes=shapes, attention_heads=heads)
+
+
+def phase_serve_sharded(torch, device, cfg, policy, args, slots, chunk,
+                        max_len, new_tokens, lengths, ckpt_dir, want,
+                        rehearsal):
+    """Phase serve_sharded (on ckpt_serve's checkpoint and token streams;
+    ``cfg`` at the checkpoint's depth).  Step 1: a world of one rank in
+    this process on the production backend (``_world_one``).  Step 2:
+    SHARD_TP ranks sharing the card on a (1, SHARD_TP) mesh, each in its
+    own process (``sharded_rank``) over gloo; a rank that fails or
+    outlives SHARD_WAIT_S fails the phase.  Returns the launches of both
+    runs (rank 0's for the two-rank run)."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    prompts = _prompts(cfg, args.seed, lengths)
+    launches, baseline = _world_one(
+        torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len, prompts,
+        new_tokens, want, args.seed)
+    free_device(torch, device)
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    spec_file = SHARD_DIR / "spec.json"
+    spec_file.write_text(json.dumps(dict(
+        n_layers=cfg.n_layers, block_1d=policy.block_1d,
+        ckpt_dir=str(ckpt_dir), ref_logits=str(CKPT_ROOT / "logits.pt"),
+        floor_tol=REORDER_FACTOR * baseline["max_dev"], slots=slots,
+        chunk=chunk, max_len=max_len, prompts=prompts, new_tokens=new_tokens,
+        want=want)))
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    code = "import sys, chip_smoke; chip_smoke.sharded_rank(*sys.argv[1:])"
+    procs = []
+    for r in range(SHARD_TP):
+        log = open(SHARD_DIR / f"rank{r}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, str(r), str(SHARD_TP), str(port),
+             str(int(rehearsal)), str(spec_file)],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    deadline = time.perf_counter() + SHARD_WAIT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"serve_sharded: a rank outlived "
+                                     f"{SHARD_WAIT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # the others would wait on it
+            time.sleep(0.5)
+    finally:
+        stop_processes(procs)
+    ranks = []
+    for r, p in enumerate(procs):
+        res_file = SHARD_DIR / f"rank{r}.json"
+        res = json.loads(res_file.read_text()) if res_file.exists() else {}
+        ranks.append(res)
+        log = (SHARD_DIR / f"rank{r}.log").read_text()[-3000:]
+        emit("serve_sharded", step="rank", exit=p.returncode, backend="gloo",
+             **{k: v for k, v in res.items() if k not in ("stats",)})
+        if p.returncode != 0 or "error" in res or not res:
+            raise AssertionError(f"serve_sharded rank {r} failed "
+                                 f"(exit {p.returncode}): {log}")
+    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
+            "disagree"] for r in ranks):
+        raise AssertionError("serve_sharded: the ranks chose differently")
+    emit("serve_sharded", step="done", seconds=time.perf_counter() - t_phase,
+         ranks=SHARD_TP, free_running_equal=ranks[0]["teacher_forced"][
+             "free_running_equal"])
+    return {"serve_sharded_1x1": launches,
+            f"serve_sharded_1x{SHARD_TP}": ranks[0]["launches"]}
 
 
 def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
@@ -3077,7 +3565,10 @@ def main(argv=None) -> int:
     slots, chunk = 4, 16
     max_len, new_tokens = (512, 16) if not rehearsal else (64, 4)
     lengths = [37, 80, 143, 200] if not rehearsal else [5, 9, 20, 33]
-    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+    # the rehearsal's reduced widths (64 = 4 heads x 16) hold whole
+    # 16-element blocks per shard of phase serve_sharded's model axis
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf",
+                                block_1d=16 if rehearsal else 64)
 
     kind = phase_device(torch, rehearsal)
     if not rehearsal:
@@ -3112,6 +3603,7 @@ def main(argv=None) -> int:
 def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
                max_len, new_tokens, lengths, procs):
     """Phases 3-17 in their order; returns the ``kernels`` line."""
+    import shutil
     from repro_torch.configs.base import get_config
     from repro_torch.core.policy import MXSF_TRAIN
     train_cfg = get_config("h2o-danube-1.8b")
@@ -3131,9 +3623,16 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
     del eng  # the serving store (~36 GB) makes room for the next phases
     free_device(torch, device)
     launches = {"serve": serve_launches}
-    launches["ckpt_serve"] = phase_ckpt_serve(
-        torch, device, cfg, policy, args, slots, chunk, max_len, new_tokens,
-        lengths)
+    try:
+        launches["ckpt_serve"], want, ck_cfg, ck_dir = phase_ckpt_serve(
+            torch, device, cfg, policy, args, slots, chunk, max_len,
+            new_tokens, lengths)
+        free_device(torch, device)
+        launches.update(phase_serve_sharded(
+            torch, device, ck_cfg, policy, args, slots, chunk, max_len,
+            new_tokens, lengths, ck_dir, want, rehearsal))
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     free_device(torch, device)
     launches.update(phase_serve_gemma2(torch, device, args, rehearsal))
     free_device(torch, device)

@@ -8,10 +8,16 @@ MXSF codes).
 
 The port's counterpart of ``examples/serve_decode.py``.  ``--backend cuda``
 (the default) runs the hand-written kernels on the card and their plain
-versions on the CPU.  Sharded serving (``--mesh``) is not ported yet
-(ROADMAP.md, Queue 1 item 5).  ``--prefill-chunk auto`` is the port's
-``auto_prefill_chunk``: the engine-shape heuristic, without the JAX
-package's measured floor (no kernel benchmark is ported).
+versions on the CPU.  ``--mesh DxM`` serves sharded over a data x model
+mesh, one process per rank, started by ``torchrun`` (which sets the
+process group's address, rank and world size); nccl when every rank has
+a card of its own, else gloo:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 examples/torch_serve_decode.py --device cpu --mesh 2x2
+
+``--prefill-chunk auto`` is the port's ``auto_prefill_chunk``: the
+engine-shape heuristic, without the JAX package's measured floor (no
+kernel benchmark is ported).
 """
 import argparse
 import time
@@ -35,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", default="auto",
                     help="int or 'auto' (from max_len and slots)")
     ap.add_argument("--mesh", default=None,
-                    help="DxM device mesh (not ported yet)")
+                    help="DxM mesh (axes data x model) over the ranks "
+                    "torchrun starts")
     ap.add_argument("--backend", default="cuda", choices=("torch", "cuda"),
                     help="mx_dot datapath; cuda also engages the packed-KV "
                     "flash-attention kernel where eligible")
@@ -44,10 +51,27 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu', or the card (the default)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("sharded serving is not ported yet; see "
-                                  "ROADMAP.md, Queue 1 item 5")
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh:
+        import os
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_test_mesh
+        if "RANK" not in os.environ:
+            raise SystemExit("--mesh: start the ranks with torchrun "
+                             "--nproc-per-node D*M")
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        own_card = (device.type == "cuda"
+                    and world <= torch.cuda.device_count())
+        if device.type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group("nccl" if own_card else "gloo")
+        d, m = (int(v) for v in args.mesh.lower().split("x"))
+        mesh = make_test_mesh(d, m)
+        if rank == 0:
+            print(f"mesh: {mesh.shape} over {world} ranks "
+                  f"({dist.get_backend()})")
 
     cfg = get_config(args.arch)
     # the CUDA kernels take the paper's 1x64 inference rows
@@ -59,9 +83,10 @@ def main(argv=None):
     max_len = args.prompt_len + args.gen
     eng = ServeEngine(cfg, params, policy, slots=args.batch, max_len=max_len,
                       pack_weights=not args.no_pack, prefill_chunk=chunk,
-                      backend=args.backend, device=device)
+                      backend=args.backend, device=device, mesh=mesh)
+    say = print if rank == 0 else (lambda *a, **k: None)
     nb = eng.store_nbytes
-    print(f"weight store: {nb['packed'] / 1e6:.2f} MB packed "
+    say(f"weight store: {nb['packed'] / 1e6:.2f} MB packed "
           f"(+{nb['value'] / 1e6:.2f} MB value leaves) vs "
           f"{nb['value_f32'] / 1e6:.2f} MB f32 "
           f"({nb['value_f32'] / max(nb['packed'], 1):.1f}x smaller); "
@@ -72,24 +97,26 @@ def main(argv=None):
         prompt = torch.randint(0, cfg.vocab, (args.prompt_len,),
                                generator=gen).tolist()
         eng.submit(prompt, args.gen)
-    print(f"serving {args.requests} x ({args.prompt_len} prompt + "
+    say(f"serving {args.requests} x ({args.prompt_len} prompt + "
           f"{args.gen} gen) on {args.batch} slots ...")
     t0 = time.time()
     finished = eng.run()
     dt = time.time() - t0
 
-    st = eng.stats()
+    st = eng.stats()  # a collective under a mesh: every rank calls it
     tps = st["tokens_generated"] / dt
-    print(f"generated {st['tokens_generated']} tokens in {dt:.2f}s "
+    say(f"generated {st['tokens_generated']} tokens in {dt:.2f}s "
           f"({tps:.1f} tok/s on {device}) -- "
           f"{st['prefill_dispatches']} prefill + "
           f"{st['decode_dispatches']} decode dispatches over "
           f"{st['ticks']} ticks, occupancy {st['occupancy']:.2f}")
     for dev, nbytes in sorted(st["store_nbytes_per_device"].items()):
         cache_b = st["cache_nbytes_per_device"].get(dev, 0)
-        print(f"  {dev}: store {nbytes / 1e6:.2f} MB, "
+        say(f"  {dev}: store {nbytes / 1e6:.2f} MB, "
               f"cache {cache_b / 1e6:.2f} MB")
-    print("sample:", finished[0].out[:16])
+    say("sample:", finished[0].out[:16])
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

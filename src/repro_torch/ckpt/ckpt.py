@@ -23,7 +23,13 @@ on-disk format, so either package restores what the other saved:
 ``restore`` reads one leaf at a time from the archive and sends it to the
 device in its stored dtype: a packed store's uint8 codes and scales go to
 the card as they are, with no full-precision copy on the host or the card.
-Sharded restore (``shardings=``) waits for the multi-GPU slice.
+
+Sharded trees (``shardings=``, a tree of ``sharding.NamedSharding`` from
+``launch/mesh.MeshRules``, QuantizedTensors of two for packed leaves):
+``restore`` reads each member on the host, as the JAX package's
+``_place_sharded`` does, and moves only this rank's slice to the device;
+``save`` gathers every leaf to the full tensor and rank 0 writes it in the
+same format, so a tree saved on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor
+from ..core.packed_store import shard_leaf
 from ..device import resolve_device
 
 __all__ = ["save", "restore", "latest_step", "wait_pending"]
@@ -118,10 +126,46 @@ def _write_npz(path: str, arrays: dict):
                     fid.write(flat[i:i + _WRITE_CHUNK].data)
 
 
+def _gathered(state, shardings):
+    """Each rank's slices of a sharded tree gathered to the full leaves
+    (on every rank: a collective)."""
+    if isinstance(state, dict):
+        return {k: _gathered(v, shardings[k]) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_gathered(v, s) for v, s in zip(state,
+                                                            shardings))
+    ns = shardings.codes if isinstance(state, QuantizedTensor) else shardings
+    full = state
+    for d, entry in enumerate(ns.spec):
+        full = shd.map_parts(full, lambda t: shd.all_gather(t, entry, d,
+                                                         mesh=ns.mesh))
+    if isinstance(state, QuantizedTensor):
+        full = QuantizedTensor(full.codes, full.scale_e8m0, state.fmt,
+                               tuple(state.block), tuple(shardings.shape),
+                               state.dtype)
+    return full
+
+
 def save(ckpt_dir: str, step: int, state: Any, *, keep: int = 3,
-         blocking: bool = True, extra: Optional[dict] = None):
+         blocking: bool = True, extra: Optional[dict] = None,
+         shardings: Any = None):
     """Write ``state`` (a tree of tensors and QuantizedTensors) as step
-    ``step``; with ``blocking=False`` the write runs on a thread."""
+    ``step``; with ``blocking=False`` the write runs on a thread.  With
+    ``shardings`` (this rank's slices of a sharded tree; every rank calls)
+    the leaves are gathered and rank 0 writes; a blocking save returns on
+    every rank once the step is on disk."""
+    if shardings is not None:
+        import torch.distributed as dist
+        state = _gathered(state, shardings)
+        if dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
+        save(ckpt_dir, step, state, keep=keep, blocking=blocking,
+             extra=extra)
+        if blocking:
+            dist.barrier()
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = _flatten(state)  # host copy happens now; write may be async
     packed_meta = _packed_meta(state)
@@ -201,9 +245,9 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load(data, key: str, like: torch.Tensor, device) -> torch.Tensor:
-    """One array of the archive as a tensor shaped and typed like ``like``,
-    on ``device`` (``None``: ``like``'s device; the card for ``meta``)."""
+def _read(data, key: str, like: torch.Tensor) -> torch.Tensor:
+    """One array of the archive, on the host, shaped and typed like
+    ``like``."""
     if key not in data.files:
         raise KeyError(f"checkpoint has no array {key!r}")
     arr = data[key]
@@ -217,27 +261,47 @@ def _load(data, key: str, like: torch.Tensor, device) -> torch.Tensor:
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"{key!r}: checkpoint shape {tuple(t.shape)} vs "
                          f"target {tuple(like.shape)}")
+    return t
+
+
+def _place(t: torch.Tensor, like: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` (``None``: ``like``'s device; the card
+    for ``meta``) in ``like``'s dtype."""
     if device is None:
         device = (resolve_device(None) if like.device.type == "meta"
                   else like.device)
     return t.to(device).to(like.dtype)
 
 
-def _restore_tree(node, data, device, prefix=()):
+def _restore_tree(node, data, device, prefix=(), sh=None):
+    """``node``'s structure from the archive; with ``sh`` (the matching
+    shardings) only this rank's slice of each leaf leaves the host."""
     key = "/".join(prefix)
     if isinstance(node, dict):
-        return {k: _restore_tree(v, data, device, prefix + (str(k),))
+        return {k: _restore_tree(v, data, device, prefix + (str(k),),
+                                 None if sh is None else sh[k])
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_restore_tree(v, data, device, prefix + (str(i),))
-                          for i, v in enumerate(node))
+        return type(node)(_restore_tree(
+            v, data, device, prefix + (str(i),), None if sh is None
+            else sh[i]) for i, v in enumerate(node))
     if isinstance(node, QuantizedTensor):
-        return QuantizedTensor(
-            _load(data, key + "/codes", node.codes, device),
-            _load(data, key + "/scale_e8m0", node.scale_e8m0, device),
+        leaf = QuantizedTensor(
+            _read(data, key + "/codes", node.codes),
+            _read(data, key + "/scale_e8m0", node.scale_e8m0),
             node.fmt, tuple(node.block), tuple(node.shape), node.dtype)
+        if sh is not None:  # a copy of the slice only leaves the host
+            leaf = shd.map_parts(
+                shard_leaf(leaf, sh.codes.spec, sh.codes.mesh), torch.clone)
+        return QuantizedTensor(
+            _place(leaf.codes, node.codes, device),
+            _place(leaf.scale_e8m0, node.scale_e8m0, device),
+            node.fmt, tuple(node.block), tuple(leaf.shape), node.dtype)
     if isinstance(node, torch.Tensor):
-        return _load(data, key, node, device)
+        t = _read(data, key, node)
+        if sh is not None:
+            t = shard_leaf(t, sh.spec, sh.mesh).clone()
+        return _place(t, node, device)
     raise TypeError(f"restore target leaf {key!r} is a "
                     f"{type(node).__name__}, not a tensor")
 
@@ -248,10 +312,10 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
     on the ``meta`` device) and QuantizedTensors, e.g.
     ``models/model.packed_model_specs`` for a packed store.  Each leaf goes
     to ``device`` (``None``: the target leaf's device, the card for a
-    ``meta`` leaf).  Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError("sharded restore is not ported yet; see "
-                                  "ROADMAP.md, Queue 1 item 5")
+    ``meta`` leaf).  ``shardings``: the matching tree of NamedShardings
+    (``target`` holds the full shapes); each leaf is read on the host and
+    only this rank's slice goes to the device, so the restored tree holds
+    the slices, of any mesh.  Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -259,7 +323,7 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     _check_packed_meta(step_dir, target)
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
-        return _restore_tree(target, data, device), step
+        return _restore_tree(target, data, device, sh=shardings), step
 
 
 def _check_packed_meta(step_dir: str, target):

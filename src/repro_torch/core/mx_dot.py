@@ -416,14 +416,17 @@ def _check_packed(policy: QuantPolicy, qw: B.QuantizedTensor):
 
 
 def _packed_fwd(policy: QuantPolicy, xm: torch.Tensor,
-                qw: B.QuantizedTensor) -> torch.Tensor:
-    """Forward against resident codes: zero weight-quantize passes."""
+                qw: B.QuantizedTensor, f32_out: bool = False) -> torch.Tensor:
+    """Forward against resident codes: zero weight-quantize passes.
+    ``f32_out`` keeps the kernel's f32 sums (a row-parallel partial)."""
     k, n = qw.shape
     if policy.use_kernels and xm.shape[0] > 0 and k > 0 and n > 0:
         xblk, wblk = _pol_blocks(policy)
         _tick()  # x quantized on the fly; w codes are resident
         y = FM.mxsf_fused_matmul(xm.contiguous(), qw.codes, qw.scale_e8m0,
                                  xblk, wblk)
+        if f32_out:
+            return y[:, :n]
         return y[:, :n].to(torch.promote_types(xm.dtype,
                                                B.torch_dtype(qw.dtype)))
     wq = B.dequantize(qw)
@@ -489,19 +492,23 @@ class _MxDotPacked(torch.autograd.Function):
         return dx.reshape(*lead, k).to(g.dtype), None, None
 
 
-def mx_dot(x: torch.Tensor, w, policy: QuantPolicy) -> torch.Tensor:
+def mx_dot(x: torch.Tensor, w, policy: QuantPolicy,
+           f32_out: bool = False) -> torch.Tensor:
     """Quantized ``x @ w`` (x: (..., K), w: (K, N)) per the MX policy.
 
     ``w`` is a raw tensor (quantized per call, with the MX backward) or a
     resident ``blocking.QuantizedTensor`` from the pack-once store (zero
-    weight-quantize passes; frozen, so only dx flows back)."""
+    weight-quantize passes; frozen, so only dx flows back).  ``f32_out``
+    (no gradient, packed ``w``): the f32 sums before the cast to the
+    operands' dtype, the partial a row-parallel linear all-reduces."""
     if isinstance(w, B.QuantizedTensor):
         qw = _layer_qt(w)
         _check_packed(policy, qw)
         if _needs_grad(x):
             return _MxDotPacked.apply(x, qw, policy)
         xm, lead = _flatten_lead(x)
-        return _packed_fwd(policy, xm, qw).reshape(*lead, qw.shape[-1])
+        return _packed_fwd(policy, xm, qw, f32_out).reshape(
+            *lead, qw.shape[-1])
     if not policy.enabled:
         return torch.matmul(x, w)
     if _needs_grad(x, w):

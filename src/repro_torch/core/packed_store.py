@@ -9,8 +9,11 @@ consumes the resident codes directly.  Stacked (per-layer) leaves pack with
 the block on the trailing dims, so a layer slice of the codes is that
 layer's packed weight.
 
-Sharded placement (``packed_spec``, ``shard_block_aligned``) waits for the
-multi-GPU slice (ROADMAP Queue 1 item 5).
+Sharded placement: ``packed_spec`` derives one partition spec for a packed
+leaf's codes and scales (a dim splits only where its scale grid divides the
+mesh axes), ``shard_block_aligned`` is the kernels' per-shard gate, and
+``shard_leaf`` cuts the slice of a leaf (codes and scales together) that
+one rank holds under a spec.
 """
 from __future__ import annotations
 
@@ -21,11 +24,13 @@ import torch
 
 from . import blocking as B
 from . import formats as F
+from . import sharding as shd
 from .policy import QuantPolicy
 
 __all__ = ["PACKED_LEAF_NAMES", "packable_policy", "weight_block",
            "pack_params", "unpack_params", "pack_leaf", "pack_leaf_spec",
-           "store_nbytes", "tree_map"]
+           "store_nbytes", "tree_map", "packed_spec", "shard_block_aligned",
+           "shard_leaf"]
 
 # dict keys of matmul-weight leaves; each is consumed through
 # blocks.dense -> mx_dot
@@ -153,3 +158,68 @@ def store_nbytes(params) -> dict:
             value += leaf.numel() * leaf.element_size()
     return {"packed": packed, "value": value, "total": packed + value,
             "value_f32": f32, "value_bf16": bf16}
+
+
+# ---------------------------------------------------------------------------
+# sharding: packed-layout partition specs
+# ---------------------------------------------------------------------------
+#
+# A QuantizedTensor must shard its uint8 codes and its E8M0 scale grid
+# consistently: every rank needs the scale bytes of exactly the blocks
+# whose codes it holds.  A mesh axis of size A may therefore split dim i
+# only when the scale-grid extent of that dim divides A -- then each shard
+# holds whole blocks.  Anything else is replicated, the same divisibility
+# contract ``launch/mesh.py::MeshRules`` applies to f32 parameters.
+
+
+def packed_spec(qt: B.QuantizedTensor, base_spec, mesh_axis_sizes) -> tuple:
+    """The spec of a packed leaf, derived from the f32 rule ``base_spec``
+    for its logical shape; ``mesh_axis_sizes`` maps axis name -> size.
+    One spec for both codes and scales: a dim keeps its axes only when the
+    scale grid (the padded extents, ``qt.scale_e8m0.shape``) divides
+    them."""
+    nd = qt.scale_e8m0.ndim
+    spec = list(base_spec) + [None] * (nd - len(base_spec))
+    out = []
+    for dim in range(nd):
+        entry = spec[dim]
+        if entry is None:
+            out.append(None)
+            continue
+        grid = qt.scale_e8m0.shape[dim]
+        size = shd.axis_size(entry, mesh_axis_sizes)
+        out.append(entry if size > 0 and grid % size == 0 else None)
+    return tuple(out)
+
+
+def shard_block_aligned(qt: B.QuantizedTensor, spec,
+                        mesh_axis_sizes) -> bool:
+    """Whether ``spec`` keeps whole MX blocks per shard: the kernel gate
+    for a spec that did not come from ``packed_spec``."""
+    for dim, entry in enumerate(tuple(spec)[: qt.scale_e8m0.ndim]):
+        if entry is None:
+            continue
+        if qt.scale_e8m0.shape[dim] % shd.axis_size(entry,
+                                                    mesh_axis_sizes):
+            return False
+    return True
+
+
+def shard_leaf(leaf, spec, mesh):
+    """This rank's slice of ``leaf`` (a tensor, or a QuantizedTensor whose
+    codes and scales share ``spec``) on ``mesh``; views, no copy.  A
+    packed slice's logical shape is the part of the logical extent it
+    covers."""
+    if not isinstance(leaf, B.QuantizedTensor):
+        return leaf[shd.shard_slices(leaf.shape, spec, mesh)]
+    spec = tuple(spec) + (None,) * (leaf.codes.ndim - len(spec))
+    lead = leaf.codes.ndim - len(leaf.shape)  # a layer slice keeps no lead
+    shape = tuple(
+        shd.local_extent(n, p, e, mesh)
+        for n, p, e in zip(leaf.shape, leaf.codes.shape[lead:],
+                           spec[lead:]))
+    return B.QuantizedTensor(
+        leaf.codes[shd.shard_slices(leaf.codes.shape, spec, mesh)],
+        leaf.scale_e8m0[shd.shard_slices(leaf.scale_e8m0.shape, spec,
+                                         mesh)],
+        leaf.fmt, tuple(leaf.block), shape, leaf.dtype)

@@ -4,7 +4,8 @@ PyTorch counterpart of the JAX package's ``core/policy.py``.  The backend
 names differ: ``"torch"`` is the value-domain emulation path (the JAX
 package's ``"jnp"``) and ``"cuda"`` the kernel datapath (the JAX
 package's ``"pallas"``).  ``use_kernels``/``use_attention_kernel`` keep the
-predicates of ``use_pallas``/``use_pallas_attention``.
+predicates of ``use_pallas``/``use_pallas_attention``, and
+``attention_kernel`` is ``pallas_attention``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ class QuantPolicy:
     save_packed: bool = True     # store uint8-packed residuals for bwd
     kv_cache_fmt: str = ""       # e.g. 'mxsf': 8-bit packed KV cache (serving)
     backend: str = "torch"       # 'torch' | 'cuda': mx_dot matmul datapath
+    attention_kernel: bool = True  # allow the packed-KV attention kernel
+    # (the JAX package's ``pallas_attention``); False keeps the kernel
+    # matmuls and sends cached attention to the value path
 
     @property
     def enabled(self) -> bool:
@@ -52,8 +56,8 @@ class QuantPolicy:
         directly through the flash-attention kernel: the kernel backend, a
         packed MXSF cache and an inference policy (the kernel is
         forward-only)."""
-        return (self.use_kernels and self.kv_cache_fmt == "mxsf"
-                and not self.quantize_bwd)
+        return (self.attention_kernel and self.use_kernels
+                and self.kv_cache_fmt == "mxsf" and not self.quantize_bwd)
 
     def replace(self, **kw) -> "QuantPolicy":
         return dataclasses.replace(self, **kw)

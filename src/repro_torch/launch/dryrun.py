@@ -27,8 +27,9 @@ where they mean something on one card:
 
 A meta trace is slow (PyTorch's meta functions are Python decompositions,
 ~0.4 ms an aten op), so a full-width cell on the value-domain attention
-path takes tens of seconds.  Meshes (``--multi-pod``) wait for sharding
-(ROADMAP.md, Queue 1 item 5).  Results land in
+path takes tens of seconds.  The dry run on a mesh (``--multi-pod``, a
+per-rank trace, the collectives) is not ported yet (ROADMAP.md, Queue 1
+item 8); the engine's sharding is (``launch/mesh.py``).  Results land in
 ``experiments/dryrun_torch/<arch>__<shape>__1x1.json``.
 
 Usage:
@@ -263,9 +264,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     if args.multi_pod or args.multi_pod_only:
-        raise NotImplementedError("meshes are not ported yet; the dry run "
-                                  "covers one card (ROADMAP.md, Queue 1 "
-                                  "item 5)")
+        raise NotImplementedError("the dry run on a mesh is not ported "
+                                  "yet; it covers one card (ROADMAP.md, "
+                                  "Queue 1 item 8)")
     os.makedirs(args.out, exist_ok=True)
     archs = ([a for a in list_configs() if a != "deit-tiny"]
              if args.arch is None else [args.arch])

@@ -24,10 +24,21 @@ in values through ``mx_einsum``.
 Where the JAX package returns a new cache, ``attention`` writes the new
 K/V rows (values or codes) into the given cache tensors in place and
 returns the same dict.
+
+Tensor parallelism (inside the serving engine's ``sharding.mesh_context``
+with a ``TPPlan``): each rank holds its slices of the store, and ``use``
+brings a leaf to the layout the scheme computes with (gathering what the
+stored spec splits otherwise).  wq/wk/wv (and biases), wg/wu and the head
+are column-parallel; wo and wd row-parallel, each followed by one f32
+all-reduce over the model axis; head counts come from the local shapes.
+Where the cache's position axis is sharded (sequence parallelism) each
+rank writes the columns it owns and gathers the cache at use.  Outside a
+context all of this is a no-op.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as Fn
@@ -35,6 +46,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import blocking as mxblk
+from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor, dtype_name
 from ..core.mx_dot import mx_dot, mx_einsum, qdq_along
 from ..core.policy import QuantPolicy
@@ -51,10 +63,100 @@ def dense(x, w, policy):
     return mx_dot(x, w.to(x.dtype), policy)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+class TPPlan(NamedTuple):
+    """Which parts of a dense decoder split over the model axis: ``q``
+    the query heads (wq/bq columns, wo rows), ``kv`` the kv heads (wk/wv
+    and biases), ``mlp`` d_ff (wg/wu columns, wd rows), ``vocab`` the
+    embedding rows and head columns.  A part that cannot split whole
+    heads, whole MX blocks or whole activation blocks runs replicated."""
+    q: bool
+    kv: bool
+    mlp: bool
+    vocab: bool
+
+
+def _block(w, dim: int) -> int:
+    return w.block[dim] if isinstance(w, QuantizedTensor) else 1
+
+
+def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
+            tp_size: int) -> TPPlan:
+    """The plan of one dense decoder layer's leaves ``layer`` (attn, ffn)
+    and the top-level ``top`` (emb, head) at ``tp_size``.  A row-parallel
+    input is quantized along K in the policy's blocks, so its local K must
+    hold whole blocks: then its codes equal the one-device codes."""
+    xk = (policy.block_1d if policy.block_mode == "1d" else
+          policy.tile if policy.block_mode == "2d" else 1)
+
+    def cols(w, n):
+        return n % tp_size == 0 and (n // tp_size) % _block(w, -1) == 0
+
+    def rows(w, n):
+        local = n // tp_size
+        return (n % tp_size == 0 and local % _block(w, 0) == 0
+                and local % xk == 0)
+
+    dh, a, f = cfg.head_dim, layer["attn"], layer["ffn"]
+    q = (cfg.n_heads % tp_size == 0 and cols(a["wq"], cfg.n_heads * dh)
+         and rows(a["wo"], cfg.n_heads * dh))
+    kv = q and cfg.n_kv % tp_size == 0 and cols(a["wk"], cfg.n_kv * dh)
+    mlp = (cfg.d_ff % tp_size == 0 and cols(f["wu"], cfg.d_ff)
+           and rows(f["wd"], cfg.d_ff))
+    head = top.get("head")
+    vocab = cfg.padded_vocab % tp_size == 0 and (
+        head is None or cols(head, cfg.padded_vocab))
+    return TPPlan(q, kv, mlp, vocab)
+
+
+def plan():
+    """The active TP plan (None outside an engine's mesh context)."""
+    ctx = shd.active()
+    return None if ctx is None else ctx.get("plan")
+
+
+def use(p, name, split=None):
+    """Leaf ``p[name]`` in the compute layout of the active mesh context
+    (``sharding.to_compute``: ``split`` the dim kept split over the model
+    axis); the leaf itself outside one."""
+    ctx = shd.active()
+    leaf = p[name]
+    if ctx is None or name not in ctx.get("specs", {}):
+        return leaf
+    spec, shape = ctx["specs"][name]
+    return shd.to_compute(leaf, spec, shape, split)
+
+
+def _row_parallel(x, p, name, split: bool, policy):
+    """``dense`` of a row-parallel linear: the local K slice's f32 partial
+    sums, all-reduced over the model axis, cast once (as ``dense`` casts
+    one device's sums).  Replicated (``split`` False) or outside a
+    context: ``dense``."""
+    w = use(p, name, 0 if split else None)
+    if not split:
+        return dense(x, w, policy)
+    if isinstance(w, QuantizedTensor):
+        y = mx_dot(x, w, policy, f32_out=True).float()
+        out = torch.promote_types(x.dtype, mxblk.torch_dtype(w.dtype))
+    else:
+        y = mx_dot(x, w.to(x.dtype), policy).float()
+        out = x.dtype
+    return shd.all_reduce(y).to(out)
+
+
+def _split(part: str):
+    """Whether the active TP plan splits ``part`` (a ``TPPlan`` field)."""
+    pl = plan()
+    return pl is not None and getattr(pl, part)
+
+
 def rmsnorm(p, x, eps=1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["w"]).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * use(p, "w")).to(x.dtype)
 
 
 def layernorm_init(d, device=None):
@@ -160,26 +262,29 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
       the precomputed cross cache; no rope, every key visible.
     Returns (out, cache) -- the cache dict updated in place, or None."""
     B, S, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dh = cfg.head_dim
     dev = x.device
+    qc = 1 if _split("q") else None   # the column dim kept split
+    kc = 1 if _split("kv") else None
 
-    q = dense(x, p["wq"], policy)
+    q = dense(x, use(p, "wq", qc), policy)
     if "bq" in p:
-        q = (q + p["bq"]).to(x.dtype)
-    q = _split_heads(q, h, dh)
+        q = (q + use(p, "bq", None if qc is None else 0)).to(x.dtype)
+    q = _split_heads(q, q.shape[-1] // dh, dh)  # the local heads
     if kv_cached is not None:
         k, v = (kv_cached[n].to(x.dtype) for n in ("k", "v"))
         kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64, device=dev)
         return _attend(q, k, v, None, kpos, False, None, p, x, cfg,
                        policy), None
     src = x if kv_x is None else kv_x
-    k = dense(src, p["wk"], policy)
-    v = dense(src, p["wv"], policy)
+    k = dense(src, use(p, "wk", kc), policy)
+    v = dense(src, use(p, "wv", kc), policy)
     if "bk" in p:
-        k = (k + p["bk"]).to(x.dtype)
-        v = (v + p["bv"]).to(x.dtype)
-    k = _split_heads(k, kv, dh)
-    v = _split_heads(v, kv, dh)
+        kb = None if kc is None else 0
+        k = (k + use(p, "bk", kb)).to(x.dtype)
+        v = (v + use(p, "bv", kb)).to(x.dtype)
+    k = _split_heads(k, k.shape[-1] // dh, dh)
+    v = _split_heads(v, v.shape[-1] // dh, dh)
     use_rope = (kv_x is None and cfg.rope_theta > 0
                 and cfg.family != "encdec")
 
@@ -206,28 +311,58 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
         k = rope(k, positions, cfg.rope_theta)
 
     packed = "k_codes" in cache
-    W = cache["k_codes" if packed else "k"].shape[1]
+    # a mesh context may split the cache where the layer does not: its
+    # positions (sequence parallelism, ``cache_sp``) or its kv heads while
+    # the layer computes every kv head (``cache_heads``); each is
+    # (axes, this rank's first column or head, shard count).  Each rank
+    # writes what it holds and gathers the whole cache at use.
+    ctx = shd.active()
+    sp = None if ctx is None else ctx.get("cache_sp")
+    ch = None if ctx is None else ctx.get("cache_heads")
+    W = cache["k_codes" if packed else "k"].shape[1] * (sp[2] if sp else 1)
     slot = pos_vec % W
     wl = (None if cache_write_len is None else
           torch.as_tensor(cache_write_len, dtype=torch.int64,
                           device=dev).expand(B))
+    if ch is not None:
+        n = cache["k_codes" if packed else "k"].shape[2]
+        k_w, v_w = k[:, :, ch[1]:ch[1] + n], v[:, :, ch[1]:ch[1] + n]
+    else:
+        k_w, v_w = k, v
+    write = (_write_cache if sp is None else
+             lambda buf, upd, sl, n: _write_owned(buf, upd, sl, n, W, sp[1]))
+
+    def gathered():
+        out = cache
+        if sp is not None:
+            out = {nm: shd.all_gather(t, sp[0], 1) for nm, t in out.items()}
+        if ch is not None:
+            out = {nm: shd.all_gather(t, ch[0], 2) for nm, t in out.items()}
+        return out
+
     if packed:
         fmt = policy.kv_cache_fmt or "mxsf"
-        for nm, val in (("k", k), ("v", v)):
+        for nm, val in (("k", k_w), ("v", v_w)):
             qt = mxblk.quantize(val, fmt, (dh,))
-            _write_cache(cache[f"{nm}_codes"], qt.codes, slot, wl)
-            _write_cache(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
+            write(cache[f"{nm}_codes"], qt.codes, slot, wl)
+            write(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
+        seen = gathered()
         if attn_kernel_eligible(cfg, policy) and causal:
-            return _attend_packed(q, cache, pos_vec, window, p, cfg,
+            if sp is not None or (qc is not None and kc is None):
+                raise ValueError("the attention kernel needs whole cache "
+                                 "rows and kv heads split with the query "
+                                 "heads (the engine's gate)")
+            return _attend_packed(q, seen, pos_vec, window, p, cfg,
                                   policy), cache
         k, v = (mxblk.dequantize(QuantizedTensor(
-            cache[f"{nm}_codes"], cache[f"{nm}_scales"], fmt, (dh,),
-            tuple(cache[f"{nm}_codes"].shape), dtype_name(x.dtype)))
+            seen[f"{nm}_codes"], seen[f"{nm}_scales"], fmt, (dh,),
+            tuple(seen[f"{nm}_codes"].shape), dtype_name(x.dtype)))
             for nm in ("k", "v"))
     else:
-        _write_cache(cache["k"], k.to(cache["k"].dtype), slot, wl)
-        _write_cache(cache["v"], v.to(cache["v"].dtype), slot, wl)
-        k, v = cache["k"], cache["v"]
+        write(cache["k"], k_w.to(cache["k"].dtype), slot, wl)
+        write(cache["v"], v_w.to(cache["v"].dtype), slot, wl)
+        seen = gathered()
+        k, v = seen["k"], seen["v"]
     # the last absolute position written this call: all S rows on the
     # slice path, only write_len on the masked-chunk path (a partial
     # chunk's padded tail would push ``end`` past the ring and relabel its
@@ -238,8 +373,46 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     # tensor % is floor modulo, as in the JAX package
     kpos = end[:, None] - ((end[:, None] - idx[None, :]) % W)
     qpos = pos_vec[:, None] + ar[None, :]
+    if qc is not None and kc is None:
+        k, v = _kv_of_local_heads(k, v, q.shape[2], cfg)
     return _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg, policy,
                    kv_prequant=packed), cache
+
+
+def _kv_of_local_heads(k, v, h_local: int, cfg: ModelConfig):
+    """K/V (B, L, kv, dh) of every kv head, cut to the ones this rank's
+    query heads read (query heads split over the model axis, kv heads
+    replicated): each local query head gets its own kv head (group 1),
+    so the grouped einsums compute what one device computes."""
+    r = shd.active()["mesh"].coord(shd.active()["tp"])
+    g = cfg.n_heads // cfg.n_kv
+    idx = (r * h_local + torch.arange(h_local, device=k.device)) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _write_owned(buf, upd, slot, write_len, W: int, lo: int):
+    """``_write_cache`` into this rank's columns lo..lo+Wl-1 of a
+    position-sharded cache of W columns: rows whose column another rank
+    owns are dropped here (that rank writes them).  A dropped row writes
+    back what its local column (taken modulo Wl) holds; S <= Wl keeps the
+    S columns distinct modulo Wl, so no two rows meet."""
+    Bsz, S = upd.shape[:2]
+    Wl = buf.shape[1]
+    if S > Wl:
+        raise ValueError(f"a {S}-row write spans more than the {Wl} columns "
+                         "a rank holds; use a narrower prefill chunk")
+    bi = torch.arange(Bsz, device=buf.device)[:, None]
+    ar = torch.arange(S, device=buf.device)
+    if write_len is None:
+        cols = torch.clamp(slot, max=W - S)[:, None] + ar[None, :]
+        keep = torch.ones_like(cols, dtype=torch.bool)
+    else:
+        cols = slot[:, None] + ar[None, :]
+        keep = (ar[None, :] < write_len[:, None]) & (cols < W)
+    keep = keep & (cols >= lo) & (cols < lo + Wl)
+    local = (cols - lo) % Wl
+    keep = keep.reshape(keep.shape + (1,) * (upd.ndim - 2))
+    buf[bi, local] = torch.where(keep, upd, buf[bi, local])
 
 
 ATTN_CHUNK = 1024  # query-chunk target (flash-style; bounds score memory)
@@ -295,7 +468,7 @@ def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
                 policy, x.dtype, kv_prequant, use_reentrant=False))
         ctx = torch.cat(parts, dim=3)
     ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, h * dh)
-    return dense(ctx, p["wo"], policy)
+    return _row_parallel(ctx, p, "wo", _split("q"), policy)
 
 
 def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
@@ -316,18 +489,21 @@ def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
                           cache["v_scales"], causal=True, kv_len=kvl,
                           q_offset=off, window=win)
     ctx = y.reshape(B, h, S, dh).permute(0, 2, 1, 3).reshape(B, S, h * dh)
-    return dense(ctx, p["wo"], policy)
+    return _row_parallel(ctx, p, "wo", _split("q"), policy)
 
 
 def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy):
+    split = _split("mlp")
+    col = 1 if split else None
     if cfg.mlp in ("swiglu", "geglu"):
         act = Fn.silu if cfg.mlp == "swiglu" else \
             (lambda v: Fn.gelu(v, approximate="tanh"))
-        gate = act(dense(x, p["wg"], policy))
-        up = dense(x, p["wu"], policy)
-        return dense(gate * up, p["wd"], policy)
-    hdn = Fn.gelu(dense(x, p["wu"], policy), approximate="tanh")
-    return dense(hdn, p["wd"], policy)
+        gate = act(dense(x, use(p, "wg", col), policy))
+        hdn = gate * dense(x, use(p, "wu", col), policy)
+    else:
+        hdn = Fn.gelu(dense(x, use(p, "wu", col), policy),
+                      approximate="tanh")
+    return _row_parallel(hdn, p, "wd", split, policy)
 
 
 def _top_k(probs: torch.Tensor, k: int):

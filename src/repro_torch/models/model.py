@@ -179,16 +179,47 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     return params
 
 
-def decode_attn_backend(cfg: ModelConfig, policy: QuantPolicy) -> str:
+def decode_attn_backend(cfg: ModelConfig, policy: QuantPolicy,
+                        cache_shardings=None) -> str:
     """Which datapath cached attention takes (decode steps and prefill
     chunks share one gate, ``blocks.attn_kernel_eligible``):
     ``'cuda-packed'`` -- the flash kernel reads the packed cache codes
     directly -- or ``'torch'``, the value-domain path (the JAX package's
     ``'jnp'``): ``mx_einsum`` over a value cache, or over the dequantized
-    packed cache, with the ring-aware window and softcap math."""
+    packed cache, with the ring-aware window and softcap math.
+
+    ``cache_shardings`` (a NamedSharding tree of the cache, from
+    ``launch/mesh.cache_shardings``) adds the per-shard half of the gate:
+    where the cache's position axis is sharded (sequence parallelism),
+    each rank holds a slice of every sequence and the kernel's per-row
+    online softmax cannot run shard-local, so those layouts take the
+    value path.  Batch- and kv-head-sharded caches keep the kernel."""
     from . import blocks
-    return "cuda-packed" if blocks.attn_kernel_eligible(cfg, policy) \
-        else "torch"
+    if not blocks.attn_kernel_eligible(cfg, policy):
+        return "torch"
+    if cache_shardings is not None and \
+            cache_position_axis_sharded(cache_shardings):
+        return "torch"
+    return "cuda-packed"
+
+
+_KV_LEAVES = ("k", "v", "k_codes", "v_codes", "k_scales", "v_scales")
+
+
+def cache_position_axis_sharded(cache_shardings) -> bool:
+    """True when any KV-cache leaf shards its position/window axis (the
+    ``W`` of ``(..., B, W, kv, dh)``): the one cache layout the packed
+    flash-attention kernel cannot consume shard-local."""
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return any(walk(v, k) for k, v in node.items())
+        if name not in _KV_LEAVES:
+            return False
+        spec = tuple(node.spec)
+        w_ax = len(spec) - 3
+        return w_ax >= 0 and spec[w_ax] is not None
+
+    return walk(cache_shardings)
 
 
 def param_count(params) -> int:

@@ -30,6 +30,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor
 from ..core.mx_dot import save_dots
 from ..core.policy import QuantPolicy
@@ -230,11 +231,33 @@ def layer_windows(cfg: ModelConfig, n: int):
     return [NO_WINDOW] * n
 
 
+def _lookup(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  Where the stored table splits the
+    vocab over the model axis (a TP mesh context), each rank looks up the
+    rows it holds, zeros the rest, and one all-reduce sums them (exact:
+    every row comes from one rank, x + 0 = x); a d split over the DP axes
+    is gathered at use, as every FSDP dim is."""
+    tok = tokens.long()
+    ctx = shd.active()
+    if ctx is None or "emb" not in ctx.get("specs", {}):
+        return params["emb"][tok]
+    split = shd.axes_of(ctx["specs"]["emb"][0][0]) == (ctx["tp"],)
+    emb = blk.use(params, "emb", 0 if split else None)
+    if not split:
+        return emb[tok]
+    n = emb.shape[0]
+    idx = tok - ctx["mesh"].coord(ctx["tp"]) * n
+    ok = (idx >= 0) & (idx < n)
+    rows = emb[torch.clamp(idx, 0, n - 1)]
+    return shd.all_reduce(torch.where(ok[..., None], rows,
+                                      torch.zeros_like(rows)))
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     """Embedding gather in the compute dtype (the cached decoder's order:
     cast first, then gemma2's sqrt(d) scale in that dtype).  The training
     forward scales first and casts after: ``_embed_tokens``."""
-    x = params["emb"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = _lookup(params, tokens).to(getattr(torch, cfg.compute_dtype))
     if cfg.name.startswith("gemma2"):
         x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
     return x
@@ -243,11 +266,19 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
 def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
     x = blk.rmsnorm(params["final_norm"], x)
     # tied configs project through emb.T unless a packed store injected a
-    # pre-packed "head" (model.pack_model_params)
-    w = params["head"] if "head" in params else params["emb"].T
+    # pre-packed "head" (model.pack_model_params); under a TP plan the
+    # vocab columns split over the model axis and are gathered after
+    pl = blk.plan()
+    split = pl is not None and pl.vocab
+    if "head" in params:
+        w = blk.use(params, "head", 1 if split else None)
+    else:
+        w = blk.use(params, "emb", 0 if split else None).T
     logits = blk.dense(x, w, policy).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if split:
+        logits = shd.all_gather(logits, shd.active()["tp"], -1)
     return logits
 
 

@@ -30,11 +30,29 @@ The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): ``device=None`` means ``"cuda"`` and
 raises when CUDA is absent.  ``backend="cuda"`` selects the kernel datapath;
 on CPU tensors the kernels' plain versions run.  ``from_checkpoint`` builds
-an engine straight from a packed checkpoint; sharded serving (``mesh``) is
-not ported yet (ROADMAP.md, Queue 1 item 5).
+an engine straight from a packed checkpoint.
+
+**Sharded serving** (``mesh=``, a ``launch/mesh`` mesh over a
+``torch.distributed`` process group; one engine per rank, every rank
+running the same host loop with the same requests).  Placement follows the
+JAX package's rules: the pack-once store by ``MeshRules`` (codes and
+scales split together, uneven scale grids replicated), the cache by
+``cache_shardings`` (slot batch over the DP axes, kv heads over the model
+axis), and each rank holds only its slices.  Compute follows one
+tensor-parallel scheme (``models/blocks.py``): column-parallel q/k/v,
+gate/up and head, row-parallel o and down with one f32 all-reduce each, a
+vocab-parallel embedding, anything else gathered at use.  Each rank runs
+its slot rows; the logits are gathered over the DP axes, so every rank
+samples the same tokens.  The per-shard kernel gates keep the JAX
+package's wording in ``shard_fallback``: a sharded cache position axis
+(sequence parallelism) sends attention to the value path, and a packed
+leaf whose shards tear MX blocks sends the matmuls to the plain path.
+``stats()`` is then a collective (every rank calls it).  MoE configs do
+not shard yet (expert parallelism: ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -45,9 +63,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import packed_store
+from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor, torch_dtype
 from ..core.policy import QuantPolicy
 from ..device import resolve_device
+from ..launch import mesh as mesh_lib
+from ..models import blocks
 from ..models import model as M
 
 __all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device"]
@@ -89,6 +110,51 @@ def _to_device(tree, device):
     return packed_store.tree_map(lambda leaf: leaf.to(device), tree)
 
 
+def _spec(ns) -> tuple:
+    """The spec of a leaf's sharding (a packed leaf's codes and scales
+    share one)."""
+    return ns.codes.spec if isinstance(ns, QuantizedTensor) else ns.spec
+
+
+def _blocks_aligned(store, shardings, axis_sizes) -> bool:
+    """The matmul kernels' per-shard gate: every sharded packed leaf keeps
+    whole MX blocks per shard (``packed_store.shard_block_aligned``)."""
+    return all(packed_store.shard_block_aligned(leaf, _spec(ns), axis_sizes)
+               for leaf, ns in zip(packed_store.tree_leaves(store),
+                                   packed_store.tree_leaves(shardings))
+               if isinstance(leaf, QuantizedTensor))
+
+
+def _specs_by_name(store, shardings, path=()) -> dict:
+    """``{leaf name: (stored spec, logical shape)}`` of each leaf's base
+    dims (the stacked-layer dims are never split): what ``blocks.use``
+    reads.  Every leaf of a name must share them."""
+    out = {}
+    if isinstance(store, dict):
+        for k in store:
+            for name, got in _specs_by_name(store[k], shardings[k],
+                                            path + (k,)).items():
+                if out.setdefault(name, got) != got:
+                    raise NotImplementedError(
+                        f"leaves named {name!r} differ in shape or spec: "
+                        f"{out[name]} vs {got}")
+        return out
+    r = mesh_lib._base_rank(path[-1])
+    if r == 0:
+        return out
+    spec = tuple(_spec(shardings))
+    spec += (None,) * (len(store.shape) - len(spec))
+    return {path[-1]: (spec[-r:], tuple(store.shape[-r:]))}
+
+
+def attn_needs_fallback(plan, policy: QuantPolicy, cfg: ModelConfig) -> bool:
+    """Whether the attention kernel cannot run this TP plan: the kernel
+    reads whole kv heads of its query heads, so query heads split over
+    the model axis need their kv heads split alike."""
+    return (plan.q and not plan.kv
+            and M.decode_attn_backend(cfg, policy) == "cuda-packed")
+
+
 class ServeEngine:
     """Fixed-slot continuous batching over prefill_step + decode_step."""
 
@@ -99,7 +165,7 @@ class ServeEngine:
                  pack_weights: Optional[bool] = None,
                  prefill_chunk: Union[int, str] = 16,
                  eos_id: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None, _placed=None):
         if cfg.family != "decoder":
             raise NotImplementedError(
                 "continuous batching needs per-slot recurrent-state "
@@ -109,12 +175,44 @@ class ServeEngine:
             policy = policy.replace(backend=backend)
             _ = policy.use_kernels  # validate at construction
         self.cfg = cfg
+        self.mesh = mesh
+        self.rules = None if mesh is None else mesh_lib.MeshRules(mesh)
+        if mesh is not None and mesh.device_mesh is None:
+            raise ValueError(f"{mesh} is abstract: a sharded engine needs "
+                             "a mesh over a process group (launch/mesh)")
+        if mesh is not None and cfg.n_experts > 0:
+            raise NotImplementedError(
+                "expert parallelism under a mesh is not ported yet; see "
+                "ROADMAP.md, Queue 1 item 7")
         # the cache's precision follows the compute dtype, as in the JAX
         # engine: a bf16 cache under an f32 config would round K/V
-        self.cache = M.init_cache(cfg, slots, max_len,
-                                  dtype=torch_dtype(cfg.compute_dtype),
-                                  ring=False, kv_fmt=policy.kv_cache_fmt,
-                                  device=self.device)
+        cache_kw = dict(dtype=torch_dtype(cfg.compute_dtype), ring=False,
+                        kv_fmt=policy.kv_cache_fmt)
+        self.shard_fallback: Optional[str] = None
+        self._cache_sh = None
+        if self.rules is None:
+            self.cache = M.init_cache(cfg, slots, max_len, device=self.device,
+                                      **cache_kw)
+        else:
+            shapes = M.init_cache(cfg, slots, max_len, device="meta",
+                                  **cache_kw)
+            self._cache_sh = mesh_lib.cache_shardings(self.rules, shapes,
+                                                      slots)
+            self.cache = packed_store.tree_map(
+                lambda t, ns: torch.zeros(
+                    t[shd.shard_slices(t.shape, ns.spec, mesh)].shape,
+                    dtype=t.dtype, device=self.device),
+                shapes, self._cache_sh)
+            # the per-shard half of the attention kernel's gate (the JAX
+            # package's wording): a sharded position axis is sequence
+            # parallelism, which the kernel cannot run shard-local
+            if M.decode_attn_backend(cfg, policy) == "cuda-packed" and \
+                    M.cache_position_axis_sharded(self._cache_sh):
+                policy = policy.replace(attention_kernel=False)
+                self.shard_fallback = (
+                    "cache position axis sharded (sequence-parallel "
+                    "fallback layout): packed-attention kernel cannot run "
+                    "shard-local, using the torch cached-attention path")
         can_pack = packed_store.packable_policy(policy)
         if pack_weights and not can_pack:
             raise ValueError(
@@ -122,12 +220,18 @@ class ServeEngine:
                 f"element format; got block_mode={policy.block_mode!r}, "
                 f"fwd_fmt={policy.fwd_fmt!r}")
         self.packed = can_pack and (pack_weights is None or pack_weights)
-        params = _to_device(params, self.device)
+        if _placed is None and mesh is None:
+            params = _to_device(params, self.device)
         if self.packed:
             params = M.pack_model_params(cfg, params, policy)
+        store = params if _placed is None else _placed  # the whole store
+        self.store_nbytes = packed_store.store_nbytes(store)
+        self._layout, self.tp_plan = {}, None
+        if self.rules is not None:
+            policy, params = self._place(store, params, policy, _placed)
         self.params = params
-        self.store_nbytes = packed_store.store_nbytes(params)
-        self.attn_backend = M.decode_attn_backend(cfg, policy)
+        self.attn_backend = M.decode_attn_backend(cfg, policy,
+                                                  self._cache_sh)
         self.policy = policy
         self.slots = slots
         self.max_len = max_len
@@ -159,13 +263,85 @@ class ServeEngine:
         self._uid = 0
         self.ticks = 0
 
+    def _place(self, store, params, policy, placed):
+        """Sharded placement: the store's shardings, the matmul kernels'
+        per-shard gate, this rank's slices (unless ``placed``: restored
+        as slices already), and the layout the model code reads (each
+        leaf's stored spec by name, the TP plan, the cache's position
+        split, this rank's slot rows)."""
+        mesh, cfg = self.mesh, self.cfg
+        self._store_sh = self.rules.param_sharding_tree(store)
+        if policy.use_kernels and not _blocks_aligned(store, self._store_sh,
+                                                      mesh.shape):
+            policy = policy.replace(backend="torch")
+            self.shard_fallback = ((self.shard_fallback + "; ")
+                                   if self.shard_fallback else "") + (
+                "packed store sharding tears MX blocks per shard: falling "
+                "back to the torch matmul path")
+        if placed is None:
+            params = packed_store.tree_map(
+                lambda leaf, ns: shd.map_parts(
+                    packed_store.shard_leaf(leaf, _spec(ns), mesh),
+                    lambda t: t.contiguous().to(self.device)),
+                params, self._store_sh)
+        layer = M.decoding.layer_params(store["layers"], 0)["sub0"]
+        plan = blocks.tp_plan(cfg, policy, layer, store, self.rules.tp_size)
+        kv = self._cache_sh["k_codes" if "k_codes" in self._cache_sh
+                            else "k"].spec
+        w_entry, b_entry, h_entry = kv[-3], kv[-4], kv[-2]
+        local = self.cache["k_codes" if "k_codes" in self.cache
+                           else "k"].shape
+        sp = heads = None  # the cache splits what the layers do not
+        if w_entry is not None:
+            sp = (w_entry, shd.shard_index(w_entry, mesh) * local[-3],
+                  shd.axis_size(w_entry, mesh.shape))
+        if h_entry is not None and not plan.kv:
+            heads = (h_entry, shd.shard_index(h_entry, mesh) * local[-2],
+                     shd.axis_size(h_entry, mesh.shape))
+        if sp is None and attn_needs_fallback(plan, policy, cfg):
+            policy = policy.replace(attention_kernel=False)
+            self.shard_fallback = ((self.shard_fallback + "; ")
+                                   if self.shard_fallback else "") + (
+                "kv heads replicated over the model axis while the query "
+                "heads split: using the torch cached-attention path")
+        self._batch_axes = b_entry
+        i_b = shd.shard_index(b_entry, mesh)
+        self._rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
+        self._layout = dict(specs=_specs_by_name(store, self._store_sh),
+                            plan=plan, cache_sp=sp, cache_heads=heads)
+        self.tp_plan = plan
+        return policy, params
+
+    def _hints(self):
+        """The mesh context of a dispatch (a no-op context without a
+        mesh)."""
+        if self.rules is None:
+            return contextlib.nullcontext()
+        return shd.mesh_context(self.mesh, self.rules.dp, self.rules.tp,
+                                **self._layout)
+
     def _decode(self, params, tokens, cache, pos):
-        return M.decode_step(params, tokens, cache, pos, self.cfg,
-                             self.policy)
+        """One decode dispatch over the whole slot batch; under a mesh this
+        rank runs its slot rows and the logits rows are gathered."""
+        if self.rules is None:
+            return M.decode_step(params, tokens, cache, pos, self.cfg,
+                                 self.policy)
+        with self._hints():
+            logits, cache = M.decode_step(params, tokens[self._rows], cache,
+                                          pos[self._rows], self.cfg,
+                                          self.policy)
+            return shd.all_gather(logits, self._batch_axes, 0), cache
 
     def _prefill(self, params, tokens, cache, pos, n_valid):
-        return M.prefill_step(params, tokens, cache, pos, n_valid, self.cfg,
-                              self.policy)
+        if self.rules is None:
+            return M.prefill_step(params, tokens, cache, pos, n_valid,
+                                  self.cfg, self.policy)
+        r = self._rows
+        with self._hints():
+            logits, cache = M.prefill_step(params, tokens[r], cache, pos[r],
+                                           n_valid[r], self.cfg,
+                                           self.policy)
+            return shd.all_gather(logits, self._batch_axes, 0), cache
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
@@ -184,23 +360,27 @@ class ServeEngine:
         The restore target is ``models/model.packed_model_specs`` (``meta``
         tensors: no weight is drawn), and every leaf goes to ``device``
         (``None``: the card) in its stored dtype, so the uint8 codes and
-        scales are never widened on the host or the card."""
-        if mesh is not None:
-            raise NotImplementedError("sharded serving is not ported yet; "
-                                      "see ROADMAP.md, Queue 1 item 5")
+        scales are never widened on the host or the card.  Under a
+        ``mesh`` each rank moves only its slices of the uint8 leaves
+        (``MeshRules.param_sharding_tree``)."""
         from ..ckpt import ckpt as ckpt_lib
         pol = policy if backend is None else policy.replace(backend=backend)
-        params, _ = ckpt_lib.restore(ckpt_dir, M.packed_model_specs(cfg, pol),
-                                     step=step, device=resolve_device(device))
+        specs = M.packed_model_specs(cfg, pol)
+        shardings = (None if mesh is None else
+                     mesh_lib.MeshRules(mesh).param_sharding_tree(specs))
+        params, _ = ckpt_lib.restore(ckpt_dir, specs, step=step,
+                                     device=resolve_device(device),
+                                     shardings=shardings)
         return cls(cfg, params, policy, backend=backend, device=device,
+                   mesh=mesh, _placed=None if mesh is None else specs,
                    **engine_kw)
 
     def stats(self) -> dict:
-        """Cumulative counters plus memory placement (the JAX engine's keys,
-        with ``mesh``/``shard_fallback`` None on one device, plus the
-        per-phase host seconds)."""
+        """Cumulative counters plus memory placement (the JAX engine's keys
+        plus the per-phase host seconds).  Under a mesh the per-device
+        bytes of every rank are gathered, keyed ``rank<r>:<device>``: a
+        collective, so every rank calls it."""
         denom = self.ticks * self.slots
-        dev = str(self.device)
         return {
             "tokens_generated": self.tokens_generated,
             "prefill_dispatches": self.prefill_dispatches,
@@ -211,11 +391,13 @@ class ServeEngine:
             "queued": len(self.queue),
             "prefill_chunk": self.prefill_chunk,
             "attn_backend": self.attn_backend,
-            "shard_fallback": None,
-            "mesh": None,
+            "shard_fallback": self.shard_fallback,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             "store_nbytes": dict(self.store_nbytes),
-            "store_nbytes_per_device": {dev: _nbytes(self.params)},
-            "cache_nbytes_per_device": {dev: _nbytes(self.cache)},
+            "store_nbytes_per_device": shd.per_device_nbytes(
+                self.params, self.device, self.mesh),
+            "cache_nbytes_per_device": shd.per_device_nbytes(
+                self.cache, self.device, self.mesh),
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
         }

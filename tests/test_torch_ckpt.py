@@ -32,6 +32,7 @@ from repro_torch import convert
 from repro_torch.ckpt import ckpt
 from repro_torch.configs.base import get_config as torch_config
 from repro_torch.core.blocking import QuantizedTensor
+from repro_torch.core.sharding import AbstractMesh, NamedSharding
 from repro_torch.core.policy import BF16, MXSF_INFER, MXSF_TRAIN
 from repro_torch.data.pipeline import lm_batch, vision_batch
 from repro_torch.launch import train as cli
@@ -174,7 +175,13 @@ def test_restore_checks_shapes_and_sharding(tmp_path):
         ckpt.restore(str(tmp_path), {"w": torch.ones(5)})
     with pytest.raises(KeyError, match="'v'"):
         ckpt.restore(str(tmp_path), {"v": torch.ones(4)})
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # shardings: this rank's slice of each leaf (on a one-rank mesh: all
+    # of it); a shardings tree that misses a leaf of the target raises
+    mesh = AbstractMesh((1,), ("data",))
+    got, _ = ckpt.restore(str(tmp_path), {"w": torch.ones(4)},
+                          shardings={"w": NamedSharding(mesh, ("data",))})
+    assert torch.equal(got["w"], torch.ones(4))
+    with pytest.raises(KeyError, match="'w'"):
         ckpt.restore(str(tmp_path), {"w": torch.ones(4)}, shardings={})
 
 
@@ -235,9 +242,11 @@ def test_engine_from_checkpoint_serves_the_same_tokens(tmp_path):
         eng.run()
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1] and all(len(o) == 4 for o in outs[0])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeEngine.from_checkpoint(cfg, str(tmp_path), INFER, mesh=object(),
-                                    **kw)
+    # a mesh without ranks cannot serve (no quiet single-device run)
+    with pytest.raises(ValueError, match="abstract"):
+        ServeEngine.from_checkpoint(
+            cfg, str(tmp_path), INFER,
+            mesh=AbstractMesh((1, 1), ("data", "model")), **kw)
 
 
 def test_meta_targets_restore_to_the_card(tmp_path, monkeypatch):

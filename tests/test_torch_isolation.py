@@ -83,3 +83,24 @@ def test_the_family_modules_are_checked(module):
 def test_the_examples_are_checked(example):
     """The port's examples are among the files the source check walks."""
     assert ROOT / "examples" / example in _port_files()
+
+
+@pytest.mark.parametrize("module", ["launch/mesh.py", "core/sharding.py",
+                                    "runtime/compress.py",
+                                    "runtime/pipeline_par.py"])
+def test_the_multi_gpu_modules_are_checked(module):
+    """The sharding modules are among the files the source check walks,
+    and importing each (with the rest of the port) loads no JAX."""
+    assert PORT / module in _port_files()
+    name = "repro_torch." + module[:-3].replace("/", ".")
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
+            f"import {name}; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad; print('ok')")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
