@@ -128,9 +128,12 @@ def save_dots():
     return _DotsMode(saved, False), _DotsMode(saved, True)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """matmul with the JAX package's type promotion."""
-    dt = torch.promote_types(a.dtype, b.dtype)
+def _mm(a: torch.Tensor, b: torch.Tensor,
+        f32_out: bool = False) -> torch.Tensor:
+    """matmul with the JAX package's type promotion; ``f32_out``: in f32,
+    the sums kept unrounded to the operands' dtype."""
+    dt = (torch.float32 if f32_out else
+          torch.promote_types(a.dtype, b.dtype))
     return torch.matmul(a.to(dt), b.to(dt))
 
 
@@ -155,8 +158,10 @@ def _pol_blocks(policy: QuantPolicy):
 # kernel datapath (backend="cuda")
 # ---------------------------------------------------------------------------
 
-def _kernel_fwd(policy: QuantPolicy, xm, w, with_residuals: bool):
-    """Fused-kernel forward: pack w once, quantize x inside the matmul."""
+def _kernel_fwd(policy: QuantPolicy, xm, w, with_residuals: bool,
+                f32_out: bool = False):
+    """Fused-kernel forward: pack w once, quantize x inside the matmul
+    (``f32_out``: the kernel's f32 sums, uncast)."""
     xblk, wblk = _pol_blocks(policy)
     xm = xm.contiguous()
     _tick()  # w quantized (packed) by the quantizer kernel
@@ -172,7 +177,9 @@ def _kernel_fwd(policy: QuantPolicy, xm, w, with_residuals: bool):
     else:
         y = FM.mxsf_fused_matmul(xm, wc, ws, xblk, wblk)
         res = None
-    y = y[:, :w.shape[-1]].to(torch.promote_types(xm.dtype, w.dtype))
+    y = y[:, :w.shape[-1]]
+    if not f32_out:
+        y = y.to(torch.promote_types(xm.dtype, w.dtype))
     return y, res
 
 
@@ -279,10 +286,10 @@ def _value_residuals(policy: QuantPolicy, xm, w):
     return (xq, wq), xq, wq
 
 
-def _value_fwd(policy: QuantPolicy, xm, w):
+def _value_fwd(policy: QuantPolicy, xm, w, f32_out: bool = False):
     """Value-domain forward (backend="torch"): (y, residuals)."""
     res, xq, wq = _value_residuals(policy, xm, w)
-    return _mm(xq, wq), res
+    return _mm(xq, wq, f32_out), res
 
 
 def _value_bwd(policy: QuantPolicy, res, gm):
@@ -373,13 +380,14 @@ class _MxDot(torch.autograd.Function):
                 dw.to(g.dtype), None)
 
 
-def _mx_dot_primal(policy: QuantPolicy, x, w):
+def _mx_dot_primal(policy: QuantPolicy, x, w, f32_out: bool = False):
     """Forward with no gradient wanted: no residuals are emitted."""
     xm, lead = _flatten_lead(x)
     if policy.use_kernels and _kernel_shapes_ok(x, w):
-        y, _ = _kernel_fwd(policy, xm, w, with_residuals=False)
+        y, _ = _kernel_fwd(policy, xm, w, with_residuals=False,
+                           f32_out=f32_out)
     else:
-        y, _ = _value_fwd(policy, xm, w)
+        y, _ = _value_fwd(policy, xm, w, f32_out)
     return y.reshape(*lead, w.shape[-1])
 
 
@@ -431,12 +439,12 @@ def _packed_fwd(policy: QuantPolicy, xm: torch.Tensor,
                                                B.torch_dtype(qw.dtype)))
     wq = B.dequantize(qw)
     if not policy.enabled:
-        return torch.matmul(xm, wq.to(xm.dtype))
+        return _mm(xm, wq.to(xm.dtype), f32_out)
     if policy.block_mode == "2d":
         xq = _qdq(xm, policy.fwd_fmt, (policy.tile, policy.tile))
     else:
         xq = _qdq(xm, policy.fwd_fmt, (policy.block_1d,))
-    return _mm(xq, wq)
+    return _mm(xq, wq, f32_out)
 
 
 def _value_packed_dx(policy: QuantPolicy, qw: B.QuantizedTensor, gm):
@@ -499,8 +507,8 @@ def mx_dot(x: torch.Tensor, w, policy: QuantPolicy,
     ``w`` is a raw tensor (quantized per call, with the MX backward) or a
     resident ``blocking.QuantizedTensor`` from the pack-once store (zero
     weight-quantize passes; frozen, so only dx flows back).  ``f32_out``
-    (no gradient, packed ``w``): the f32 sums before the cast to the
-    operands' dtype, the partial a row-parallel linear all-reduces."""
+    (no gradient): the f32 sums before the cast to the operands' dtype,
+    the partial a row-parallel linear all-reduces."""
     if isinstance(w, B.QuantizedTensor):
         qw = _layer_qt(w)
         _check_packed(policy, qw)
@@ -510,10 +518,10 @@ def mx_dot(x: torch.Tensor, w, policy: QuantPolicy,
         return _packed_fwd(policy, xm, qw, f32_out).reshape(
             *lead, qw.shape[-1])
     if not policy.enabled:
-        return torch.matmul(x, w)
+        return _mm(x, w, f32_out) if f32_out else torch.matmul(x, w)
     if _needs_grad(x, w):
         return _MxDot.apply(x, w, policy)
-    return _mx_dot_primal(policy, x, w)
+    return _mx_dot_primal(policy, x, w, f32_out)
 
 
 # ---------------------------------------------------------------------------

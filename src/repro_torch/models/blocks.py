@@ -68,13 +68,14 @@ def dense(x, w, policy):
 # ---------------------------------------------------------------------------
 
 class TPPlan(NamedTuple):
-    """Which parts of a dense decoder split over the model axis: ``q``
-    the query heads (wq/bq columns, wo rows), ``kv`` the kv heads (wk/wv
-    and biases), ``mlp`` d_ff (wg/wu columns, wd rows), ``vocab`` the
-    embedding rows and head columns.  A part that cannot split whole
-    heads, whole MX blocks or whole activation blocks runs replicated."""
-    q: bool
-    kv: bool
+    """Which parts of a dense decoder split over the model axis: ``heads``
+    the query and kv heads together (wq/wk/wv and biases by columns, wo by
+    rows; the attention kernel reads whole kv heads of its query heads, so
+    the query heads never split without theirs), ``mlp`` d_ff (wg/wu
+    columns, wd rows), ``vocab`` the embedding rows and head columns.  A
+    part that cannot split whole heads, whole MX blocks or whole
+    activation blocks runs replicated."""
+    heads: bool
     mlp: bool
     vocab: bool
 
@@ -101,15 +102,16 @@ def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
                 and local % xk == 0)
 
     dh, a, f = cfg.head_dim, layer["attn"], layer["ffn"]
-    q = (cfg.n_heads % tp_size == 0 and cols(a["wq"], cfg.n_heads * dh)
-         and rows(a["wo"], cfg.n_heads * dh))
-    kv = q and cfg.n_kv % tp_size == 0 and cols(a["wk"], cfg.n_kv * dh)
+    heads = (cfg.n_heads % tp_size == 0 and cfg.n_kv % tp_size == 0
+             and cols(a["wq"], cfg.n_heads * dh)
+             and rows(a["wo"], cfg.n_heads * dh)
+             and cols(a["wk"], cfg.n_kv * dh))
     mlp = (cfg.d_ff % tp_size == 0 and cols(f["wu"], cfg.d_ff)
            and rows(f["wd"], cfg.d_ff))
     head = top.get("head")
     vocab = cfg.padded_vocab % tp_size == 0 and (
         head is None or cols(head, cfg.padded_vocab))
-    return TPPlan(q, kv, mlp, vocab)
+    return TPPlan(heads, mlp, vocab)
 
 
 def plan():
@@ -139,12 +141,10 @@ def _row_parallel(x, p, name, split: bool, policy):
     if not split:
         return dense(x, w, policy)
     if isinstance(w, QuantizedTensor):
-        y = mx_dot(x, w, policy, f32_out=True).float()
         out = torch.promote_types(x.dtype, mxblk.torch_dtype(w.dtype))
     else:
-        y = mx_dot(x, w.to(x.dtype), policy).float()
-        out = x.dtype
-    return shd.all_reduce(y).to(out)
+        w, out = w.to(x.dtype), x.dtype
+    return shd.all_reduce(mx_dot(x, w, policy, f32_out=True)).to(out)
 
 
 def _split(part: str):
@@ -264,12 +264,12 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     B, S, _ = x.shape
     dh = cfg.head_dim
     dev = x.device
-    qc = 1 if _split("q") else None   # the column dim kept split
-    kc = 1 if _split("kv") else None
+    hc = 1 if _split("heads") else None  # the column dim kept split
+    hb = None if hc is None else 0
 
-    q = dense(x, use(p, "wq", qc), policy)
+    q = dense(x, use(p, "wq", hc), policy)
     if "bq" in p:
-        q = (q + use(p, "bq", None if qc is None else 0)).to(x.dtype)
+        q = (q + use(p, "bq", hb)).to(x.dtype)
     q = _split_heads(q, q.shape[-1] // dh, dh)  # the local heads
     if kv_cached is not None:
         k, v = (kv_cached[n].to(x.dtype) for n in ("k", "v"))
@@ -277,12 +277,11 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
         return _attend(q, k, v, None, kpos, False, None, p, x, cfg,
                        policy), None
     src = x if kv_x is None else kv_x
-    k = dense(src, use(p, "wk", kc), policy)
-    v = dense(src, use(p, "wv", kc), policy)
+    k = dense(src, use(p, "wk", hc), policy)
+    v = dense(src, use(p, "wv", hc), policy)
     if "bk" in p:
-        kb = None if kc is None else 0
-        k = (k + use(p, "bk", kb)).to(x.dtype)
-        v = (v + use(p, "bv", kb)).to(x.dtype)
+        k = (k + use(p, "bk", hb)).to(x.dtype)
+        v = (v + use(p, "bv", hb)).to(x.dtype)
     k = _split_heads(k, k.shape[-1] // dh, dh)
     v = _split_heads(v, v.shape[-1] // dh, dh)
     use_rope = (kv_x is None and cfg.rope_theta > 0
@@ -348,10 +347,6 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
             write(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
         seen = gathered()
         if attn_kernel_eligible(cfg, policy) and causal:
-            if sp is not None or (qc is not None and kc is None):
-                raise ValueError("the attention kernel needs whole cache "
-                                 "rows and kv heads split with the query "
-                                 "heads (the engine's gate)")
             return _attend_packed(q, seen, pos_vec, window, p, cfg,
                                   policy), cache
         k, v = (mxblk.dequantize(QuantizedTensor(
@@ -373,21 +368,8 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     # tensor % is floor modulo, as in the JAX package
     kpos = end[:, None] - ((end[:, None] - idx[None, :]) % W)
     qpos = pos_vec[:, None] + ar[None, :]
-    if qc is not None and kc is None:
-        k, v = _kv_of_local_heads(k, v, q.shape[2], cfg)
     return _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg, policy,
                    kv_prequant=packed), cache
-
-
-def _kv_of_local_heads(k, v, h_local: int, cfg: ModelConfig):
-    """K/V (B, L, kv, dh) of every kv head, cut to the ones this rank's
-    query heads read (query heads split over the model axis, kv heads
-    replicated): each local query head gets its own kv head (group 1),
-    so the grouped einsums compute what one device computes."""
-    r = shd.active()["mesh"].coord(shd.active()["tp"])
-    g = cfg.n_heads // cfg.n_kv
-    idx = (r * h_local + torch.arange(h_local, device=k.device)) // g
-    return k[:, :, idx], v[:, :, idx]
 
 
 def _write_owned(buf, upd, slot, write_len, W: int, lo: int):
@@ -468,7 +450,7 @@ def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
                 policy, x.dtype, kv_prequant, use_reentrant=False))
         ctx = torch.cat(parts, dim=3)
     ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, h * dh)
-    return _row_parallel(ctx, p, "wo", _split("q"), policy)
+    return _row_parallel(ctx, p, "wo", _split("heads"), policy)
 
 
 def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
@@ -489,7 +471,7 @@ def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
                           cache["v_scales"], causal=True, kv_len=kvl,
                           q_offset=off, window=win)
     ctx = y.reshape(B, h, S, dh).permute(0, 2, 1, 3).reshape(B, S, h * dh)
-    return _row_parallel(ctx, p, "wo", _split("q"), policy)
+    return _row_parallel(ctx, p, "wo", _split("heads"), policy)
 
 
 def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy):

@@ -44,9 +44,11 @@ gate/up and head, row-parallel o and down with one f32 all-reduce each, a
 vocab-parallel embedding, anything else gathered at use.  Each rank runs
 its slot rows; the logits are gathered over the DP axes, so every rank
 samples the same tokens.  The per-shard kernel gates keep the JAX
-package's wording in ``shard_fallback``: a sharded cache position axis
-(sequence parallelism) sends attention to the value path, and a packed
-leaf whose shards tear MX blocks sends the matmuls to the plain path.
+package's wording: a sharded cache position axis (sequence parallelism)
+sends attention to the value path and says so in ``shard_fallback``; a
+packed leaf whose shards would tear MX blocks, which ``MeshRules`` never
+produces, raises.  Attention whose heads cannot split runs replicated on
+the kernel.
 ``stats()`` is then a collective (every rank calls it).  MoE configs do
 not shard yet (expert parallelism: ROADMAP.md).
 """
@@ -116,13 +118,20 @@ def _spec(ns) -> tuple:
     return ns.codes.spec if isinstance(ns, QuantizedTensor) else ns.spec
 
 
-def _blocks_aligned(store, shardings, axis_sizes) -> bool:
+def _check_blocks_aligned(store, shardings, axis_sizes):
     """The matmul kernels' per-shard gate: every sharded packed leaf keeps
-    whole MX blocks per shard (``packed_store.shard_block_aligned``)."""
-    return all(packed_store.shard_block_aligned(leaf, _spec(ns), axis_sizes)
-               for leaf, ns in zip(packed_store.tree_leaves(store),
-                                   packed_store.tree_leaves(shardings))
-               if isinstance(leaf, QuantizedTensor))
+    whole MX blocks per shard (``packed_store.shard_block_aligned``).
+    ``MeshRules`` specs satisfy it by construction (``packed_spec``
+    replicates uneven scale grids), so this only guards the rules: a torn
+    block cannot be sliced with its scale, and no path serves it."""
+    for leaf, ns in zip(packed_store.tree_leaves(store),
+                        packed_store.tree_leaves(shardings)):
+        if isinstance(leaf, QuantizedTensor) and not \
+                packed_store.shard_block_aligned(leaf, _spec(ns), axis_sizes):
+            raise ValueError(
+                f"packed store sharding tears MX blocks per shard: spec "
+                f"{_spec(ns)} on a leaf of shape {tuple(leaf.shape)} under "
+                f"blocks {leaf.block}")
 
 
 def _specs_by_name(store, shardings, path=()) -> dict:
@@ -145,14 +154,6 @@ def _specs_by_name(store, shardings, path=()) -> dict:
     spec = tuple(_spec(shardings))
     spec += (None,) * (len(store.shape) - len(spec))
     return {path[-1]: (spec[-r:], tuple(store.shape[-r:]))}
-
-
-def attn_needs_fallback(plan, policy: QuantPolicy, cfg: ModelConfig) -> bool:
-    """Whether the attention kernel cannot run this TP plan: the kernel
-    reads whole kv heads of its query heads, so query heads split over
-    the model axis need their kv heads split alike."""
-    return (plan.q and not plan.kv
-            and M.decode_attn_backend(cfg, policy) == "cuda-packed")
 
 
 class ServeEngine:
@@ -228,7 +229,7 @@ class ServeEngine:
         self.store_nbytes = packed_store.store_nbytes(store)
         self._layout, self.tp_plan = {}, None
         if self.rules is not None:
-            policy, params = self._place(store, params, policy, _placed)
+            params = self._place(store, params, policy, _placed)
         self.params = params
         self.attn_backend = M.decode_attn_backend(cfg, policy,
                                                   self._cache_sh)
@@ -271,13 +272,7 @@ class ServeEngine:
         split, this rank's slot rows)."""
         mesh, cfg = self.mesh, self.cfg
         self._store_sh = self.rules.param_sharding_tree(store)
-        if policy.use_kernels and not _blocks_aligned(store, self._store_sh,
-                                                      mesh.shape):
-            policy = policy.replace(backend="torch")
-            self.shard_fallback = ((self.shard_fallback + "; ")
-                                   if self.shard_fallback else "") + (
-                "packed store sharding tears MX blocks per shard: falling "
-                "back to the torch matmul path")
+        _check_blocks_aligned(store, self._store_sh, mesh.shape)
         if placed is None:
             params = packed_store.tree_map(
                 lambda leaf, ns: shd.map_parts(
@@ -295,22 +290,16 @@ class ServeEngine:
         if w_entry is not None:
             sp = (w_entry, shd.shard_index(w_entry, mesh) * local[-3],
                   shd.axis_size(w_entry, mesh.shape))
-        if h_entry is not None and not plan.kv:
+        if h_entry is not None and not plan.heads:
             heads = (h_entry, shd.shard_index(h_entry, mesh) * local[-2],
                      shd.axis_size(h_entry, mesh.shape))
-        if sp is None and attn_needs_fallback(plan, policy, cfg):
-            policy = policy.replace(attention_kernel=False)
-            self.shard_fallback = ((self.shard_fallback + "; ")
-                                   if self.shard_fallback else "") + (
-                "kv heads replicated over the model axis while the query "
-                "heads split: using the torch cached-attention path")
         self._batch_axes = b_entry
         i_b = shd.shard_index(b_entry, mesh)
         self._rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
         self._layout = dict(specs=_specs_by_name(store, self._store_sh),
                             plan=plan, cache_sp=sp, cache_heads=heads)
         self.tp_plan = plan
-        return policy, params
+        return params
 
     def _hints(self):
         """The mesh context of a dispatch (a no-op context without a

@@ -253,10 +253,53 @@ def test_replicated_attention_over_a_split_cache(ref, worlds):
     _, want, _ = R.serve(ref["cfg"], params, R.BLOCK64, ref["prompts"])
     for out in _world(ref, worlds, 2):
         res = out["blk64"]
-        assert res["plan"] == (False, False, True, True)
+        assert res["plan"] == (False, True, True)
         assert res["attn_backend"] == "cuda-packed"
         assert res["shard_fallback"] is None
         assert res["tokens"] == want
+
+
+@pytest.mark.parametrize("case", list(R.ROW_CASES))
+def test_row_parallel_rounds_once_at_bf16(worlds, case):
+    """A row-parallel linear at bf16 compute sums its K halves' f32
+    partials and rounds once, as one device rounds its matmul, on every
+    datapath.  The operands are integers whose halves cancel: every sum
+    is exact in f32, so the result equals one device's ``dense`` exactly;
+    partials rounded to bf16 before the all-reduce would miss it by up
+    to 8 per half."""
+    from repro_torch.core import blocking as mxblk
+    from repro_torch.models import blocks
+    pol, packed = R.ROW_CASES[case]
+    x, w = R.row_parallel_operands()
+    assert torch.equal(mxblk.qdq(w.float(), "mxsf", (16, 1)), w.float())
+    assert torch.equal(mxblk.qdq(x.float(), "mxsf", (16,)), x.float())
+    leaf = packed_store.pack_leaf(w, pol) if packed else w
+    want = blocks.dense(x, leaf, pol)
+    exact = x.double() @ w.double()
+    assert torch.equal(want.double(), exact)
+    assert exact.abs().max() < 256 and (exact != 0).any()
+    if "rows" not in worlds:
+        worlds["rows"] = run_ranks(R.row_parallel, 2)
+    for out in worlds["rows"]:
+        dtype, got = out[case]
+        assert dtype == want.dtype
+        np.testing.assert_array_equal(got, want.float().numpy())
+
+
+def test_engine_refuses_a_store_spec_that_tears_blocks():
+    """The matmul kernels' per-shard gate: ``MeshRules`` never tears an MX
+    block (``packed_spec`` replicates uneven scale grids), so a spec that
+    does is refused rather than served."""
+    from repro_torch.serve import engine as E
+    leaf = packed_store.pack_leaf(torch.randn(64, 64), POL)  # 4 block rows
+    ns = shd.NamedSharding(mesh_lib.AbstractMesh((1, 8), ("data", "model")),
+                           ("model", None))
+    sh = QuantizedTensor(ns, ns, leaf.fmt, leaf.block, leaf.shape,
+                         leaf.dtype)
+    E._check_blocks_aligned({"w": leaf}, {"w": sh}, {"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="tears MX blocks"):
+        E._check_blocks_aligned({"w": leaf}, {"w": sh},
+                                {"data": 1, "model": 8})
 
 
 def test_engine_under_mesh_refuses_moe_and_abstract_meshes():

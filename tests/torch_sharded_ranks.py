@@ -15,6 +15,7 @@ from repro_torch.core import sharding as shd
 from repro_torch.core.blocking import QuantizedTensor
 from repro_torch.core.policy import BF16, MXSF_INFER
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import blocks
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 
@@ -142,4 +143,45 @@ def world_4(rank, np_params, prompts, ckpt_dir):
     reqs = [eng.submit(p, MAX_NEW) for p in prompts]
     eng.run()
     out["ckpt_tokens"] = [r.out for r in reqs]
+    return out
+
+
+# ``blocks._row_parallel`` at bf16 on (1, 2): every datapath of a
+# row-parallel linear, by (policy, packed weight)
+ROW_CASES = {
+    "bf16-raw": (BF16, False),
+    "value-raw": (MXSF_INFER.replace(block_1d=16), False),
+    "kernel-raw": (MXSF_INFER.replace(block_1d=16, backend="cuda"), False),
+    "value-packed": (MXSF_INFER.replace(block_1d=16), True),
+    "kernel-packed": (MXSF_INFER.replace(block_1d=16, backend="cuda"), True),
+}
+
+
+def row_parallel_operands(k=512, n=64):
+    """bf16 x (4, K) and a weight (K, N) of small integers, exact in bf16
+    and in MXSF, whose two K halves sum to large opposite column sums:
+    each half's f32 sum is an integer of ~11 bits (rounded if cast to
+    bf16), the whole sum one below 256 (exact in bf16)."""
+    g = torch.Generator().manual_seed(0)
+    h = k // 2
+    top = torch.randint(1, 4, (h, n), generator=g).float()
+    bottom = -top.flip(0) + (torch.rand((h, n), generator=g) < 0.05)
+    x = torch.full((4, k), 3.0).to(torch.bfloat16)
+    return x, torch.cat([top, bottom]).to(torch.bfloat16)
+
+
+def row_parallel(rank):
+    """Each case's ``_row_parallel`` output on this rank: its half of x's
+    columns against its half of the weight's rows, all-reduced."""
+    mesh = mesh_lib.make_test_mesh(1, 2)
+    x, w = row_parallel_operands()
+    k = x.shape[1] // 2
+    out = {}
+    for name, (pol, packed) in ROW_CASES.items():
+        leaf = packed_store.pack_leaf(w, pol) if packed else w
+        with shd.mesh_context(mesh, ("data",), "model",
+                              specs={"w": ((None, None), tuple(w.shape))}):
+            y = blocks._row_parallel(x[:, rank * k:(rank + 1) * k],
+                                     {"w": leaf}, "w", True, pol)
+        out[name] = (y.dtype, y.float().numpy())
     return out
