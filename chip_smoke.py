@@ -212,6 +212,7 @@ kernels' plain versions, no build, no launch counts) and prints no ok line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -229,11 +230,15 @@ F32_EPS = 2.0 ** -24    # f32 unit roundoff
 ATTN_ATOL = 1e-5        # of max|v|: f32 summation order and expf
 
 RESULTS: dict = {}
+T_START = time.perf_counter()  # "at" of each printed line: seconds since
+# the script started
 
 
 def emit(phase: str, **fields):
     RESULTS.setdefault(phase, []).append(fields)
-    print(json.dumps({"phase": phase, **fields}, default=str), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at": round(time.perf_counter() - T_START, 1)},
+                     default=str), flush=True)
 
 
 def parse_args(argv):
@@ -2149,31 +2154,54 @@ REORDER_CEILING = 0.318359375 + 2.0 ** -5  # the most that move may be on
 # same deterministic path) plus one bf16 ulp of the largest |logit| (6.9)
 
 
+def ffn_widths(cfg):
+    """The widths of the FFNs that run as fused matmuls: a dense layer's
+    d_ff, an MoE layer's shared expert (its routed experts run as
+    ``mx_einsum`` in values)."""
+    n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
+    widths = [cfg.d_ff] if cfg.n_layers > n_moe else []
+    if n_moe and cfg.n_shared_experts:
+        widths.append(cfg.expert_ff * cfg.n_shared_experts)
+    return widths
+
+
 def shard_local_shapes(cfg, tp=SHARD_TP):
     """(K, N) of each fused matmul of a layer and the head at ``tp`` ranks
     on the model axis: column-parallel q, k, v, gate, up and head at N /
     tp, row-parallel o and down at K / tp."""
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    d, v = cfg.d_model, cfg.padded_vocab
     hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
-    return [(d, hd // tp), (d, kvd // tp), (hd // tp, d), (d, f // tp),
-            (f // tp, d), (d, v // tp)]
+    ffn = [s for f in ffn_widths(cfg) for s in ((d, f // tp), (f // tp, d))]
+    return [(d, hd // tp), (d, kvd // tp), (hd // tp, d), (d, v // tp)] + ffn
 
 
-def sharded_collectives(cfg, eng):
+def sharded_collectives(cfg, eng, breakdown=False):
     """Collectives of one dispatch of a sharded engine, from the path: an
-    f32 all-reduce after each row-parallel linear (o and down: 2 a layer)
-    and one for the vocab-parallel embedding; with more than one rank on
-    the model axis, one all-gather of the head's logits and one of each
-    norm weight the store splits (2 a layer and the final norm).  Checked
-    for the layouts this phase runs: a full TP plan, one rank on the DP
-    axes."""
+    f32 all-reduce after each row-parallel linear (o, a dense FFN's down,
+    an MoE layer's shared-expert down) and one for the vocab-parallel
+    embedding; with more than one rank on the model axis, one all-gather
+    of the head's logits, one of each norm weight the store splits (2 a
+    layer and the final norm) and one of each MoE layer's expert outputs.
+    Checked for the layouts these phases run: every part of the TP plan
+    split, one rank on the DP axes.  ``breakdown``: by kind and source."""
     r, plan = eng.rules, eng.tp_plan
-    if r.dp_size != 1 or not all(plan):
-        raise AssertionError(f"no count formula for dp {r.dp_size}, {plan}")
     L = cfg.n_layers
+    n_moe = L // cfg.moe_every if cfg.n_experts else 0
+    split = [plan.heads, plan.vocab] + [plan.mlp] * (L > n_moe) + \
+        [plan.shared] * bool(n_moe and cfg.n_shared_experts)
+    if r.dp_size != 1 or not all(split):
+        raise AssertionError(f"no count formula for dp {r.dp_size}, {plan}")
     norm_split = eng._layout["specs"]["w"][0] != (None,)
-    gathers = (1 + (2 * L + 1) * norm_split) if r.tp_size > 1 else 0
-    return {"all_reduce": 2 * L + 1, "all_gather": gathers}
+    tp = r.tp_size > 1
+    parts = {"all_reduce": {
+        "o": L, "ffn_down": L - n_moe,
+        "shared_down": n_moe * bool(cfg.n_shared_experts), "embedding": 1},
+        "all_gather": {"logits": int(tp),
+                       "norms": (2 * L + 1) * norm_split * tp,
+                       "expert_outputs": n_moe * tp}}
+    if breakdown:
+        return parts
+    return {k: sum(v.values()) for k, v in parts.items()}
 
 
 def _sharded_engine(torch, cfg, policy, ckpt_dir, mesh, device, slots,
@@ -2251,7 +2279,7 @@ def sharded_serve(torch, eng, cfg, prompts, new_tokens, want, phase,
     check, faults = None, []
     if ref_logits is None:
         if outs != want:
-            faults.append(f"token streams {outs} != ckpt_serve's {want}")
+            faults.append(f"token streams {outs} != the reference's {want}")
     else:
         check, faults = logit_check(torch, rows, choices, want, ref_logits,
                                     floor_tol)
@@ -2293,16 +2321,13 @@ def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
     return check
 
 
-def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
-               prompts, new_tokens, want, seed):
-    """Phase serve_sharded, step 1: a world of one rank in this process on
-    the production backend (nccl on the card, gloo in the rehearsal)."""
+@contextlib.contextmanager
+def one_rank_world(torch, device):
+    """A world of one rank in this process on the production backend
+    (nccl on the card, gloo in the rehearsal); yields the backend's
+    name."""
     import datetime
     import torch.distributed as dist
-    from repro_torch.core import blocking as B
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.runtime.compress import make_compressed_allreduce
-    from repro_torch.runtime.pipeline_par import pipeline_apply
     on_card = device.type == "cuda"
     backend = "nccl" if on_card else "gloo"
     if on_card:
@@ -2311,6 +2336,21 @@ def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
                             f"{_free_port()}", rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=300))
     try:
+        yield backend
+    finally:
+        dist.destroy_process_group()
+
+
+def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
+               prompts, new_tokens, want, seed):
+    """Phase serve_sharded, step 1: a world of one rank in this process
+    (``one_rank_world``)."""
+    from repro_torch.core import blocking as B
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.compress import make_compressed_allreduce
+    from repro_torch.runtime.pipeline_par import pipeline_apply
+    on_card = device.type == "cuda"
+    with one_rank_world(torch, device) as backend:
         mesh = mesh_lib.make_test_mesh(1, 1)
         eng, restore_s, _ = _sharded_engine(torch, cfg, policy, ckpt_dir,
                                             mesh, device, slots, chunk,
@@ -2356,8 +2396,6 @@ def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
         if not same or pipe_err > 2e-5:
             raise AssertionError("serve_sharded: compressed all-reduce or "
                                  "pipeline off its reference")
-    finally:
-        dist.destroy_process_group()
     return launches, baseline
 
 
@@ -2368,22 +2406,19 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
-                 spec_file: str):
-    """One rank of phase serve_sharded's two-rank run (started after the
-    build, so it loads the built kernels): restore its slices of the
-    checkpoint, hold every kernel call of its first dispatch against the
-    plain version, serve the prompts, profile one decode dispatch on rank
-    0, and write its results to SHARD_DIR."""
+@contextlib.contextmanager
+def gloo_rank(rank: str, world: str, port: str, rehearsal: str,
+              out_dir: Path):
+    """The set-up of one rank of a two-rank run (a process of its own):
+    its device (the one card, shared; the CPU in the rehearsal), a gloo
+    group over ``port`` (NCCL refuses two ranks on one device, so
+    collectives go through host memory), and its results dict, written to
+    ``out_dir/rank<r>.json`` however the body ends (an error recorded).
+    Yields (torch, device, rank, world, results)."""
     import datetime
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.policy import MXSF_INFER
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import model as M
     rank, world = int(rank), int(world)
-    spec = json.loads(Path(spec_file).read_text())
     device = torch.device("cpu" if rehearsal == "1" else "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     if device.type == "cuda":
@@ -2391,11 +2426,36 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
     else:
         torch.set_num_threads(2)
     out = {"rank": rank}
-    # NCCL refuses two ranks on one device: gloo, through host memory
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
     try:
+        yield torch, device, rank, world, out
+    except BaseException as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(
+            out, default=str))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
+                 spec_file: str):
+    """One rank of phase serve_sharded's two-rank run (started after the
+    build, so it loads the built kernels): restore its slices of the
+    checkpoint, hold every kernel call of its first dispatch against the
+    plain version, serve the prompts, profile one decode dispatch on rank
+    0, and write its results to SHARD_DIR."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, SHARD_DIR) as (
+            torch, device, rank, world, out):
         cfg = get_config("qwen2.5-32b")
         cfg = (cfg.reduced() if rehearsal == "1" else cfg).replace(
             n_layers=spec["n_layers"])
@@ -2430,31 +2490,83 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
             backend="gloo")
         out.update(tokens=outs, launches=launches, collectives=collectives,
                    teacher_forced=check, stats=eng.stats())
-        if rank == 0 and device.type == "cuda":
-            from repro_torch.core import sharding as shd
-            shd.reset_counts()
-            prof = profile_decode(torch, eng, "serve_sharded", rank=rank)
-            coll = sum(v["seconds"] for v in shd.counts().values())
-            # profile_decode runs the dispatch twice (warm-up, profiled)
-            out["profile"] = dict(
-                wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
-                device_busy_ms=prof["device_busy_ms"],
-                collective_share=coll / 2 * 1e3 / prof["wall_ms"])
-        else:
-            # the other rank runs the same two dispatches alongside
-            toks = eng._tensor(eng.last_tok)[:, None]
-            pos = eng._tensor(eng.pos)
-            for _ in range(2):
-                eng._decode(eng.params, toks, eng.cache, pos)
-    except BaseException as e:
-        out["error"] = f"{type(e).__name__}: {e}"
-        raise
+        out["profile"] = rank_profile(torch, eng, rank, "serve_sharded")
+
+
+def rank_profile(torch, eng, rank, phase):
+    """Rank 0's decode dispatch on the card under the profiler: wall time,
+    idle share, and the share of the wall its collectives held (their
+    host seconds, by kind); the other ranks run the same two dispatches
+    alongside.  None off rank 0 or off the card."""
+    from repro_torch.core import sharding as shd
+    if rank == 0 and eng.device.type == "cuda":
+        shd.reset_counts()
+        prof = profile_decode(torch, eng, phase, rank=rank)
+        # profile_decode runs the dispatch twice (warm-up, profiled)
+        per = {k: dict(calls=v["calls"] / 2, ms=v["seconds"] / 2 * 1e3)
+               for k, v in shd.counts().items()}
+        coll = sum(v["ms"] for v in per.values())
+        return dict(wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
+                    device_busy_ms=prof["device_busy_ms"],
+                    collective_share=coll / prof["wall_ms"],
+                    collectives_per_dispatch=per)
+    toks = eng._tensor(eng.last_tok)[:, None]
+    pos = eng._tensor(eng.pos)
+    for _ in range(2):
+        eng._decode(eng.params, toks, eng.cache, pos)
+    return None
+
+
+def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
+                       wait_s=SHARD_WAIT_S):
+    """``world`` ranks in their own processes (started after the build,
+    so they load the built kernels), each running ``chip_smoke.<target>
+    (rank, world, port, rehearsal, spec file)`` over one gloo group; a
+    rank that fails or outlives ``wait_s`` fails the phase, and every
+    rank still running is stopped.  Returns each rank's results (its
+    ``rank<r>.json``), each emitted."""
+    import os
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    spec_file = out_dir / "spec.json"
+    spec_file.write_text(json.dumps(spec))
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    code = f"import sys, chip_smoke; chip_smoke.{target}(*sys.argv[1:])"
+    procs = []
+    for r in range(world):
+        log = open(out_dir / f"rank{r}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, str(r), str(world), str(port),
+             str(int(rehearsal)), str(spec_file)],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    deadline = time.perf_counter() + wait_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{phase}: a rank outlived {wait_s} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # the others would wait on it
+            time.sleep(0.5)
     finally:
-        SHARD_DIR.mkdir(parents=True, exist_ok=True)
-        (SHARD_DIR / f"rank{rank}.json").write_text(json.dumps(
-            out, default=str))
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        stop_processes(procs)
+    ranks = []
+    for r, p in enumerate(procs):
+        res_file = out_dir / f"rank{r}.json"
+        res = json.loads(res_file.read_text()) if res_file.exists() else {}
+        ranks.append(res)
+        log = (out_dir / f"rank{r}.log").read_text()[-3000:]
+        emit(phase, step="rank", exit=p.returncode, backend="gloo",
+             **{k: v for k, v in res.items() if k not in ("stats",)})
+        if p.returncode != 0 or "error" in res or not res:
+            raise AssertionError(f"{phase} rank {r} failed "
+                                 f"(exit {p.returncode}): {log}")
+    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
+            "disagree"] for r in ranks):
+        raise AssertionError(f"{phase}: the ranks chose differently")
+    return ranks
 
 
 def sharded_first_dispatch(torch, eng, cfg, prompts):
@@ -2504,59 +2616,18 @@ def phase_serve_sharded(torch, device, cfg, policy, args, slots, chunk,
     own process (``sharded_rank``) over gloo; a rank that fails or
     outlives SHARD_WAIT_S fails the phase.  Returns the launches of both
     runs (rank 0's for the two-rank run)."""
-    import os
-    import shutil
     t_phase = time.perf_counter()
     prompts = _prompts(cfg, args.seed, lengths)
     launches, baseline = _world_one(
         torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len, prompts,
         new_tokens, want, args.seed)
     free_device(torch, device)
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    SHARD_DIR.mkdir(parents=True)
-    spec_file = SHARD_DIR / "spec.json"
-    spec_file.write_text(json.dumps(dict(
+    ranks = run_rank_processes("serve_sharded", "sharded_rank", dict(
         n_layers=cfg.n_layers, block_1d=policy.block_1d,
         ckpt_dir=str(ckpt_dir), ref_logits=str(CKPT_ROOT / "logits.pt"),
         floor_tol=REORDER_FACTOR * baseline["max_dev"], slots=slots,
         chunk=chunk, max_len=max_len, prompts=prompts, new_tokens=new_tokens,
-        want=want)))
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    code = "import sys, chip_smoke; chip_smoke.sharded_rank(*sys.argv[1:])"
-    procs = []
-    for r in range(SHARD_TP):
-        log = open(SHARD_DIR / f"rank{r}.log", "w")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, str(r), str(SHARD_TP), str(port),
-             str(int(rehearsal)), str(spec_file)],
-            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT))
-        log.close()
-    deadline = time.perf_counter() + SHARD_WAIT_S
-    try:
-        while any(p.poll() is None for p in procs):
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"serve_sharded: a rank outlived "
-                                     f"{SHARD_WAIT_S} s")
-            if any(p.poll() not in (None, 0) for p in procs):
-                break  # the others would wait on it
-            time.sleep(0.5)
-    finally:
-        stop_processes(procs)
-    ranks = []
-    for r, p in enumerate(procs):
-        res_file = SHARD_DIR / f"rank{r}.json"
-        res = json.loads(res_file.read_text()) if res_file.exists() else {}
-        ranks.append(res)
-        log = (SHARD_DIR / f"rank{r}.log").read_text()[-3000:]
-        emit("serve_sharded", step="rank", exit=p.returncode, backend="gloo",
-             **{k: v for k, v in res.items() if k not in ("stats",)})
-        if p.returncode != 0 or "error" in res or not res:
-            raise AssertionError(f"serve_sharded rank {r} failed "
-                                 f"(exit {p.returncode}): {log}")
-    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
-            "disagree"] for r in ranks):
-        raise AssertionError("serve_sharded: the ranks chose differently")
+        want=want), SHARD_DIR, SHARD_TP, rehearsal)
     emit("serve_sharded", step="done", seconds=time.perf_counter() - t_phase,
          ranks=SHARD_TP, free_running_equal=ranks[0]["teacher_forced"][
              "free_running_equal"])
@@ -2801,17 +2872,27 @@ def phase_ring_swa(torch, device, args, rehearsal):
     return launches
 
 
+MOE_LAYERS = 12  # serve_moe's depth, and so serve_sharded_moe's: at all
+# 24 layers the two phases took 77 + 244 s of a 1151 s script on the H100,
+# too close to its 1200 s limit
+
+
 def phase_serve_moe(torch, device, args, rehearsal):
     """qwen2-moe-a2.7b at full width (60 routed experts padded to 64, top
     4, 4 shared), expert stacks in f32 values as in the JAX package's
-    store, at the depth the card's free memory allows (store + cache + 4
-    GiB); ``MXSF_INFER`` with the packed MXSF cache on the kernel
+    store, at MOE_LAYERS of its 24 layers (or fewer, if the card's free
+    memory for store + cache + 4 GiB says so); ``MXSF_INFER`` with the
+    packed MXSF cache on the kernel
     datapath, 4 slots, max_len 256, prompts of 8-24 tokens, 8 new tokens
     each, token by token (chunk 1, as the JAX engine serves MoE); a
     profiled decode dispatch; then, teacher-forced, the first dispatch
     with the tokens each MoE layer dropped past capacity, and a prefill of
     the whole prompts with a decode after it, over rows of 9-25 keys.
-    Returns the launches."""
+    Returns the launches and phase serve_sharded_moe's reference: the
+    store, the token streams, the logits row of each token and the first
+    dispatch's MoE layers (``moe_first_dispatch``).  In the rehearsal the
+    reduced model's 64-wide layers take 16-element blocks, so they split
+    whole blocks over the model axis there."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.packed_store import store_nbytes
     from repro_torch.core.policy import MXSF_INFER
@@ -2822,10 +2903,11 @@ def phase_serve_moe(torch, device, args, rehearsal):
     cfg = get_config("qwen2-moe-a2.7b")
     slots, max_len, new_tokens = 4, 256, 8
     lengths = [8, 13, 19, 24]
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
     if rehearsal:
         cfg = cfg.reduced()
         max_len, new_tokens, lengths = 32, 3, [3, 5, 2, 7]
-    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+        policy = policy.replace(block_1d=16)
     one, two = (tree_bytes(M.packed_model_specs(cfg.replace(n_layers=n),
                                                 policy)) for n in (1, 2))
     per_layer, fixed = two - one, 2 * one - two
@@ -2833,10 +2915,11 @@ def phase_serve_moe(torch, device, args, rehearsal):
     free = (torch.cuda.mem_get_info()[0] if device.type == "cuda"
             else 1 << 62)
     budget = free - fixed - (4 << 30)
-    n_layers = min(cfg.n_layers, budget // (per_layer + cache_layer))
+    n_layers = min(cfg.n_layers, MOE_LAYERS,
+                   budget // (per_layer + cache_layer))
     emit("serve_moe", step="plan", free_bytes=free, bytes_per_layer=per_layer,
          bytes_fixed=fixed, cache_bytes_per_layer=cache_layer,
-         n_layers=n_layers, of=cfg.n_layers)
+         n_layers=n_layers, of=cfg.n_layers, cap=MOE_LAYERS)
     if n_layers < 1:
         raise AssertionError("serve_moe: no room for one layer")
     cfg = cfg.replace(n_layers=n_layers)
@@ -2851,10 +2934,12 @@ def phase_serve_moe(torch, device, args, rehearsal):
     if eng.prefill_chunk != 1:
         raise AssertionError("serve_moe: MoE engines serve token by token")
     prompts = _prompts(cfg, args.seed, lengths)
-    _, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
-                            "serve_moe", cache_bytes=tree_bytes(eng.cache))
+    rows, _ = tap_emits(eng, cfg)
+    want, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
+                               "serve_moe", cache_bytes=tree_bytes(eng.cache))
     if device.type == "cuda":
         profile_decode(torch, eng, "serve_moe")
+    first = moe_first_dispatch(torch, eng, prompts)
     # the engine's first dispatch (every slot's first prompt token, routed
     # across the batch), teacher-forced, counting the dropped assignments
     cache = M.init_cache(cfg, slots, max_len, kv_fmt="mxsf", device=device)
@@ -2896,9 +2981,271 @@ def phase_serve_moe(torch, device, args, rehearsal):
     checked_dispatch(torch, eng.params, cfg, eng.policy, "decode",
                      nxt[:, None], cache, n, None, expect, "serve_moe",
                      step="decode", keys_per_row=[v + 1 for v in lengths])
-    del eng, store
+    ref = dict(cfg=cfg, policy=policy, store=store, slots=slots,
+               max_len=max_len, new_tokens=new_tokens, prompts=prompts,
+               want=want, logits=rows, first=first, launches=launches)
+    del eng, store, cache
     free_device(torch, device)
-    return launches
+    return launches, ref
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism ("serve_sharded_moe")
+# ---------------------------------------------------------------------------
+
+SHARD_MOE_DIR = ROOT / "build" / "chip_smoke_sharded_moe"  # ranks' results
+MOE_REF_DIR = ROOT / "build" / "chip_smoke_moe_ref"  # removed when it ends
+MOE_REORDER_CEILING = 0.390625 + 2.0 ** -5  # the most the one-device
+# reorder baseline may move qwen2-moe's logits on the card: the move
+# recorded on the H100 at MOE_LAYERS (0.390625) plus one bf16 ulp of its
+# largest |logit| (4-8)
+
+
+def moe_taps(torch, fn):
+    """``fn()`` with each MoE layer it runs recorded on the host, in layer
+    order (this script's hook on ``blocks.moe`` and its parts, as
+    ``tap_emits`` is on the engine): the layer's input ``x`` (after the
+    decode regroup), its dispatch's ``slot`` and ``valid``, and the
+    expert outputs ``ye`` the combine reads.  Returns (fn's result,
+    records)."""
+    from repro_torch.models import blocks as TB
+    rec, parts = [], (TB.moe, TB._row_dispatch, TB._expert_ffn)
+
+    def moe(p, x, *a):
+        rec.append({"x": x.cpu()})
+        return parts[0](p, x, *a)
+
+    def dispatch(*a):
+        out = parts[1](*a)
+        rec[-1].update(slot=out[1].cpu(), valid=out[2].cpu())
+        return out
+
+    def experts(*a):
+        ye = parts[2](*a)
+        rec[-1]["ye"] = ye.cpu()
+        return ye
+
+    TB.moe, TB._row_dispatch, TB._expert_ffn = moe, dispatch, experts
+    try:
+        return fn(), rec
+    finally:
+        TB.moe, TB._row_dispatch, TB._expert_ffn = parts
+
+
+def moe_first_dispatch(torch, eng, prompts):
+    """The engine's first dispatch (every slot's first prompt token on a
+    fresh cache, routed across the batch) through its own path, each MoE
+    layer recorded (``moe_taps``)."""
+    dev = eng.device
+    cache = {k: torch.zeros_like(v) for k, v in eng.cache.items()}
+    t = torch.tensor([[p[0]] for p in prompts[:eng.slots]], device=dev)
+    pos = torch.zeros(eng.slots, dtype=torch.int64, device=dev)
+    return moe_taps(torch, lambda: eng._decode(eng.params, t, cache,
+                                               pos))[1]
+
+
+def moe_exact(torch, eng, cfg, prompts, ref):
+    """The part of expert parallelism that stays exact, on the first
+    dispatch: each MoE layer run on one device's input of that layer
+    (``ref``: ``moe_first_dispatch`` on one device) under this rank's
+    mesh context routes to one device's ``slot``/``valid`` bit for bit,
+    and its gathered expert outputs lie within one bf16 ulp of the
+    largest |ye| of one device's (the batched product at E / tp experts
+    may pick another summation than at E; whether they are bitwise is
+    reported).  This rank's own first dispatch must route as one device's
+    wherever its layer input is one device's, bit for bit."""
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import model as M
+    own = moe_first_dispatch(torch, eng, prompts)
+    sub, dev = f"sub{cfg.moe_every - 1}", eng.device
+    layers, faults = [], []
+    for i, r in enumerate(ref):
+        ffn = M.decoding.layer_params(eng.params["layers"], i)[sub]["ffn"]
+        with eng._hints():
+            (got,) = moe_taps(torch, lambda: TB.moe(
+                ffn, r["x"].to(dev), cfg, eng.policy))[1]
+        routed = (torch.equal(got["slot"], r["slot"])
+                  and torch.equal(got["valid"], r["valid"]))
+        err = float((got["ye"].float() - r["ye"].float()).abs().max())
+        tol = float(_bf16_ulp(torch, r["ye"].abs().max()))
+        same_x = torch.equal(own[i]["x"], r["x"])
+        own_routed = (torch.equal(own[i]["slot"], r["slot"])
+                      and torch.equal(own[i]["valid"], r["valid"]))
+        layers.append(dict(layer=i, routed=routed,
+                           ye_bitwise=torch.equal(got["ye"], r["ye"]),
+                           ye_max_abs_err=err, ye_tol=tol,
+                           own_x_equal=same_x, own_routed=own_routed,
+                           dropped=int((~r["valid"]).sum())))
+        if not routed:
+            faults.append(f"layer {i}: routing differs on one device's input")
+        if err > tol:
+            faults.append(f"layer {i}: ye off by {err} > {tol}")
+        if same_x and not own_routed:
+            faults.append(f"layer {i}: the same input routed differently")
+    rec = dict(layers=len(layers),
+               routed=sum(x["routed"] for x in layers),
+               ye_bitwise=sum(x["ye_bitwise"] for x in layers),
+               ye_max_abs_err=max(x["ye_max_abs_err"] for x in layers),
+               ye_worst_over_tol=max(x["ye_max_abs_err"] / x["ye_tol"]
+                                     for x in layers),
+               own_x_equal=sum(x["own_x_equal"] for x in layers),
+               own_routed=sum(x["own_routed"] for x in layers),
+               dropped_per_layer=[x["dropped"] for x in layers])
+    if faults:
+        raise AssertionError(f"serve_sharded_moe exact part: {faults}")
+    return rec
+
+
+def moe_config(rehearsal: bool):
+    from repro_torch.configs.base import get_config
+    cfg = get_config("qwen2-moe-a2.7b")
+    return cfg.reduced() if rehearsal else cfg
+
+
+def _expert_bytes(tree):
+    """Bytes of the routed experts' stacks in a store."""
+    return sum(_tree_bytes(sub["ffn"][n]) for sub in tree["layers"].values()
+               if "router" in sub["ffn"] for n in ("we_g", "we_u", "we_d"))
+
+
+def _moe_world_one(torch, device, ref):
+    """Phase serve_sharded_moe, step 1: a world of one rank in this
+    process (``one_rank_world``) serving over serve_moe's store (the
+    (1, 1) slices are the store's own tensors: no copy): the token streams
+    bit for bit and the launches as serve_moe's, the collectives as their
+    formula; then the reorder baseline on the same engine (every fused
+    matmul on its plain version, teacher-forced), capped on the card at
+    MOE_REORDER_CEILING.  Returns (launches, the baseline)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.engine import ServeEngine
+    cfg, phase = ref["cfg"], "serve_sharded_moe"
+    with one_rank_world(torch, device) as backend:
+        eng = ServeEngine(cfg, ref["store"], ref["policy"],
+                          mesh=mesh_lib.make_test_mesh(1, 1), backend="cuda",
+                          device=device, slots=ref["slots"],
+                          max_len=ref["max_len"])
+        _, launches, _, _ = sharded_serve(
+            torch, eng, cfg, ref["prompts"], ref["new_tokens"], ref["want"],
+            phase, mesh="1x1", backend=backend, n_layers=cfg.n_layers)
+        if device.type == "cuda" and launches != ref["launches"]:
+            raise AssertionError(f"{phase}: (1, 1) launches {launches} != "
+                                 f"serve_moe's {ref['launches']}")
+        baseline = reorder_baseline(torch, eng, cfg, ref["prompts"],
+                                    ref["new_tokens"], ref["want"],
+                                    ref["logits"])
+        on_card = device.type == "cuda"
+        emit(phase, step="reorder_baseline",
+             ceiling=MOE_REORDER_CEILING if on_card else None, **baseline)
+        if on_card and baseline["max_dev"] > MOE_REORDER_CEILING:
+            raise AssertionError(
+                f"{phase}: the reorder baseline moved the logits by "
+                f"{baseline['max_dev']}, past its ceiling "
+                f"{MOE_REORDER_CEILING}")
+    return launches, baseline
+
+
+def sharded_moe_rank(rank: str, world: str, port: str, rehearsal: str,
+                     spec_file: str):
+    """One rank of phase serve_sharded_moe's two-rank run: draw its slices
+    of serve_moe's store (``ServeEngine.from_init`` on serve_moe's seed:
+    every leaf drawn as one device draws it, this rank's slice kept) and
+    hold its bytes to ``MeshRules``; hold every kernel call of its first
+    dispatch against the plain version, and the exact part
+    (``moe_exact``); serve serve_moe's prompts teacher-forced on its
+    streams, the logits within the tolerance, launches and collectives
+    against their formulas; profile one decode dispatch on rank 0; write
+    its results to SHARD_MOE_DIR."""
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, SHARD_MOE_DIR) as (
+            torch, device, rank, world, out):
+        cfg = moe_config(rehearsal == "1").replace(n_layers=spec["n_layers"])
+        policy = MXSF_INFER.replace(kv_cache_fmt="mxsf",
+                                    block_1d=spec["block_1d"])
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_init(
+            cfg, policy, torch.Generator(device=device).manual_seed(
+                spec["seed"]), mesh=mesh_lib.make_test_mesh(1, world),
+            backend="cuda", device=device, slots=spec["slots"],
+            max_len=spec["max_len"])
+        _sync(torch, device)
+        held = _tree_bytes(eng.params)
+        stats = eng.stats()["store_nbytes_per_device"]
+        counted = next(v for k, v in stats.items()
+                       if k.startswith(f"rank{rank}:"))
+        predicted = eng.rules.shard_nbytes(
+            M.packed_model_specs(cfg, eng.policy), eng._store_sh)
+        out.update(n_layers=cfg.n_layers,
+                   build_seconds=time.perf_counter() - t0,
+                   store_bytes=held, stats_store_bytes=counted,
+                   predicted_store_bytes=predicted,
+                   expert_bytes=_expert_bytes(eng.params),
+                   expert_rows=eng.params["layers"]["sub0"]["ffn"][
+                       "we_g"].shape[1],
+                   cache_bytes=_tree_bytes(eng.cache),
+                   tp_plan=eng.tp_plan._asdict(),
+                   attn_backend=eng.attn_backend,
+                   peak_bytes=(torch.cuda.max_memory_allocated()
+                               if device.type == "cuda" else None))
+        if not held == counted == predicted:
+            raise AssertionError(f"store {held} B, stats {counted} B, "
+                                 f"MeshRules {predicted} B")
+        out["first_dispatch"] = sharded_first_dispatch(torch, eng, cfg,
+                                                       spec["prompts"])
+        out["exact"] = moe_exact(torch, eng, cfg, spec["prompts"],
+                                 torch.load(spec["first"]))
+        outs, launches, collectives, check = sharded_serve(
+            torch, eng, cfg, spec["prompts"], spec["new_tokens"],
+            spec["want"], "serve_sharded_moe",
+            ref_logits=torch.load(spec["ref_logits"]),
+            floor_tol=spec["floor_tol"], mesh=f"1x{world}", rank=rank,
+            backend="gloo")
+        out.update(tokens=outs, launches=launches, collectives=collectives,
+                   collectives_per_dispatch=sharded_collectives(
+                       cfg, eng, breakdown=True),
+                   teacher_forced=check, stats=eng.stats())
+        out["profile"] = rank_profile(torch, eng, rank, "serve_sharded_moe")
+
+
+def phase_serve_sharded_moe(torch, device, args, ref, rehearsal):
+    """Phase serve_sharded_moe: expert parallelism on serve_moe's model,
+    store, prompts and streams (``ref``, whose store this phase frees).
+    Step 1: a world of one rank in this process (``_moe_world_one``).
+    Step 2: SHARD_TP ranks sharing the card on a (1, SHARD_TP) mesh, each
+    in its own process (``sharded_moe_rank``), each holding its half of
+    the experts.  Returns the launches of both runs (rank 0's for the
+    two-rank run)."""
+    import shutil
+    t_phase = time.perf_counter()
+    cfg, phase = ref["cfg"], "serve_sharded_moe"
+    emit(phase, step="plan", n_layers=cfg.n_layers, of=moe_config(
+        rehearsal).n_layers, experts=cfg.padded_experts, ranks=SHARD_TP)
+    try:
+        launches, baseline = _moe_world_one(torch, device, ref)
+        del ref["store"]  # both ranks' halves do not fit beside it
+        free_device(torch, device)
+        MOE_REF_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save(ref["logits"], MOE_REF_DIR / "logits.pt")
+        torch.save(ref["first"], MOE_REF_DIR / "first.pt")
+        ranks = run_rank_processes(phase, "sharded_moe_rank", dict(
+            n_layers=cfg.n_layers, block_1d=ref["policy"].block_1d,
+            seed=args.seed, slots=ref["slots"], max_len=ref["max_len"],
+            prompts=ref["prompts"], new_tokens=ref["new_tokens"],
+            want=ref["want"], ref_logits=str(MOE_REF_DIR / "logits.pt"),
+            first=str(MOE_REF_DIR / "first.pt"),
+            floor_tol=REORDER_FACTOR * baseline["max_dev"]),
+            SHARD_MOE_DIR, SHARD_TP, rehearsal)
+    finally:
+        shutil.rmtree(MOE_REF_DIR, ignore_errors=True)
+    emit(phase, step="done", seconds=time.perf_counter() - t_phase,
+         n_layers=cfg.n_layers, ranks=SHARD_TP,
+         free_running_equal=ranks[0]["teacher_forced"]["free_running_equal"])
+    return {"serve_sharded_moe_1x1": launches,
+            f"serve_sharded_moe_1x{SHARD_TP}": ranks[0]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3650,7 +3997,11 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
     free_device(torch, device)
     launches["ring_swa"] = phase_ring_swa(torch, device, args, rehearsal)
     free_device(torch, device)
-    launches["serve_moe"] = phase_serve_moe(torch, device, args, rehearsal)
+    launches["serve_moe"], moe_ref = phase_serve_moe(torch, device, args,
+                                                     rehearsal)
+    launches.update(phase_serve_sharded_moe(torch, device, args, moe_ref,
+                                            rehearsal))
+    del moe_ref
     free_device(torch, device)
     launches["serve_ssm"] = phase_serve_ssm(torch, device, args, rehearsal)
     launches["serve_hybrid"] = phase_serve_hybrid(torch, device, args,

@@ -15,6 +15,11 @@ a card of its own, else gloo:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 examples/torch_serve_decode.py --device cpu --mesh 2x2
 
+An MoE config serves the same way, each rank running its own experts
+(expert parallelism over the model axis):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 examples/torch_serve_decode.py --device cpu --mesh 1x2 --arch qwen2-moe-a2.7b-reduced
+
 ``--prefill-chunk auto`` is the port's ``auto_prefill_chunk``: the
 engine-shape heuristic, without the JAX package's measured floor (no
 kernel benchmark is ported).

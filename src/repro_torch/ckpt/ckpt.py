@@ -29,7 +29,9 @@ Sharded trees (``shardings=``, a tree of ``sharding.NamedSharding`` from
 ``restore`` reads each member on the host, as the JAX package's
 ``_place_sharded`` does, and moves only this rank's slice to the device;
 ``save`` gathers every leaf to the full tensor and rank 0 writes it in the
-same format, so a tree saved on one mesh restores onto another.
+same format, so a tree saved on one mesh restores onto another.  An uneven
+expert split (``NamedSharding.uneven``) restores zero-padded to the rows
+every rank holds, and saves cut back to its extent.
 """
 from __future__ import annotations
 
@@ -139,6 +141,8 @@ def _gathered(state, shardings):
     for d, entry in enumerate(ns.spec):
         full = shd.map_parts(full, lambda t: shd.all_gather(t, entry, d,
                                                          mesh=ns.mesh))
+    for d, n in ns.uneven:  # the zero rows past an uneven split's end
+        full = full.narrow(d, 0, n)
     if isinstance(state, QuantizedTensor):
         full = QuantizedTensor(full.codes, full.scale_e8m0, state.fmt,
                                tuple(state.block), tuple(shardings.shape),
@@ -300,7 +304,7 @@ def _restore_tree(node, data, device, prefix=(), sh=None):
     if isinstance(node, torch.Tensor):
         t = _read(data, key, node)
         if sh is not None:
-            t = shard_leaf(t, sh.spec, sh.mesh).clone()
+            t = shard_leaf(t, sh.spec, sh.mesh, shd.uneven_dims(sh)).clone()
         return _place(t, node, device)
     raise TypeError(f"restore target leaf {key!r} is a "
                     f"{type(node).__name__}, not a tensor")

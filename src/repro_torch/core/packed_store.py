@@ -205,13 +205,21 @@ def shard_block_aligned(qt: B.QuantizedTensor, spec,
     return True
 
 
-def shard_leaf(leaf, spec, mesh):
+def shard_leaf(leaf, spec, mesh, uneven=()):
     """This rank's slice of ``leaf`` (a tensor, or a QuantizedTensor whose
     codes and scales share ``spec``) on ``mesh``; views, no copy.  A
     packed slice's logical shape is the part of the logical extent it
-    covers."""
+    covers.  A tensor dim in ``uneven`` may split unevenly: a short slice
+    is zero-padded to the rows every rank holds (a copy), as GSPMD pads
+    the dim."""
     if not isinstance(leaf, B.QuantizedTensor):
-        return leaf[shd.shard_slices(leaf.shape, spec, mesh)]
+        local = leaf[shd.shard_slices(leaf.shape, spec, mesh, uneven)]
+        full = shd.shard_shape(leaf.shape, spec, mesh.shape, uneven)
+        if tuple(local.shape) == full:
+            return local
+        out = local.new_zeros(full)
+        out[tuple(slice(0, n) for n in local.shape)] = local
+        return out
     spec = tuple(spec) + (None,) * (leaf.codes.ndim - len(spec))
     lead = leaf.codes.ndim - len(leaf.shape)  # a layer slice keeps no lead
     shape = tuple(

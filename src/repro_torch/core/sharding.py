@@ -17,7 +17,10 @@ axis.  Outside a ``mesh_context`` every collective is a no-op and
   its mesh.  ``normalize`` compares two specs as JAX does (``("data",)``
   is ``"data"``, trailing ``None`` dims drop).
 * ``shard_slices`` / ``local_extent``: which slice of a dim a rank holds
-  (a tuple of axes splits major to minor, as in JAX).
+  (a tuple of axes splits major to minor, as in JAX).  A dim that
+  ``NamedSharding.uneven`` names may split unevenly, as GSPMD pads it:
+  each rank holds ``c = ceil(n / shards)`` rows, ``[i c, min((i+1) c,
+  n))``, and zero rows past the end (``shard_shape``).
 * Roles (``spec_for``): 'batch' -> DP axes; 'heads'/'kv'/'experts'/'ff'/
   'hidden'/'seq'/'vocab' -> the TP axis, divisibility-guarded.
 * ``counts()`` -- collectives issued since ``reset_counts()``, by kind,
@@ -39,8 +42,9 @@ from .blocking import QuantizedTensor
 __all__ = ["Mesh", "AbstractMesh", "NamedSharding", "P", "normalize",
            "axes_of", "mesh_context", "active", "spec_for", "all_reduce",
            "all_gather", "broadcast", "counts", "reset_counts",
-           "per_device_nbytes", "shard_slices", "local_extent",
-           "to_compute", "map_parts", "axis_size", "shard_index", "TP_ROLES"]
+           "per_device_nbytes", "shard_slices", "shard_shape",
+           "uneven_dims", "local_extent", "to_compute", "map_parts",
+           "axis_size", "shard_index", "TP_ROLES"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mx_mesh_ctx",
                                                       default=None)
@@ -87,8 +91,17 @@ def AbstractMesh(sizes: Sequence[int], names: Sequence[str]) -> Mesh:
 
 
 class NamedSharding(NamedTuple):
+    """A spec on a mesh; ``uneven`` holds a ``(dim, logical extent)`` pair
+    for each dim that may split unevenly (the MoE expert dim)."""
     mesh: Mesh
     spec: tuple
+    uneven: Tuple[Tuple[int, int], ...] = ()
+
+
+def uneven_dims(ns) -> Tuple[int, ...]:
+    """The dims a sharding lets split unevenly (none for a QuantizedTensor
+    of shardings: packed leaves split only where their blocks divide)."""
+    return tuple(d for d, _ in getattr(ns, "uneven", ()))
 
 
 def P(*entries) -> tuple:
@@ -127,19 +140,36 @@ def shard_index(entry, mesh: Mesh) -> int:
     return idx
 
 
-def shard_slices(shape, spec, mesh: Mesh) -> Tuple[slice, ...]:
+def _extent(dim: int, n: int, d: int, uneven) -> int:
+    """Rows each of ``n`` shards holds of dim ``d`` (extent ``dim``)."""
+    if dim % n == 0:
+        return dim // n
+    if d in uneven:
+        return -(-dim // n)
+    raise ValueError(f"dim {d} of extent {dim} does not split {n} ways")
+
+
+def shard_slices(shape, spec, mesh: Mesh, uneven=()) -> Tuple[slice, ...]:
     """The slice of each dim of a ``shape`` array that this rank holds
-    under ``spec`` (a split dim divides its axes evenly: the rules
-    guarantee it)."""
+    under ``spec``.  A split dim divides its axes evenly (the rules
+    guarantee it), except the dims in ``uneven``: there the slice of a
+    rank near the end is short, or empty."""
     out = []
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-    for dim, entry in zip(shape, spec):
-        n = axis_size(entry, mesh.shape)
-        if dim % n:
-            raise ValueError(f"dim {dim} does not split {n} ways ({spec})")
-        i, c = shard_index(entry, mesh), dim // n
-        out.append(slice(i * c, (i + 1) * c))
+    for d, (dim, entry) in enumerate(zip(shape, spec)):
+        c = _extent(dim, axis_size(entry, mesh.shape), d, uneven)
+        i = shard_index(entry, mesh)
+        out.append(slice(min(i * c, dim), min((i + 1) * c, dim)))
     return tuple(out)
+
+
+def shard_shape(shape, spec, sizes, uneven=()) -> Tuple[int, ...]:
+    """The shape of one rank's slice of a ``shape`` array under ``spec``
+    (``sizes``: axis name -> size), zero rows of an uneven dim
+    included: every rank holds the same shape."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(_extent(dim, axis_size(entry, sizes), d, uneven)
+                 for d, (dim, entry) in enumerate(zip(shape, spec)))
 
 
 def local_extent(logical: int, padded: int, entry, mesh: Mesh) -> int:

@@ -28,9 +28,9 @@ where they mean something on one card:
 A meta trace is slow (PyTorch's meta functions are Python decompositions,
 ~0.4 ms an aten op), so a full-width cell on the value-domain attention
 path takes tens of seconds.  The dry run on a mesh (``--multi-pod``, a
-per-rank trace, the collectives) is not ported yet (ROADMAP.md, Queue 1
-item 8); the engine's sharding is (``launch/mesh.py``).  Results land in
-``experiments/dryrun_torch/<arch>__<shape>__1x1.json``.
+per-rank trace, the collectives) is not ported yet (ROADMAP.md, "The dry
+run on a mesh"); the engine's sharding is (``launch/mesh.py``).  Results
+land in ``experiments/dryrun_torch/<arch>__<shape>__1x1.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k
@@ -266,7 +266,7 @@ def main(argv=None):
     if args.multi_pod or args.multi_pod_only:
         raise NotImplementedError("the dry run on a mesh is not ported "
                                   "yet; it covers one card (ROADMAP.md, "
-                                  "Queue 1 item 8)")
+                                  "\"The dry run on a mesh\")")
     os.makedirs(args.out, exist_ok=True)
     archs = ([a for a in list_configs() if a != "deit-tiny"]
              if args.arch is None else [args.arch])

@@ -23,6 +23,7 @@ ranks that share a card); neither maker starts one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 from ..core import packed_store
@@ -49,7 +50,6 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
     """A mesh of ``shape`` over every rank of the process group (row-major:
     rank r sits at the coordinates of r).  ``device_type`` of the
     ``DeviceMesh``: ``"cuda"`` under nccl, else ``"cpu"``."""
-    import math
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     n = _world()
@@ -165,16 +165,20 @@ class MeshRules:
             shape = tuple(leaf.shape)
             lead = len(shape) - _base_rank(name)
             spec = self.param_spec(name, shape[lead:])
-            return self.named(P(*([None] * lead + list(spec))))
+            ns = self.named(P(*([None] * lead + list(spec))))
+            if name in _EXPERT_LEAVES:  # GSPMD pads an uneven expert dim
+                ns = ns._replace(uneven=((lead, shape[lead]),))
+            return ns
 
         return _map_with_path(rule, params_shapes)
 
     def shard_nbytes(self, tree, shardings=None) -> int:
         """Bytes one rank holds of ``tree`` (tensors, ``meta`` ones
         included, and packed leaves) placed by ``shardings`` (default:
-        ``param_sharding_tree(tree)``): each leaf's bytes over the shard
-        count of its spec.  The rules split evenly, so every rank holds
-        the same bytes."""
+        ``param_sharding_tree(tree)``): each leaf's local shape
+        (``sharding.shard_shape``).  An uneven expert split counts the
+        ceil(E / shards) rows every rank holds, zero rows included, so
+        every rank holds the same bytes."""
         shardings = shardings or self.param_sharding_tree(tree)
         total = 0
         for leaf, ns in zip(packed_store.tree_leaves(tree),
@@ -183,10 +187,9 @@ class MeshRules:
                                               ns.scale_e8m0)) \
                 if isinstance(leaf, QuantizedTensor) else ((leaf, ns),)
             for t, n in parts:
-                shards = 1
-                for entry in n.spec:
-                    shards *= shd.axis_size(entry, self.mesh.shape)
-                total += t.numel() * t.element_size() // shards
+                local = shd.shard_shape(t.shape, n.spec, self.mesh.shape,
+                                        shd.uneven_dims(n))
+                total += math.prod(local) * t.element_size()
         return total
 
     # -- activation/batch rules ------------------------------------------
@@ -196,6 +199,8 @@ class MeshRules:
             spec[batch_axis] = self.dp
         return P(*spec)
 
+
+_EXPERT_LEAVES = ("we_g", "we_u", "we_d")
 
 _BASE_RANK = {
     "emb": 2, "head": 2, "wq": 2, "wk": 2, "wv": 2, "wo": 2, "wg": 2,

@@ -31,6 +31,9 @@ brings a leaf to the layout the scheme computes with (gathering what the
 stored spec splits otherwise).  wq/wk/wv (and biases), wg/wu and the head
 are column-parallel; wo and wd row-parallel, each followed by one f32
 all-reduce over the model axis; head counts come from the local shapes.
+Expert parallelism: an MoE layer routes and dispatches whole on every
+rank, each rank runs its own experts, and their outputs are gathered
+before the combine; the shared expert splits as a dense FFN does.
 Where the cache's position axis is sharded (sequence parallelism) each
 rank writes the columns it owns and gathers the cache at use.  Outside a
 context all of this is a no-op.
@@ -68,16 +71,21 @@ def dense(x, w, policy):
 # ---------------------------------------------------------------------------
 
 class TPPlan(NamedTuple):
-    """Which parts of a dense decoder split over the model axis: ``heads``
-    the query and kv heads together (wq/wk/wv and biases by columns, wo by
+    """Which parts of a decoder split over the model axis: ``heads`` the
+    query and kv heads together (wq/wk/wv and biases by columns, wo by
     rows; the attention kernel reads whole kv heads of its query heads, so
-    the query heads never split without theirs), ``mlp`` d_ff (wg/wu
-    columns, wd rows), ``vocab`` the embedding rows and head columns.  A
-    part that cannot split whole heads, whole MX blocks or whole
-    activation blocks runs replicated."""
+    the query heads never split without theirs), ``mlp`` a dense FFN's
+    d_ff (wg/wu columns, wd rows), ``vocab`` the embedding rows and head
+    columns, ``experts`` the MoE expert dim (each rank runs its own
+    experts), ``shared`` the MoE shared expert's width as ``mlp`` splits
+    d_ff.  A part that cannot split whole heads, whole MX blocks or whole
+    activation blocks runs replicated; the expert dim always splits, as
+    GSPMD splits it, unevenly too."""
     heads: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
+    shared: bool = False
 
 
 def _block(w, dim: int) -> int:
@@ -86,10 +94,11 @@ def _block(w, dim: int) -> int:
 
 def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
             tp_size: int) -> TPPlan:
-    """The plan of one dense decoder layer's leaves ``layer`` (attn, ffn)
-    and the top-level ``top`` (emb, head) at ``tp_size``.  A row-parallel
-    input is quantized along K in the policy's blocks, so its local K must
-    hold whole blocks: then its codes equal the one-device codes."""
+    """The plan of one decoder super-layer's leaves ``layer`` (``sub{j}``:
+    attn, ffn; a dense FFN and an MoE one wherever they sit) and the
+    top-level ``top`` (emb, head) at ``tp_size``.  A row-parallel input is
+    quantized along K in the policy's blocks, so its local K must hold
+    whole blocks: then its codes equal the one-device codes."""
     xk = (policy.block_1d if policy.block_mode == "1d" else
           policy.tile if policy.block_mode == "2d" else 1)
 
@@ -101,17 +110,26 @@ def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
         return (n % tp_size == 0 and local % _block(w, 0) == 0
                 and local % xk == 0)
 
-    dh, a, f = cfg.head_dim, layer["attn"], layer["ffn"]
+    def ffn_splits(f, width):
+        return f is not None and cols(f["wu"], width) and \
+            rows(f["wd"], width)
+
+    subs = [layer[k] for k in sorted(layer)]
+    ffns = [s["ffn"] for s in subs]
+    dense = next((f for f in ffns if "router" not in f), None)
+    moe_ffn = next((f for f in ffns if "router" in f), None)
+    dh, a = cfg.head_dim, subs[0]["attn"]
     heads = (cfg.n_heads % tp_size == 0 and cfg.n_kv % tp_size == 0
              and cols(a["wq"], cfg.n_heads * dh)
              and rows(a["wo"], cfg.n_heads * dh)
              and cols(a["wk"], cfg.n_kv * dh))
-    mlp = (cfg.d_ff % tp_size == 0 and cols(f["wu"], cfg.d_ff)
-           and rows(f["wd"], cfg.d_ff))
     head = top.get("head")
     vocab = cfg.padded_vocab % tp_size == 0 and (
         head is None or cols(head, cfg.padded_vocab))
-    return TPPlan(heads, mlp, vocab)
+    shared = moe_ffn is not None and ffn_splits(
+        moe_ffn.get("shared"), cfg.expert_ff * cfg.n_shared_experts)
+    return TPPlan(heads, ffn_splits(dense, cfg.d_ff), vocab,
+                  moe_ffn is not None and tp_size > 1, shared)
 
 
 def plan():
@@ -120,24 +138,26 @@ def plan():
     return None if ctx is None else ctx.get("plan")
 
 
-def use(p, name, split=None):
+def use(p, name, split=None, key=None):
     """Leaf ``p[name]`` in the compute layout of the active mesh context
     (``sharding.to_compute``: ``split`` the dim kept split over the model
-    axis); the leaf itself outside one."""
+    axis); the leaf itself outside one.  ``key``: the name the context
+    files the leaf's spec under, where it is not ``name`` (the MoE shared
+    expert's ``shared/wg``...)."""
     ctx = shd.active()
-    leaf = p[name]
-    if ctx is None or name not in ctx.get("specs", {}):
+    leaf, key = p[name], key or name
+    if ctx is None or key not in ctx.get("specs", {}):
         return leaf
-    spec, shape = ctx["specs"][name]
+    spec, shape = ctx["specs"][key]
     return shd.to_compute(leaf, spec, shape, split)
 
 
-def _row_parallel(x, p, name, split: bool, policy):
+def _row_parallel(x, p, name, split: bool, policy, key=None):
     """``dense`` of a row-parallel linear: the local K slice's f32 partial
     sums, all-reduced over the model axis, cast once (as ``dense`` casts
     one device's sums).  Replicated (``split`` False) or outside a
     context: ``dense``."""
-    w = use(p, name, 0 if split else None)
+    w = use(p, name, 0 if split else None, key)
     if not split:
         return dense(x, w, policy)
     if isinstance(w, QuantizedTensor):
@@ -474,18 +494,22 @@ def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
     return _row_parallel(ctx, p, "wo", _split("heads"), policy)
 
 
-def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy):
-    split = _split("mlp")
+def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy, part: str = "mlp"):
+    """The FFN; ``part`` the ``TPPlan`` field that splits it: ``"mlp"`` a
+    dense FFN, ``"shared"`` an MoE layer's shared expert (its leaves'
+    specs filed as ``shared/<name>``)."""
+    split = _split(part)
     col = 1 if split else None
+    pre = "" if part == "mlp" else part + "/"
     if cfg.mlp in ("swiglu", "geglu"):
         act = Fn.silu if cfg.mlp == "swiglu" else \
             (lambda v: Fn.gelu(v, approximate="tanh"))
-        gate = act(dense(x, use(p, "wg", col), policy))
-        hdn = gate * dense(x, use(p, "wu", col), policy)
+        gate = act(dense(x, use(p, "wg", col, pre + "wg"), policy))
+        hdn = gate * dense(x, use(p, "wu", col, pre + "wu"), policy)
     else:
-        hdn = Fn.gelu(dense(x, use(p, "wu", col), policy),
+        hdn = Fn.gelu(dense(x, use(p, "wu", col, pre + "wu"), policy),
                       approximate="tanh")
-    return _row_parallel(hdn, p, "wd", split, policy)
+    return _row_parallel(hdn, p, "wd", split, policy, pre + "wd")
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -541,13 +565,50 @@ def _combine(ye, slot, valid, st, sw, S: int, k: int):
     return y
 
 
+def _expert_ffn(p, xe, cfg: ModelConfig, policy: QuantPolicy):
+    """The expert FFNs on the dispatched rows xe (R, E, C, d) -> ye (R, E,
+    C, d).  Under a plan that splits the experts each rank runs its own
+    c = ceil(E / ranks) of them (zero rows past the end: never routed, and
+    zero out) and ye is gathered over the model axis along the expert dim:
+    whole expert outputs move, so the combine sees one device's rows."""
+    split = _split("experts")
+    wg, wu, wd = (use(p, n, 0 if split else None)
+                  for n in ("we_g", "we_u", "we_d"))
+    R, E = xe.shape[:2]
+    if split:
+        ctx = shd.active()
+        c = wg.shape[0]
+        lo = min(ctx["mesh"].coord(ctx["tp"]) * c, E)
+        xe = xe[:, lo:lo + c]
+        if xe.shape[1] < c:
+            xe = torch.cat([xe, xe.new_zeros((R, c - xe.shape[1]) +
+                                             tuple(xe.shape[2:]))], 1)
+    act = Fn.silu if cfg.mlp != "gelu" else \
+        (lambda v: Fn.gelu(v, approximate="tanh"))
+    # one expert stack cast to the activation dtype at a time (each cast
+    # is a full copy of the stack)
+    gate = act(mx_einsum("becd,edf->becf", xe, wg.to(xe.dtype), policy,
+                         axes=(-1, -2), g_axes=(-1, -2)))
+    up = mx_einsum("becd,edf->becf", xe, wu.to(xe.dtype), policy,
+                   axes=(-1, -2), g_axes=(-1, -2))
+    ye = mx_einsum("becf,efd->becd", gate * up, wd.to(xe.dtype), policy,
+                   axes=(-1, -2), g_axes=(-1, -2))
+    if split:
+        ye = shd.all_gather(ye, ctx["tp"], 1)[:, :E]
+    return ye
+
+
 def moe(p, x, cfg: ModelConfig, policy: QuantPolicy):
     """x: (B, S, d) -> (B, S, d).  Row = sequence (decode regroups the
-    batch into one row upstream)."""
+    batch into one row upstream).  Under a mesh context the router, the
+    routing and the dispatch run whole on every rank, on the same input,
+    so every rank's slots are one device's; only the expert FFNs split
+    (``_expert_ffn``), and the combine runs on the gathered outputs in
+    one device's order."""
     B, S, d = x.shape
     E, k = cfg.padded_experts, cfg.top_k
     C = max(1, int(math.ceil(S * k * cfg.capacity_factor / cfg.n_experts)))
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    logits = torch.einsum("bsd,de->bse", x.float(), use(p, "router"))
     if E != cfg.n_experts:  # mask padded (dead) experts out of routing
         dead = torch.arange(E, device=x.device) >= cfg.n_experts
         logits = logits + torch.where(dead, -1e30, 0.0)
@@ -555,19 +616,10 @@ def moe(p, x, cfg: ModelConfig, policy: QuantPolicy):
     topv, topi = _top_k(probs, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     xe, slot, valid, st, sw = _row_dispatch(x, topi, topv, E, C)
-    act = Fn.silu if cfg.mlp != "gelu" else \
-        (lambda v: Fn.gelu(v, approximate="tanh"))
-    # one expert stack cast to the activation dtype at a time (each cast
-    # is a full copy of the stack)
-    gate = act(mx_einsum("becd,edf->becf", xe, p["we_g"].to(xe.dtype),
-                         policy, axes=(-1, -2), g_axes=(-1, -2)))
-    up = mx_einsum("becd,edf->becf", xe, p["we_u"].to(xe.dtype), policy,
-                   axes=(-1, -2), g_axes=(-1, -2))
-    ye = mx_einsum("becf,efd->becd", gate * up, p["we_d"].to(xe.dtype),
-                   policy, axes=(-1, -2), g_axes=(-1, -2))
+    ye = _expert_ffn(p, xe, cfg, policy)
     y = _combine(ye, slot, valid, st, sw.to(x.dtype), S, k)
     if "shared" in p:
-        y = y + mlp(p["shared"], x, cfg, policy)
+        y = y + mlp(p["shared"], x, cfg, policy, part="shared")
     return y
 
 

@@ -19,7 +19,7 @@ from typing import Dict
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..core import packed_store
+from ..core import packed_store, sharding
 from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
 from . import decoding, transformer
@@ -132,9 +132,29 @@ def _with_lead(stack, lead):
     return stack.reshape(lead + tuple(stack.shape[1:]))
 
 
+def _keep(val, ns, lead: int):
+    """This rank's slice of one drawn leaf (``lead`` stacked dims fewer
+    than the sharding ``ns`` of its stack), a copy: the whole leaf can be
+    freed.  ``ns`` None keeps the leaf."""
+    if ns is None:
+        return val
+    one = ns.codes if isinstance(ns, QuantizedTensor) else ns
+    dims = tuple(d - lead for d in sharding.uneven_dims(one))
+    local = packed_store.shard_leaf(val, tuple(one.spec)[lead:], one.mesh,
+                                    dims)
+    return sharding.map_parts(local, torch.clone)
+
+
+def _at_path(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 @torch.no_grad()
 def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
-                       generator: torch.Generator, device=None):
+                       generator: torch.Generator, device=None,
+                       shardings=None):
     """The packed store of ``init_params(cfg, generator, device)``, built
     leaf by leaf: each weight is drawn in f32, packed, and freed before the
     next one is drawn, so the f32 tree never exists.  Draws the same values
@@ -143,7 +163,10 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     routers and expert stacks stay f32 values, as in the JAX package's
     store (only their shared expert's MLP is packed), and so does an
     encoder-decoder's cross-attention.  ``device=None`` is the generator's
-    own device."""
+    own device.  ``shardings`` (``launch/mesh.MeshRules.
+    param_sharding_tree`` of ``packed_model_specs``): each leaf is drawn
+    whole, as one device draws it, and only this rank's slice is kept, so
+    the slices equal those of the one-device store bit for bit."""
     if cfg.family == "encoder":
         raise ValueError("init_packed_params builds LM stores; pack an "
                          "encoder with pack_model_params")
@@ -152,14 +175,17 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
     if not packed_store.packable_policy(policy):
         raise ValueError("init_packed_params needs a quantizing policy")
     dtype = cfg.compute_dtype
-    params = {"final_norm": {"w": torch.ones(cfg.d_model, device=device)}}
-    params["emb"] = transformer.draw_embedding(cfg, generator, device)
-    if not cfg.tie_embeddings:
-        params["head"] = packed_store.pack_leaf(
-            transformer.draw_head(cfg, generator, device), policy, dtype)
-    else:
-        params["head"] = packed_store.pack_leaf(params["emb"].T, policy,
-                                                dtype)
+    sh = (lambda *path: None) if shardings is None else \
+        (lambda *path: _at_path(shardings, path))
+    params = {"final_norm": {"w": _keep(torch.ones(
+        cfg.d_model, device=device), sh("final_norm", "w"), 0)}}
+    emb = transformer.draw_embedding(cfg, generator, device)
+    head = (emb.T if cfg.tie_embeddings else
+            transformer.draw_head(cfg, generator, device))
+    params["emb"] = _keep(emb, sh("emb"), 0)
+    params["head"] = _keep(packed_store.pack_leaf(head, policy, dtype),
+                           sh("head"), 0)
+    del emb, head
     for name, lead, leaves in transformer.stacks(cfg):
         n = math.prod(lead)
         stacked = [None] * len(leaves)
@@ -168,6 +194,7 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
                 val = transformer.draw_leaf(shape, kind, generator, device)
                 if _packs(cfg, path):
                     val = packed_store.pack_leaf(val, policy, dtype)
+                val = _keep(val, sh(name, *path), len(lead))
                 if stacked[i] is None:
                     stacked[i] = _empty_stack(val, n)
                 _set_layer(stacked[i], layer, val)

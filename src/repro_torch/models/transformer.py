@@ -298,9 +298,22 @@ def _embed_tokens(params, batch, cfg: ModelConfig):
 def _apply_ffn(p, x, cfg: ModelConfig, policy: QuantPolicy, is_moe: bool):
     if not is_moe:
         return blk.mlp(p, x, cfg, policy)
-    if x.shape[1] == 1:  # decode: route across the batch, not the row
+    if x.shape[1] != 1:
+        return blk.moe(p, x, cfg, policy)
+    # decode: route across the batch, not the row.  Where a mesh context
+    # splits the slot batch over the DP axes (``batch_rows``: the axes and
+    # this rank's first row), the rows of every DP rank are gathered and
+    # routed as one row, as the one-device engine routes them (the
+    # capacity and the drops come from the whole batch); this rank keeps
+    # its own rows of the output
+    ctx = shd.active()
+    rows = None if ctx is None else ctx.get("batch_rows")
+    if rows is None:
         return blk.moe(p, x.transpose(0, 1), cfg, policy).transpose(0, 1)
-    return blk.moe(p, x, cfg, policy)
+    axes, lo = rows
+    whole = shd.all_gather(x, axes, 0)
+    y = blk.moe(p, whole.transpose(0, 1), cfg, policy).transpose(0, 1)
+    return y[lo:lo + x.shape[0]]
 
 
 def _apply_sublayer(p, x, cfg: ModelConfig, policy: QuantPolicy, *,

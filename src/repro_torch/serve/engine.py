@@ -49,8 +49,12 @@ sends attention to the value path and says so in ``shard_fallback``; a
 packed leaf whose shards would tear MX blocks, which ``MeshRules`` never
 produces, raises.  Attention whose heads cannot split runs replicated on
 the kernel.
-``stats()`` is then a collective (every rank calls it).  MoE configs do
-not shard yet (expert parallelism: ROADMAP.md).
+``stats()`` is then a collective (every rank calls it).  MoE configs
+shard their experts over the model axis (``MeshRules``: unevenly too,
+zero rows past the end): every rank routes the whole slot batch, runs its
+own experts and gathers their outputs (``blocks.moe``).  ``from_init``
+draws a random store as one device would and keeps only this rank's
+slices, so no rank ever holds the whole store.
 """
 from __future__ import annotations
 
@@ -137,7 +141,9 @@ def _check_blocks_aligned(store, shardings, axis_sizes):
 def _specs_by_name(store, shardings, path=()) -> dict:
     """``{leaf name: (stored spec, logical shape)}`` of each leaf's base
     dims (the stacked-layer dims are never split): what ``blocks.use``
-    reads.  Every leaf of a name must share them."""
+    reads.  An MoE shared expert's leaves are filed as ``shared/<name>``,
+    apart from a dense FFN's of the same names; every leaf of a name must
+    share them."""
     out = {}
     if isinstance(store, dict):
         for k in store:
@@ -153,7 +159,8 @@ def _specs_by_name(store, shardings, path=()) -> dict:
         return out
     spec = tuple(_spec(shardings))
     spec += (None,) * (len(store.shape) - len(spec))
-    return {path[-1]: (spec[-r:], tuple(store.shape[-r:]))}
+    name = path[-1] if path[-2:-1] != ("shared",) else f"shared/{path[-1]}"
+    return {name: (spec[-r:], tuple(store.shape[-r:]))}
 
 
 class ServeEngine:
@@ -181,10 +188,6 @@ class ServeEngine:
         if mesh is not None and mesh.device_mesh is None:
             raise ValueError(f"{mesh} is abstract: a sharded engine needs "
                              "a mesh over a process group (launch/mesh)")
-        if mesh is not None and cfg.n_experts > 0:
-            raise NotImplementedError(
-                "expert parallelism under a mesh is not ported yet; see "
-                "ROADMAP.md, Queue 1 item 7")
         # the cache's precision follows the compute dtype, as in the JAX
         # engine: a bf16 cache under an f32 config would round K/V
         cache_kw = dict(dtype=torch_dtype(cfg.compute_dtype), ring=False,
@@ -276,10 +279,11 @@ class ServeEngine:
         if placed is None:
             params = packed_store.tree_map(
                 lambda leaf, ns: shd.map_parts(
-                    packed_store.shard_leaf(leaf, _spec(ns), mesh),
+                    packed_store.shard_leaf(leaf, _spec(ns), mesh,
+                                            shd.uneven_dims(ns)),
                     lambda t: t.contiguous().to(self.device)),
                 params, self._store_sh)
-        layer = M.decoding.layer_params(store["layers"], 0)["sub0"]
+        layer = M.decoding.layer_params(store["layers"], 0)
         plan = blocks.tp_plan(cfg, policy, layer, store, self.rules.tp_size)
         kv = self._cache_sh["k_codes" if "k_codes" in self._cache_sh
                             else "k"].spec
@@ -296,8 +300,10 @@ class ServeEngine:
         self._batch_axes = b_entry
         i_b = shd.shard_index(b_entry, mesh)
         self._rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
+        rows = None if b_entry is None else (b_entry, self._rows.start)
         self._layout = dict(specs=_specs_by_name(store, self._store_sh),
-                            plan=plan, cache_sp=sp, cache_heads=heads)
+                            plan=plan, cache_sp=sp, cache_heads=heads,
+                            batch_rows=rows)
         self.tp_plan = plan
         return params
 
@@ -361,6 +367,25 @@ class ServeEngine:
                                      device=resolve_device(device),
                                      shardings=shardings)
         return cls(cfg, params, policy, backend=backend, device=device,
+                   mesh=mesh, _placed=None if mesh is None else specs,
+                   **engine_kw)
+
+    @classmethod
+    def from_init(cls, cfg: ModelConfig, policy: QuantPolicy,
+                  generator: torch.Generator, *, mesh=None,
+                  backend: Optional[str] = None, device=None, **engine_kw):
+        """Build a serving engine over a freshly drawn packed store
+        (``models/model.init_packed_params``: the values one device draws
+        from ``generator``).  Under a ``mesh`` each leaf is drawn whole
+        and only this rank's slice of it is kept, one leaf at a time."""
+        pol = policy if backend is None else policy.replace(backend=backend)
+        specs = M.packed_model_specs(cfg, pol)
+        shardings = (None if mesh is None else
+                     mesh_lib.MeshRules(mesh).param_sharding_tree(specs))
+        store = M.init_packed_params(cfg, pol, generator,
+                                     device=resolve_device(device),
+                                     shardings=shardings)
+        return cls(cfg, store, policy, backend=backend, device=device,
                    mesh=mesh, _placed=None if mesh is None else specs,
                    **engine_kw)
 

@@ -383,7 +383,7 @@ def test_dryrun_cli_writes_the_record(tmp_path):
     assert math.isclose(rec["useful_flops_fraction"],
                         rec["model_flops_global"]
                         / rec["cost"]["flops_per_device"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="The dry run on a mesh"):
         dryrun.main(["--multi-pod", "--out", str(tmp_path)])
 
 
