@@ -145,6 +145,33 @@ Phases, each printed as one JSON line:
               profiled decode dispatch, and the first dispatch teacher-
               forced with the assignments each MoE layer dropped past
               its capacity.
+11b. serve_sharded_moe -- expert parallelism on phase 11's model,
+              store, prompts and streams: a world of one rank in this
+              process on NCCL (tokens bit for bit), then two gloo ranks
+              sharing the card, each holding its half of the experts
+              (``ServeEngine.from_init``), its first dispatch
+              teacher-forced and its logits within the reorder baseline's
+              tolerance.
+11c. dryrun_mesh -- the dry run on a mesh held against what the ranks of
+              phases 6b and 11b ran.  A worker process started with phase
+              16's (no card) traces, on ``meta`` tensors, each rank of the
+              two programs those phases run on two gloo ranks --
+              qwen2.5-32b at 16 layers (4 slots x 512, chunk 16) and
+              qwen2-moe at MOE_LAYERS, packed store, MXSF cache, kernel
+              datapath -- on a tracing mesh of (1, 2)
+              (``dryrun.engine_dispatches``: the ``ServeEngine`` itself on
+              this rank's slices, one prefill and one decode dispatch).
+              Each rank of those phases ran the same two dispatches
+              (``dispatch_counts``); each rank's trace must equal them
+              exactly: launches by kernel (on the card), collectives by
+              kind and axis with their operand bytes, and argument bytes
+              equal to the rank's store plus cache bytes.  The worker also
+              traces qwen2.5-32b decode_32k on 16x16 and on 2x16x16 with
+              the layer-period trace (``launch/dryrun.py``, packed MXSF
+              cache, kernel datapath): per-rank peak, ``fits``, the
+              collectives and the three roofline terms printed, and the
+              argument bytes equal to ``MeshRules.shard_nbytes`` of the
+              inputs.
 12. train_resume -- ``fault.train_loop`` on 2 layers of full-width
               h2o-danube-1.8b (2D, 4 x 512): 4 steps checkpointing every
               2, uninterrupted; again with a failure injected at step 3
@@ -200,7 +227,7 @@ Phases, each printed as one JSON line:
 18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11 and 14 run right after phase 6, phase 15 after phase 13,
+Phases 9-11c and 14 run right after phase 6, phase 15 after phase 13,
 phases 16-17 last, and a ``done`` line with the whole run's seconds comes
 before the ``kernels`` line.
 
@@ -223,6 +250,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the serving engines of phases serve/ckpt_serve/serve_sharded and of
+# serve_moe/serve_sharded_moe (by rehearsal: False on the card), which
+# phase dryrun_mesh traces too
+SERVE_SLOTS, SERVE_CHUNK = 4, 16
+SERVE_MAX_LEN = {False: 512, True: 64}
+BLOCK_1D = {False: 64, True: 16}  # the rehearsal's 64-wide layers split
+# whole 16-element blocks over the model axis
+CKPT_LAYERS = 16  # ckpt_serve's depth at most (the disk may allow fewer)
+MOE_SLOTS = 4
+MOE_MAX_LEN = {False: 256, True: 32}
 MATMUL_RTOL = 1e-5      # of sum_k |x_k w_k|: f32 summation order only
 TRAIN_SUM_C = 4.0       # train_rtol's multiple of sqrt(K) u: twice the
                         # worst measured on the H100 (1.55, head's dx)
@@ -2024,7 +2061,7 @@ def _host_bytes():
 
 
 def phase_ckpt_serve(torch, device, cfg, policy, args, slots, chunk,
-                     max_len, new_tokens, lengths, max_layers=16):
+                     max_len, new_tokens, lengths, max_layers=CKPT_LAYERS):
     """Full-width packed store at the depth the disk allows (at most
     ``max_layers``; no checkpoint larger than half the free disk or half
     the host's available memory), ``ckpt.save`` of it, then
@@ -2288,6 +2325,8 @@ def sharded_serve(torch, eng, cfg, prompts, new_tokens, want, phase,
     emit(phase, step="collectives", **fields, collectives=got,
          expected=expect, collective_seconds={
              k: v["seconds"] for k, v in shd.counts().items()},
+         collective_bytes_per_dispatch={
+             k: v["bytes"] / n for k, v in shd.counts().items()},
          same_tokens=outs == want, teacher_forced=check)
     if faults:
         raise AssertionError(f"{phase} {fields}: {faults}")
@@ -2482,6 +2521,7 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
                                  "slack")
         out["first_dispatch"] = sharded_first_dispatch(torch, eng, cfg,
                                                        spec["prompts"])
+        out["dispatch"] = dispatch_counts(torch, eng)
         outs, launches, collectives, check = sharded_serve(
             torch, eng, cfg, spec["prompts"], spec["new_tokens"],
             spec["want"], "serve_sharded",
@@ -2491,6 +2531,31 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
         out.update(tokens=outs, launches=launches, collectives=collectives,
                    teacher_forced=check, stats=eng.stats())
         out["profile"] = rank_profile(torch, eng, rank, "serve_sharded")
+
+
+def dispatch_counts(torch, eng):
+    """The prefill and the decode dispatch of ``engine.probe_dispatches``
+    on a sharded engine: the launches by kernel (on the card; the
+    rehearsal counts none) and the collectives by kind and axis with
+    their operand bytes; and the store and cache bytes this rank holds.
+    Phase dryrun_mesh holds the rank's trace to them."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import cost
+    from repro_torch.serve import engine as E
+    dev = eng.device
+    out = dict(n_layers=eng.cfg.n_layers, store_bytes=_tree_bytes(
+        eng.params), cache_bytes=_tree_bytes(eng.cache))
+    for kind, _, run in E.probe_dispatches(eng):
+        _sync(torch, dev)
+        reset_launches()
+        shd.reset_counts()
+        run()
+        _sync(torch, dev)
+        out[kind] = dict(
+            launches=({k: v for k, v in read_launches().items() if v}
+                      if dev.type == "cuda" else None),
+            collectives=cost.collectives_by_axis(shd.counts()))
+    return out
 
 
 def rank_profile(torch, eng, rank, phase):
@@ -2503,7 +2568,8 @@ def rank_profile(torch, eng, rank, phase):
         shd.reset_counts()
         prof = profile_decode(torch, eng, phase, rank=rank)
         # profile_decode runs the dispatch twice (warm-up, profiled)
-        per = {k: dict(calls=v["calls"] / 2, ms=v["seconds"] / 2 * 1e3)
+        per = {k: dict(calls=v["calls"] / 2, ms=v["seconds"] / 2 * 1e3,
+                       bytes=v["bytes"] / 2)
                for k, v in shd.counts().items()}
         coll = sum(v["ms"] for v in per.values())
         return dict(wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
@@ -2559,7 +2625,8 @@ def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
         ranks.append(res)
         log = (out_dir / f"rank{r}.log").read_text()[-3000:]
         emit(phase, step="rank", exit=p.returncode, backend="gloo",
-             **{k: v for k, v in res.items() if k not in ("stats",)})
+             **{k: v for k, v in res.items()
+                if k not in ("stats", "dispatch")})
         if p.returncode != 0 or "error" in res or not res:
             raise AssertionError(f"{phase} rank {r} failed "
                                  f"(exit {p.returncode}): {log}")
@@ -2901,13 +2968,13 @@ def phase_serve_moe(torch, device, args, rehearsal):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.engine import _nbytes as tree_bytes
     cfg = get_config("qwen2-moe-a2.7b")
-    slots, max_len, new_tokens = 4, 256, 8
+    slots, max_len, new_tokens = MOE_SLOTS, MOE_MAX_LEN[rehearsal], 8
     lengths = [8, 13, 19, 24]
-    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf")
+    policy = MXSF_INFER.replace(kv_cache_fmt="mxsf",
+                                block_1d=BLOCK_1D[rehearsal])
     if rehearsal:
         cfg = cfg.reduced()
-        max_len, new_tokens, lengths = 32, 3, [3, 5, 2, 7]
-        policy = policy.replace(block_1d=16)
+        new_tokens, lengths = 3, [3, 5, 2, 7]
     one, two = (tree_bytes(M.packed_model_specs(cfg.replace(n_layers=n),
                                                 policy)) for n in (1, 2))
     per_layer, fixed = two - one, 2 * one - two
@@ -3198,6 +3265,7 @@ def sharded_moe_rank(rank: str, world: str, port: str, rehearsal: str,
                                                        spec["prompts"])
         out["exact"] = moe_exact(torch, eng, cfg, spec["prompts"],
                                  torch.load(spec["first"]))
+        out["dispatch"] = dispatch_counts(torch, eng)
         outs, launches, collectives, check = sharded_serve(
             torch, eng, cfg, spec["prompts"], spec["new_tokens"],
             spec["want"], "serve_sharded_moe",
@@ -3637,6 +3705,11 @@ DRYRUN_WORKERS = ((("h2o-danube-1.8b", "smoke_train"),),
 DRYRUN_WAIT_S = 900  # a worker's time limit
 _REHEARSAL_SHAPES = {"decode_32k": "rehearsal_decode",
                      "long_500k": "rehearsal_long"}
+DRYRUN_MESH_DIR = ROOT / "build" / "chip_smoke_dryrun_mesh"
+# the cell phase dryrun_mesh traces on the production meshes (the
+# rehearsal: a shape whose cache splits 512 ways)
+MESH_CELL = ("qwen2.5-32b", "decode_32k")
+MESH_CELL_MESHES = ("16x16", "2x16x16")
 
 
 def dryrun_shapes(rehearsal: bool) -> dict:
@@ -3646,6 +3719,8 @@ def dryrun_shapes(rehearsal: bool) -> dict:
     if not rehearsal:
         return {"smoke_train": ShapeConfig("smoke_train", 512, 4, "train")}
     return {"smoke_train": ShapeConfig("smoke_train", 32, 2, "train"),
+            "rehearsal_mesh_decode": ShapeConfig("rehearsal_mesh_decode",
+                                                 512, 32, "decode"),
             "rehearsal_decode": ShapeConfig("rehearsal_decode", 64, 2,
                                             "decode"),
             "rehearsal_long": ShapeConfig("rehearsal_long", 128, 1,
@@ -3667,32 +3742,123 @@ def dryrun_worker(out_dir: str, rehearsal: str, *cells: str):
     for cell in cells:
         arch, shape = cell.split(":")
         dryrun.main(["--arch", arch, "--shape", shape, "--backend", "cuda",
-                     "--kv-cache", "mxsf", "--out", out_dir])
+                     "--kv-cache", "mxsf", "--mesh", "1x1", "--out",
+                     out_dir])
+
+
+def sharded_engines(rehearsal: bool) -> dict:
+    """The programs phases serve_sharded and serve_sharded_moe run on two
+    ranks, at the depth they run when the disk and the card allow it
+    (phase dryrun_mesh traces another depth again itself): ``{phase:
+    dict(arch, n_layers, slots, max_len, chunk, block_1d, backend)}``.
+    The kernels' ``meta`` branches take 64-element blocks only, so the
+    rehearsal's 16-element ones trace through the torch datapath (its
+    collectives and bytes are the kernel datapath's; it launches
+    nothing)."""
+    from repro_torch.configs.base import get_config
+    sfx = "-reduced" if rehearsal else ""
+    dense, moe = "qwen2.5-32b" + sfx, "qwen2-moe-a2.7b" + sfx
+    backend = "torch" if rehearsal else "cuda"
+    return {"serve_sharded": dict(
+        arch=dense, n_layers=min(CKPT_LAYERS, get_config(dense).n_layers),
+        slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN[rehearsal],
+        chunk=SERVE_CHUNK, block_1d=BLOCK_1D[rehearsal], backend=backend),
+        "serve_sharded_moe": dict(
+            arch=moe, n_layers=min(MOE_LAYERS, get_config(moe).n_layers),
+            slots=MOE_SLOTS, max_len=MOE_MAX_LEN[rehearsal], chunk=1,
+            block_1d=BLOCK_1D[rehearsal], backend=backend)}
+
+
+def trace_sharded_engine(engine: dict, n_layers: int, rank: int) -> dict:
+    """``dryrun.engine_dispatches`` of one rank of a (1, SHARD_TP) mesh
+    for one of ``sharded_engines``' programs at ``n_layers``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    cfg = get_config(engine["arch"]).replace(n_layers=n_layers)
+    pol = MXSF_INFER.replace(kv_cache_fmt="mxsf",
+                             block_1d=engine["block_1d"])
+    mesh = mesh_lib.make_tracing_mesh((1, SHARD_TP), rank)
+    rec = dryrun.engine_dispatches(cfg, pol, mesh, engine["slots"],
+                                   engine["max_len"], engine["chunk"],
+                                   engine["backend"])
+    return dict(rec, n_layers=n_layers,
+                trace_seconds=time.perf_counter() - t0)
+
+
+def dryrun_mesh_worker(out_dir: str, rehearsal: str):
+    """The mesh worker: each rank of ``sharded_engines``' programs on a
+    tracing mesh of (1, SHARD_TP) (``trace_sharded_engine``), then
+    ``launch.dryrun`` of MESH_CELL on each of MESH_CELL_MESHES (the
+    layer-period trace, kernel datapath, packed MXSF cache), written to
+    ``out_dir``."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    rehearsal = rehearsal == "1"
+    for name, engine in sharded_engines(rehearsal).items():
+        for rank in range(SHARD_TP):
+            rec = trace_sharded_engine(engine, engine["n_layers"], rank)
+            (Path(out_dir) / f"{name}__rank{rank}.json").write_text(
+                json.dumps(rec))
+    SHAPES.update(dryrun_shapes(rehearsal))
+    arch, shape = mesh_cell(rehearsal)
+    for mesh in MESH_CELL_MESHES:
+        dryrun.main(["--arch", arch, "--shape", shape, "--backend", "cuda",
+                     "--kv-cache", "mxsf", "--mesh", mesh, "--out", out_dir])
+
+
+def mesh_cell(rehearsal: bool):
+    arch, shape = MESH_CELL
+    return ((arch + "-reduced", "rehearsal_mesh_decode") if rehearsal
+            else (arch, shape))
 
 
 def start_dryrun(rehearsal: bool):
     """Start the dry-run workers (they need no card, so they trace on the
     host's cores while the card phases run; ``CUDA_VISIBLE_DEVICES`` is
-    empty there, so none makes a CUDA context).  Returns the processes."""
+    empty there, so none makes a CUDA context): one per DRYRUN_WORKERS
+    entry, and last the mesh worker (``dryrun_mesh_worker``).  Returns the
+    processes."""
     import os
     import shutil
-    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
-    DRYRUN_DIR.mkdir(parents=True)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     procs = []
-    for i, cells in enumerate(DRYRUN_WORKERS):
-        names = [":".join(dryrun_cell(a, s, rehearsal)) for a, s in cells]
-        log = open(DRYRUN_DIR / f"worker{i}.log", "w")
-        code = ("import sys, chip_smoke; "
-                "chip_smoke.dryrun_worker(*sys.argv[1:])")
+    jobs = [(DRYRUN_DIR, f"worker{i}", "dryrun_worker",
+             [":".join(dryrun_cell(a, s, rehearsal)) for a, s in cells])
+            for i, cells in enumerate(DRYRUN_WORKERS)]
+    jobs.append((DRYRUN_MESH_DIR, "worker", "dryrun_mesh_worker", []))
+    for d in (DRYRUN_DIR, DRYRUN_MESH_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    for out_dir, log_name, target, names in jobs:
+        log = open(out_dir / f"{log_name}.log", "w")
+        code = (f"import sys, chip_smoke; "
+                f"chip_smoke.{target}(*sys.argv[1:])")
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, str(DRYRUN_DIR),
+            [sys.executable, "-c", code, str(out_dir),
              str(int(rehearsal)), *names], cwd=str(ROOT), env=env,
             stdout=log, stderr=subprocess.STDOUT))
         log.close()
     emit("dryrun", step="start", workers=len(procs),
-         cells=[list(c) for w in DRYRUN_WORKERS for c in w])
+         cells=[list(c) for w in DRYRUN_WORKERS for c in w],
+         mesh_cells=[[*mesh_cell(rehearsal), m] for m in MESH_CELL_MESHES],
+         engines=sharded_engines(rehearsal))
     return procs
+
+
+def wait_worker(proc, log: Path, t0: float, phase: str):
+    """Wait for a dry-run worker until DRYRUN_WAIT_S after ``t0``; a worker
+    that fails or outlives it fails ``phase``."""
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_WAIT_S
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        rc = None
+    if rc != 0:
+        raise AssertionError(f"{phase}: dry-run worker exited {rc}:\n"
+                             f"{log.read_text()[-3000:]}")
 
 
 def stop_processes(procs):
@@ -3727,14 +3893,7 @@ def phase_dryrun(torch, device, args, rehearsal, procs):
     on_card = device.type == "cuda"
     t0 = time.perf_counter()
     for i, proc in enumerate(procs):
-        try:
-            rc = proc.wait(timeout=max(1.0, DRYRUN_WAIT_S
-                                       - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            rc = None
-        if rc != 0:
-            log = (DRYRUN_DIR / f"worker{i}.log").read_text()[-3000:]
-            raise AssertionError(f"dry-run worker {i} exited {rc}:\n{log}")
+        wait_worker(proc, DRYRUN_DIR / f"worker{i}.log", t0, "dryrun")
     emit("dryrun", step="traced", wait_seconds=time.perf_counter() - t0)
     SHAPES.update(dryrun_shapes(rehearsal))
     launches = {}
@@ -3813,6 +3972,107 @@ def phase_dryrun(torch, device, args, rehearsal, procs):
         del inputs, out, run
         free_device(torch, device)
     return launches
+
+
+def _traced_counts(summary, on_card: bool) -> dict:
+    """A traced dispatch as ``dispatch_counts`` holds a real one."""
+    from repro_torch.launch import cost
+    return dict(
+        launches=({k: v for k, v in summary["cost"]["launches"].items() if v}
+                  if on_card else None),
+        collectives=cost.collectives_by_axis(summary["collectives"]))
+
+
+def mesh_cell_argument_bytes(arch: str, shape_name: str, mesh_name: str):
+    """``MeshRules.shard_nbytes`` of a decode cell's inputs on one rank of
+    a mesh: the f32 parameters, the cache (``decode_specs``, packed MXSF),
+    this rank's token rows and the scalar position."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    rules = mesh_lib.MeshRules(dryrun.mesh_of(mesh_name))
+    d = M.decode_specs(cfg, shape, kv_fmt="mxsf")
+    tok = {"tokens": d["tokens"]}
+    return (rules.shard_nbytes(M.init_params(cfg, torch.Generator(), "meta"))
+            + rules.shard_nbytes(d["cache"], mesh_lib.cache_shardings(
+                rules, d["cache"], shape.global_batch))
+            + rules.shard_nbytes(tok, mesh_lib.batch_shardings(rules, tok))
+            + d["pos"].element_size())
+
+
+def phase_dryrun_mesh(torch, device, rehearsal, proc):
+    """Phase dryrun_mesh (after serve_sharded and serve_sharded_moe): wait
+    for the mesh worker, then hold each rank's trace of each program
+    against what that rank ran (``dispatch_counts`` in its results), one
+    prefill and one decode dispatch each: launches by kernel (on the
+    card), collectives by kind and axis with their operand bytes, and the
+    argument bytes against the rank's store plus cache bytes, all
+    exactly.  A rank that ran at another depth than the worker traced is
+    traced again here at its depth.  Then MESH_CELL on each of
+    MESH_CELL_MESHES: the per-rank peak, ``fits``, the collectives and the
+    three terms printed, the argument bytes against ``MeshRules``'."""
+    t0 = time.perf_counter()
+    wait_worker(proc, DRYRUN_MESH_DIR / "worker.log", t0, "dryrun_mesh")
+    emit("dryrun_mesh", step="traced", wait_seconds=time.perf_counter() - t0)
+    on_card = device.type == "cuda"
+    faults = []
+    for name, rank_dir in (("serve_sharded", SHARD_DIR),
+                           ("serve_sharded_moe", SHARD_MOE_DIR)):
+        engine = sharded_engines(rehearsal)[name]
+        for r in range(SHARD_TP):
+            real = json.loads((rank_dir / f"rank{r}.json").read_text())[
+                "dispatch"]
+            traced = json.loads((DRYRUN_MESH_DIR / f"{name}__rank{r}.json")
+                                .read_text())
+            if traced["n_layers"] != real["n_layers"]:
+                traced = trace_sharded_engine(engine, real["n_layers"], r)
+            row = dict(program=name, rank=r, mesh=f"1x{SHARD_TP}",
+                       n_layers=real["n_layers"],
+                       trace_seconds=traced["trace_seconds"],
+                       attn_backend=traced["attn_backend"],
+                       tp_plan=traced["tp_plan"],
+                       store_bytes=real["store_bytes"],
+                       cache_bytes=real["cache_bytes"])
+            for kind in ("prefill", "decode"):
+                got = _traced_counts(traced[kind], on_card)
+                arg = traced[kind]["memory"]["argument_bytes"]
+                want = {k: real[kind][k] for k in ("launches", "collectives")}
+                row[kind] = dict(traced=got, ran=want, argument_bytes=arg,
+                                 equal=got == want)
+                if got != want:
+                    faults.append(f"{name} rank {r} {kind}: traced {got} "
+                                  f"!= ran {want}")
+                if arg != real["store_bytes"] + real["cache_bytes"]:
+                    faults.append(f"{name} rank {r} {kind}: argument bytes "
+                                  f"{arg} != store + cache")
+            emit("dryrun_mesh", step="rank", **row)
+    from repro_torch.configs.base import SHAPES
+    SHAPES.update(dryrun_shapes(rehearsal))
+    arch, shape = mesh_cell(rehearsal)
+    for mesh in MESH_CELL_MESHES:
+        rec = json.loads((DRYRUN_MESH_DIR / f"{arch}__{shape}__{mesh}.json")
+                         .read_text())
+        want = mesh_cell_argument_bytes(arch, shape, mesh)
+        mem, roof = rec["memory"], rec["roofline"]
+        emit("dryrun_mesh", step="cell", arch=arch, shape=shape, mesh=mesh,
+             n_devices=rec["n_devices"], trace=rec["trace"],
+             peak_bytes_per_device=mem["peak_bytes_per_device"],
+             argument_bytes=mem["argument_bytes"], shard_nbytes=want,
+             fits=rec["fits"], roofline=roof,
+             collectives={k: {"count": c["count"], "bytes": c["bytes"]}
+                          for k, c in rec["collectives"].items()
+                          if c["count"]},
+             collective_axes=rec["collective_axes"],
+             attn_backend=rec["attn_backend"],
+             shard_fallback=rec["shard_fallback"])
+        if mem["argument_bytes"] != want:
+            faults.append(f"{arch} {shape} {mesh}: argument bytes "
+                          f"{mem['argument_bytes']} != {want}")
+    if faults:
+        raise AssertionError(f"dryrun_mesh: {faults}")
 
 
 EXAMPLES = (
@@ -3921,13 +4181,13 @@ def main(argv=None) -> int:
     if rehearsal:
         cfg = cfg.reduced()
         torch.set_num_threads(4)
-    slots, chunk = 4, 16
-    max_len, new_tokens = (512, 16) if not rehearsal else (64, 4)
+    slots, chunk = SERVE_SLOTS, SERVE_CHUNK
+    max_len, new_tokens = SERVE_MAX_LEN[rehearsal], 16 if not rehearsal else 4
     lengths = [37, 80, 143, 200] if not rehearsal else [5, 9, 20, 33]
     # the rehearsal's reduced widths (64 = 4 heads x 16) hold whole
     # 16-element blocks per shard of phase serve_sharded's model axis
     policy = MXSF_INFER.replace(kv_cache_fmt="mxsf",
-                                block_1d=16 if rehearsal else 64)
+                                block_1d=BLOCK_1D[rehearsal])
 
     kind = phase_device(torch, rehearsal)
     if not rehearsal:
@@ -4003,6 +4263,7 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
                                             rehearsal))
     del moe_ref
     free_device(torch, device)
+    phase_dryrun_mesh(torch, device, rehearsal, procs[-1])
     launches["serve_ssm"] = phase_serve_ssm(torch, device, args, rehearsal)
     launches["serve_hybrid"] = phase_serve_hybrid(torch, device, args,
                                                   rehearsal)
@@ -4051,7 +4312,8 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
         del state, batches
         free_device(torch, device)
     launches.update(phase_train_families(torch, device, args, rehearsal))
-    launches.update(phase_dryrun(torch, device, args, rehearsal, procs))
+    launches.update(phase_dryrun(torch, device, args, rehearsal,
+                                 procs[:-1]))
     phase_examples(torch, device, rehearsal)
     return kernels_line(rows, attn, train_rows, launches, slots, cfg)
 

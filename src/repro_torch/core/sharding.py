@@ -11,7 +11,12 @@ axis.  Outside a ``mesh_context`` every collective is a no-op and
 * ``Mesh`` -- named axes over the ranks of the default process group, on
   a ``torch.distributed.device_mesh.DeviceMesh`` (one group per axis,
   ``DeviceMesh.get_group(name)``); without a device mesh it only carries
-  the axis sizes (``AbstractMesh``: spec rules, no collectives).
+  the axis sizes (``AbstractMesh``: spec rules, no collectives); with
+  given coordinates and no process group it traces one rank
+  (``TracingMesh``: every collective returns an output of the right
+  shape and is recorded, and nothing is sent -- a dry run's mesh on
+  ``meta`` tensors).  Rank r sits at the row-major coordinates of r, as
+  ``launch/mesh.make_mesh`` lays a device mesh out.
 * Specs are tuples of ``None | str | tuple[str, ...]``, one entry per
   dim, as ``jax.sharding.PartitionSpec``; ``NamedSharding`` pairs one with
   its mesh.  ``normalize`` compares two specs as JAX does (``("data",)``
@@ -24,7 +29,10 @@ axis.  Outside a ``mesh_context`` every collective is a no-op and
 * Roles (``spec_for``): 'batch' -> DP axes; 'heads'/'kv'/'experts'/'ff'/
   'hidden'/'seq'/'vocab' -> the TP axis, divisibility-guarded.
 * ``counts()`` -- collectives issued since ``reset_counts()``, by kind,
-  with their host seconds.
+  with their host seconds, operand bytes (the local tensor each call is
+  handed) and a breakdown by mesh axis; a real rank and a trace of it
+  count alike.  ``add_sink`` registers a callback that sees each call
+  (``launch/cost.count``).
 """
 from __future__ import annotations
 
@@ -39,12 +47,13 @@ import torch
 
 from .blocking import QuantizedTensor
 
-__all__ = ["Mesh", "AbstractMesh", "NamedSharding", "P", "normalize",
+__all__ = ["Mesh", "AbstractMesh", "TracingMesh", "NamedSharding", "P", "normalize",
            "axes_of", "mesh_context", "active", "spec_for", "all_reduce",
            "all_gather", "broadcast", "counts", "reset_counts",
            "per_device_nbytes", "shard_slices", "shard_shape",
            "uneven_dims", "local_extent", "to_compute", "map_parts",
-           "axis_size", "shard_index", "TP_ROLES"]
+           "axis_size", "shard_index", "TP_ROLES", "add_sink",
+           "remove_sink"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mx_mesh_ctx",
                                                       default=None)
@@ -59,28 +68,47 @@ TP_ROLES = ("heads", "kv", "experts", "ff", "hidden", "seq", "vocab")
 class Mesh:
     """Named mesh axes (``shape``: name -> size, in mesh order) and, when
     ``device_mesh`` is given, this rank's coordinate and process group on
-    each axis."""
+    each axis; when ``coords`` is given instead (axis name -> index), the
+    coordinates of the one rank a trace stands for."""
 
-    def __init__(self, shape, device_mesh=None):
+    def __init__(self, shape, device_mesh=None, coords=None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         self.device_mesh = device_mesh
+        self.coords = None if coords is None else dict(coords)
 
     def __repr__(self):
+        if self.coords is not None:
+            return f"TracingMesh({self.shape}, rank {self.rank})"
         return f"Mesh({self.shape})"
+
+    @property
+    def tracing(self) -> bool:
+        """A tracing mesh: coordinates, no process group."""
+        return self.coords is not None
+
+    @property
+    def rank(self) -> int:
+        """This rank's row-major index (0 on an abstract mesh)."""
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + self.coord(a)
+        return r
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 on an abstract mesh)."""
+        if self.coords is not None:
+            return self.coords[axis]
         if self.device_mesh is None:
             return 0
         return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis: str):
         if self.device_mesh is None:
-            raise RuntimeError(f"{self} is abstract: it has no process "
-                               "groups (make it with launch.mesh."
-                               "make_test_mesh inside a process group)")
+            raise RuntimeError(f"{self} has no process groups (make one "
+                               "with launch.mesh.make_test_mesh inside a "
+                               "process group)")
         return self.device_mesh.get_group(axis)
 
 
@@ -88,6 +116,22 @@ def AbstractMesh(sizes: Sequence[int], names: Sequence[str]) -> Mesh:
     """Axis sizes only (the JAX package's ``AbstractMesh``): the spec
     rules run on it; collectives do not."""
     return Mesh(dict(zip(names, sizes)))
+
+
+def TracingMesh(sizes: Sequence[int], names: Sequence[str],
+                rank: int = 0) -> Mesh:
+    """The mesh one rank of a ``sizes`` mesh sees, with no process group:
+    rank ``rank`` at its row-major coordinates.  Collectives on it return
+    outputs of the shape a real group would and are recorded, so a trace
+    on ``meta`` tensors counts what that rank would send."""
+    n = math.prod(sizes)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not on a mesh of {n} ranks")
+    coords, r = {}, rank
+    for name, size in reversed(list(zip(names, sizes))):
+        coords[name] = r % size
+        r //= size
+    return Mesh(dict(zip(names, sizes)), coords=coords)
 
 
 class NamedSharding(NamedTuple):
@@ -235,6 +279,7 @@ def spec_for(shape: Sequence[int], roles: Sequence[Optional[str]],
 # ---------------------------------------------------------------------------
 
 _COUNTS: dict = {}
+_SINKS: list = []
 
 
 def reset_counts():
@@ -242,16 +287,51 @@ def reset_counts():
 
 
 def counts() -> dict:
-    """``{kind: {"calls": n, "seconds": host s}}`` since ``reset_counts``
+    """``{kind: {"calls": n, "seconds": host s, "bytes": operand bytes,
+    "axes": {axis: {"calls", "bytes", "size"}}}}`` since ``reset_counts``
     (host seconds include the wait; on the card a synchronising
-    collective's wait is the device work queued before it)."""
-    return {k: dict(v) for k, v in _COUNTS.items()}
+    collective's wait is the device work queued before it; a traced call
+    takes none).  The operand is the local tensor a call is handed; an
+    all-gather over several axes is one call per axis of size > 1, minor
+    axis first, each handed what the one before gathered."""
+    return {k: dict(v, axes={a: dict(c) for a, c in v["axes"].items()})
+            for k, v in _COUNTS.items()}
 
 
-def _record(kind: str, t0: float):
-    c = _COUNTS.setdefault(kind, {"calls": 0, "seconds": 0.0})
+def add_sink(fn):
+    """Call ``fn(kind, axis, size, nbytes)`` on every collective issued
+    from now on (real or traced) until ``remove_sink(fn)``."""
+    _SINKS.append(fn)
+
+
+def remove_sink(fn):
+    _SINKS.remove(fn)
+
+
+def _record(kind: str, t0: float, axis: str, size: int, t: torch.Tensor):
+    nbytes = t.numel() * t.element_size()
+    c = _COUNTS.setdefault(kind, {"calls": 0, "seconds": 0.0, "bytes": 0,
+                                  "axes": {}})
     c["calls"] += 1
     c["seconds"] += time.perf_counter() - t0
+    c["bytes"] += nbytes
+    a = c["axes"].setdefault(axis, {"calls": 0, "bytes": 0, "size": size})
+    a["calls"] += 1
+    a["bytes"] += nbytes
+    for fn in _SINKS:
+        fn(kind, axis, size, nbytes)
+
+
+def _traced(mesh: Mesh, t: torch.Tensor, kind: str) -> bool:
+    """Whether ``mesh`` is a tracing mesh.  It sends nothing, so it takes
+    only ``meta`` tensors: a real one would come back unsummed or gathered
+    from empty parts."""
+    if not mesh.tracing:
+        return False
+    if t.device.type != "meta":
+        raise RuntimeError(f"{kind} on {mesh}: a tracing mesh takes only "
+                           f"meta tensors, not one on {t.device}")
+    return True
 
 
 def _run(op, t: torch.Tensor, group, out=None):
@@ -273,7 +353,8 @@ def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sum of ``x`` over ``axis`` (default: the context's TP axis), issued
     whatever the axis size (a one-rank sum is the identity).  No-op
-    outside a context when no mesh is given."""
+    outside a context when no mesh is given; on a tracing mesh (``meta``
+    tensors only) ``x`` itself (the sum's shape), recorded."""
     import torch.distributed as dist
     ctx = _CTX.get()
     mesh = mesh or (ctx["mesh"] if ctx else None)
@@ -282,8 +363,9 @@ def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
         return x
     t0 = time.perf_counter()
     x = x.contiguous()
-    _run(lambda t, g: dist.all_reduce(t, group=g), x, mesh.group(axis))
-    _record("all_reduce", t0)
+    if not _traced(mesh, x, "all_reduce"):
+        _run(lambda t, g: dist.all_reduce(t, group=g), x, mesh.group(axis))
+    _record("all_reduce", t0, axis, mesh.shape[axis], x)
     return x
 
 
@@ -292,7 +374,8 @@ def all_gather(x: torch.Tensor, axes, dim: int,
     """Concatenate the shards of ``x`` along ``dim`` over ``axes`` (one
     axis name or a tuple, major to minor, as in a spec).  Axes of size 1
     hold the whole dim and are skipped; no-op outside a context when no
-    mesh is given."""
+    mesh is given.  On a tracing mesh (``meta`` tensors only) each part is
+    an empty tensor of the shard's shape (what a real rank receives into), concatenated."""
     import torch.distributed as dist
     ctx = _CTX.get()
     mesh = mesh or (ctx["mesh"] if ctx else None)
@@ -306,26 +389,31 @@ def all_gather(x: torch.Tensor, axes, dim: int,
 
         def gather(t, g):
             parts = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(parts, t, group=g)
+            if g is not None:
+                dist.all_gather(parts, t, group=g)
             return parts
 
-        x = torch.cat(_run(gather, x.contiguous(), mesh.group(axis)),
-                      dim=dim)
-        _record("all_gather", t0)
+        src = x.contiguous()
+        parts = (gather(src, None) if _traced(mesh, src, "all_gather")
+                 else _run(gather, src, mesh.group(axis)))
+        x = torch.cat(parts, dim=dim)
+        _record("all_gather", t0, axis, n, src)
     return x
 
 
 def broadcast(x: torch.Tensor, axis: str, src: int,
               mesh: Mesh) -> torch.Tensor:
     """``x`` of the rank at index ``src`` along ``axis``, on every rank of
-    the axis (in place)."""
+    the axis (in place; on a tracing mesh, ``meta`` tensors only, ``x``
+    itself, recorded)."""
     import torch.distributed as dist
-    group = mesh.group(axis)
-    root = dist.get_global_rank(group, src)
     t0 = time.perf_counter()
     x = x.contiguous()
-    _run(lambda t, g: dist.broadcast(t, src=root, group=g), x, group)
-    _record("broadcast", t0)
+    if not _traced(mesh, x, "broadcast"):
+        group = mesh.group(axis)
+        root = dist.get_global_rank(group, src)
+        _run(lambda t, g: dist.broadcast(t, src=root, group=g), x, group)
+    _record("broadcast", t0, axis, mesh.shape[axis], x)
     return x
 
 
@@ -369,7 +457,8 @@ def per_device_nbytes(tree, device=None, mesh: Optional[Mesh] = None) -> dict:
     codes and scales), ``{device: bytes}``.  With a ``mesh`` every rank's
     bytes are gathered (a collective: every rank calls it), keyed
     ``rank<r>:<device>``; a replicated leaf counts full-size on each rank,
-    as the JAX package counts it per device."""
+    as the JAX package counts it per device.  A tracing mesh has only its
+    own rank to report."""
     import torch.distributed as dist
     from .packed_store import tree_leaves
     total, dev = 0, device
@@ -380,6 +469,8 @@ def per_device_nbytes(tree, device=None, mesh: Optional[Mesh] = None) -> dict:
                 total += t.numel() * t.element_size()
                 dev = dev if dev is not None else t.device
     dev = str(dev if dev is not None else "cpu")
+    if mesh is not None and mesh.tracing:
+        return {f"rank{mesh.rank}:{dev}": total}
     if mesh is None or mesh.device_mesh is None:
         return {dev: total}
     every = [None] * dist.get_world_size()

@@ -31,13 +31,29 @@ on real tensors:
   reference to it), so ``peak_bytes`` is the most bytes alive at once,
   argument storages included, plus each launch's scratch while it runs --
   the counterpart of XLA's argument + temp bytes.
+* **collectives**, recorded by ``core/sharding.py`` for every call a rank
+  issues (on a tracing mesh too): by kind and mesh axis, with the operand
+  bytes each call is handed -- ``parse_collectives``' sum of operand
+  shapes in the JAX package's dry run.  A process-group op the dispatcher
+  shows (``c10d``) is no aten op: its traffic is the collective term.
 
-Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-HBM 3.35 TB/s and 80 GB, bf16 tensor cores 989 TFLOP/s, f32 67 TFLOP/s.
+The roofline has the JAX dry run's three terms: ``compute_s``,
+``memory_s`` and ``collective_s``, the last with its ring multipliers
+(``COLL_MULT``: 2 for an all-reduce, 1 otherwise) over each axis's own
+link rate (``axis_links``): ranks sit row-major on 8-GPU nodes, an axis
+whose every group stays within one node runs on NVLink, any other on the
+node's network.  ``dominant`` is the largest of the three.
+
+Published H100 SXM peaks (NVIDIA H100 Tensor Core GPU data sheet, dense,
+at the 700 W limit): HBM 3.35 TB/s and 80 GB, bf16 tensor cores 989
+TFLOP/s, f32 67 TFLOP/s, fourth-generation NVLink 900 GB/s per GPU (450
+GB/s each direction).  The network: one ConnectX-7 400 Gb/s adapter per
+GPU (NVIDIA DGX H100 data sheet), 50 GB/s.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 from collections import Counter
 from typing import Dict, List, Tuple
@@ -47,15 +63,32 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from ..core import sharding as shd
+
 __all__ = ["HBM_BYTES_PER_S", "HBM_BYTES", "BF16_TENSOR_FLOPS", "F32_FLOPS",
-           "Work", "bound_ms", "fused_matmul_work", "mx_matmul_work",
-           "attention_work", "quantize_work", "requantize_work",
-           "record_launch", "count", "storage_bytes"]
+           "NVLINK_BYTES_PER_S", "NIC_BYTES_PER_S", "NODE_GPUS", "KINDS",
+           "COLLECTIVES", "COLL_MULT", "Work", "bound_ms",
+           "fused_matmul_work", "mx_matmul_work", "attention_work",
+           "quantize_work", "requantize_work", "record_launch", "count",
+           "storage_bytes", "axis_links", "summarize", "extrapolate",
+           "collectives_by_axis"]
 
 HBM_BYTES_PER_S = 3.35e12
 HBM_BYTES = 80e9
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+NVLINK_BYTES_PER_S = 450e9   # NVLink 4, per H100 SXM, each direction
+NIC_BYTES_PER_S = 50e9       # ConnectX-7, 400 Gb/s per GPU (DGX H100)
+NODE_GPUS = 8                # GPUs of one NVLink node (HGX / DGX H100)
+
+# the JAX dry run's collective kinds and ring multipliers (bytes on the
+# wire per device over the operand bytes), and the port's kind names
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+COLL_MULT = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+             "all-to-all": 1.0, "collective-permute": 1.0, "broadcast": 1.0}
+KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+         "broadcast": "broadcast"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +286,8 @@ class count(TorchDispatchMode):
         self.peak_bytes = 0
         self._args = args
         self.argument_bytes = 0
+        self.collectives: Dict[Tuple[str, str], List[int]] = {}
+        self.axis_sizes: Dict[str, int] = {}
 
     # -- storages ---------------------------------------------------------
     def _track(self, t: torch.Tensor):
@@ -275,11 +310,20 @@ class count(TorchDispatchMode):
             self._track(t)
         self.argument_bytes = self.live_bytes
         _ACTIVE.append(self)
+        shd.add_sink(self._collective)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
+        shd.remove_sink(self._collective)
         return super().__exit__(*exc)
+
+    # -- collectives ------------------------------------------------------
+    def _collective(self, kind: str, axis: str, size: int, nbytes: int):
+        c = self.collectives.setdefault((KINDS[kind], axis), [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+        self.axis_sizes[axis] = size
 
     # -- launches ---------------------------------------------------------
     def _launch(self, name: str, work: Work, scratch: int):
@@ -299,8 +343,11 @@ class count(TorchDispatchMode):
         outs = _tensors(out)
         for t in outs:
             self._track(t)
-        if func.overloadpacket.__name__ != "lift_fresh":  # a constant's
-            self.aten_ops += 1  # wrapper: no op on the device
+        # a constant's wrapper is no op on the device; a process-group op
+        # is counted as its collective
+        if func.overloadpacket.__name__ != "lift_fresh" and \
+                func.namespace not in ("c10d", "_c10d_functional"):
+            self.aten_ops += 1
             self._tally(func, args, kwargs, outs)
         return out
 
@@ -338,9 +385,9 @@ class count(TorchDispatchMode):
         return sum(_touched(t) for t in ins) + sum(_nbytes(t) for t in outs)
 
     # -- results ----------------------------------------------------------
-    def summary(self, outputs=None) -> dict:
-        """FLOPs, HBM bytes, the memory terms and the roofline of what ran.
-        ``outputs``: the program's results; their storages that are not
+    def tally(self, outputs=None) -> dict:
+        """The raw counts of what ran (what ``extrapolate`` scales):
+        ``outputs`` the program's results, whose storages that are not
         arguments are the output bytes."""
         arg_keys = {t.untyped_storage()._cdata
                     for t in _leaf_tensors(self._args)}
@@ -349,29 +396,117 @@ class count(TorchDispatchMode):
             st = t.untyped_storage()
             if st._cdata not in arg_keys:
                 out_bytes[st._cdata] = st.nbytes()
-        flops = self.flops_bf16 + self.flops_f32
-        hbm = self.aten_bytes + self.launch_bytes
-        compute_s = (self.flops_bf16 / BF16_TENSOR_FLOPS
-                     + self.flops_f32 / F32_FLOPS)
-        memory_s = hbm / HBM_BYTES_PER_S
-        return {
-            "memory": {"argument_bytes": self.argument_bytes,
-                       "output_bytes": sum(out_bytes.values()),
-                       "temp_bytes": self.peak_bytes - self.argument_bytes,
-                       "peak_bytes_per_device": self.peak_bytes},
-            "cost": {"flops_per_device": flops,
-                     "flops_bf16_tensor": self.flops_bf16,
-                     "flops_f32": self.flops_f32,
-                     "hbm_bytes_per_device": hbm,
-                     "aten_ops": self.aten_ops,
-                     "aten_bytes": self.aten_bytes,
-                     "launch_bytes": self.launch_bytes,
-                     "launches": dict(self.launches)},
-            "roofline": {"compute_s": compute_s, "memory_s": memory_s,
-                         "collective_s": 0.0,
-                         "dominant": ("compute" if compute_s > memory_s
-                                      else "memory")},
-        }
+        coll: dict = {}
+        for (kind, axis), (n, b) in sorted(self.collectives.items()):
+            coll.setdefault(kind, {})[axis] = {"count": n, "bytes": b}
+        return {"flops_bf16": self.flops_bf16, "flops_f32": self.flops_f32,
+                "aten_bytes": self.aten_bytes, "aten_ops": self.aten_ops,
+                "launch_bytes": self.launch_bytes,
+                "launches": dict(self.launches),
+                "argument_bytes": self.argument_bytes,
+                "output_bytes": sum(out_bytes.values()),
+                "peak_bytes": self.peak_bytes, "collectives": coll}
+
+    def summary(self, outputs=None, mesh_shape=None) -> dict:
+        """FLOPs, HBM bytes, the memory terms, the collectives and the
+        roofline of what ran (``summarize``)."""
+        return summarize(self.tally(outputs), mesh_shape)
+
+
+def axis_links(mesh_shape) -> dict:
+    """Each axis of a mesh (``{name: size}``, in mesh order; ranks
+    row-major, ``NODE_GPUS`` to a node): ``{"size", "link", "bytes_per_s"}``
+    -- NVLink where every group along the axis stays within one node, the
+    node's network otherwise."""
+    names, sizes = list(mesh_shape), list(mesh_shape.values())
+    n = math.prod(sizes)
+    out = {}
+    for i, name in enumerate(names):
+        stride = math.prod(sizes[i + 1:])
+        inside = all((r + k * stride) // NODE_GPUS == r // NODE_GPUS
+                     for r in range(n) if (r // stride) % sizes[i] == 0
+                     for k in range(sizes[i]))
+        out[name] = {"size": sizes[i],
+                     "link": "nvlink" if inside else "network",
+                     "bytes_per_s": (NVLINK_BYTES_PER_S if inside
+                                     else NIC_BYTES_PER_S)}
+    return out
+
+
+def summarize(t: dict, mesh_shape=None) -> dict:
+    """A ``count.tally`` (or an ``extrapolate``d one) as the dry run's
+    record: ``memory``, ``cost``, ``collectives`` (the JAX package's five
+    kinds, each ``{"count", "bytes", "by_axis"}``, plus any other kind the
+    port issued; empty without a mesh), ``collective_axes`` (each axis's
+    link and rate) and the three-term ``roofline``."""
+    flops = t["flops_bf16"] + t["flops_f32"]
+    hbm = t["aten_bytes"] + t["launch_bytes"]
+    compute_s = (t["flops_bf16"] / BF16_TENSOR_FLOPS
+                 + t["flops_f32"] / F32_FLOPS)
+    memory_s = hbm / HBM_BYTES_PER_S
+    coll, axes, coll_s = {}, {}, 0.0
+    if mesh_shape is not None:
+        axes = axis_links(mesh_shape)
+        for kind in COLLECTIVES + tuple(k for k in t["collectives"]
+                                        if k not in COLLECTIVES):
+            by_axis = t["collectives"].get(kind, {})
+            coll[kind] = {"count": sum(v["count"] for v in by_axis.values()),
+                          "bytes": sum(v["bytes"] for v in by_axis.values()),
+                          "by_axis": {a: dict(v) for a, v in by_axis.items()}}
+            coll_s += sum(COLL_MULT[kind] * v["bytes"]
+                          / axes[a]["bytes_per_s"]
+                          for a, v in by_axis.items())
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": coll_s}
+    return {
+        "memory": {"argument_bytes": t["argument_bytes"],
+                   "output_bytes": t["output_bytes"],
+                   "temp_bytes": t["peak_bytes"] - t["argument_bytes"],
+                   "peak_bytes_per_device": t["peak_bytes"]},
+        "cost": {"flops_per_device": flops,
+                 "flops_bf16_tensor": t["flops_bf16"],
+                 "flops_f32": t["flops_f32"],
+                 "hbm_bytes_per_device": hbm,
+                 "aten_ops": t["aten_ops"],
+                 "aten_bytes": t["aten_bytes"],
+                 "launch_bytes": t["launch_bytes"],
+                 "launches": dict(t["launches"])},
+        "collectives": coll,
+        "collective_axes": axes,
+        "roofline": {"compute_s": compute_s, "memory_s": memory_s,
+                     "collective_s": coll_s,
+                     "dominant": max(terms, key=terms.get)},
+    }
+
+
+def collectives_by_axis(collectives) -> dict:
+    """``{kind: {axis: [calls, operand bytes]}}`` (the record's kind names)
+    of ``sharding.counts()`` on a real rank or of a summary's
+    ``collectives`` (kinds with no call left out): the form a rank's run
+    and its trace are compared in."""
+    out = {}
+    for kind, c in collectives.items():
+        if "axes" in c:  # sharding.counts()
+            kind, by_axis = KINDS[kind], {a: (v["calls"], v["bytes"])
+                                          for a, v in c["axes"].items()}
+        else:
+            by_axis = {a: (v["count"], v["bytes"])
+                       for a, v in c["by_axis"].items()}
+        if by_axis:
+            out[kind] = {a: list(v) for a, v in by_axis.items()}
+    return out
+
+
+def extrapolate(one: dict, two: dict, k: int) -> dict:
+    """The tally of ``k`` repeats of a program's period from the tallies
+    of one (``one``) and of two (``two``): each count c(1) + (k - 1)
+    (c(2) - c(1)), leaf by leaf (a key missing on one side counts 0).
+    Exact wherever each period adds the same counts."""
+    if isinstance(one, dict) or isinstance(two, dict):
+        one, two = one or {}, two or {}
+        return {key: extrapolate(one.get(key, 0), two.get(key, 0), k)
+                for key in list(one) + [x for x in two if x not in one]}
+    return one + (k - 1) * (two - one)
 
 
 def out_of(outs):

@@ -1,45 +1,74 @@
-"""One-card dry run: trace every (arch x shape) cell on ``meta`` tensors and
-count what its program would run on one H100.
+"""Dry run: trace every (arch x shape) cell on ``meta`` tensors and count
+what its program would run on one H100 of a mesh, or on one card.
 
 Counterpart of the JAX package's ``launch/dryrun.py`` (``lower_cell`` and
-``main``).  There each cell is lowered and compiled for a TPU mesh, and
-XLA's memory analysis and the HLO walk (``hlo_cost``) say whether it fits
-and what bounds it.  Here the cell's real program -- ``make_train_step``
-for train shapes, ``M.prefill`` for prefill shapes, ``M.decode_step``
-(``make_serve_step``) for decode shapes -- runs once on ``meta`` tensors
-(shapes only: nothing is computed or allocated, so no card is needed)
-under ``launch/cost.count``, which counts every aten op and every kernel
-launch (the kernel wrappers' ``meta`` branches, with ``--backend cuda``)
-and the bytes alive at once.  Each cell's record has the JAX record's keys
-where they mean something on one card:
+``main``).  There each cell is lowered and compiled for the production
+TPU mesh -- 16x16 ("data", "model"), and 2x16x16 ("pod", "data",
+"model") under ``--multi-pod`` -- and XLA's memory analysis and the HLO
+walk (``hlo_cost``) say whether it fits and what bounds it.  Here one
+rank's program runs once on ``meta`` tensors (shapes only: nothing is
+computed or allocated, so no card is needed) under ``launch/cost.count``,
+which counts every aten op, every kernel launch (the kernel wrappers'
+``meta`` branches, with ``--backend cuda``), every collective and the
+bytes alive at once.  On a mesh the rank is rank 0 of a tracing mesh
+(``sharding.TracingMesh``: coordinates, no process group; SPMD gives
+every rank the same counts) and its program is the serving engine's:
+the f32 parameters placed by ``MeshRules`` (``engine.place_store``), the
+cache by ``cache_shardings`` with the engine's per-shard attention gate
+(``engine.cache_placement``), and the engine's dispatch (``engine.
+placement``: its stored specs, TP plan, the cache's position or kv-head
+split and its slot rows, the logits gathered over the batch axes) around
+``M.decode_step`` for decode shapes -- the JAX cell's logits leave
+replicated -- and ``M.prefill`` of the whole prompt for prefill shapes.
+``--mesh 1x1`` is the one-card trace: ``make_train_step`` for train
+shapes, ``M.prefill`` and ``M.decode_step`` (``make_serve_step``) alone.
 
-  * ``memory``    -- argument, output and temp bytes and
+Each cell's record has the JAX record's keys:
+
+  * ``mesh``, ``n_devices``;
+  * ``memory``    -- argument, output and temp bytes per device and
                      ``peak_bytes_per_device`` (argument + temp), and
                      ``fits``: the peak against the card's 80 GB;
   * ``cost``      -- FLOPs (bf16 tensor-core and f32 shares), HBM bytes,
-                     aten ops and kernel launches by kernel;
-  * ``roofline``  -- ``compute_s`` (each op's FLOPs over its rate),
-                     ``memory_s`` (bytes over 3.35 TB/s) and ``dominant``;
-                     one card: ``collectives`` {}, ``collective_s`` 0,
-                     ``mesh`` "1x1";
-  * ``model_flops_global``, ``useful_flops_fraction``, ``params_total``,
-    ``params_active``, ``policy``.
+                     aten ops and kernel launches by kernel, per device;
+  * ``collectives`` -- the JAX package's five kinds, each ``{"count",
+                     "bytes", "by_axis"}`` (operand bytes), and
+                     ``collective_axes``: each axis's link and rate;
+  * ``roofline``  -- ``compute_s``, ``memory_s``, ``collective_s`` and
+                     ``dominant`` (``launch/cost.summarize``);
+  * ``model_flops_global``, ``model_flops_per_device``,
+    ``useful_flops_fraction``, ``params_total``, ``params_active``,
+    ``policy``; a serving cell on a mesh also its attention path
+    (``attn_backend``, ``shard_fallback``).
 
 A meta trace is slow (PyTorch's meta functions are Python decompositions,
-~0.4 ms an aten op), so a full-width cell on the value-domain attention
-path takes tens of seconds.  The dry run on a mesh (``--multi-pod``, a
-per-rank trace, the collectives) is not ported yet (ROADMAP.md, "The dry
-run on a mesh"); the engine's sharding is (``launch/mesh.py``).  Results
-land in ``experiments/dryrun_torch/<arch>__<shape>__1x1.json``.
+~0.4 ms an aten op), and the port's layers are a Python loop, where the
+JAX package's are a ``lax.scan`` whose body ``hlo_cost`` multiplies by
+its trip count.  The counterpart here is the layer-period trace
+(``--trace period``, the default on a mesh): the cell traced at two and
+at three periods of its layer pattern (``layer_period``: the SWA
+alternation, ``moe_every``, a hybrid's group) and every count scaled
+linearly to the config's depth (``cost.extrapolate``).  Not at one and
+two: the counts grow by the same amount from the first period on, but a
+prefill's peak does not -- at one period its temporaries have not reached
+their steady size yet, so the step from one period to two overstates the
+step a further period adds.
+
+On a mesh the port covers serving cells of the decoder family; a train
+cell, or a cell of another family, raises ``NotImplementedError`` naming
+its ROADMAP.md item, which ``main`` counts as a failure.  Results land in
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--backend cuda]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k --backend cuda
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k --mesh 1x1
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -50,12 +79,17 @@ from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config, \
     list_configs
 from ..core.policy import MXSF_TRAIN, QuantPolicy
 from ..models import model as M
+from ..models.transformer import hybrid_split
 from ..optim.adamw import OptConfig
+from ..serve import engine as E
 from ..train import step as T
 from . import cost
+from . import mesh as mesh_lib
 
 __all__ = ["ARCH_TRAIN_OVERRIDES", "cell_policy", "cell_config",
-           "cell_inputs", "cell_program", "lower_cell", "main"]
+           "cell_inputs", "cell_program", "mesh_cell", "mesh_of",
+           "layer_period", "at_depth", "trace_cell", "engine_dispatches",
+           "lower_cell", "main"]
 
 # per-arch train-step defaults (config choices, the JAX package's): the
 # 400B MoE needs gradient accumulation + bf16 moments to fit
@@ -67,7 +101,24 @@ ARCH_TRAIN_OVERRIDES = {
     "gemma2-9b": dict(microbatches=2),
 }
 
-MESH = "1x1"
+ONE_CARD = "1x1"
+# the ROADMAP.md items that bring what a mesh does not run yet
+ROADMAP_FAMILIES = "The SSM, hybrid and encoder-decoder families on a mesh"
+ROADMAP_TRAINING = "Training on a mesh"
+
+
+def mesh_of(name: str):
+    """The tracing mesh of rank 0 on a mesh named like the JAX record's
+    ``mesh`` ("16x16", "2x16x16", any "AxB" or "AxBxC"; axis names by
+    ``mesh_lib.mesh_axes``); None for the one card ("1x1")."""
+    if name == ONE_CARD:
+        return None
+    return mesh_lib.make_tracing_mesh(tuple(int(n) for n in name.split("x")))
+
+
+def _mesh_name(mesh) -> str:
+    return ONE_CARD if mesh is None else "x".join(
+        str(n) for n in mesh.shape.values())
 
 
 def _analytic_model_flops(cfg: ModelConfig, shape: ShapeConfig, params):
@@ -190,37 +241,216 @@ def cell_program(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
     return lambda a: serve(a["params"], a["tokens"], a["cache"], a["pos"])
 
 
+def mesh_supported(cfg: ModelConfig, shape: ShapeConfig):
+    """Raise where a mesh cell is not ported yet, naming its ROADMAP.md
+    item: training, and every family but the decoder."""
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"a train cell on a mesh is not ported yet (ROADMAP.md, "
+            f"\"{ROADMAP_TRAINING}\")")
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"a {cfg.family} cell on a mesh is not ported yet (ROADMAP.md, "
+            f"\"{ROADMAP_FAMILIES}\")")
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A ``meta`` tensor of ``t``'s shape with a storage of its own (a
+    rank's rows as the per-device argument the JAX cell counts)."""
+    return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def mesh_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
+              mesh):
+    """One rank's serving cell on ``mesh`` (a tracing mesh), on ``meta``:
+    (inputs, run, info).  The inputs are the rank's f32 parameter slices
+    (``MeshRules``), its cache slices -- the JAX cell's cache, ring for a
+    decode (``decode_specs``), whole for a prefill -- and its slot rows of
+    the batch (a decode's position is the JAX cell's scalar); ``run`` is
+    the engine's dispatch around ``M.decode_step`` or ``M.prefill``;
+    ``info`` the attention path, the TP plan and the slot rows."""
+    mesh_supported(cfg, shape)
+    rules = mesh_lib.MeshRules(mesh)
+    whole = M.init_params(cfg, torch.Generator(), "meta")
+    store_sh = rules.param_sharding_tree(whole)
+    params = E.place_store(whole, store_sh, mesh, "meta")
+    B = shape.global_batch
+    decode = shape.kind == "decode"
+    cache, cache_sh, pol, fallback = E.cache_placement(
+        cfg, policy, rules, B, shape.seq_len, "meta", ring=decode,
+        kv_fmt=policy.kv_cache_fmt if decode else "")
+    place = E.placement(cfg, pol, rules, whole, store_sh, cache_sh, cache)
+    info = {"attn_backend": M.decode_attn_backend(cfg, pol, cache_sh),
+            "shard_fallback": fallback,
+            "tp_plan": place.layout["plan"]._asdict(),
+            "slot_rows": [place.rows.start, place.rows.stop],
+            "cache_spec": [list(e) if isinstance(e, tuple) else e
+                           for e in cache_sh["k_codes" if "k_codes" in
+                                             cache_sh else "k"].spec]}
+    if decode:
+        tokens = M.train_specs(cfg, ShapeConfig("", 1, B, "decode"))[
+            "tokens"]
+        inputs = {"params": params, "cache": cache,
+                  "tokens": _own(*place.rows_of(tokens)),
+                  "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+        def run(a):
+            return place.run(lambda: M.decode_step(
+                a["params"], a["tokens"], a["cache"], a["pos"], cfg, pol))
+    else:
+        batch = M.train_specs(cfg, shape)
+        inputs = {"params": params, "cache": cache,
+                  "batch": {k: _own(*place.rows_of(v))
+                            for k, v in batch.items()}}
+
+        def run(a):
+            return place.run(lambda: M.prefill(a["params"], a["batch"],
+                                               a["cache"], cfg, pol))
+    return inputs, run, info
+
+
+def layer_period(cfg: ModelConfig):
+    """(layers in one period of the config's layer pattern, periods, layers
+    outside them): a decoder's ``moe_every`` super-layer, twice over where
+    SWA alternates; a hybrid's group of SSD layers with its shared block
+    (the tail outside); one layer of an SSM, or of an encoder-decoder
+    whose encoder is as deep as its decoder (both scale).  None where the
+    depth is no whole number of periods."""
+    if cfg.family == "hybrid":
+        G, per, tail = hybrid_split(cfg)
+        return per, G, tail
+    if cfg.family == "encdec":
+        return (1, cfg.n_layers, 0) if cfg.n_layers == cfg.n_enc_layers \
+            else None
+    p = cfg.moe_every
+    if cfg.swa_pattern == "alternate":
+        p = math.lcm(p, 2)
+    if cfg.n_layers % p:
+        return None
+    return p, cfg.n_layers // p, 0
+
+
+def at_depth(cfg: ModelConfig, k: int) -> ModelConfig:
+    """The config cut to ``k`` periods (``layer_period``), the layers
+    outside them kept."""
+    p, _, rest = layer_period(cfg)
+    kw = dict(n_layers=k * p + rest)
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = k
+    return cfg.replace(**kw)
+
+
+def trace_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
+               tcfg: T.TrainConfig, ocfg: OptConfig,
+               param_dtype: str = "float32", mesh=None,
+               trace: str = "whole"):
+    """The tally (``cost.count.tally``) of one cell and its trace: the
+    whole program, or (``trace="period"``, at four periods or more) the
+    program at two and at three periods of the layer pattern, every count
+    scaled linearly to the depth.  The counts are exact where each period
+    adds the same (as the layers of a Python loop do); the peak is too
+    where the bytes a period adds stay alive to the end (a serving cell's
+    cache and parameters: its temporaries reach their steady size by two
+    periods), and a lower bound where the peak's position moves with depth
+    (a train step's saved activations outgrowing its fixed temporaries).
+    Returns (tally, info, trace record)."""
+    period = layer_period(cfg) if trace == "period" else None
+
+    def one(c):
+        if mesh is None:
+            inputs = cell_inputs(c, shape, policy, ocfg, param_dtype)
+            run, info = cell_program(c, shape, policy, tcfg, ocfg), {}
+        else:
+            inputs, run, info = mesh_cell(c, shape, policy, mesh)
+        with cost.count(inputs) as counter:
+            out = run(inputs)
+        return counter.tally(out), info
+
+    t0 = time.time()
+    if period is None or period[1] < 4:
+        tally, info = one(cfg)
+        rec = {"mode": "whole", "layers": cfg.n_layers}
+    else:
+        p, k, rest = period
+        t2, info = one(at_depth(cfg, 2))
+        t3, _ = one(at_depth(cfg, 3))
+        tally = cost.extrapolate(t2, t3, k - 1)
+        rec = {"mode": "period", "period_layers": p, "periods": k,
+               "other_layers": rest,
+               "traced_layers": [2 * p + rest, 3 * p + rest],
+               "peak": ("a lower bound: the peak moves with depth"
+                        if shape.kind == "train" else "extrapolated")}
+    rec["seconds"] = round(time.time() - t0, 1)
+    return tally, info, rec
+
+
+def engine_dispatches(cfg: ModelConfig, policy: QuantPolicy, mesh,
+                      slots: int, max_len: int, chunk: int,
+                      backend: str = "cuda") -> dict:
+    """One rank of a serving engine over a packed store on ``mesh`` (a
+    tracing mesh), on ``meta``: the ``ServeEngine`` itself, built on this
+    rank's slices of ``packed_model_specs``, and the prefill and the
+    decode dispatch of ``engine.probe_dispatches``, each counted from its
+    arguments -- the engine's store and cache.  Returns
+    ``{"prefill": summary, "decode": summary, "attn_backend",
+    "shard_fallback", "tp_plan", "store_bytes", "cache_bytes"}``."""
+    pol = policy.replace(backend=backend)
+    specs = M.packed_model_specs(cfg, pol)
+    sh = mesh_lib.MeshRules(mesh).param_sharding_tree(specs)
+    eng = E.ServeEngine(cfg, E.place_store(specs, sh, mesh, "meta"), policy,
+                        mesh=mesh, backend=backend, device="meta",
+                        slots=slots, max_len=max_len, prefill_chunk=chunk,
+                        _placed=specs)
+    out = {"attn_backend": eng.attn_backend,
+           "shard_fallback": eng.shard_fallback,
+           "tp_plan": eng.tp_plan._asdict(),
+           "store_bytes": E._nbytes(eng.params),
+           "cache_bytes": E._nbytes(eng.cache)}
+    for kind, cache, run in E.probe_dispatches(eng):
+        with cost.count((eng.params, cache)) as counter:
+            res = run()
+        out[kind] = counter.summary(res, mesh.shape)
+    return out
+
+
 def lower_cell(arch: str, shape_name: str, policy: QuantPolicy,
                tcfg: T.TrainConfig, ocfg: OptConfig,
-               param_dtype: str = "float32") -> dict:
-    """Trace one cell on ``meta`` under the counter; returns its record."""
-    cfg = get_config(arch)
+               param_dtype: str = "float32", mesh=None,
+               trace: str = "auto", cfg: ModelConfig = None) -> dict:
+    """Trace one cell on ``meta`` under the counter, on one rank of
+    ``mesh`` (a tracing mesh; None: one card); returns its record.
+    ``trace``: "whole", "period" (``trace_cell``), or "auto" -- the
+    layer-period trace on a mesh, the whole program on one card.  ``cfg``:
+    the config to trace in place of ``get_config(arch)``."""
+    cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     ok, reason = M.cell_supported(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": reason}
-    t0 = time.time()
-    inputs = cell_inputs(cfg, shape, policy, ocfg, param_dtype)
-    run = cell_program(cfg, shape, policy, tcfg, ocfg)
-    with cost.count(inputs) as counter:
-        out = run(inputs)
-    rec = counter.summary(out)
-    del out
-    params = (inputs["state"]["params"] if shape.kind == "train"
-              else inputs["params"])
+    if mesh is not None:
+        mesh_supported(cfg, shape)
+    if trace == "auto":
+        trace = "whole" if mesh is None else "period"
+    tally, info, trace_rec = trace_cell(cfg, shape, policy, tcfg, ocfg,
+                                        param_dtype, mesh, trace)
+    rec = cost.summarize(tally, None if mesh is None else mesh.shape)
+    params = M.init_params(cfg, torch.Generator(), "meta")
     model_flops, n_total, n_active = _analytic_model_flops(cfg, shape,
                                                            params)
+    n_dev = 1 if mesh is None else mesh.size
     flops = rec["cost"]["flops_per_device"]
+    per_device = model_flops / n_dev
     return {
-        "arch": arch, "shape": shape_name, "mesh": MESH, "n_devices": 1,
+        "arch": arch, "shape": shape_name, "mesh": _mesh_name(mesh),
+        "n_devices": n_dev,
         "device": "NVIDIA H100 80GB HBM3 (published peaks; meta trace)",
-        "trace_seconds": round(time.time() - t0, 1),
+        "trace_seconds": trace_rec["seconds"], "trace": trace_rec,
         **rec,
         "fits": rec["memory"]["peak_bytes_per_device"] <= cost.HBM_BYTES,
-        "collectives": {},
+        **info,
         "model_flops_global": model_flops,
-        "model_flops_per_device": model_flops,
-        "useful_flops_fraction": model_flops / flops if flops else None,
+        "model_flops_per_device": per_device,
+        "useful_flops_fraction": per_device / flops if flops else None,
         "params_total": n_total, "params_active": n_active,
         "policy": {"fwd": policy.fwd_fmt, "block_mode": policy.block_mode,
                    "kv_cache": policy.kv_cache_fmt,
@@ -239,8 +469,15 @@ def parse_args(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="also run the multi-pod mesh (not ported: one card)")
+                    help="also run the 2x16x16 multi-pod mesh")
     ap.add_argument("--multi-pod-only", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="trace this mesh alone: 1x1 (one card), or AxB / "
+                    "AxBxC; default: the production meshes")
+    ap.add_argument("--trace", default="auto",
+                    choices=["auto", "whole", "period"],
+                    help="whole program, or the layer-period trace scaled "
+                    "to the depth (auto: period on a mesh)")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--policy", default="mxsf",
                     choices=["mxsf", "bf16", "mxfp8_e4m3", "mxfp8_e2m5",
@@ -261,48 +498,62 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _meshes(args):
+    """The meshes to trace: ``--mesh`` alone (None: one card), else the
+    JAX dry run's production meshes, rank 0 of each (16x16, plus 2x16x16
+    under ``--multi-pod``, only that under ``--multi-pod-only``)."""
+    if args.mesh:
+        return [mesh_of(args.mesh)]
+    pods = [] if args.multi_pod_only else [False]
+    if args.multi_pod or args.multi_pod_only:
+        pods.append(True)
+    return [mesh_lib.make_production_mesh(multi_pod=m, trace_rank=0)
+            for m in pods]
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.multi_pod or args.multi_pod_only:
-        raise NotImplementedError("the dry run on a mesh is not ported "
-                                  "yet; it covers one card (ROADMAP.md, "
-                                  "\"The dry run on a mesh\")")
     os.makedirs(args.out, exist_ok=True)
     archs = ([a for a in list_configs() if a != "deit-tiny"]
              if args.arch is None else [args.arch])
     shapes = list(SHAPES) if args.shape is None else [args.shape]
     n_ok = n_skip = n_fail = 0
-    for arch in archs:
-        tcfg, ocfg = cell_config(arch, args.remat, args.microbatches)
-        for shape_name in shapes:
-            tag = f"{arch}__{shape_name}__{MESH}"
-            out_path = os.path.join(args.out, tag + ".json")
-            try:
-                pol = cell_policy(args.policy, SHAPES[shape_name].kind,
-                                  args.block_mode, args.kv_cache,
-                                  bool(args.save_packed),
-                                  bool(args.attn_quant), args.backend)
-                rec = lower_cell(arch, shape_name, pol, tcfg, ocfg,
-                                 param_dtype=args.param_dtype)
-                if "skipped" in rec:
-                    n_skip += 1
-                    print(f"[skip] {tag}: {rec['skipped']}")
-                else:
-                    n_ok += 1
-                    r, mem = rec["roofline"], rec["memory"]
-                    print(f"[ ok ] {tag}: trace={rec['trace_seconds']}s"
-                          f" peak={mem['peak_bytes_per_device'] / 1e9:.2f}GB"
-                          f" fits={rec['fits']}"
-                          f" compute={r['compute_s'] * 1e3:.2f}ms"
-                          f" mem={r['memory_s'] * 1e3:.2f}ms"
-                          f" dom={r['dominant']}", flush=True)
-                with open(out_path, "w") as f:
-                    json.dump(rec, f, indent=1)
-            except Exception as e:  # noqa: BLE001 -- one cell's fault
-                n_fail += 1
-                print(f"[FAIL] {tag}: {e}", flush=True)
-                with open(out_path + ".err", "w") as f:
-                    f.write(traceback.format_exc())
+    for mesh in _meshes(args):
+        mesh_name = _mesh_name(mesh)
+        for arch in archs:
+            tcfg, ocfg = cell_config(arch, args.remat, args.microbatches)
+            for shape_name in shapes:
+                tag = f"{arch}__{shape_name}__{mesh_name}"
+                out_path = os.path.join(args.out, tag + ".json")
+                try:
+                    pol = cell_policy(args.policy, SHAPES[shape_name].kind,
+                                      args.block_mode, args.kv_cache,
+                                      bool(args.save_packed),
+                                      bool(args.attn_quant), args.backend)
+                    rec = lower_cell(arch, shape_name, pol, tcfg, ocfg,
+                                     param_dtype=args.param_dtype,
+                                     mesh=mesh, trace=args.trace)
+                    if "skipped" in rec:
+                        n_skip += 1
+                        print(f"[skip] {tag}: {rec['skipped']}")
+                    else:
+                        n_ok += 1
+                        r, mem = rec["roofline"], rec["memory"]
+                        print(f"[ ok ] {tag}: trace={rec['trace_seconds']}s"
+                              f" ({rec['trace']['mode']})"
+                              f" peak={mem['peak_bytes_per_device'] / 1e9:.2f}GB"
+                              f" fits={rec['fits']}"
+                              f" compute={r['compute_s'] * 1e3:.2f}ms"
+                              f" mem={r['memory_s'] * 1e3:.2f}ms"
+                              f" coll={r['collective_s'] * 1e3:.2f}ms"
+                              f" dom={r['dominant']}", flush=True)
+                    with open(out_path, "w") as f:
+                        json.dump(rec, f, indent=1)
+                except Exception as e:  # noqa: BLE001 -- one cell's fault
+                    n_fail += 1
+                    print(f"[FAIL] {tag}: {e}", flush=True)
+                    with open(out_path + ".err", "w") as f:
+                        f.write(traceback.format_exc())
     print(f"done: ok={n_ok} skip={n_skip} fail={n_fail}")
     if n_fail:
         raise SystemExit(1)

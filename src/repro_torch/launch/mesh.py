@@ -19,7 +19,10 @@ Parallelism mapping:
 
 A mesh lives on a ``torch.distributed`` process group that the caller
 initialised (``nccl`` with one rank per card, ``gloo`` on the CPU or for
-ranks that share a card); neither maker starts one.
+ranks that share a card); neither maker starts one.  A dry run traces one
+rank of a mesh without any: ``make_production_mesh(trace_rank=r)`` (the
+counterpart of the JAX package's 512 forced host devices), or
+``make_tracing_mesh`` for any shape (``sharding.TracingMesh``).
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ from typing import Optional, Tuple
 from ..core import packed_store
 from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor
-from ..core.sharding import AbstractMesh, Mesh, NamedSharding, P
+from ..core.sharding import (AbstractMesh, Mesh, NamedSharding, P,
+                             TracingMesh)
 
-__all__ = ["make_production_mesh", "make_test_mesh", "make_mesh",
-           "MeshRules", "AbstractMesh", "Mesh", "state_shardings",
+__all__ = ["make_production_mesh", "make_tracing_mesh", "make_test_mesh",
+           "make_mesh", "mesh_axes", "MESH_AXES", "MeshRules",
+           "AbstractMesh", "Mesh", "TracingMesh", "state_shardings",
            "batch_shardings", "cache_shardings"]
 
 
@@ -63,16 +68,38 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
     return Mesh(dict(zip(names, shape)), dm)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+# a mesh's axis names by its number of axes: one pod, or across pods
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def mesh_axes(shape: Tuple[int, ...]) -> Tuple[str, ...]:
+    """The axis names of a mesh of ``shape`` (``MESH_AXES``)."""
+    names = MESH_AXES.get(len(shape))
+    if names is None:
+        raise ValueError(f"mesh {tuple(shape)}: expected 2 axes (data, "
+                         "model) or 3 (pod, data, model)")
+    return names
+
+
+def make_tracing_mesh(shape: Tuple[int, ...], rank: int = 0) -> Mesh:
+    """The tracing mesh of rank ``rank`` of a ``shape`` mesh, which needs
+    no process group (``sharding.TracingMesh``)."""
+    return TracingMesh(tuple(shape), mesh_axes(shape), rank)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         trace_rank: Optional[int] = None) -> Mesh:
+    """The production mesh, (16, 16) or (2, 16, 16) across two pods, over
+    the process group's ranks; with ``trace_rank`` the tracing mesh of
+    that one rank instead (``make_tracing_mesh``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n = 1
-    for s in shape:
-        n *= s
+    if trace_rank is not None:
+        return make_tracing_mesh(shape, trace_rank)
+    n = math.prod(shape)
     have = _world()
     if have < n:
         raise RuntimeError(f"mesh {shape} needs {n} ranks, have {have}")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, mesh_axes(shape))
 
 
 def clamp_test_mesh(data: int, model: int, n: int) -> Tuple[int, int]:

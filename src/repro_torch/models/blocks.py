@@ -397,19 +397,28 @@ def _write_owned(buf, upd, slot, write_len, W: int, lo: int):
     position-sharded cache of W columns: rows whose column another rank
     owns are dropped here (that rank writes them).  A dropped row writes
     back what its local column (taken modulo Wl) holds; S <= Wl keeps the
-    S columns distinct modulo Wl, so no two rows meet."""
+    S columns distinct modulo Wl, so no two rows meet.  A write wider than
+    the rank's columns (a whole prompt) goes the other way round: each
+    local column takes the row that lands on it, or keeps what it holds."""
     Bsz, S = upd.shape[:2]
     Wl = buf.shape[1]
-    if S > Wl:
-        raise ValueError(f"a {S}-row write spans more than the {Wl} columns "
-                         "a rank holds; use a narrower prefill chunk")
     bi = torch.arange(Bsz, device=buf.device)[:, None]
+    start = slot if write_len is not None else torch.clamp(slot, max=W - S)
+    if S > Wl:
+        col = torch.arange(Wl, device=buf.device)
+        j = lo + col[None, :] - start[:, None]  # the row each column takes
+        keep = (j >= 0) & (j < S)
+        if write_len is not None:
+            keep = keep & (j < write_len[:, None])
+        keep = keep.reshape(keep.shape + (1,) * (upd.ndim - 2))
+        rows = upd[bi, torch.clamp(j, 0, S - 1)]
+        buf[:] = torch.where(keep, rows, buf)
+        return
     ar = torch.arange(S, device=buf.device)
+    cols = start[:, None] + ar[None, :]
     if write_len is None:
-        cols = torch.clamp(slot, max=W - S)[:, None] + ar[None, :]
         keep = torch.ones_like(cols, dtype=torch.bool)
     else:
-        cols = slot[:, None] + ar[None, :]
         keep = (ar[None, :] < write_len[:, None]) & (cols < W)
     keep = keep & (cols >= lo) & (cols < lo + Wl)
     local = (cols - lo) % Wl

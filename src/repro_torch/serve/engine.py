@@ -54,7 +54,12 @@ shard their experts over the model axis (``MeshRules``: unevenly too,
 zero rows past the end): every rank routes the whole slot batch, runs its
 own experts and gathers their outputs (``blocks.moe``).  ``from_init``
 draws a random store as one device would and keeps only this rank's
-slices, so no rank ever holds the whole store.
+slices, so no rank ever holds the whole store.  The placement and the
+dispatch are module functions (``cache_placement``, ``place_store``,
+``placement`` and its ``Placement.run``), which the dry run on a mesh
+(``launch/dryrun.py``) traces on a tracing mesh as the engine runs them;
+``probe_dispatches`` drives one prefill and one decode dispatch, which a
+rank counts and the dry run traces alike.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ import contextlib
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Deque, List, Optional, Union
+from typing import Callable, Deque, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -77,7 +82,9 @@ from ..launch import mesh as mesh_lib
 from ..models import blocks
 from ..models import model as M
 
-__all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device"]
+__all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device",
+           "Placement", "placement", "cache_placement", "place_store",
+           "probe_dispatches"]
 
 
 def auto_prefill_chunk(max_len: int, slots: int) -> int:
@@ -163,6 +170,108 @@ def _specs_by_name(store, shardings, path=()) -> dict:
     return {name: (spec[-r:], tuple(store.shape[-r:]))}
 
 
+def cache_placement(cfg: ModelConfig, policy: QuantPolicy, rules, slots: int,
+                    max_len: int, device, **cache_kw):
+    """A sharded cache: this rank's zeroed slices of ``init_cache(cfg,
+    slots, max_len, **cache_kw)`` on ``device``, their shardings
+    (``cache_shardings``), and the per-shard half of the attention
+    kernel's gate in the JAX package's wording: a sharded position axis
+    is sequence parallelism, which the kernel cannot run shard-local.
+    Returns (cache, shardings, policy -- the kernel off where the gate
+    shuts --, shard_fallback -- why, or None)."""
+    shapes = M.init_cache(cfg, slots, max_len, device="meta", **cache_kw)
+    sh = mesh_lib.cache_shardings(rules, shapes, slots)
+    cache = packed_store.tree_map(
+        lambda t, ns: torch.zeros(
+            shd.shard_shape(t.shape, ns.spec, rules.mesh.shape),
+            dtype=t.dtype, device=device), shapes, sh)
+    fallback = None
+    if M.decode_attn_backend(cfg, policy) == "cuda-packed" and \
+            M.cache_position_axis_sharded(sh):
+        policy = policy.replace(attention_kernel=False)
+        fallback = ("cache position axis sharded (sequence-parallel "
+                    "fallback layout): packed-attention kernel cannot run "
+                    "shard-local, using the torch cached-attention path")
+    return cache, sh, policy, fallback
+
+
+def place_store(params, shardings, mesh, device):
+    """This rank's slices of a whole tree (a packed store or f32 leaves)
+    under ``shardings``, on ``device``.  On ``meta`` each slice is a
+    tensor of its own: a view would carry the whole leaf's storage."""
+    meta = torch.device(device).type == "meta"
+
+    def own(t):
+        if meta:
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return t.contiguous().to(device)
+
+    return packed_store.tree_map(
+        lambda leaf, ns: shd.map_parts(
+            packed_store.shard_leaf(leaf, _spec(ns), mesh,
+                                    shd.uneven_dims(ns)), own),
+        params, shardings)
+
+
+class Placement(NamedTuple):
+    """Where one rank's sharded dispatches run: its mesh's rules, the
+    layout the model code reads (``mesh_context``'s keywords: each leaf's
+    stored spec by name, the TP plan, the cache's position or kv-head
+    split, this rank's first slot row), its slot rows and the axes the
+    slot batch splits over (None: every rank runs every row)."""
+    rules: object
+    layout: dict
+    rows: slice
+    batch_axes: object
+
+    def hints(self):
+        return shd.mesh_context(self.rules.mesh, self.rules.dp,
+                                self.rules.tp, **self.layout)
+
+    def rows_of(self, *arrays):
+        """This rank's slot rows of each array (dim 0 the slot batch)."""
+        return tuple(a[self.rows] for a in arrays)
+
+    def run(self, step):
+        """``step()`` -- a dispatch on this rank's rows, returning (logits,
+        cache) -- under the mesh context; the logits rows are gathered
+        over the batch axes, so every rank holds every slot's (the JAX
+        cells' replicated logits)."""
+        with self.hints():
+            logits, cache = step()
+            return shd.all_gather(logits, self.batch_axes, 0), cache
+
+
+def placement(cfg: ModelConfig, policy: QuantPolicy, rules, store,
+              store_sh, cache_sh, cache) -> Placement:
+    """The ``Placement`` of a decoder's dispatches: ``store`` the whole
+    tree (shapes suffice: ``meta`` tensors, a packed store or f32 leaves)
+    placed by ``store_sh``, ``cache`` this rank's slices of a cache placed
+    by ``cache_sh``.  The cache splits what the layers do not: its
+    position axis (sequence parallelism) and, where attention runs
+    replicated, its kv heads; the slot rows follow its batch dim."""
+    mesh = rules.mesh
+    layer = M.decoding.layer_params(store["layers"], 0)
+    plan = blocks.tp_plan(cfg, policy, layer, store, rules.tp_size)
+    key = "k_codes" if "k_codes" in cache_sh else "k"
+    kv, local = cache_sh[key].spec, cache[key].shape
+    w_entry, b_entry, h_entry = kv[-3], kv[-4], kv[-2]
+    sp = heads = None
+    if w_entry is not None:
+        sp = (w_entry, shd.shard_index(w_entry, mesh) * local[-3],
+              shd.axis_size(w_entry, mesh.shape))
+    if h_entry is not None and not plan.heads:
+        heads = (h_entry, shd.shard_index(h_entry, mesh) * local[-2],
+                 shd.axis_size(h_entry, mesh.shape))
+    i_b = shd.shard_index(b_entry, mesh)
+    rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
+    layout = dict(specs=_specs_by_name(store, store_sh), plan=plan,
+                  cache_sp=sp, cache_heads=heads,
+                  batch_rows=None if b_entry is None else (b_entry,
+                                                           rows.start))
+    return Placement(rules, layout, rows, b_entry)
+
+
 class ServeEngine:
     """Fixed-slot continuous batching over prefill_step + decode_step."""
 
@@ -185,38 +294,27 @@ class ServeEngine:
         self.cfg = cfg
         self.mesh = mesh
         self.rules = None if mesh is None else mesh_lib.MeshRules(mesh)
-        if mesh is not None and mesh.device_mesh is None:
+        if mesh is not None and mesh.device_mesh is None and \
+                not mesh.tracing:
             raise ValueError(f"{mesh} is abstract: a sharded engine needs "
-                             "a mesh over a process group (launch/mesh)")
+                             "a mesh over a process group (launch/mesh), "
+                             "or a tracing mesh on meta tensors")
+        if mesh is not None and mesh.tracing and self.device.type != "meta":
+            raise ValueError(f"{mesh} sends nothing: it serves only on "
+                             f"meta tensors, not on {self.device}")
         # the cache's precision follows the compute dtype, as in the JAX
         # engine: a bf16 cache under an f32 config would round K/V
         cache_kw = dict(dtype=torch_dtype(cfg.compute_dtype), ring=False,
                         kv_fmt=policy.kv_cache_fmt)
         self.shard_fallback: Optional[str] = None
-        self._cache_sh = None
+        self._cache_sh = self.placement = None
         if self.rules is None:
             self.cache = M.init_cache(cfg, slots, max_len, device=self.device,
                                       **cache_kw)
         else:
-            shapes = M.init_cache(cfg, slots, max_len, device="meta",
-                                  **cache_kw)
-            self._cache_sh = mesh_lib.cache_shardings(self.rules, shapes,
-                                                      slots)
-            self.cache = packed_store.tree_map(
-                lambda t, ns: torch.zeros(
-                    t[shd.shard_slices(t.shape, ns.spec, mesh)].shape,
-                    dtype=t.dtype, device=self.device),
-                shapes, self._cache_sh)
-            # the per-shard half of the attention kernel's gate (the JAX
-            # package's wording): a sharded position axis is sequence
-            # parallelism, which the kernel cannot run shard-local
-            if M.decode_attn_backend(cfg, policy) == "cuda-packed" and \
-                    M.cache_position_axis_sharded(self._cache_sh):
-                policy = policy.replace(attention_kernel=False)
-                self.shard_fallback = (
-                    "cache position axis sharded (sequence-parallel "
-                    "fallback layout): packed-attention kernel cannot run "
-                    "shard-local, using the torch cached-attention path")
+            self.cache, self._cache_sh, policy, self.shard_fallback = \
+                cache_placement(cfg, policy, self.rules, slots, max_len,
+                                self.device, **cache_kw)
         can_pack = packed_store.packable_policy(policy)
         if pack_weights and not can_pack:
             raise ValueError(
@@ -270,73 +368,44 @@ class ServeEngine:
     def _place(self, store, params, policy, placed):
         """Sharded placement: the store's shardings, the matmul kernels'
         per-shard gate, this rank's slices (unless ``placed``: restored
-        as slices already), and the layout the model code reads (each
-        leaf's stored spec by name, the TP plan, the cache's position
-        split, this rank's slot rows)."""
-        mesh, cfg = self.mesh, self.cfg
+        as slices already), and the ``Placement`` of its dispatches."""
+        mesh = self.mesh
         self._store_sh = self.rules.param_sharding_tree(store)
         _check_blocks_aligned(store, self._store_sh, mesh.shape)
         if placed is None:
-            params = packed_store.tree_map(
-                lambda leaf, ns: shd.map_parts(
-                    packed_store.shard_leaf(leaf, _spec(ns), mesh,
-                                            shd.uneven_dims(ns)),
-                    lambda t: t.contiguous().to(self.device)),
-                params, self._store_sh)
-        layer = M.decoding.layer_params(store["layers"], 0)
-        plan = blocks.tp_plan(cfg, policy, layer, store, self.rules.tp_size)
-        kv = self._cache_sh["k_codes" if "k_codes" in self._cache_sh
-                            else "k"].spec
-        w_entry, b_entry, h_entry = kv[-3], kv[-4], kv[-2]
-        local = self.cache["k_codes" if "k_codes" in self.cache
-                           else "k"].shape
-        sp = heads = None  # the cache splits what the layers do not
-        if w_entry is not None:
-            sp = (w_entry, shd.shard_index(w_entry, mesh) * local[-3],
-                  shd.axis_size(w_entry, mesh.shape))
-        if h_entry is not None and not plan.heads:
-            heads = (h_entry, shd.shard_index(h_entry, mesh) * local[-2],
-                     shd.axis_size(h_entry, mesh.shape))
-        self._batch_axes = b_entry
-        i_b = shd.shard_index(b_entry, mesh)
-        self._rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
-        rows = None if b_entry is None else (b_entry, self._rows.start)
-        self._layout = dict(specs=_specs_by_name(store, self._store_sh),
-                            plan=plan, cache_sp=sp, cache_heads=heads,
-                            batch_rows=rows)
-        self.tp_plan = plan
+            params = place_store(params, self._store_sh, mesh, self.device)
+        self.placement = placement(self.cfg, policy, self.rules, store,
+                                   self._store_sh, self._cache_sh,
+                                   self.cache)
+        self._layout = self.placement.layout
+        self.tp_plan = self._layout["plan"]
+        self._rows = self.placement.rows
         return params
 
     def _hints(self):
         """The mesh context of a dispatch (a no-op context without a
         mesh)."""
-        if self.rules is None:
+        if self.placement is None:
             return contextlib.nullcontext()
-        return shd.mesh_context(self.mesh, self.rules.dp, self.rules.tp,
-                                **self._layout)
+        return self.placement.hints()
 
     def _decode(self, params, tokens, cache, pos):
         """One decode dispatch over the whole slot batch; under a mesh this
         rank runs its slot rows and the logits rows are gathered."""
-        if self.rules is None:
+        if self.placement is None:
             return M.decode_step(params, tokens, cache, pos, self.cfg,
                                  self.policy)
-        with self._hints():
-            logits, cache = M.decode_step(params, tokens[self._rows], cache,
-                                          pos[self._rows], self.cfg,
-                                          self.policy)
-            return shd.all_gather(logits, self._batch_axes, 0), cache
+        t, p = self.placement.rows_of(tokens, pos)
+        return self.placement.run(lambda: M.decode_step(
+            params, t, cache, p, self.cfg, self.policy))
 
     def _prefill(self, params, tokens, cache, pos, n_valid):
-        if self.rules is None:
+        if self.placement is None:
             return M.prefill_step(params, tokens, cache, pos, n_valid,
                                   self.cfg, self.policy)
-        r = self._rows
-        with self._hints():
-            logits, cache = M.prefill_step(params, tokens[r], cache, pos[r],
-                                           n_valid[r], self.cfg,
-                                           self.policy)
-            return shd.all_gather(logits, self._batch_axes, 0), cache
+        t, p, n = self.placement.rows_of(tokens, pos, n_valid)
+        return self.placement.run(lambda: M.prefill_step(
+            params, t, cache, p, n, self.cfg, self.policy))
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
@@ -551,3 +620,30 @@ class ServeEngine:
                 continue
             self._emit(s, int(nxt[s]), done)
         return done
+
+
+def probe_dispatches(eng: ServeEngine):
+    """Yield ``(kind, cache, run)`` for one prefill dispatch of ``eng``
+    (a chunk of token 0 on every slot from position 0) and then one decode
+    dispatch (token 0 on every slot at position 0), each on a zeroed copy
+    ``cache`` of the engine's cache; ``run()`` issues the dispatch through
+    ``_prefill`` or ``_decode`` with the inputs the engine's own tick
+    builds, and returns (logits, cache).  A rank and a trace of it count
+    the same dispatches from here, each with its own counters."""
+    B, C = eng.slots, eng.prefill_chunk
+    for kind in ("prefill", "decode"):
+        cache = {k: torch.zeros_like(v) for k, v in eng.cache.items()}
+        pos = eng._tensor([0] * B)
+        if kind == "prefill":
+            toks = eng._tensor(np.zeros((B, C), np.int32))
+            n_valid = eng._tensor(np.full(B, C, np.int32))
+
+            def run(toks=toks, cache=cache, pos=pos, n_valid=n_valid):
+                return eng._prefill(eng.params, toks, cache, pos, n_valid)
+        else:
+            toks = eng._tensor([0] * B)[:, None]
+
+            def run(toks=toks, cache=cache, pos=pos):
+                return eng._decode(eng.params, toks, cache, pos)
+        yield kind, cache, run
+        del cache, run

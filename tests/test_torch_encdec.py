@@ -193,11 +193,18 @@ def _bf16_close(got, want):
     close(got, want, rtol=2.0 ** -8)
 
 
+# the self-attention cache's width: not tests/test_serve_engine.py's 16, at
+# which the JAX kernel calls below would trace that test's decode grid (the
+# same q and cache shapes) earlier on a shared pytest-xdist worker and
+# leave it nothing to compile
+SELF_CACHE = 24
+
+
 def _serve(store, cfg, policy, frames, toks, prefill, decode, init_cache,
            **kw):
     """``prefill`` of the frames, then a decode step per token: (logits of
     each step, cache)."""
-    cache = init_cache(cfg, 2, 16, kv_fmt="mxsf", **kw)
+    cache = init_cache(cfg, 2, SELF_CACHE, kv_fmt="mxsf", **kw)
     _, cache = prefill(store, {"frames": frames}, cache, cfg, policy)
     out = []
     for t in range(toks.shape[1]):

@@ -4,7 +4,7 @@ package's ``tests/test_sharded_serving.py``.
 The reduced qwen2.5-32b config in float32, the JAX package's weights,
 ``MXSF_INFER.replace(block_1d=16, kv_cache_fmt="mxsf")`` on the kernel
 datapath (the kernels' plain versions on CPU tensors), 2 slots, max_len
-16, chunk 4.  Each mesh is a world of gloo ranks (``torch_dist``), one
+24, chunk 4.  Each mesh is a world of gloo ranks (``torch_dist``), one
 engine per rank, all ranks serving the same prompts; the single-device
 port engine and the single-device JAX engine run here.
 
@@ -73,7 +73,8 @@ def ref():
                                ("bf16", JAX_BF16, None)):
         jeng = JaxEngine(cfg_j, JM.init_params(jax.random.PRNGKey(0),
                                                 cfg_j), pol, slots=2,
-                         max_len=16, prefill_chunk=4, backend=backend)
+                         max_len=KW["max_len"], prefill_chunk=4,
+                         backend=backend)
         reqs = [jeng.submit(p, R.MAX_NEW) for p in prompts]
         jeng.run()
         jout[name] = [r.out for r in reqs]
@@ -162,7 +163,7 @@ def test_layout_on_2x2(ref, worlds):
         assert spec[-3] == "data"       # slot batch over the data axis
         assert spec[-1] == "model"      # kv heads over the model axis
         assert spec[2] == "data" and spec[3] is None  # positions whole
-        assert res["cache_local"][-4:] == (1, 16, 1, 16)
+        assert res["cache_local"][-4:] == (1, KW["max_len"], 1, 16)
         assert any(any(s for s in c) for c, _, _ in res["packed_specs"])
         for codes, scales, dtype in res["packed_specs"]:
             assert codes == scales and dtype == torch.uint8
@@ -209,7 +210,7 @@ def test_bf16_value_cache_on_2x2(ref, worlds):
     for res in _world(ref, worlds, 4):
         assert res["bf16_tokens"] == ref["bf16_tokens"] == ref["jax"]["bf16"]
         assert res["bf16_cache_spec"][2] == "data"
-        assert res["bf16_local_k"][-4:] == (1, 16, 1, 16)
+        assert res["bf16_local_k"][-4:] == (1, KW["max_len"], 1, 16)
         np.testing.assert_allclose(res["bf16_first"], ref["bf16_first"],
                                    rtol=0, atol=LOGIT_RTOL * scale)
 

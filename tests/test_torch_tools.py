@@ -358,7 +358,10 @@ def test_dryrun_cli_writes_the_record(tmp_path):
     try:
         dryrun.main(["--arch", "internvl2-1b-reduced", "--shape",
                      "tools_decode", "--backend", "cuda", "--kv-cache",
-                     "mxsf", "--out", str(tmp_path)])
+                     "mxsf", "--mesh", "1x1", "--out", str(tmp_path)])
+        dryrun.main(["--arch", "internvl2-1b-reduced", "--shape",
+                     "tools_decode", "--backend", "cuda", "--kv-cache",
+                     "mxsf", "--multi-pod-only", "--out", str(tmp_path)])
     finally:
         del SHAPES["tools_decode"]
     rec = json.loads(
@@ -383,8 +386,21 @@ def test_dryrun_cli_writes_the_record(tmp_path):
     assert math.isclose(rec["useful_flops_fraction"],
                         rec["model_flops_global"]
                         / rec["cost"]["flops_per_device"])
-    with pytest.raises(NotImplementedError, match="The dry run on a mesh"):
-        dryrun.main(["--multi-pod", "--out", str(tmp_path)])
+    pod = json.loads(
+        (tmp_path / "internvl2-1b-reduced__tools_decode__2x16x16.json")
+        .read_text())
+    for key in ("memory", "cost", "roofline", "collectives", "mesh",
+                "n_devices", "model_flops_global", "model_flops_per_device",
+                "useful_flops_fraction", "params_total", "params_active",
+                "fits", "collective_axes", "attn_backend", "shard_fallback"):
+        assert key in pod, key
+    assert pod["mesh"] == "2x16x16" and pod["n_devices"] == 512
+    assert any(c["count"] for c in pod["collectives"].values())
+    assert set(pod["collective_axes"]) == {"pod", "data", "model"}
+    assert all(a["bytes_per_s"] > 0 for a in pod["collective_axes"].values())
+    r = pod["roofline"]
+    assert r["dominant"] in ("compute", "memory", "collective")
+    assert r["collective_s"] > 0
 
 
 @pytest.mark.parametrize("example,args,lines", [

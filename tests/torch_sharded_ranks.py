@@ -14,14 +14,19 @@ from repro_torch.core import packed_store
 from repro_torch.core import sharding as shd
 from repro_torch.core.blocking import QuantizedTensor
 from repro_torch.core.policy import BF16, MXSF_INFER
+from repro_torch.launch import cost
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import blocks
 from repro_torch.models import model as M
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, _nbytes, probe_dispatches
 
 POL = MXSF_INFER.replace(block_1d=16, kv_cache_fmt="mxsf")
 BLOCK64 = MXSF_INFER.replace(kv_cache_fmt="mxsf")
-KW = dict(slots=2, max_len=16, prefill_chunk=4, device="cpu")
+# max_len 24, not tests/test_serve_engine.py's 16: that test counts the
+# attention-kernel compiles of its own JAX engine, and JAX caches compiles
+# per process, so the reference engine here at its shapes, run earlier on
+# the same worker, would leave it nothing to compile
+KW = dict(slots=2, max_len=24, prefill_chunk=4, device="cpu")
 MAX_NEW = 3
 LOGIT_RTOL = 1e-5
 
@@ -184,4 +189,70 @@ def row_parallel(rank):
             y = blocks._row_parallel(x[:, rank * k:(rank + 1) * k],
                                      {"w": leaf}, "w", True, pol)
         out[name] = (y.dtype, y.float().numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one dispatch's counts on a real rank (``test_torch_dryrun_mesh.py``)
+# ---------------------------------------------------------------------------
+
+KERNELS = ("mxsf_fused_matmul", "mxsf_attention", "mxsf_quantize",
+           "mxsf_requantize", "mxsf_matmul")
+
+
+class kernel_calls:
+    """Count each kernel wrapper's calls inside the block (on CPU tensors
+    the wrappers run their plain versions; a call is where the card
+    launches): ``{name: calls}`` of the wrappers called."""
+
+    def __init__(self):
+        from repro_torch.kernels import mx_matmul as MM
+        from repro_torch.kernels import mxsf_attention as MA
+        from repro_torch.kernels import mxsf_fused_matmul as FM
+        from repro_torch.kernels import mxsf_quant as MQ
+        self.mods = {"mxsf_fused_matmul": FM, "mxsf_attention": MA,
+                     "mxsf_quantize": MQ, "mxsf_requantize": MQ,
+                     "mxsf_matmul": MM}
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = {k: getattr(m, k) for k, m in self.mods.items()}
+        for name, fn in self.saved.items():
+            def counted(*a, _name=name, _fn=fn, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(self.mods[name], name, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mods[name], name, fn)
+
+
+def engine_counts(eng):
+    """The prefill and the decode dispatch of ``probe_dispatches`` on
+    ``eng``: each one's kernel calls and collectives (``sharding.counts()``
+    without the host seconds), and the bytes of the engine's store and
+    cache."""
+    out = {"store_bytes": _nbytes(eng.params),
+           "cache_bytes": _nbytes(eng.cache)}
+    for kind, _, run in probe_dispatches(eng):
+        shd.reset_counts()
+        with kernel_calls() as calls:
+            run()
+        out[kind] = {"launches": dict(calls), "collectives":
+                     cost.collectives_by_axis(shd.counts())}
+    return out
+
+
+def dispatch_counts(rank, shape, cases):
+    """On a ``shape`` mesh: ``engine_counts`` of an engine over a packed
+    store of seeded weights for each ``{name: (config, policy)}`` of
+    ``cases``."""
+    mesh = mesh_lib.make_test_mesh(*shape)
+    out = {}
+    for name, (cfg, pol) in cases.items():
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        eng = ServeEngine(cfg, params, pol, mesh=mesh, backend="cuda", **KW)
+        out[name] = engine_counts(eng)
     return out
