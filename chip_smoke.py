@@ -2590,7 +2590,19 @@ def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
     (rank, world, port, rehearsal, spec file)`` over one gloo group; a
     rank that fails or outlives ``wait_s`` fails the phase, and every
     rank still running is stopped.  Returns each rank's results (its
-    ``rank<r>.json``), each emitted."""
+    ``rank<r>.json``), each emitted; the ranks' teacher-forced choices
+    must agree."""
+    procs = start_rank_processes(target, spec, out_dir, world, rehearsal)
+    ranks = finish_rank_processes(phase, procs, out_dir, wait_s)
+    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
+            "disagree"] for r in ranks):
+        raise AssertionError(f"{phase}: the ranks chose differently")
+    return ranks
+
+
+def start_rank_processes(target, spec, out_dir, world, rehearsal):
+    """Start ``run_rank_processes``' ranks; returns (processes, the time
+    they started)."""
     import os
     import shutil
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2608,7 +2620,15 @@ def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
              str(int(rehearsal)), str(spec_file)],
             cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT))
         log.close()
-    deadline = time.perf_counter() + wait_s
+    return procs, time.perf_counter()
+
+
+def finish_rank_processes(phase, started, out_dir, wait_s=SHARD_WAIT_S):
+    """Wait for the ranks ``start_rank_processes`` started (``wait_s``
+    from their start), stop any still running, and return each rank's
+    results, each emitted; a rank that failed fails ``phase``."""
+    procs, t0 = started
+    deadline = t0 + wait_s
     try:
         while any(p.poll() is None for p in procs):
             if time.perf_counter() > deadline:
@@ -2630,9 +2650,6 @@ def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
         if p.returncode != 0 or "error" in res or not res:
             raise AssertionError(f"{phase} rank {r} failed "
                                  f"(exit {p.returncode}): {log}")
-    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
-            "disagree"] for r in ranks):
-        raise AssertionError(f"{phase}: the ranks chose differently")
     return ranks
 
 
@@ -2939,9 +2956,10 @@ def phase_ring_swa(torch, device, args, rehearsal):
     return launches
 
 
-MOE_LAYERS = 12  # serve_moe's depth, and so serve_sharded_moe's: at all
+MOE_LAYERS = 8  # serve_moe's depth, and so serve_sharded_moe's: at all
 # 24 layers the two phases took 77 + 244 s of a 1151 s script on the H100,
-# too close to its 1200 s limit
+# too close to its 1200 s limit; at 12, 40 + 132 s of a script that took
+# 1046.7-1213.5 s once phase serve_sharded_families joined it
 
 
 def phase_serve_moe(torch, device, args, rehearsal):
@@ -3064,8 +3082,8 @@ SHARD_MOE_DIR = ROOT / "build" / "chip_smoke_sharded_moe"  # ranks' results
 MOE_REF_DIR = ROOT / "build" / "chip_smoke_moe_ref"  # removed when it ends
 MOE_REORDER_CEILING = 0.390625 + 2.0 ** -5  # the most the one-device
 # reorder baseline may move qwen2-moe's logits on the card: the move
-# recorded on the H100 at MOE_LAYERS (0.390625) plus one bf16 ulp of its
-# largest |logit| (4-8)
+# recorded on the H100 at 12 layers (0.390625), kept as the cap at
+# MOE_LAYERS, plus one bf16 ulp of its largest |logit| (4-8)
 
 
 def moe_taps(torch, fn):
@@ -3645,10 +3663,13 @@ def phase_serve_vlm(torch, device, args, rehearsal):
 def phase_train_families(torch, device, args, rehearsal):
     """``MXSF_TRAIN`` (2D) under the default remat ``"dots"``, 2 steps and
     one profiled, at full width: mamba2-780m (48 layers, 4 x 512),
-    whisper-medium (24 + 24 layers, 2 x 448 over 1500 frames),
-    internvl2-1b (24 layers, 4 x 512 behind the 256-embedding prefix) and
-    zamba2-7b cut to 12 of its 81 layers (2 groups of 6: f32 weights and
-    AdamW state at full depth exceed the card; printed).  Each step
+    whisper-medium cut to 12 + 12 of its 24 + 24 layers (2 x 448 over
+    1500 frames; at full depth its profiled step alone took 65 s, which
+    the script's time budget no longer holds beside phase
+    serve_sharded_families), internvl2-1b (24 layers, 4 x 512 behind the
+    256-embedding prefix) and zamba2-7b cut to 12 of its 81 layers (2
+    groups of 6: f32 weights and AdamW state at full depth exceed the
+    card); each cut printed.  Each step
     prints loss (finite, within 1.5 of ln(vocab) at init), seconds,
     tokens/s, peak memory and launches equal to the path's; then one step
     teacher-forced (``phase_train_slice``: every kernel call against its
@@ -3661,7 +3682,7 @@ def phase_train_families(torch, device, args, rehearsal):
     policy = MXSF_TRAIN.replace(backend="cuda")
     launches = {}
     runs = (("mamba2-780m", 4, 512, None, True),
-            ("whisper-medium", 2, 448, None, True),
+            ("whisper-medium", 2, 448, 12, True),
             ("internvl2-1b", 4, 512, None, False),
             ("zamba2-7b", 4, 512, 12, False))
     for arch, batch, seq, depth, no_remat in runs:
@@ -3671,7 +3692,8 @@ def phase_train_families(torch, device, args, rehearsal):
         elif depth:
             emit("train_families", arch=arch, step="cut",
                  n_layers=depth, of=cfg.n_layers)
-            cfg = cfg.replace(n_layers=depth)
+            cfg = cfg.replace(n_layers=depth, n_enc_layers=(
+                depth if cfg.n_enc_layers else 0))
         t0 = time.perf_counter()
         state, batches, launches[f"train_{arch}"] = phase_train(
             torch, device, cfg, policy, args, 2, batch, seq, arch,
@@ -3694,6 +3716,312 @@ def phase_train_families(torch, device, args, rehearsal):
 # the dry run held against the card ("dryrun") and the examples ("examples")
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and encoder-decoder families on a mesh
+# ("serve_sharded_families")
+# ---------------------------------------------------------------------------
+
+SHARD_FAM_DIR = ROOT / "build" / "chip_smoke_sharded_families"  # results
+# the most the one-device reorder baseline (``family_reference``) may move
+# each family's logits on the card: the move recorded on the H100 (the
+# same bits in two runs of this deterministic path and its seeded
+# inputs) plus one bf16 ulp of a logit in [4, 8)
+FAMILY_REORDER_CEILING = {"mamba2-780m": 0.4140625 + 2.0 ** -5,
+                          "zamba2-7b": 0.27734375 + 2.0 ** -5,
+                          "whisper-medium": 0.091796875 + 2.0 ** -5}
+
+
+def families_plan(rehearsal: bool) -> dict:
+    """The programs of phase serve_sharded_families, with the one-card
+    family phases' shapes: ``{arch: dict(n_layers, n_enc_layers, batch,
+    prompt, max_len)}`` -- mamba2 at all 48 layers (batch 4, a 256-token
+    prompt), zamba2 at two groups and its tail (15 of 81 layers; batch 2,
+    a 256-token prompt, the packed MXSF cache), whisper at 24 + 24 layers
+    (batch 2, 1500 seeded frames, the packed MXSF self cache)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, batch, prompt in (("mamba2-780m", 4, 256),
+                                ("zamba2-7b", 2, 256),
+                                ("whisper-medium", 2, 0)):
+        cfg = get_config(arch)
+        if rehearsal:
+            cfg, prompt = cfg.reduced(), (32 if prompt else 0)
+        if cfg.family == "hybrid":
+            cfg = dryrun.at_depth(cfg, 2)
+        out[arch] = dict(n_layers=cfg.n_layers,
+                         n_enc_layers=cfg.n_enc_layers, batch=batch,
+                         prompt=prompt, max_len=max(prompt, 8) + 8)
+    return out
+
+
+def family_program(arch: str, prog: dict, rehearsal: bool):
+    """(config, policy) of one program of ``families_plan``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_INFER
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if rehearsal else cfg).replace(
+        n_layers=prog["n_layers"], n_enc_layers=prog["n_enc_layers"])
+    return cfg, MXSF_INFER.replace(kv_cache_fmt="mxsf", backend="cuda")
+
+
+def family_batch(torch, device, cfg, prog, seed):
+    """The whole prefill batch of a program (seeded prompts, or whisper's
+    seeded bf16 frames) and the token its decode step is fed (whisper's
+    first prompt token; a seeded token for the others): the same in every
+    process that draws it."""
+    B = prog["batch"]
+    token = torch.tensor(_prompts(cfg, seed + 2, [1] * B), device=device)
+    if cfg.family == "encdec":
+        return {"frames": _stub(torch, device, seed + 1,
+                                (B, cfg.enc_seq, cfg.d_model), 1.0)}, token
+    return {"tokens": torch.tensor(_prompts(cfg, seed, [prog["prompt"]] * B),
+                                   device=device)}, token
+
+
+def family_logits(torch, cfg, policy, prog, store, batch, token, device):
+    """One device's lockstep prefill and decode step of a program, the
+    decode fed ``token``: ``{"prefill": logits or None, "decode":
+    logits}`` over the real vocab, f32."""
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, prog["batch"], prog["max_len"], ring=False,
+                         kv_fmt="mxsf", device=device)
+    lp, cache = M.prefill(store, batch, cache, cfg, policy)
+    S = 0 if cfg.family == "encdec" else prog["prompt"]
+    ld, _ = M.decode_step(store, token, cache, S, cfg, policy)
+    return {"prefill": None if lp is None else lp[:, :cfg.vocab].float(),
+            "decode": ld[:, :cfg.vocab].float()}
+
+
+def family_reference(torch, device, arch, prog, args, rehearsal):
+    """One device's logits of a program (``family_logits``) over the store
+    drawn from ``--seed`` on the kernel datapath, then again with every
+    fused matmul on its plain version (cuBLAS's f32 order over the same
+    exact products): (the reference logits, the reorder baseline -- the
+    largest logit move between the two, capped on the card by
+    FAMILY_REORDER_CEILING)."""
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.models import model as M
+    phase = "serve_sharded_families"
+    cfg, policy = family_program(arch, prog, rehearsal)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    batch, token = family_batch(torch, device, cfg, prog, args.seed)
+    ref = family_logits(torch, cfg, policy, prog, store, batch, token,
+                        device)
+    kernel = FM.mxsf_fused_matmul
+    FM.mxsf_fused_matmul = FM.mxsf_fused_matmul_plain
+    try:
+        plain = family_logits(torch, cfg, policy, prog, store, batch, token,
+                              device)
+    finally:
+        FM.mxsf_fused_matmul = kernel
+    kinds = [k for k in ref if ref[k] is not None]
+    dev = max(float((plain[k] - ref[k]).abs().max()) for k in kinds)
+    ceiling = FAMILY_REORDER_CEILING[arch] if device.type == "cuda" else None
+    emit(phase, step="reorder_baseline", arch=arch, n_layers=cfg.n_layers,
+         max_dev=dev, ceiling=ceiling, argmax_equal=all(
+             bool((plain[k].argmax(-1) == ref[k].argmax(-1)).all())
+             for k in kinds))
+    if ceiling is not None and dev > ceiling:
+        raise AssertionError(f"{phase} {arch}: the reorder baseline moved "
+                             f"the logits by {dev}, past its ceiling "
+                             f"{ceiling}")
+    del store
+    free_device(torch, device)
+    return ref, dev
+
+
+def ssd_local_shapes(cfg, tp=SHARD_TP):
+    """(K, N) of an SSD layer's fused matmuls at ``tp`` ranks on the model
+    axis: in_proj column-parallel by segment (z, x and dt of H / tp heads,
+    all of B and C) and out_proj row-parallel (K = d_inner / tp)."""
+    gn = 2 * cfg.ssm_ngroups * cfg.ssm_state
+    n = (2 * cfg.d_inner + cfg.ssm_heads) // tp + gn
+    return [(cfg.d_model, n), (cfg.d_inner // tp, cfg.d_model)]
+
+
+def sharded_family_rank(rank: str, world: str, port: str, rehearsal: str,
+                        spec_file: str):
+    """One rank of phase serve_sharded_families' two-rank run: for each
+    program of ``families_plan``, draw this rank's slices of the store
+    from the seed (``engine.draw_store``) and place a cache, hold both
+    bytes to ``MeshRules.shard_nbytes``; run the lockstep prefill and
+    decode of ``engine.lockstep_dispatches`` (the decode fed
+    ``family_batch``'s token) with every kernel call teacher-forced
+    (``checked_kernels``) at its shard-local shape, counting launches and
+    collectives (the ``dispatch`` record phase dryrun_mesh holds the
+    trace to; the checks' plain versions launch nothing and send
+    nothing), and save the logits for the phase to hold to one device's.
+    Results to SHARD_FAM_DIR."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, SHARD_FAM_DIR) as (
+            torch, device, rank, world, out):
+        mesh = mesh_lib.make_test_mesh(1, world)
+        rules = mesh_lib.MeshRules(mesh)
+        out.update(dispatch={}, launches={}, families={})
+        for arch, prog in spec["programs"].items():
+            t0 = time.perf_counter()
+            cfg, policy = family_program(arch, prog, rehearsal == "1")
+            B = prog["batch"]
+            gen = torch.Generator(device=device).manual_seed(spec["seed"])
+            store, specs, sh = E.draw_store(cfg, policy, gen, mesh, device)
+            cache, cache_sh, pol, fallback = E.cache_placement(
+                cfg, policy, rules, B, prog["max_len"], device, ring=False,
+                kv_fmt="mxsf")
+            place = E.placement(cfg, pol, rules, specs, sh, cache_sh, cache)
+            shapes = M.init_cache(cfg, B, prog["max_len"], ring=False,
+                                  kv_fmt="mxsf", device="meta")
+            row = dict(arch=arch, n_layers=cfg.n_layers,
+                       store_bytes=_tree_bytes(store),
+                       predicted_store_bytes=rules.shard_nbytes(specs, sh),
+                       cache_bytes=_tree_bytes(cache),
+                       predicted_cache_bytes=rules.shard_nbytes(
+                           shapes, cache_sh),
+                       tp_plan=place.layout["plan"]._asdict(),
+                       attn_backend=M.decode_attn_backend(cfg, pol,
+                                                          cache_sh),
+                       shard_fallback=fallback,
+                       draw_seconds=time.perf_counter() - t0)
+            if (row["store_bytes"], row["cache_bytes"]) != (
+                    row["predicted_store_bytes"],
+                    row["predicted_cache_bytes"]):
+                raise AssertionError(f"{arch}: store / cache bytes "
+                                     f"{row['store_bytes']} / "
+                                     f"{row['cache_bytes']} != MeshRules' "
+                                     f"{row['predicted_store_bytes']} / "
+                                     f"{row['predicted_cache_bytes']}")
+            batch, token = family_batch(torch, device, cfg, prog,
+                                        spec["seed"])
+            disp = dict(n_layers=cfg.n_layers, store_bytes=row["store_bytes"],
+                        cache_bytes=row["cache_bytes"])
+            logits = {}
+            with checked_kernels(torch, lambda k: MATMUL_RTOL, None) as chk:
+                for kind, run in E.lockstep_dispatches(
+                        cfg, pol, place, store, cache, batch, token):
+                    _sync(torch, device)
+                    reset_launches()
+                    shd.reset_counts()
+                    t1 = time.perf_counter()
+                    lk, cache = run()
+                    _sync(torch, device)
+                    disp[kind] = dict(
+                        launches=({k: v for k, v in read_launches().items()
+                                   if v} if device.type == "cuda" else None),
+                        collectives=cost.collectives_by_axis(shd.counts()))
+                    row[f"{kind}_seconds"] = time.perf_counter() - t1
+                    logits[kind] = None if lk is None else \
+                        lk[:, :cfg.vocab].float().cpu()
+            torch.save(logits, SHARD_FAM_DIR / f"logits_{arch}_rank{rank}.pt")
+            backend = row["attn_backend"]
+            expect = {k: family_launch_counts(cfg, backend, "prefill")[k]
+                      + family_launch_counts(cfg, backend)[k]
+                      for k in ("mxsf_fused_matmul", "mxsf_attention",
+                                "mxsf_quantize")}
+            kernels, faults = chk.rows(expect)
+            fused = sorted({(c["k"], c["n"])
+                            for c in chk.calls["mxsf_fused_matmul"]})
+            heads = sorted({(c["heads"], c["kv_heads"])
+                            for c in chk.calls["mxsf_attention"]})
+            tp = rules.tp_size
+            if cfg.family != "encdec":
+                missing = set(ssd_local_shapes(cfg, tp)) - set(fused)
+                if missing:
+                    faults.append(f"SSD shapes {sorted(missing)} not run")
+            if cfg.family != "ssm" and row["tp_plan"]["heads"] and \
+                    heads != [(cfg.n_heads // tp, cfg.n_kv // tp)]:
+                faults.append(f"attention heads {heads}")
+            row.update(kernels=kernels, fused_shapes=fused,
+                       attention_heads=heads,
+                       seconds=time.perf_counter() - t0)
+            if faults:
+                raise AssertionError(f"{arch} checked dispatches: {faults}")
+            out["families"][arch] = row
+            out["dispatch"][arch] = disp
+            for kind in ("prefill", "decode"):
+                for k, v in (disp[kind]["launches"] or {}).items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+            del store, cache, place
+            free_device(torch, device)
+
+
+def family_logit_check(torch, arch, ref, baseline, ranks):
+    """Each rank's logits of a program (saved by ``sharded_family_rank``)
+    against one device's ``ref``: within REORDER_FACTOR times the reorder
+    baseline, or one bf16 ulp of the largest |logit| where that is more;
+    the rows whose top-1 differs from one device's are counted (the ranks
+    hold the same gathered logits, so they must choose alike)."""
+    row = dict(arch=arch, baseline=baseline, tol=REORDER_FACTOR * baseline,
+               max_dev=0.0, disagree=[])
+    choices = []
+    for r in range(ranks):
+        got = torch.load(SHARD_FAM_DIR / f"logits_{arch}_rank{r}.pt")
+        mine = []
+        for kind, want in ref.items():
+            if want is None:
+                continue
+            want = want.cpu()
+            row["tol"] = max(row["tol"],
+                             float(_bf16_ulp(torch, want.abs().max())))
+            row["max_dev"] = max(row["max_dev"],
+                                 float((got[kind] - want).abs().max()))
+            mine.append(got[kind].argmax(-1))
+            if r == 0:
+                row["disagree"] += [
+                    [kind, i] for i, same in enumerate(
+                        (got[kind].argmax(-1) == want.argmax(-1)).tolist())
+                    if not same]
+        choices.append(mine)
+    row["ranks_agree"] = all(all(bool((a == b).all()) for a, b in
+                                 zip(c, choices[0])) for c in choices)
+    return row
+
+
+def phase_serve_sharded_families(torch, device, args, rehearsal):
+    """Phase serve_sharded_families: mamba2, zamba2 and whisper sharded
+    over a (1, SHARD_TP) mesh.  SHARD_TP ranks sharing the card, each in
+    its own process (``sharded_family_rank``) over gloo, run every program
+    in turn, while this process computes each program's one-device
+    reference and reorder baseline (``family_reference``); then each
+    rank's logits are held to the reference (``family_logit_check``).
+    Returns rank 0's launches (the counted prefill and decode of every
+    program)."""
+    t_phase = time.perf_counter()
+    phase = "serve_sharded_families"
+    plan = families_plan(rehearsal)
+    emit(phase, step="plan", ranks=SHARD_TP, programs=plan)
+    started = start_rank_processes("sharded_family_rank", dict(
+        programs=plan, seed=args.seed), SHARD_FAM_DIR, SHARD_TP, rehearsal)
+    try:
+        refs = {arch: family_reference(torch, device, arch, prog, args,
+                                       rehearsal)
+                for arch, prog in plan.items()}
+    except BaseException:
+        stop_processes(started[0])
+        raise
+    t_ref = time.perf_counter() - t_phase
+    ranks = finish_rank_processes(phase, started, SHARD_FAM_DIR)
+    faults = []
+    for arch, (ref, baseline) in refs.items():
+        row = family_logit_check(torch, arch, ref, baseline, SHARD_TP)
+        emit(phase, step="teacher_forced", **row)
+        if row["max_dev"] > row["tol"]:
+            faults.append(f"{arch}: logits {row['max_dev']} off one "
+                          f"device's, past {row['tol']}")
+        if not row["ranks_agree"]:
+            faults.append(f"{arch}: the ranks chose differently")
+    emit(phase, step="done", seconds=time.perf_counter() - t_phase,
+         reference_seconds=t_ref, ranks=SHARD_TP)
+    if faults:
+        raise AssertionError(f"{phase}: {faults}")
+    return {f"serve_sharded_families_1x{SHARD_TP}": ranks[0]["launches"]}
+
+
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 # the cells traced (the decode cells that may fit one card, and phase
 # "train"'s shape), in the workers that trace them
@@ -3706,9 +4034,9 @@ DRYRUN_WAIT_S = 900  # a worker's time limit
 _REHEARSAL_SHAPES = {"decode_32k": "rehearsal_decode",
                      "long_500k": "rehearsal_long"}
 DRYRUN_MESH_DIR = ROOT / "build" / "chip_smoke_dryrun_mesh"
-# the cell phase dryrun_mesh traces on the production meshes (the
+# the cells phase dryrun_mesh traces on the production meshes (the
 # rehearsal: a shape whose cache splits 512 ways)
-MESH_CELL = ("qwen2.5-32b", "decode_32k")
+MESH_CELLS = (("qwen2.5-32b", "decode_32k"), ("mamba2-780m", "decode_32k"))
 MESH_CELL_MESHES = ("16x16", "2x16x16")
 
 
@@ -3788,12 +4116,32 @@ def trace_sharded_engine(engine: dict, n_layers: int, rank: int) -> dict:
                 trace_seconds=time.perf_counter() - t0)
 
 
+def trace_family(arch: str, prog: dict, rank: int, rehearsal: bool) -> dict:
+    """``dryrun.lockstep_counts`` of one rank of a (1, SHARD_TP) mesh for
+    one program of ``families_plan``, on its batch's shapes."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    cfg, policy = family_program(arch, prog, rehearsal)
+    B = prog["batch"]
+    batch = ({"frames": torch.empty((B, cfg.enc_seq, cfg.d_model),
+                                    dtype=torch.bfloat16, device="meta")}
+             if cfg.family == "encdec" else
+             {"tokens": torch.empty((B, prog["prompt"]), dtype=torch.int64,
+                                    device="meta")})
+    rec = dryrun.lockstep_counts(cfg, policy, mesh_lib.make_tracing_mesh(
+        (1, SHARD_TP), rank), batch, prog["max_len"])
+    return dict(rec, n_layers=cfg.n_layers,
+                trace_seconds=time.perf_counter() - t0)
+
+
 def dryrun_mesh_worker(out_dir: str, rehearsal: str):
-    """The mesh worker: each rank of ``sharded_engines``' programs on a
-    tracing mesh of (1, SHARD_TP) (``trace_sharded_engine``), then
-    ``launch.dryrun`` of MESH_CELL on each of MESH_CELL_MESHES (the
-    layer-period trace, kernel datapath, packed MXSF cache), written to
-    ``out_dir``."""
+    """The mesh worker: each rank of ``sharded_engines``' programs and of
+    ``families_plan``'s on a tracing mesh of (1, SHARD_TP)
+    (``trace_sharded_engine``, ``trace_family``), then ``launch.dryrun``
+    of each of MESH_CELLS on each of MESH_CELL_MESHES (the layer-period
+    trace, kernel datapath, packed MXSF cache), written to ``out_dir``."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun
     rehearsal = rehearsal == "1"
@@ -3802,17 +4150,22 @@ def dryrun_mesh_worker(out_dir: str, rehearsal: str):
             rec = trace_sharded_engine(engine, engine["n_layers"], rank)
             (Path(out_dir) / f"{name}__rank{rank}.json").write_text(
                 json.dumps(rec))
+    for arch, prog in families_plan(rehearsal).items():
+        for rank in range(SHARD_TP):
+            rec = trace_family(arch, prog, rank, rehearsal)
+            (Path(out_dir) / f"families_{arch}__rank{rank}.json"
+             ).write_text(json.dumps(rec))
     SHAPES.update(dryrun_shapes(rehearsal))
-    arch, shape = mesh_cell(rehearsal)
-    for mesh in MESH_CELL_MESHES:
-        dryrun.main(["--arch", arch, "--shape", shape, "--backend", "cuda",
-                     "--kv-cache", "mxsf", "--mesh", mesh, "--out", out_dir])
+    for arch, shape in mesh_cells(rehearsal):
+        for mesh in MESH_CELL_MESHES:
+            dryrun.main(["--arch", arch, "--shape", shape, "--backend",
+                         "cuda", "--kv-cache", "mxsf", "--mesh", mesh,
+                         "--out", out_dir])
 
 
-def mesh_cell(rehearsal: bool):
-    arch, shape = MESH_CELL
-    return ((arch + "-reduced", "rehearsal_mesh_decode") if rehearsal
-            else (arch, shape))
+def mesh_cells(rehearsal: bool):
+    return [(arch + "-reduced", "rehearsal_mesh_decode") if rehearsal
+            else (arch, shape) for arch, shape in MESH_CELLS]
 
 
 def start_dryrun(rehearsal: bool):
@@ -3843,8 +4196,10 @@ def start_dryrun(rehearsal: bool):
         log.close()
     emit("dryrun", step="start", workers=len(procs),
          cells=[list(c) for w in DRYRUN_WORKERS for c in w],
-         mesh_cells=[[*mesh_cell(rehearsal), m] for m in MESH_CELL_MESHES],
-         engines=sharded_engines(rehearsal))
+         mesh_cells=[[*c, m] for c in mesh_cells(rehearsal)
+                     for m in MESH_CELL_MESHES],
+         engines=sharded_engines(rehearsal),
+         families=families_plan(rehearsal))
     return procs
 
 
@@ -4003,17 +4358,46 @@ def mesh_cell_argument_bytes(arch: str, shape_name: str, mesh_name: str):
             + d["pos"].element_size())
 
 
+def _rank_row(faults, name, r, traced, real, on_card):
+    """One rank's trace of a program held against what it ran: launches
+    (on the card), collectives and the prefill's argument bytes."""
+    row = dict(program=name, rank=r, mesh=f"1x{SHARD_TP}",
+               n_layers=real["n_layers"],
+               trace_seconds=traced["trace_seconds"],
+               attn_backend=traced["attn_backend"],
+               tp_plan=traced["tp_plan"], store_bytes=real["store_bytes"],
+               cache_bytes=real["cache_bytes"])
+    for kind in ("prefill", "decode"):
+        got = _traced_counts(traced[kind], on_card)
+        arg = traced[kind]["memory"]["argument_bytes"]
+        want = {k: real[kind][k] for k in ("launches", "collectives")}
+        row[kind] = dict(traced=got, ran=want, argument_bytes=arg,
+                         equal=got == want)
+        if got != want:
+            faults.append(f"{name} rank {r} {kind}: traced {got} "
+                          f"!= ran {want}")
+    # a lockstep decode finds the cache the prefill wrote (an SSM's conv
+    # tail in the projection's dtype): the prefill's arguments are the
+    # store and the placed cache
+    if row["prefill"]["argument_bytes"] != real["store_bytes"] + \
+            real["cache_bytes"]:
+        faults.append(f"{name} rank {r}: argument bytes != store + cache")
+    emit("dryrun_mesh", step="rank", **row)
+
+
 def phase_dryrun_mesh(torch, device, rehearsal, proc):
-    """Phase dryrun_mesh (after serve_sharded and serve_sharded_moe): wait
-    for the mesh worker, then hold each rank's trace of each program
-    against what that rank ran (``dispatch_counts`` in its results), one
-    prefill and one decode dispatch each: launches by kernel (on the
-    card), collectives by kind and axis with their operand bytes, and the
-    argument bytes against the rank's store plus cache bytes, all
-    exactly.  A rank that ran at another depth than the worker traced is
-    traced again here at its depth.  Then MESH_CELL on each of
-    MESH_CELL_MESHES: the per-rank peak, ``fits``, the collectives and the
-    three terms printed, the argument bytes against ``MeshRules``'."""
+    """Phase dryrun_mesh (after serve_sharded, serve_sharded_moe and
+    serve_sharded_families): wait for the mesh worker, then hold each
+    rank's trace of each program against what that rank ran
+    (``dispatch_counts`` in its results, or its family programs'
+    ``dispatch``), one prefill and one decode dispatch each: launches by
+    kernel (on the card), collectives by kind and axis with their operand
+    bytes, and the argument bytes against the rank's store plus cache
+    bytes, all exactly.  A rank that ran at another depth than the worker
+    traced is traced again here at its depth.  Then each of MESH_CELLS on
+    each of MESH_CELL_MESHES: the per-rank peak, ``fits``, the
+    collectives and the three terms printed, the argument bytes against
+    ``MeshRules``'."""
     t0 = time.perf_counter()
     wait_worker(proc, DRYRUN_MESH_DIR / "worker.log", t0, "dryrun_mesh")
     emit("dryrun_mesh", step="traced", wait_seconds=time.perf_counter() - t0)
@@ -4029,30 +4413,22 @@ def phase_dryrun_mesh(torch, device, rehearsal, proc):
                                 .read_text())
             if traced["n_layers"] != real["n_layers"]:
                 traced = trace_sharded_engine(engine, real["n_layers"], r)
-            row = dict(program=name, rank=r, mesh=f"1x{SHARD_TP}",
-                       n_layers=real["n_layers"],
-                       trace_seconds=traced["trace_seconds"],
-                       attn_backend=traced["attn_backend"],
-                       tp_plan=traced["tp_plan"],
-                       store_bytes=real["store_bytes"],
-                       cache_bytes=real["cache_bytes"])
-            for kind in ("prefill", "decode"):
-                got = _traced_counts(traced[kind], on_card)
-                arg = traced[kind]["memory"]["argument_bytes"]
-                want = {k: real[kind][k] for k in ("launches", "collectives")}
-                row[kind] = dict(traced=got, ran=want, argument_bytes=arg,
-                                 equal=got == want)
-                if got != want:
-                    faults.append(f"{name} rank {r} {kind}: traced {got} "
-                                  f"!= ran {want}")
-                if arg != real["store_bytes"] + real["cache_bytes"]:
-                    faults.append(f"{name} rank {r} {kind}: argument bytes "
-                                  f"{arg} != store + cache")
-            emit("dryrun_mesh", step="rank", **row)
+            arg = traced["decode"]["memory"]["argument_bytes"]
+            if arg != real["store_bytes"] + real["cache_bytes"]:
+                faults.append(f"{name} rank {r} decode: argument bytes "
+                              f"{arg} != store + cache")
+            _rank_row(faults, name, r, traced, real, on_card)
+    for arch in families_plan(rehearsal):
+        for r in range(SHARD_TP):
+            real = json.loads((SHARD_FAM_DIR / f"rank{r}.json").read_text())[
+                "dispatch"][arch]
+            traced = json.loads((DRYRUN_MESH_DIR /
+                                 f"families_{arch}__rank{r}.json").read_text())
+            _rank_row(faults, arch, r, traced, real, on_card)
     from repro_torch.configs.base import SHAPES
     SHAPES.update(dryrun_shapes(rehearsal))
-    arch, shape = mesh_cell(rehearsal)
-    for mesh in MESH_CELL_MESHES:
+    for (arch, shape), mesh in [(c, m) for c in mesh_cells(rehearsal)
+                                for m in MESH_CELL_MESHES]:
         rec = json.loads((DRYRUN_MESH_DIR / f"{arch}__{shape}__{mesh}.json")
                          .read_text())
         want = mesh_cell_argument_bytes(arch, shape, mesh)
@@ -4263,13 +4639,16 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
                                             rehearsal))
     del moe_ref
     free_device(torch, device)
-    phase_dryrun_mesh(torch, device, rehearsal, procs[-1])
     launches["serve_ssm"] = phase_serve_ssm(torch, device, args, rehearsal)
     launches["serve_hybrid"] = phase_serve_hybrid(torch, device, args,
                                                   rehearsal)
     launches["serve_encdec"] = phase_serve_encdec(torch, device, args,
                                                   rehearsal)
     launches.update(phase_serve_vlm(torch, device, args, rehearsal))
+    launches.update(phase_serve_sharded_families(torch, device, args,
+                                                 rehearsal))
+    free_device(torch, device)
+    phase_dryrun_mesh(torch, device, rehearsal, procs[-1])
     # 2D (MXSF_TRAIN) at full depth, then the 1D layout at cut depth
     pol2 = MXSF_TRAIN.replace(backend="cuda")
     state, batches, launches["train_2d"] = phase_train(

@@ -54,8 +54,12 @@ prefill's peak does not -- at one period its temporaries have not reached
 their steady size yet, so the step from one period to two overstates the
 step a further period adds.
 
-On a mesh the port covers serving cells of the decoder family; a train
-cell, or a cell of another family, raises ``NotImplementedError`` naming
+On a mesh the port covers the serving cells of every family the JAX dry
+run lowers there: decoders, the SSM, the hybrid and the encoder-decoder,
+each through ``M.prefill`` and ``M.decode_step`` (the SSD's TP plan in
+``models/ssd.py``; a hybrid period is one group of SSD layers with the
+shared block, the tail outside; an encoder-decoder period one encoder and
+one decoder layer).  A train cell raises ``NotImplementedError`` naming
 its ROADMAP.md item, which ``main`` counts as a failure.  Results land in
 ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
@@ -89,7 +93,7 @@ from . import mesh as mesh_lib
 __all__ = ["ARCH_TRAIN_OVERRIDES", "cell_policy", "cell_config",
            "cell_inputs", "cell_program", "mesh_cell", "mesh_of",
            "layer_period", "at_depth", "trace_cell", "engine_dispatches",
-           "lower_cell", "main"]
+           "lockstep_counts", "lower_cell", "main"]
 
 # per-arch train-step defaults (config choices, the JAX package's): the
 # 400B MoE needs gradient accumulation + bf16 moments to fit
@@ -102,8 +106,7 @@ ARCH_TRAIN_OVERRIDES = {
 }
 
 ONE_CARD = "1x1"
-# the ROADMAP.md items that bring what a mesh does not run yet
-ROADMAP_FAMILIES = "The SSM, hybrid and encoder-decoder families on a mesh"
+# the ROADMAP.md item that brings what a mesh does not run yet
 ROADMAP_TRAINING = "Training on a mesh"
 
 
@@ -243,15 +246,11 @@ def cell_program(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
 
 def mesh_supported(cfg: ModelConfig, shape: ShapeConfig):
     """Raise where a mesh cell is not ported yet, naming its ROADMAP.md
-    item: training, and every family but the decoder."""
+    item: training."""
     if shape.kind == "train":
         raise NotImplementedError(
             f"a train cell on a mesh is not ported yet (ROADMAP.md, "
             f"\"{ROADMAP_TRAINING}\")")
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"a {cfg.family} cell on a mesh is not ported yet (ROADMAP.md, "
-            f"\"{ROADMAP_FAMILIES}\")")
 
 
 def _own(t: torch.Tensor) -> torch.Tensor:
@@ -268,7 +267,8 @@ def mesh_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
     decode (``decode_specs``), whole for a prefill -- and its slot rows of
     the batch (a decode's position is the JAX cell's scalar); ``run`` is
     the engine's dispatch around ``M.decode_step`` or ``M.prefill``;
-    ``info`` the attention path, the TP plan and the slot rows."""
+    ``info`` the attention path, the TP plan, the slot rows and the spec of
+    the attention cache (of the SSD state where there is none)."""
     mesh_supported(cfg, shape)
     rules = mesh_lib.MeshRules(mesh)
     whole = M.init_params(cfg, torch.Generator(), "meta")
@@ -280,13 +280,15 @@ def mesh_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
         cfg, policy, rules, B, shape.seq_len, "meta", ring=decode,
         kv_fmt=policy.kv_cache_fmt if decode else "")
     place = E.placement(cfg, pol, rules, whole, store_sh, cache_sh, cache)
+    parts = E.cache_parts(cfg, cache_sh)
+    lead = (E.kv_leaf(parts["self"]) if parts["self"] is not None
+            else parts["ssd"]["state"])
     info = {"attn_backend": M.decode_attn_backend(cfg, pol, cache_sh),
             "shard_fallback": fallback,
             "tp_plan": place.layout["plan"]._asdict(),
             "slot_rows": [place.rows.start, place.rows.stop],
             "cache_spec": [list(e) if isinstance(e, tuple) else e
-                           for e in cache_sh["k_codes" if "k_codes" in
-                                             cache_sh else "k"].spec]}
+                           for e in lead.spec]}
     if decode:
         tokens = M.train_specs(cfg, ShapeConfig("", 1, B, "decode"))[
             "tokens"]
@@ -408,6 +410,41 @@ def engine_dispatches(cfg: ModelConfig, policy: QuantPolicy, mesh,
            "cache_bytes": E._nbytes(eng.cache)}
     for kind, cache, run in E.probe_dispatches(eng):
         with cost.count((eng.params, cache)) as counter:
+            res = run()
+        out[kind] = counter.summary(res, mesh.shape)
+    return out
+
+
+def lockstep_counts(cfg: ModelConfig, policy: QuantPolicy, mesh,
+                    batch: dict, max_len: int, backend: str = "cuda") -> dict:
+    """One rank of a lockstep placement of any family over a packed store
+    on ``mesh`` (a tracing mesh), on ``meta``: this rank's slices of
+    ``packed_model_specs`` and of the cache (``engine.cache_placement``,
+    ``ring=False``, the policy's KV format), and the prefill of ``batch``
+    (tensors on any device: the whole batch) and the decode dispatch of
+    ``engine.lockstep_dispatches``, each counted from its arguments -- the
+    rank's store and the cache as the dispatch finds it.  Returns
+    ``{"prefill": summary, "decode": summary, "attn_backend",
+    "shard_fallback", "tp_plan", "store_bytes", "cache_bytes"}``."""
+    pol = policy.replace(backend=backend)
+    rules = mesh_lib.MeshRules(mesh)
+    specs = M.packed_model_specs(cfg, pol)
+    sh = rules.param_sharding_tree(specs)
+    params = E.place_store(specs, sh, mesh, "meta")
+    meta = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+    B = next(iter(meta.values())).shape[0]
+    cache, cache_sh, pol, fallback = E.cache_placement(
+        cfg, pol, rules, B, max_len, "meta", ring=False,
+        kv_fmt=pol.kv_cache_fmt)
+    place = E.placement(cfg, pol, rules, specs, sh, cache_sh, cache)
+    out = {"attn_backend": M.decode_attn_backend(cfg, pol, cache_sh),
+           "shard_fallback": fallback,
+           "tp_plan": place.layout["plan"]._asdict(),
+           "store_bytes": E._nbytes(params), "cache_bytes": E._nbytes(cache)}
+    for kind, run in E.lockstep_dispatches(cfg, pol, place, params, cache,
+                                           meta):
+        with cost.count((params, cache)) as counter:
             res = run()
         out[kind] = counter.summary(res, mesh.shape)
     return out

@@ -30,7 +30,9 @@ with a ``TPPlan``): each rank holds its slices of the store, and ``use``
 brings a leaf to the layout the scheme computes with (gathering what the
 stored spec splits otherwise).  wq/wk/wv (and biases), wg/wu and the head
 are column-parallel; wo and wd row-parallel, each followed by one f32
-all-reduce over the model axis; head counts come from the local shapes.
+all-reduce over the model axis (wo, where its local rows would tear MX
+blocks: the context gathered and wo whole); head counts come from the
+local shapes.
 Expert parallelism: an MoE layer routes and dispatches whole on every
 rank, each rank runs its own experts, and their outputs are gathered
 before the combine; the shared expert splits as a dense FFN does.
@@ -71,34 +73,65 @@ def dense(x, w, policy):
 # ---------------------------------------------------------------------------
 
 class TPPlan(NamedTuple):
-    """Which parts of a decoder split over the model axis: ``heads`` the
+    """Which parts of a model split over the model axis: ``heads`` the
     query and kv heads together (wq/wk/wv and biases by columns, wo by
     rows; the attention kernel reads whole kv heads of its query heads, so
     the query heads never split without theirs), ``mlp`` a dense FFN's
     d_ff (wg/wu columns, wd rows), ``vocab`` the embedding rows and head
     columns, ``experts`` the MoE expert dim (each rank runs its own
     experts), ``shared`` the MoE shared expert's width as ``mlp`` splits
-    d_ff.  A part that cannot split whole heads, whole MX blocks or whole
-    activation blocks runs replicated; the expert dim always splits, as
-    GSPMD splits it, unevenly too."""
+    d_ff, ``ssm`` the SSD heads (in_proj's z, x and dt columns of each
+    segment, conv channels, state heads and out_proj's rows;
+    ``models/ssd.py``), ``ctx_gather`` where the heads split but wo's
+    local rows would tear MX blocks: the attention context is gathered
+    over the model axis and wo runs whole (exact: one device's context
+    and matmul).  A part that cannot split whole heads, whole MX blocks or
+    whole activation blocks runs replicated; the expert dim always splits,
+    as GSPMD splits it, unevenly too."""
     heads: bool
     mlp: bool
     vocab: bool
     experts: bool = False
     shared: bool = False
+    ssm: bool = False
+    ctx_gather: bool = False
 
 
 def _block(w, dim: int) -> int:
     return w.block[dim] if isinstance(w, QuantizedTensor) else 1
 
 
-def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
+def model_parts(cfg: ModelConfig, store):
+    """The leaf dicts a plan reads in a (stacked) store: (attention
+    sublayers, FFNs, SSD blocks).  A decoder's super-layer sublayers; a
+    hybrid's shared block and its SSD layers (the tail's share their
+    shapes); an encoder-decoder's encoder layers and its decoder's
+    self-, cross-attention and MLP.  The leaves keep their stacked dims:
+    a packed leaf's block covers its trailing dims."""
+    if cfg.family == "decoder":
+        subs = [store["layers"][k] for k in sorted(store["layers"])]
+        return [s["attn"] for s in subs], [s["ffn"] for s in subs], []
+    if cfg.family == "hybrid":
+        sh = store["shared"]
+        return [sh["attn"]], [sh["ffn"]], [store["layers"]["ssd"]]
+    if cfg.family == "ssm":
+        return [], [], [store["layers"]["ssd"]]
+    if cfg.family == "encdec":
+        enc, dec = store["enc_layers"], store["dec_layers"]
+        return ([enc["attn"], dec["self"], dec["cross"]],
+                [enc["ffn"], dec["mlp"]], [])
+    raise ValueError(f"no tensor-parallel plan for family {cfg.family!r}")
+
+
+def tp_plan(cfg: ModelConfig, policy: QuantPolicy, store,
             tp_size: int) -> TPPlan:
-    """The plan of one decoder super-layer's leaves ``layer`` (``sub{j}``:
-    attn, ffn; a dense FFN and an MoE one wherever they sit) and the
-    top-level ``top`` (emb, head) at ``tp_size``.  A row-parallel input is
-    quantized along K in the policy's blocks, so its local K must hold
-    whole blocks: then its codes equal the one-device codes."""
+    """The plan of a store's leaves (``model_parts``, and the top-level
+    emb and head) at ``tp_size``.  A row-parallel input is quantized along
+    K in the policy's blocks, so its local K must hold whole blocks: then
+    its codes equal the one-device codes.  The SSD heads split where each
+    of in_proj's segments splits whole column blocks, out_proj's local
+    rows hold whole blocks, and there is one group (B and C, whole on
+    every rank, serve every head)."""
     xk = (policy.block_1d if policy.block_mode == "1d" else
           policy.tile if policy.block_mode == "2d" else 1)
 
@@ -114,22 +147,31 @@ def tp_plan(cfg: ModelConfig, policy: QuantPolicy, layer, top,
         return f is not None and cols(f["wu"], width) and \
             rows(f["wd"], width)
 
-    subs = [layer[k] for k in sorted(layer)]
-    ffns = [s["ffn"] for s in subs]
-    dense = next((f for f in ffns if "router" not in f), None)
+    attn, ffns, ssds = model_parts(cfg, store)
+    dense_ffns = [f for f in ffns if "router" not in f]
     moe_ffn = next((f for f in ffns if "router" in f), None)
-    dh, a = cfg.head_dim, subs[0]["attn"]
-    heads = (cfg.n_heads % tp_size == 0 and cfg.n_kv % tp_size == 0
-             and cols(a["wq"], cfg.n_heads * dh)
-             and rows(a["wo"], cfg.n_heads * dh)
-             and cols(a["wk"], cfg.n_kv * dh))
-    head = top.get("head")
+    dh = cfg.head_dim if cfg.n_heads else 0
+    heads = bool(attn) and (
+        cfg.n_heads % tp_size == 0 and cfg.n_kv % tp_size == 0
+        and all(cols(a["wq"], cfg.n_heads * dh)
+                and cols(a["wk"], cfg.n_kv * dh) for a in attn))
+    ctx_gather = heads and not all(rows(a["wo"], cfg.n_heads * dh)
+                                   for a in attn)
+    mlp = bool(dense_ffns) and all(ffn_splits(f, cfg.d_ff)
+                                   for f in dense_ffns)
+    head = store.get("head")
     vocab = cfg.padded_vocab % tp_size == 0 and (
         head is None or cols(head, cfg.padded_vocab))
     shared = moe_ffn is not None and ffn_splits(
         moe_ffn.get("shared"), cfg.expert_ff * cfg.n_shared_experts)
-    return TPPlan(heads, ffn_splits(dense, cfg.d_ff), vocab,
-                  moe_ffn is not None and tp_size > 1, shared)
+    dI, H = cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    ssm = bool(ssds) and cfg.ssm_ngroups == 1 and all(
+        cols(s["in_proj"], dI) and cols(s["in_proj"], H)
+        and gn % _block(s["in_proj"], -1) == 0
+        and rows(s["out_proj"], dI) for s in ssds)
+    return TPPlan(heads, mlp, vocab, moe_ffn is not None and tp_size > 1,
+                  shared, ssm, ctx_gather)
 
 
 def plan():
@@ -264,7 +306,8 @@ def _attn_mask_bias(qpos, kpos, *, causal: bool, window):
 
 def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
               kv_x=None, kv_cached=None, causal=True, window=None,
-              cache=None, cache_pos=None, cache_write_len=None):
+              cache=None, cache_pos=None, cache_write_len=None,
+              pre: str = ""):
     """Self- and cross-attention.
 
     * train / full-sequence forward: ``cache=None``, ``positions`` (B, S)
@@ -280,28 +323,34 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     * cross-attention: keys and values from ``kv_x`` (B, L, d) -- the
       encoder's states -- or from ``kv_cached`` ``{k, v}`` (B, L, kv, dh),
       the precomputed cross cache; no rope, every key visible.
-    Returns (out, cache) -- the cache dict updated in place, or None."""
+    ``pre``: the prefix a mesh context files the leaves' specs under
+    (``"cross/"``: an encoder-decoder's cross-attention, whose leaves stay
+    values).  Returns (out, cache) -- the cache dict updated in place, or
+    None."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     dev = x.device
     hc = 1 if _split("heads") else None  # the column dim kept split
     hb = None if hc is None else 0
 
-    q = dense(x, use(p, "wq", hc), policy)
+    q = dense(x, use(p, "wq", hc, pre + "wq"), policy)
     if "bq" in p:
-        q = (q + use(p, "bq", hb)).to(x.dtype)
+        q = (q + use(p, "bq", hb, pre + "bq")).to(x.dtype)
     q = _split_heads(q, q.shape[-1] // dh, dh)  # the local heads
+    ctx = shd.active()
     if kv_cached is not None:
-        k, v = (kv_cached[n].to(x.dtype) for n in ("k", "v"))
+        seen = _gathered(kv_cached, *(None, None) if ctx is None else
+                         ctx.get("cross_cache", (None, None)))
+        k, v = (seen[n].to(x.dtype) for n in ("k", "v"))
         kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64, device=dev)
         return _attend(q, k, v, None, kpos, False, None, p, x, cfg,
-                       policy), None
+                       policy, pre=pre), None
     src = x if kv_x is None else kv_x
-    k = dense(src, use(p, "wk", hc), policy)
-    v = dense(src, use(p, "wv", hc), policy)
+    k = dense(src, use(p, "wk", hc, pre + "wk"), policy)
+    v = dense(src, use(p, "wv", hc, pre + "wv"), policy)
     if "bk" in p:
-        k = (k + use(p, "bk", hb)).to(x.dtype)
-        v = (v + use(p, "bv", hb)).to(x.dtype)
+        k = (k + use(p, "bk", hb, pre + "bk")).to(x.dtype)
+        v = (v + use(p, "bv", hb, pre + "bv")).to(x.dtype)
     k = _split_heads(k, k.shape[-1] // dh, dh)
     v = _split_heads(v, v.shape[-1] // dh, dh)
     use_rope = (kv_x is None and cfg.rope_theta > 0
@@ -312,14 +361,14 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
             kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64,
                                device=dev)
             return _attend(q, k, v, None, kpos, False, window, p, x, cfg,
-                           policy), None
+                           policy, pre=pre), None
         qpos = (positions if positions.ndim == 2
                 else positions[None, :]).expand(B, S)
         if use_rope:
             q = rope(q, qpos, cfg.rope_theta)
             k = rope(k, qpos, cfg.rope_theta)
         return _attend(q, k, v, qpos, qpos, causal, window, p, x, cfg,
-                       policy), None
+                       policy, pre=pre), None
 
     pos_vec = torch.as_tensor(cache_pos, dtype=torch.int64,
                               device=dev).expand(B)
@@ -335,7 +384,6 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     # the layer computes every kv head (``cache_heads``); each is
     # (axes, this rank's first column or head, shard count).  Each rank
     # writes what it holds and gathers the whole cache at use.
-    ctx = shd.active()
     sp = None if ctx is None else ctx.get("cache_sp")
     ch = None if ctx is None else ctx.get("cache_heads")
     W = cache["k_codes" if packed else "k"].shape[1] * (sp[2] if sp else 1)
@@ -351,24 +399,16 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     write = (_write_cache if sp is None else
              lambda buf, upd, sl, n: _write_owned(buf, upd, sl, n, W, sp[1]))
 
-    def gathered():
-        out = cache
-        if sp is not None:
-            out = {nm: shd.all_gather(t, sp[0], 1) for nm, t in out.items()}
-        if ch is not None:
-            out = {nm: shd.all_gather(t, ch[0], 2) for nm, t in out.items()}
-        return out
-
     if packed:
         fmt = policy.kv_cache_fmt or "mxsf"
         for nm, val in (("k", k_w), ("v", v_w)):
             qt = mxblk.quantize(val, fmt, (dh,))
             write(cache[f"{nm}_codes"], qt.codes, slot, wl)
             write(cache[f"{nm}_scales"], qt.scale_e8m0, slot, wl)
-        seen = gathered()
+        seen = _gathered(cache, sp, ch)
         if attn_kernel_eligible(cfg, policy) and causal:
             return _attend_packed(q, seen, pos_vec, window, p, cfg,
-                                  policy), cache
+                                  policy, pre), cache
         k, v = (mxblk.dequantize(QuantizedTensor(
             seen[f"{nm}_codes"], seen[f"{nm}_scales"], fmt, (dh,),
             tuple(seen[f"{nm}_codes"].shape), dtype_name(x.dtype)))
@@ -376,7 +416,7 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     else:
         write(cache["k"], k_w.to(cache["k"].dtype), slot, wl)
         write(cache["v"], v_w.to(cache["v"].dtype), slot, wl)
-        seen = gathered()
+        seen = _gathered(cache, sp, ch)
         k, v = seen["k"], seen["v"]
     # the last absolute position written this call: all S rows on the
     # slice path, only write_len on the masked-chunk path (a partial
@@ -389,7 +429,30 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     kpos = end[:, None] - ((end[:, None] - idx[None, :]) % W)
     qpos = pos_vec[:, None] + ar[None, :]
     return _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg, policy,
-                   kv_prequant=packed), cache
+                   kv_prequant=packed, pre=pre), cache
+
+
+def _gathered(cache, sp, ch):
+    """A cache split where the layer does not compute split, gathered:
+    ``sp`` its position axis, ``ch`` its kv heads, each (axes, this rank's
+    first column or head, shard count) or None."""
+    out = cache
+    if sp is not None:
+        out = {nm: shd.all_gather(t, sp[0], 1) for nm, t in out.items()}
+    if ch is not None:
+        out = {nm: shd.all_gather(t, ch[0], 2) for nm, t in out.items()}
+    return out
+
+
+def own_columns(t, sp, ch):
+    """This rank's stored slice of a whole cache row block ``t`` (B, W,
+    kv, ...) split as ``_gathered`` reads it back: its positions ``sp``,
+    its kv heads ``ch``."""
+    if sp is not None:
+        t = t.narrow(1, sp[1], t.shape[1] // sp[2])
+    if ch is not None:
+        t = t.narrow(2, ch[1], t.shape[2] // ch[2])
+    return t
 
 
 def _write_owned(buf, upd, slot, write_len, W: int, lo: int):
@@ -456,7 +519,7 @@ def _scores_block(qg_c, kk, vv, qpos_c, kpos, causal, window, dh, cfg,
 
 
 def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
-            policy: QuantPolicy, kv_prequant: bool = False):
+            policy: QuantPolicy, kv_prequant: bool = False, pre: str = ""):
     """Query-chunked attention: the full (S x L) score tensor never exists
     at once; each chunk is recomputed in the backward
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
@@ -479,11 +542,11 @@ def _attend(q, k, v, qpos, kpos, causal, window, p, x, cfg: ModelConfig,
                 policy, x.dtype, kv_prequant, use_reentrant=False))
         ctx = torch.cat(parts, dim=3)
     ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, S, h * dh)
-    return _row_parallel(ctx, p, "wo", _split("heads"), policy)
+    return _attn_out(ctx, p, policy, pre)
 
 
 def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
-                   policy: QuantPolicy):
+                   policy: QuantPolicy, pre: str = ""):
     """Cached attention consuming the packed MXSF cache directly (S=1 decode
     and S=C prefill).  q is 1D-quantized along dh when
     ``policy.attn_matmuls``; the probabilities stay f32 in the kernel's
@@ -500,7 +563,16 @@ def _attend_packed(q, cache, pos_vec, window, p, cfg: ModelConfig,
                           cache["v_scales"], causal=True, kv_len=kvl,
                           q_offset=off, window=win)
     ctx = y.reshape(B, h, S, dh).permute(0, 2, 1, 3).reshape(B, S, h * dh)
-    return _row_parallel(ctx, p, "wo", _split("heads"), policy)
+    return _attn_out(ctx, p, policy, pre)
+
+
+def _attn_out(ctx, p, policy: QuantPolicy, pre: str):
+    """wo of the local heads' context: row-parallel, or (``ctx_gather``)
+    the context gathered over the model axis and wo whole."""
+    if _split("ctx_gather"):
+        ctx = shd.all_gather(ctx, shd.active()["tp"], -1)
+        return dense(ctx, use(p, "wo", None, pre + "wo"), policy)
+    return _row_parallel(ctx, p, "wo", _split("heads"), policy, pre + "wo")
 
 
 def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy, part: str = "mlp"):

@@ -27,12 +27,21 @@ Where the JAX package returns a new cache, these functions update the
 given cache in place and return it: attention columns and decode states
 are written into the tensors, while ``prefill`` replaces the SSM and cross
 entries of the dict with the new tensors (whose dtypes it sets).
+
+Under a serving mesh context (``sharding.mesh_context``, as the engine's
+``Placement`` runs a dispatch) every family takes the vocab-parallel
+token lookup (``transformer.embed_tokens``) and its layers' tensor
+parallelism (``blocks``, ``ssd``); the cache holds this rank's slices
+(``prefill`` writes the new SSM and cross entries as those slices).  An
+encoder-decoder's cross K/V are column-parallel plain matmuls of the
+values by kv heads, and stay unquantized as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor, torch_dtype
 from ..core.policy import QuantPolicy
 from ..device import resolve_device
@@ -187,7 +196,7 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig,
         return logits[:, 0], cache
     if cfg.family == "encdec":
         return _decode_encdec(params, tokens, cache, pos, cfg, policy)
-    x = params["emb"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_step(layer_params(params["layers"], i), x,
@@ -228,7 +237,7 @@ def _decode_encdec(params, tokens, cache, pos, cfg: ModelConfig,
     """One decoder token of an encoder-decoder: sinusoidal position, self-
     attention over ``cache["self"]``, cross-attention over the precomputed
     ``cache["cross"]`` (in values), the MLP."""
-    x = params["emb"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = embed_tokens(params, tokens, cfg)
     pv = torch.as_tensor(pos, dtype=torch.int64,
                          device=x.device).expand(x.shape[0])
     x = x + dynamic_sinusoid(pv, cfg.d_model).to(x.dtype)
@@ -240,7 +249,8 @@ def _decode_encdec(params, tokens, cache, pos, cfg: ModelConfig,
         x = x + a
         h = blk.rmsnorm(lp["ln2"], x)
         c, _ = blk.attention(lp["cross"], h, cfg, policy,
-                             kv_cached=_at(cache["cross"], i), causal=False)
+                             kv_cached=_at(cache["cross"], i), causal=False,
+                             pre="cross/")
         x = x + c
         x = x + blk.mlp(lp["mlp"], blk.rmsnorm(lp["ln3"], x), cfg, policy)
     logits = _mask_pad(lm_head(params, x, cfg, policy), cfg)
@@ -299,13 +309,19 @@ def prefill(params, batch, cache, cfg: ModelConfig, policy: QuantPolicy):
     if cfg.family == "encdec":
         enc = encode(params, batch["frames"], cfg, policy)
         ks, vs = [], []
+        col = 1 if blk._split("heads") else None
+        ctx = shd.active()
+        own = (None, None) if ctx is None else ctx.get("cross_cache",
+                                                       (None, None))
         for i in range(cfg.n_layers):
             lp = layer_params(params["dec_layers"], i)["cross"]
-            # plain matmuls of the values, as in the JAX package
+            # plain matmuls of the values, as in the JAX package; under a
+            # plan that splits the heads, of this rank's kv heads
             for out, name in ((ks, "wk"), (vs, "wv")):
-                t = enc @ lp[name].to(enc.dtype)
-                out.append(t.reshape(*t.shape[:2], cfg.n_kv, cfg.head_dim)
-                           .to(torch.bfloat16))
+                t = enc @ blk.use(lp, name, col, "cross/" + name).to(
+                    enc.dtype)
+                t = t.reshape(*t.shape[:2], -1, cfg.head_dim)
+                out.append(blk.own_columns(t.to(torch.bfloat16), *own))
         cache["cross"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         cache["cross_ready"] = torch.ones((), dtype=torch.int32,
                                           device=enc.device)
@@ -316,8 +332,7 @@ def prefill(params, batch, cache, cfg: ModelConfig, policy: QuantPolicy):
             x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         logits = _decoder_layers(params, x, cache, 0, cfg, policy)
         return logits[:, -1], cache
-    x = params["emb"][batch["tokens"].long()].to(
-        getattr(torch, cfg.compute_dtype))
+    x = embed_tokens(params, batch["tokens"], cfg)
     if cfg.family == "ssm":
         x, new = _ssm_prefill(params["layers"], x, cfg.n_layers, cfg, policy)
         cache.update(new)

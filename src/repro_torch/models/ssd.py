@@ -14,6 +14,30 @@ package's ``ssd_init`` distributions: in/out projections normal *
 H)), ``dt_bias`` = log(expm1(0.01))).  The decode step updates the cache
 dict in place; ``ssd_forward(return_state=True)`` returns a new one whose
 ``conv`` tail keeps the projection's dtype, as in the JAX package.
+
+Tensor parallelism (inside a mesh context whose ``blocks.TPPlan`` splits
+``ssm``): each rank runs H/tp of the heads.  ``in_proj`` is
+column-parallel by segment: ``MeshRules`` stores its columns split
+contiguously over the model axis, which does not fall on the
+``[z | x | B | C | dt]`` boundaries, so ``use`` gathers the leaf and each
+segment is cut to this rank's columns -- z, x and dt of its heads, all of
+B and C (one group) -- codes and scales together: the local codes are the
+one-device codes of those columns.  ``conv_w``, ``conv_b`` and the conv
+tail take the same cut of their ``[x | B | C]`` channels.  The ``state``
+cache splits its heads as ``cache_shardings`` places it, so the
+recurrence runs on local heads with no collective; ``A_log``, ``D`` and
+``dt_bias`` (replicated) are cut to them.  The gated RMSNorm over all of
+d_inner sums each rank's f32 squares and all-reduces that sum over the
+model axis (one (B, L, 1) f32 all-reduce; gathering y would move d_inner /
+tp times more); ``norm_w``'s stored split falls on head boundaries.
+``out_proj`` is row-parallel (``blocks._row_parallel``).  The conv tail is
+stored split contiguously over its channels: a decode step gathers it,
+cuts its compute channels, gathers the new column's x channels and writes
+back only the slice the rank stores, in place; a prefill returns the tail
+as the stored slice, in the projection's dtype.  Where the plan keeps the
+SSD replicated, the same gathers give the whole caches and each rank
+writes back its stored slices (``ssd_cache`` of the context: whether the
+state's heads and the tail's channels are stored split).
 """
 from __future__ import annotations
 
@@ -21,8 +45,11 @@ import torch
 import torch.nn.functional as Fn
 
 from ..configs.base import ModelConfig
+from ..core import sharding as shd
+from ..core.blocking import QuantizedTensor
 from ..core.policy import QuantPolicy
-from .blocks import dense, rmsnorm
+from . import blocks as blk
+from .blocks import dense
 
 
 def _dims(cfg: ModelConfig):
@@ -67,18 +94,136 @@ def _causal_conv(x, w, b):
     return y + b
 
 
-def _split_proj(zxbcdt, cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# tensor parallelism: compute and stored layouts
+# ---------------------------------------------------------------------------
+
+def _tp():
+    """(model axis, this rank's index on it, ranks) where the active plan
+    splits the SSD heads; None otherwise (one device, or replicated)."""
+    if not blk._split("ssm"):
+        return None
+    ctx = shd.active()
+    return ctx["tp"], ctx["mesh"].coord(ctx["tp"]), ctx["tp_size"]
+
+
+def _local_dims(cfg: ModelConfig):
+    """``_dims`` with d_inner and the heads this rank computes."""
     dI, G, N, H, P = _dims(cfg)
+    tp = _tp()
+    return (dI, G, N, H, P) if tp is None else (dI // tp[2], G, N,
+                                                H // tp[2], P)
+
+
+def _segments(cfg: ModelConfig, proj: bool):
+    """(start, width, split by heads) of each segment of in_proj's
+    columns (``proj``: z, x, B, C, dt) or of the conv channels (x, B,
+    C)."""
+    dI, G, N, H, P = _dims(cfg)
+    widths = ([(dI, True)] if proj else []) + [(dI, True), (G * N, False),
+                                               (G * N, False)]
+    widths += [(H, True)] if proj else []
+    out, start = [], 0
+    for w, split in widths:
+        out.append((start, w, split))
+        start += w
+    return out
+
+
+def _take(t: torch.Tensor, dim: int, segments, unit: int = 1):
+    """This rank's compute layout of a whole ``dim``: each segment's
+    1/tp of a split one (its heads), all of another, concatenated
+    (``unit``: elements per index along ``dim``, a packed leaf's column
+    block for its scales)."""
+    _, i, n = _tp()
+    parts = []
+    for start, width, split in segments:
+        w = width // n if split else width
+        lo = start + (i * w if split else 0)
+        parts.append(t.narrow(dim, lo // unit, w // unit))
+    return torch.cat(parts, dim)
+
+
+def _use_segments(p, name: str, cfg: ModelConfig, proj: bool):
+    """Leaf ``p[name]`` whose last dim is in_proj's columns (``proj``) or
+    the conv channels, gathered whole and cut to this rank's segments
+    where the plan splits the heads (codes and scales together)."""
+    leaf = blk.use(p, name)
+    if _tp() is None:
+        return leaf
+    seg = _segments(cfg, proj)
+    if not isinstance(leaf, QuantizedTensor):
+        return _take(leaf, -1, seg)
+    b = leaf.block[-1]
+    local = sum(w // _tp()[2] if s else w for _, w, s in seg)
+    return QuantizedTensor(_take(leaf.codes, -1, seg),
+                           _take(leaf.scale_e8m0, -1, seg, b), leaf.fmt,
+                           leaf.block, tuple(leaf.shape[:-1]) + (local,),
+                           leaf.dtype)
+
+
+def _use_heads(p, name: str):
+    """A per-head leaf (A_log, D, dt_bias), cut to this rank's heads."""
+    t = blk.use(p, name)
+    tp = _tp()
+    if tp is None:
+        return t
+    n = t.shape[-1] // tp[2]
+    return t.narrow(-1, tp[1] * n, n)
+
+
+def _stored_split(entry: str) -> bool:
+    """Whether the active context stores ``entry`` of the cache (the
+    state's heads, the conv tail's channels) split over the model axis."""
+    ctx = shd.active()
+    return ctx is not None and ctx.get("ssd_cache", {}).get(entry, False)
+
+
+def _relayout(t: torch.Tensor, dim: int, split_from: bool, split_to: bool):
+    """A tensor split contiguously over the model axis along ``dim`` or
+    whole, to the other: gathered, or cut to this rank's slice."""
+    if split_from == split_to:
+        return t
+    ctx = shd.active()
+    if split_from:
+        return shd.all_gather(t, ctx["tp"], dim)
+    n = t.shape[dim] // ctx["tp_size"]
+    return t.narrow(dim, ctx["mesh"].coord(ctx["tp"]) * n, n)
+
+
+def _whole_channels(t: torch.Tensor, cfg: ModelConfig):
+    """Conv channels (..., C) from the compute layout to whole: the x
+    channels gathered over the model axis (B and C are whole)."""
+    tp = _tp()
+    if tp is None:
+        return t
+    dIl = cfg.d_inner // tp[2]
+    return torch.cat([shd.all_gather(t[..., :dIl], tp[0], -1),
+                      t[..., dIl:]], -1)
+
+
+def _split_proj(zxbcdt, cfg: ModelConfig):
+    dI, G, N, H, P = _local_dims(cfg)
     return (zxbcdt[..., :dI], zxbcdt[..., dI:2 * dI + 2 * G * N],
             zxbcdt[..., 2 * dI + 2 * G * N:])
 
 
 def _gate_out(p, y, z, x_resid, cfg: ModelConfig, policy: QuantPolicy):
-    y = y + x_resid * p["D"].to(y.dtype)[None, None, :, None]  # D skip
+    """D skip, the gated RMSNorm over all of d_inner (split: each rank's
+    f32 sum of squares, all-reduced) and out_proj."""
+    y = y + x_resid * _use_heads(p, "D").to(y.dtype)[None, None, :, None]
     B, L = y.shape[:2]
-    y = y.reshape(B, L, cfg.d_inner)
-    y = rmsnorm({"w": p["norm_w"]}, y * Fn.silu(z))
-    return dense(y, p["out_proj"], policy)
+    tp = _tp()
+    g = y.reshape(B, L, -1) * Fn.silu(z)
+    gf = g.float()
+    if tp is None:
+        var = torch.mean(gf * gf, dim=-1, keepdim=True)
+    else:
+        var = shd.all_reduce(torch.sum(gf * gf, dim=-1, keepdim=True),
+                             tp[0]) / cfg.d_inner
+    w = blk.use(p, "norm_w", None if tp is None else 0)
+    y = (gf * torch.rsqrt(var + 1e-6) * w).to(g.dtype)
+    return blk._row_parallel(y, p, "out_proj", tp is not None, policy)
 
 
 def ssd_forward(p, u, cfg: ModelConfig, policy: QuantPolicy, *,
@@ -86,7 +231,7 @@ def ssd_forward(p, u, cfg: ModelConfig, policy: QuantPolicy, *,
     """u: (B, L, d_model) -> (B, L, d_model) [+ the cache {state, conv}].
     L must be a multiple of ``min(ssm_chunk, L)``."""
     Bsz, L, _ = u.shape
-    dI, G, N, H, P = _dims(cfg)
+    dI, G, N, H, P = _local_dims(cfg)
     Hg = H // G
     Q = min(cfg.ssm_chunk, L)
     if L % Q:
@@ -95,15 +240,17 @@ def ssd_forward(p, u, cfg: ModelConfig, policy: QuantPolicy, *,
     nc = L // Q
     f32 = torch.float32
 
-    zxbcdt = dense(u, p["in_proj"], policy)
+    zxbcdt = dense(u, _use_segments(p, "in_proj", cfg, True), policy)
     z, xBC, dt = _split_proj(zxbcdt, cfg)
-    xBC_conv = Fn.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+    xBC_conv = Fn.silu(_causal_conv(xBC, _use_segments(p, "conv_w", cfg,
+                                                       False),
+                                    _use_segments(p, "conv_b", cfg, False)))
     x = xBC_conv[..., :dI].reshape(Bsz, L, G, Hg, P).to(f32)
     Bm = xBC_conv[..., dI:dI + G * N].reshape(Bsz, L, G, N).to(f32)
     Cm = xBC_conv[..., dI + G * N:].reshape(Bsz, L, G, N).to(f32)
 
-    dt = _softplus(dt.to(f32) + p["dt_bias"])                 # (B, L, H)
-    A = -torch.exp(p["A_log"].to(f32))                          # (H,)
+    dt = _softplus(dt.to(f32) + _use_heads(p, "dt_bias"))     # (B, L, H)
+    A = -torch.exp(_use_heads(p, "A_log").to(f32))              # (H,)
     dA = (dt * A).reshape(Bsz, nc, Q, G, Hg)
     dt_c = dt.reshape(Bsz, nc, Q, G, Hg)
     x_c = x.reshape(Bsz, nc, Q, G, Hg, P)
@@ -139,7 +286,11 @@ def ssd_forward(p, u, cfg: ModelConfig, policy: QuantPolicy, *,
     x_resid = x.reshape(Bsz, L, H, P)
     out = _gate_out(p, y.to(u.dtype), z, x_resid.to(u.dtype), cfg, policy)
     if return_state:
-        return out, {"state": S, "conv": xBC[:, -(cfg.ssm_conv - 1):, :]}
+        tail = _whole_channels(xBC[:, -(cfg.ssm_conv - 1):, :], cfg)
+        return out, {"state": _relayout(S, -3, _tp() is not None,
+                                        _stored_split("state")),
+                     "conv": _relayout(tail, -1, False,
+                                       _stored_split("conv"))}
     return out
 
 
@@ -158,29 +309,37 @@ def ssd_decode_step(p, u, cache, cfg: ModelConfig, policy: QuantPolicy):
     block's ``state`` and ``conv``) is updated in place, in its own
     dtypes.  Returns (out, cache)."""
     Bsz = u.shape[0]
-    dI, G, N, H, P = _dims(cfg)
+    dI, G, N, H, P = _local_dims(cfg)
     Hg = H // G
     f32 = torch.float32
+    split = _tp() is not None
+    state_split, conv_split = _stored_split("state"), _stored_split("conv")
 
-    zxbcdt = dense(u, p["in_proj"], policy)
+    zxbcdt = dense(u, _use_segments(p, "in_proj", cfg, True), policy)
     z, xBC, dt = _split_proj(zxbcdt, cfg)
-    # conv over (tail ++ current)
-    hist = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)], dim=1)
-    xc = (hist * p["conv_w"][None, :, :]).sum(dim=1) + p["conv_b"]
+    # conv over (tail ++ current), the tail in the compute layout
+    tail = _relayout(cache["conv"], -1, conv_split, False)
+    new = xBC.to(tail.dtype)
+    hist = torch.cat([_take(tail, -1, _segments(cfg, False)) if split
+                      else tail, new], dim=1)
+    xc = (hist * _use_segments(p, "conv_w", cfg, False)[None, :, :]).sum(
+        dim=1) + _use_segments(p, "conv_b", cfg, False)
     xc = Fn.silu(xc)                                            # (B, C)
     x = xc[:, :dI].reshape(Bsz, G, Hg, P).to(f32)
     Bm = xc[:, dI:dI + G * N].reshape(Bsz, G, N).to(f32)
     Cm = xc[:, dI + G * N:].reshape(Bsz, G, N).to(f32)
 
-    dt = _softplus(dt[:, 0].to(f32) + p["dt_bias"])             # (B, H)
-    A = -torch.exp(p["A_log"].to(f32))
+    dt = _softplus(dt[:, 0].to(f32) + _use_heads(p, "dt_bias"))  # (B, H)
+    A = -torch.exp(_use_heads(p, "A_log").to(f32))
     dA = torch.exp(dt * A).reshape(Bsz, G, Hg)
 
-    S_new = dA[..., None, None] * cache["state"] + torch.einsum(
+    S_prev = _relayout(cache["state"], -3, state_split, split)
+    S_new = dA[..., None, None] * S_prev + torch.einsum(
         "bgh,bgm,bghp->bghpm", dt.reshape(Bsz, G, Hg), Bm, x)
     y = torch.einsum("bgm,bghpm->bghp", Cm, S_new).reshape(Bsz, 1, H, P)
     x_resid = x.reshape(Bsz, 1, H, P)
     out = _gate_out(p, y.to(u.dtype), z, x_resid.to(u.dtype), cfg, policy)
-    cache["state"].copy_(S_new)
-    cache["conv"].copy_(hist[:, 1:])
+    cache["state"].copy_(_relayout(S_new, -3, split, state_split))
+    tail = torch.cat([tail[:, 1:], _whole_channels(new, cfg)], dim=1)
+    cache["conv"].copy_(_relayout(tail, -1, False, conv_split))
     return out, cache

@@ -507,7 +507,7 @@ def _encdec_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         x = x + a
         h = blk.rmsnorm(lp["ln2"], x)
         c, _ = blk.attention(lp["cross"], h, cfg, policy, kv_x=enc,
-                             causal=False)
+                             causal=False, pre="cross/")
         x = x + c
         return x + blk.mlp(lp["mlp"], blk.rmsnorm(lp["ln3"], x), cfg, policy)
 

@@ -60,6 +60,15 @@ dispatch are module functions (``cache_placement``, ``place_store``,
 (``launch/dryrun.py``) traces on a tracing mesh as the engine runs them;
 ``probe_dispatches`` drives one prefill and one decode dispatch, which a
 rank counts and the dry run traces alike.
+
+The SSM, hybrid and encoder-decoder families serve on a mesh through the
+same placement, without an engine (as in the JAX package, whose engine
+refuses them too): ``cache_placement`` and ``placement`` read every cache
+``init_cache`` makes (``state``/``conv``, ``groups``/``tail``/``attn``,
+``self``/``cross``/``cross_ready``), and ``lockstep_dispatches`` drives one
+lockstep ``prefill`` and one ``decode_step`` of such a placement, which a
+rank counts and the dry run traces alike.  ``draw_store`` draws a rank's
+slices of a seeded store, as ``ServeEngine.from_init`` does.
 """
 from __future__ import annotations
 
@@ -84,7 +93,8 @@ from ..models import model as M
 
 __all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device",
            "Placement", "placement", "cache_placement", "place_store",
-           "probe_dispatches"]
+           "probe_dispatches", "lockstep_dispatches", "draw_store",
+           "cache_parts", "kv_leaf"]
 
 
 def auto_prefill_chunk(max_len: int, slots: int) -> int:
@@ -149,8 +159,9 @@ def _specs_by_name(store, shardings, path=()) -> dict:
     """``{leaf name: (stored spec, logical shape)}`` of each leaf's base
     dims (the stacked-layer dims are never split): what ``blocks.use``
     reads.  An MoE shared expert's leaves are filed as ``shared/<name>``,
-    apart from a dense FFN's of the same names; every leaf of a name must
-    share them."""
+    apart from a dense FFN's of the same names, and an encoder-decoder's
+    cross-attention leaves (values, where the self-attention's are packed)
+    as ``cross/<name>``; every leaf of a name must share them."""
     out = {}
     if isinstance(store, dict):
         for k in store:
@@ -166,8 +177,32 @@ def _specs_by_name(store, shardings, path=()) -> dict:
         return out
     spec = tuple(_spec(shardings))
     spec += (None,) * (len(store.shape) - len(spec))
-    name = path[-1] if path[-2:-1] != ("shared",) else f"shared/{path[-1]}"
+    parent = path[-2] if len(path) > 1 else None
+    name = f"{parent}/{path[-1]}" if parent in _FILED_APART else path[-1]
     return {name: (spec[-r:], tuple(store.shape[-r:]))}
+
+
+_FILED_APART = ("shared", "cross")
+
+
+def cache_parts(cfg: ModelConfig, tree) -> dict:
+    """The caches of a cache tree (or of its shardings) by role: ``self``
+    the attention cache the layers write (a decoder's, a hybrid's ``attn``,
+    an encoder-decoder's ``self``), ``cross`` an encoder-decoder's cross
+    K/V, ``ssd`` an SSD cache (an SSM's, a hybrid's groups; its tail is
+    placed alike); None where the family has none."""
+    fam = cfg.family
+    return {"self": (tree if fam == "decoder" else tree["attn"]
+                     if fam == "hybrid" else tree["self"]
+                     if fam == "encdec" else None),
+            "cross": tree["cross"] if fam == "encdec" else None,
+            "ssd": (tree if fam == "ssm" else tree["groups"]
+                    if fam == "hybrid" else None)}
+
+
+def kv_leaf(tree):
+    """The K entry of an attention cache dict (values or codes)."""
+    return tree["k_codes" if "k_codes" in tree else "k"]
 
 
 def cache_placement(cfg: ModelConfig, policy: QuantPolicy, rules, slots: int,
@@ -239,36 +274,61 @@ class Placement(NamedTuple):
         cells' replicated logits)."""
         with self.hints():
             logits, cache = step()
-            return shd.all_gather(logits, self.batch_axes, 0), cache
+            if logits is not None:  # an encoder-decoder's prefill has none
+                logits = shd.all_gather(logits, self.batch_axes, 0)
+            return logits, cache
 
 
-def placement(cfg: ModelConfig, policy: QuantPolicy, rules, store,
-              store_sh, cache_sh, cache) -> Placement:
-    """The ``Placement`` of a decoder's dispatches: ``store`` the whole
-    tree (shapes suffice: ``meta`` tensors, a packed store or f32 leaves)
-    placed by ``store_sh``, ``cache`` this rank's slices of a cache placed
-    by ``cache_sh``.  The cache splits what the layers do not: its
-    position axis (sequence parallelism) and, where attention runs
-    replicated, its kv heads; the slot rows follow its batch dim."""
-    mesh = rules.mesh
-    layer = M.decoding.layer_params(store["layers"], 0)
-    plan = blocks.tp_plan(cfg, policy, layer, store, rules.tp_size)
-    key = "k_codes" if "k_codes" in cache_sh else "k"
-    kv, local = cache_sh[key].spec, cache[key].shape
-    w_entry, b_entry, h_entry = kv[-3], kv[-4], kv[-2]
+def _kv_split(spec, local, mesh, heads_split: bool):
+    """(position split, kv-head split) of an attention cache of ``spec``
+    and local shape ``local`` (..., B, W, kv, dh) where the layers do not
+    compute it split: each (axes, this rank's first column or head, shard
+    count), or None."""
+    w_entry, h_entry = spec[-3], spec[-2]
     sp = heads = None
     if w_entry is not None:
         sp = (w_entry, shd.shard_index(w_entry, mesh) * local[-3],
               shd.axis_size(w_entry, mesh.shape))
-    if h_entry is not None and not plan.heads:
+    if h_entry is not None and not heads_split:
         heads = (h_entry, shd.shard_index(h_entry, mesh) * local[-2],
                  shd.axis_size(h_entry, mesh.shape))
+    return sp, heads
+
+
+def placement(cfg: ModelConfig, policy: QuantPolicy, rules, store,
+              store_sh, cache_sh, cache) -> Placement:
+    """The ``Placement`` of a model's dispatches: ``store`` the whole
+    tree (shapes suffice: ``meta`` tensors, a packed store or f32 leaves)
+    placed by ``store_sh``, ``cache`` this rank's slices of a cache placed
+    by ``cache_sh`` (any family's, ``cache_parts``).  An attention cache
+    splits what the layers do not: its position axis (sequence
+    parallelism) and, where attention runs replicated, its kv heads (the
+    cross cache likewise: ``cross_cache``); an SSD cache may store its
+    state's heads and its tail's channels split (``ssd_cache``); the slot
+    rows follow the batch dim."""
+    mesh = rules.mesh
+    plan = blocks.tp_plan(cfg, policy, store, rules.tp_size)
+    sh, loc = cache_parts(cfg, cache_sh), cache_parts(cfg, cache)
+    layout = dict(specs=_specs_by_name(store, store_sh), plan=plan)
+    if sh["self"] is not None:
+        spec, local = kv_leaf(sh["self"]).spec, kv_leaf(loc["self"]).shape
+        layout["cache_sp"], layout["cache_heads"] = _kv_split(
+            spec, local, mesh, plan.heads)
+        b_entry, n_b = spec[-4], local[-4]
+    if sh["cross"] is not None:
+        layout["cross_cache"] = _kv_split(sh["cross"]["k"].spec,
+                                          loc["cross"]["k"].shape, mesh,
+                                          plan.heads)
+    if sh["ssd"] is not None:
+        st, cv = sh["ssd"]["state"].spec, sh["ssd"]["conv"].spec
+        layout["ssd_cache"] = {"state": st[-3] is not None,
+                               "conv": cv[-1] is not None}
+        if sh["self"] is None:
+            b_entry, n_b = st[-5], loc["ssd"]["state"].shape[-5]
     i_b = shd.shard_index(b_entry, mesh)
-    rows = slice(i_b * local[-4], (i_b + 1) * local[-4])
-    layout = dict(specs=_specs_by_name(store, store_sh), plan=plan,
-                  cache_sp=sp, cache_heads=heads,
-                  batch_rows=None if b_entry is None else (b_entry,
-                                                           rows.start))
+    rows = slice(i_b * n_b, (i_b + 1) * n_b)
+    layout["batch_rows"] = None if b_entry is None else (b_entry,
+                                                         rows.start)
     return Placement(rules, layout, rows, b_entry)
 
 
@@ -448,12 +508,8 @@ class ServeEngine:
         from ``generator``).  Under a ``mesh`` each leaf is drawn whole
         and only this rank's slice of it is kept, one leaf at a time."""
         pol = policy if backend is None else policy.replace(backend=backend)
-        specs = M.packed_model_specs(cfg, pol)
-        shardings = (None if mesh is None else
-                     mesh_lib.MeshRules(mesh).param_sharding_tree(specs))
-        store = M.init_packed_params(cfg, pol, generator,
-                                     device=resolve_device(device),
-                                     shardings=shardings)
+        store, specs, _ = draw_store(cfg, pol, generator, mesh,
+                                     resolve_device(device))
         return cls(cfg, store, policy, backend=backend, device=device,
                    mesh=mesh, _placed=None if mesh is None else specs,
                    **engine_kw)
@@ -620,6 +676,46 @@ class ServeEngine:
                 continue
             self._emit(s, int(nxt[s]), done)
         return done
+
+
+def draw_store(cfg: ModelConfig, policy: QuantPolicy,
+               generator: torch.Generator, mesh, device):
+    """This rank's slices of the packed store one device draws from
+    ``generator`` (``models/model.init_packed_params``: each leaf drawn
+    whole and only the rank's slice kept, one leaf at a time; the whole
+    store without a ``mesh``).  Returns (store, ``packed_model_specs``,
+    their shardings -- None without a mesh)."""
+    specs = M.packed_model_specs(cfg, policy)
+    shardings = (None if mesh is None else
+                 mesh_lib.MeshRules(mesh).param_sharding_tree(specs))
+    store = M.init_packed_params(cfg, policy, generator, device=device,
+                                 shardings=shardings)
+    return store, specs, shardings
+
+
+def lockstep_dispatches(cfg: ModelConfig, policy: QuantPolicy,
+                        place: Placement, params, cache, batch: dict,
+                        token=None):
+    """Yield ``(kind, run)`` for one lockstep ``prefill`` of ``batch`` (the
+    whole batch: ``tokens`` (B, S), an encoder-decoder's ``frames``) into
+    ``cache`` (this rank's slices, zeroed; filled in place) and then one
+    ``decode_step`` of ``token`` (B, 1; default token 0 on every row) at
+    the prompt's end (an encoder-decoder: position 0), each on this rank's
+    rows of ``place``.  ``run()`` issues the dispatch and returns (logits
+    gathered over the batch axes -- None for an encoder-decoder's prefill
+    --, cache).  The JAX dry run's entry points for these families; a rank
+    and a trace of it count the same dispatches from here."""
+    rows = {k: place.rows_of(v)[0] for k, v in batch.items()}
+    first = next(iter(batch.values()))
+    S = 0 if cfg.family == "encdec" else batch["tokens"].shape[1]
+    if token is None:
+        token = torch.zeros((first.shape[0], 1), dtype=torch.int64,
+                            device=first.device)
+    tok, = place.rows_of(token)
+    yield "prefill", lambda: place.run(lambda: M.prefill(
+        params, rows, cache, cfg, policy))
+    yield "decode", lambda: place.run(lambda: M.decode_step(
+        params, tok, cache, S, cfg, policy))
 
 
 def probe_dispatches(eng: ServeEngine):

@@ -16,8 +16,9 @@ layer-period trace, against the JAX package and against real ranks.
   tensors they run their plain versions), rank by rank, at (1, 2) and
   (2, 2), under the kernels' 64-element blocks: the reduced qwen2.5-32b
   at 32-wide heads (so heads, FFN and vocab split over the model axis)
-  and the reduced qwen2-moe with 12 live experts of 16 (attention and
-  the shared expert replicated, the experts split); every rank counts
+  and the reduced qwen2-moe with 12 live experts of 16 (the heads split
+  with their context gathered before a whole wo, the shared expert
+  replicated, the experts split); every rank counts
   what rank 0 counts, and the argument bytes are the rank's store and
   cache bytes.
 * The layer-period trace (two and three periods, scaled to the depth)
@@ -25,8 +26,8 @@ layer-period trace, against the JAX package and against real ranks.
   SWA), llama4 (MoE every 2nd layer) and h2o-danube, on one card and on
   (2, 2), peak included for serving cells; a train step's peak is a lower
   bound within 10% here (its position moves with depth).
-* A train cell and a mamba2 cell on a mesh raise, naming their ROADMAP
-  items; the CLI writes them as failures.
+* A train cell on a mesh raises, naming its ROADMAP item, and the CLI
+  writes it as a failure; a mamba2 cell on a mesh writes its record.
 """
 import json
 import math
@@ -225,8 +226,8 @@ def _as_ranks_count(summary):
 def test_traced_dispatches_equal_the_real_ranks(shape):
     real = run_ranks(R.dispatch_counts, math.prod(shape), shape,
                      COUNT_CASES)
-    plans = {"dense": (True, True, True, False, False),
-             "moe": (False, False, True, True, False)}
+    plans = {"dense": (True, True, True, False, False, False, False),
+             "moe": (True, False, True, True, False, False, True)}
     for name in COUNT_CASES:
         first = None
         for rank, got in enumerate(real):
@@ -319,22 +320,37 @@ def test_layer_period_of_each_pattern():
 # ---------------------------------------------------------------------------
 
 def test_train_and_other_families_on_a_mesh_raise(tmp_path):
+    """A train cell on a mesh raises, naming its ROADMAP item, and the CLI
+    writes it as a failure; a mamba2 serving cell on a mesh no longer
+    raises: the CLI writes its record, with the JAX record's keys and
+    its collectives."""
     SHAPES["mesh_train"] = ShapeConfig("mesh_train", 16, 4, "train")
     try:
-        for arch, shape, item in (
-                ("qwen2.5-32b-reduced", "mesh_train", dryrun.ROADMAP_TRAINING),
-                ("mamba2-780m-reduced", "mesh_decode",
-                 dryrun.ROADMAP_FAMILIES)):
-            pol = dryrun.cell_policy("mxsf", SHAPES[shape].kind)
-            tcfg, ocfg = dryrun.cell_config(arch)
-            with pytest.raises(NotImplementedError, match=item):
-                dryrun.lower_cell(arch, shape, pol, tcfg, ocfg,
-                                  mesh=dryrun.mesh_of("2x2"))
-            with pytest.raises(SystemExit):
-                dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
-                             "2x2", "--out", str(tmp_path)])
-            err = (tmp_path / f"{arch}__{shape}__2x2.json.err").read_text()
-            assert item in err
+        arch, shape = "qwen2.5-32b-reduced", "mesh_train"
+        item = dryrun.ROADMAP_TRAINING
+        pol = dryrun.cell_policy("mxsf", SHAPES[shape].kind)
+        tcfg, ocfg = dryrun.cell_config(arch)
+        with pytest.raises(NotImplementedError, match=item):
+            dryrun.lower_cell(arch, shape, pol, tcfg, ocfg,
+                              mesh=dryrun.mesh_of("2x2"))
+        with pytest.raises(SystemExit):
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                         "2x2", "--out", str(tmp_path)])
+        err = (tmp_path / f"{arch}__{shape}__2x2.json.err").read_text()
+        assert item in err
+        arch = "mamba2-780m-reduced"
+        dryrun.main(["--arch", arch, "--shape", "mesh_decode", "--mesh",
+                     "2x2", "--backend", "cuda", "--out", str(tmp_path)])
+        rec = json.loads((tmp_path / f"{arch}__mesh_decode__2x2.json"
+                          ).read_text())
+        for key in ("mesh", "n_devices", "memory", "cost", "collectives",
+                    "roofline", "fits", "model_flops_global",
+                    "params_total", "attn_backend", "shard_fallback"):
+            assert key in rec, key
+        assert rec["mesh"] == "2x2" and rec["tp_plan"]["ssm"]
+        assert sum(c["count"] for c in rec["collectives"].values()) > 0
+        assert rec["collectives"]["all-gather"]["by_axis"]["model"][
+            "count"] > 0
     finally:
         del SHAPES["mesh_train"]
 

@@ -245,15 +245,17 @@ def test_uneven_kv_heads_sequence_parallel_fallback(ref, worlds):
 
 
 def test_replicated_attention_over_a_split_cache(ref, worlds):
-    """Under 64-element blocks the reduced model's attention cannot split
-    over a 2-way model axis (half a block per query head), the MLP can;
-    the cache still splits its kv heads, which each rank writes and
-    gathers at use: tokens equal the one-device engine's, kernel path."""
+    """Under 64-element blocks the reduced model's wo cannot split its
+    rows over a 2-way model axis (half a block per rank's heads), the MLP
+    can; the heads and the cache's kv heads split, and each rank's
+    attention context is gathered before a whole wo
+    (``TPPlan.ctx_gather``): tokens equal the one-device engine's, kernel
+    path."""
     params = convert.params_from_numpy(ref["np_params"], ref["cfg"])
     _, want, _ = R.serve(ref["cfg"], params, R.BLOCK64, ref["prompts"])
     for out in _world(ref, worlds, 2):
         res = out["blk64"]
-        assert res["plan"] == (False, True, True, False, False)
+        assert res["plan"] == (True, True, True, False, False, False, True)
         assert res["attn_backend"] == "cuda-packed"
         assert res["shard_fallback"] is None
         assert res["tokens"] == want

@@ -97,9 +97,9 @@ def world_2(rank, np_params, np_params_kv1, prompts):
     out["kv1"] = dict(tokens=toks, attn_backend=eng.attn_backend,
                       shard_fallback=eng.shard_fallback,
                       cache_spec=spec_of(eng._cache_sh["k_codes"]))
-    # 64-element blocks: a query head's 16 x 2 columns of wo's 64 rows are
-    # half a block, so attention runs replicated over the model axis while
-    # the cache splits its kv heads (gathered at use)
+    # 64-element blocks: a rank's 2 query heads of 16 are half a block of
+    # wo's rows, so the heads split and their context is gathered before
+    # a whole wo (``TPPlan.ctx_gather``); the cache splits its kv heads
     eng, toks, _ = serve(config(), params, BLOCK64, prompts,
                          mesh_lib.make_test_mesh(1, 2))
     out["blk64"] = dict(tokens=toks, attn_backend=eng.attn_backend,
