@@ -108,6 +108,37 @@ Phases, each printed as one JSON line:
               same width with the depth cut to 4 layers, for 2 steps and
               a third under the profiler (with the requantizer's summed
               device time).
+7b. train_sharded -- (after phase 8's 1D slice) the sharded train step
+              of h2o-danube-1.8b at full width and TRAIN_SHARD_LAYERS (2)
+              layers, global batch 4 x 512 (phase train's first batch):
+              a world of one rank in this process on NCCL (the step on
+              (1, 1) gives one device's gradients, loss and updated state
+              bit for bit, each layout; its collectives against their
+              formula); then two gloo ranks sharing the card
+              (``sharded_train_rank``, results in
+              ``build/chip_smoke_train_sharded/``) run a 2D step on (2, 1)
+              (DP + FSDP) and on (1, 2) (TP) and a 1D step on (1, 2): state
+              bytes a rank equal to ``MeshRules.shard_nbytes``, the
+              gradient function teacher-forced (every kernel call within
+              ``train_rtol`` at the shard-local shapes, the 2D forward's
+              fused shapes checked), then one timed step (seconds, the
+              collectives' host share, peak memory; launches and
+              collectives against ``train_launch_counts`` and
+              ``train_collectives``); meanwhile this process computes each
+              layout's one-device gradients and their reorder baseline
+              (every matmul on its plain version): each rank's gradient
+              slices within REORDER_FACTOR times the baseline's largest
+              leaf move (capped by TRAIN_REORDER_CEILING), its loss within
+              REORDER_FACTOR times the baseline's loss scale
+              (``loss_move_scale``, capped by TRAIN_LOSS_CEILING), each
+              token's loss of its rows (a forward through the sharded
+              path) within REORDER_FACTOR times the baseline's RMS move
+              of a token's loss (capped by TRAIN_TOKEN_CEILING; a gate
+              that must reject the same tokens' losses read from the wrong
+              rows or positions), and
+              each rank's step equal to the mesh worker's trace of it
+              (launches, collectives by kind, axis and bytes, argument
+              bytes).
 8. train_slice -- one more train step of each layout (on the state the
               phase "train" left, with its first batch) teacher-forced:
               every quantize and requantize call (plain or transposed)
@@ -171,7 +202,10 @@ Phases, each printed as one JSON line:
               cache, kernel datapath): per-rank peak, ``fits``, the
               collectives and the three roofline terms printed, and the
               argument bytes equal to ``MeshRules.shard_nbytes`` of the
-              inputs.
+              inputs.  It also traces each rank of phase 7b's programs
+              (``trace_train_sharded``: ``dryrun.mesh_train_cell``, the
+              sharded train step on ``meta``), which phase 7b holds each
+              rank's step to.
 12. train_resume -- ``fault.train_loop`` on 2 layers of full-width
               h2o-danube-1.8b (2D, 4 x 512): 4 steps checkpointing every
               2, uninterrupted; again with a failure injected at step 3
@@ -227,9 +261,9 @@ Phases, each printed as one JSON line:
 18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11c and 14 run right after phase 6, phase 15 after phase 13,
-phases 16-17 last, and a ``done`` line with the whole run's seconds comes
-before the ``kernels`` line.
+Phases 9-11c and 14 run right after phase 6, phase 7b after phase 8's 1D
+slice, phase 15 after phase 13, phases 16-17 last, and a ``done`` line
+with the whole run's seconds comes before the ``kernels`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -2241,6 +2275,95 @@ def sharded_collectives(cfg, eng, breakdown=False):
     return {k: sum(v.values()) for k, v in parts.items()}
 
 
+def lm_head_calls(cfg, tcfg, seq):
+    """The LM head's calls a microbatch (``train/step.py``'s chunked
+    loss: one a ``xent_chunk`` of the sequence where the chunks divide
+    it, else one)."""
+    c = tcfg.xent_chunk
+    return seq // c if 0 < c < seq and seq % c == 0 else 1
+
+
+def train_collectives(cfg, policy, tcfg, mesh_shape, seq, step=True):
+    """Collectives of one sharded train step of a dense decoder (``step``
+    False: of its gradient function alone) on a mesh of ``mesh_shape``
+    (``{axis: size}``), by kind and axis, ``{kind: {axis: calls}}``, from
+    the path.  Per microbatch, over the model axis: an all-reduce after
+    each row-parallel linear (wo, wd) and for the vocab-parallel lookup,
+    issued whatever the axis size, and in the backward one for each
+    column-parallel entry (before q/k/v, gate/up and each head call);
+    with more than one model rank an all-gather of each head call's
+    logits, of each use of a norm weight the store splits (2 a layer, 4
+    with post-norms, the final one a head call) and, backward, of each
+    small bias cut to its columns.  Over each DP axis of size > 1: an
+    all-gather of every FSDP leaf at each use (7 or 6 linears a layer,
+    the embedding, the head or the tied embedding a head call) and a
+    reduce-scatter of its gradient, and one all-reduce of the loss sums.
+    Remat recomputes each layer's forward in the backward, its
+    collectives with it, up to the last tensor the backward needs: the
+    layer's last row-parallel sum reruns only under a post-norm.  Once a
+    step (per microbatch under ``grad_compress``): an all-reduce over
+    each DP axis of every leaf that axis does not split; and the step's
+    clip norm, one all-reduce of each group of leaves split alike over
+    each axis of size > 1.  Checked for the plans these runs take: heads,
+    FFN and vocab split, the context not gathered."""
+    import torch
+    from collections import Counter
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as TR
+    from repro_torch.train.step import _flatten
+    mesh = shd.AbstractMesh(tuple(mesh_shape.values()), tuple(mesh_shape))
+    rules = mesh_lib.MeshRules(mesh)
+    whole = TR.init_params(cfg, torch.Generator(), "meta")
+    sh = rules.param_sharding_tree(whole)
+    specs = mesh_lib.specs_by_name(whole, sh)
+    plan = blocks.tp_plan(cfg, policy, whole, rules.tp_size, train=True)
+    if not (plan.heads and plan.mlp and plan.vocab) or plan.ctx_gather:
+        raise AssertionError(f"no train count formula for {plan}")
+    L, n = cfg.n_layers, tcfg.microbatches
+    rc = int(tcfg.remat != "none")
+    post = int(cfg.post_norms)
+    heads = lm_head_calls(cfg, tcfg, seq)
+    linears = ["wq", "wk", "wv", "wo", "wu", "wd"] + (
+        ["wg"] if cfg.mlp in ("swiglu", "geglu") else [])
+    out = Counter()
+    emb_split = shd.axes_of(specs["emb"][0][0]) == ("model",)
+    out["all-reduce", "model"] = n * (
+        L * (2 + 2 + (1 + post) * rc) + emb_split + heads)
+    if rules.tp_size > 1:
+        norm_split = specs["w"][0] == ("model",)
+        bias_cut = cfg.qkv_bias and specs["bq"][0] != ("model",)
+        out["all-gather", "model"] = n * (
+            heads + norm_split * ((2 + 2 * post) * L * (1 + rc) + heads)
+            + 3 * L * bias_cut)
+    head = "emb" if cfg.tie_embeddings else "head"
+    for axis in rules.dp:
+        if mesh_shape[axis] == 1:
+            continue
+        fsdp = lambda name: axis in shd.split_axes(specs[name][0])
+        per_layer = sum(fsdp(k) for k in linears)
+        out["all-gather", axis] = n * (
+            per_layer * L * (1 + rc) + fsdp("emb") + fsdp(head) * heads)
+        out["reduce-scatter", axis] = n * (
+            per_layer * L + fsdp("emb") + fsdp(head) * heads)
+        whole_leaves = sum(axis not in shd.split_axes(ns.spec)
+                           for _, ns in _flatten(sh))
+        out["all-reduce", axis] = n + whole_leaves * (
+            n if tcfg.grad_compress else 1)
+    if step:
+        groups = {tuple(a for a in mesh.axis_names if a in set(
+            shd.split_axes(ns.spec, mesh_shape))) for _, ns in _flatten(sh)}
+        for key in groups:
+            for axis in key:
+                out["all-reduce", axis] += 1
+    res: dict = {}
+    for (kind, axis), calls in sorted(out.items()):
+        if calls:
+            res.setdefault(kind, {})[axis] = calls
+    return res
+
+
 def _sharded_engine(torch, cfg, policy, ckpt_dir, mesh, device, slots,
                     chunk, max_len):
     """``ServeEngine.from_checkpoint`` on ``mesh``: (engine, restore
@@ -2717,6 +2840,559 @@ def phase_serve_sharded(torch, device, cfg, policy, args, slots, chunk,
              "free_running_equal"])
     return {"serve_sharded_1x1": launches,
             f"serve_sharded_1x{SHARD_TP}": ranks[0]["launches"]}
+
+
+TRAIN_SHARD_DIR = ROOT / "build" / "chip_smoke_train_sharded"  # results,
+# the ranks' gradient slices (removed when the phase ends)
+TRAIN_SHARD_LAYERS = 2  # the phase's depth of h2o-danube-1.8b: at 4
+# (train_1d's) the whole script ran 1203.7 s on a slow card host
+TRAIN_SHARD_WAIT_S = 480  # the two-rank run's time limit
+# the programs of the two-rank run: (mesh, layout)
+TRAIN_SHARD_PROGRAMS = (((2, 1), "2d"), ((1, 2), "2d"), ((1, 2), "1d"))
+# the most the one-device reorder baseline may move the gradients (the
+# largest leaf's relative L2) on the card: the move recorded on the H100
+# at TRAIN_SHARD_LAYERS (layers/sub0/attn/wq in both layouts; at 4 layers
+# 0.0540 and 0.0531), plus a sixteenth
+TRAIN_REORDER_CEILING = {"2d": 0.03988563269376755 * 1.0625,
+                         "1d": 0.038670189678668976 * 1.0625}
+# tokens in a block of ``loss_move_scale``'s batch means
+LOSS_BLOCK = 64
+# the most ``loss_move_scale`` of the one-device reorder baseline (the loss)
+# and the RMS of its per-token moves may be on the card: the readings on
+# the H100 at TRAIN_SHARD_LAYERS and seed 0, plus a sixteenth
+TRAIN_LOSS_CEILING = {"2d": 0.0008288274963664516 * 1.0625,
+                      "1d": 0.0008610936891623272 * 1.0625}
+TRAIN_TOKEN_CEILING = {"2d": 0.012158010310409499 * 1.0625,
+                       "1d": 0.010085006605292155 * 1.0625}
+
+
+def train_sharded_plan(rehearsal: bool) -> dict:
+    """The two-rank training run: h2o-danube-1.8b (reduced in the
+    rehearsal) at TRAIN_SHARD_LAYERS layers, phase train's batch, and each
+    program's name, mesh and layout."""
+    return dict(arch="h2o-danube-1.8b" + ("-reduced" if rehearsal else ""),
+                n_layers=TRAIN_SHARD_LAYERS,
+                batch=2 if rehearsal else 4, seq=32 if rehearsal else 512,
+                block_1d=BLOCK_1D[rehearsal],
+                programs=[dict(name=f"{m[0]}x{m[1]}_{layout}", mesh=list(m),
+                               layout=layout)
+                          for m, layout in TRAIN_SHARD_PROGRAMS])
+
+
+def train_sharded_program(plan: dict, layout: str, backend: str = "cuda"):
+    """(config, policy, TrainConfig) of one of the plan's layouts: 2D
+    MXSF_TRAIN, or the 1D layout at the plan's block; remat "dots"."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_TRAIN
+    from repro_torch.train import step as T
+    cfg = get_config(plan["arch"]).replace(n_layers=plan["n_layers"])
+    pol = MXSF_TRAIN.replace(backend=backend)
+    if layout == "1d":
+        pol = pol.replace(block_mode="1d", quantize_bwd=True,
+                          block_1d=plan["block_1d"])
+    return cfg, pol, T.TrainConfig()
+
+
+def trace_train_sharded(plan: dict, prog: dict, rank: int,
+                        rehearsal: bool) -> dict:
+    """``dryrun.mesh_train_cell`` of one rank of one of the plan's
+    programs on ``meta``: its launches, collectives by kind and axis with
+    their operand bytes, and argument bytes.  The kernels' ``meta``
+    branches take 64-element 1D blocks only, so the rehearsal's 1D
+    program traces through the torch datapath (it launches nothing)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    t0 = time.perf_counter()
+    backend = "torch" if rehearsal and prog["layout"] == "1d" else "cuda"
+    cfg, pol, tcfg = train_sharded_program(plan, prog["layout"], backend)
+    mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
+    inputs, run, info = dryrun.mesh_train_cell(
+        cfg, ShapeConfig("train_sharded", plan["seq"], plan["batch"],
+                         "train"), pol, mesh, tcfg, OptConfig())
+    with cost.count(inputs) as counter:
+        out = run(inputs)
+    summary = counter.summary(out, mesh.shape)
+    return dict(launches={k: v for k, v in summary["cost"][
+        "launches"].items() if v}, collectives=cost.collectives_by_axis(
+            summary["collectives"]),
+        argument_bytes=summary["memory"]["argument_bytes"],
+        peak_bytes=summary["memory"]["peak_bytes_per_device"],
+        tp_plan=info["tp_plan"], trace_seconds=time.perf_counter() - t0)
+
+
+def _train_traces(plan: dict, rehearsal: bool) -> dict:
+    """The mesh worker's traces of each rank of each of the plan's
+    programs (``trace_train_sharded``), ``{(program, rank): record}``."""
+    return {(prog["name"], r): json.loads(
+        (DRYRUN_MESH_DIR / f"train_{prog['name']}__rank{r}.json")
+        .read_text()) for prog in plan["programs"]
+        for r in range(SHARD_TP)}
+
+
+def _grad_file(name: str, rank: int) -> Path:
+    return TRAIN_SHARD_DIR / f"grads_{name}_rank{rank}.pt"
+
+
+def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
+    """One program of the two-rank run on this rank: the state slices
+    (bytes against ``MeshRules.shard_nbytes``), the gradient function
+    teacher-forced (``checked_kernels`` at the shard-local shapes; the
+    gradient slices written for the script's process), each token's loss
+    of its rows from a forward through the sharded path, then one timed
+    train step: seconds, the collectives' host share, the peak, the
+    launches and collectives against their formulas, and the counts
+    phase train_sharded holds the rank's trace to."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
+    shape = tuple(prog["mesh"])
+    mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+    on_card = device.type == "cuda"
+    ocfg = OptConfig()
+    sh = T.state_shardings(cfg, ocfg, mesh)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = T.init_state(gen, cfg, ocfg, device=device, shardings=sh)
+    state_b = _tree_bytes(state)
+    predicted = mesh_lib.MeshRules(mesh).shard_nbytes(T.init_state(
+        torch.Generator(), cfg, ocfg, device="meta"), sh)
+    rows = T.batch_rows(batch, mesh)
+    faults = [] if state_b == predicted else [
+        f"state {state_b} B != MeshRules' {predicted} B"]
+    out = dict(program=prog["name"], mesh=list(shape),
+               layout=prog["layout"], state_bytes=state_b,
+               predicted_state_bytes=predicted,
+               coords={a: mesh.coord(a) for a in mesh.shape})
+    # the gradients, every kernel call teacher-forced
+    grad_fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+    out["tp_plan"] = grad_fn.layout.plan._asdict()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with checked_kernels(torch, train_rtol, None) as chk:
+        metrics, grads = grad_fn(state["params"], rows)
+    out["checked_seconds"] = time.perf_counter() - t0
+    rows_k, kfaults = chk.rows(train_launch_counts(cfg, pol))
+    faults += kfaults
+    if prog["layout"] == "2d":  # the forward's fused calls
+        got = sorted({(c["k"], c["n"])
+                      for c in chk.calls["mxsf_fused_matmul"]})
+        want = sorted(set(shard_local_shapes(cfg, shape[1])))
+        m = sorted({c["m"] for c in chk.calls["mxsf_fused_matmul"]})
+        if got != want or m != [rows["tokens"].numel()]:
+            faults.append(f"fused shapes {got} at m {m} != {want}")
+        out["fused_shapes"] = dict(kn=got, m=m)
+    out.update(loss=float(metrics["loss"]), kernels=rows_k)
+    torch.save({"/".join(p): g.detach().float().cpu()
+                for p, g in T._flatten(grads)}, _grad_file(prog["name"],
+                                                           rank))
+    del grads
+    # each token's loss of this rank's rows, a forward on the sharded path
+    from repro_torch.models import transformer as TR
+    with torch.no_grad(), grad_fn.layout.hints():
+        logits = TR.forward(state["params"], rows, cfg, pol)
+    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
+               _nll_file(prog["name"], rank))
+    del logits
+    # one timed train step
+    step = T.make_train_step(cfg, pol, ocfg, tcfg, mesh)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    arg = state_b + sum(t.numel() * t.element_size() for t in rows.values())
+    _sync(torch, device)
+    reset_launches()
+    shd.reset_counts()
+    t0 = time.perf_counter()
+    _, metrics = step(state, rows)
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    counts = shd.counts()
+    launches = ({k: v for k, v in read_launches().items() if v}
+                if on_card else None)
+    coll = {k: {a: v[0] for a, v in by.items()}
+            for k, by in cost.collectives_by_axis(counts).items()}
+    want_coll = train_collectives(cfg, pol, tcfg, dict(zip(
+        ("data", "model"), shape)), plan["seq"])
+    want_launches = {k: v for k, v in train_launch_counts(
+        cfg, pol, tcfg.remat).items() if v}
+    if coll != want_coll:
+        faults.append(f"collectives {coll} != {want_coll}")
+    if on_card and launches != want_launches:
+        faults.append(f"launches {launches} != {want_launches}")
+    host = sum(v["seconds"] for v in counts.values())
+    out.update(step_loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]), seconds=seconds,
+               tokens_per_s=plan["batch"] * plan["seq"] / seconds,
+               collective_host_seconds=host,
+               collective_share=host / seconds,
+               collectives_by_kind={k: dict(calls=v["calls"],
+                                            seconds=v["seconds"],
+                                            bytes=v["bytes"])
+                                    for k, v in counts.items()},
+               collectives=coll, expected_collectives=want_coll,
+               launches=launches, expected_launches=want_launches,
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if on_card else None),
+               dispatch=dict(launches=launches,
+                             collectives=cost.collectives_by_axis(counts),
+                             argument_bytes=arg),
+               faults=faults)
+    del state
+    free_device(torch, device)
+    return out
+
+
+def sharded_train_rank(rank: str, world: str, port: str, rehearsal: str,
+                       spec_file: str):
+    """One rank of phase train_sharded's two-rank run (started after the
+    build): each program of ``train_sharded_plan`` in turn, on the batch
+    the script's process drew; results to TRAIN_SHARD_DIR."""
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, TRAIN_SHARD_DIR) as (
+            torch, device, rank, world, out):
+        batch = {k: torch.tensor(v, dtype=torch.int32, device=device)
+                 for k, v in spec["batch"].items()}
+        out["programs"] = []
+        for prog in spec["plan"]["programs"]:
+            res = _train_rank_program(torch, device, spec["plan"], prog,
+                                      rank, batch, spec["seed"])
+            out["programs"].append(res)
+            if res["faults"]:
+                raise AssertionError(f"{prog['name']}: {res['faults']}")
+
+
+def _grads_rel(torch, got, ref):
+    """(the largest leaf's relative L2 distance of ``got`` from ``ref``,
+    that leaf's path): ``{path: tensor}`` each, ``got`` moved to ``ref``'s
+    device."""
+    worst, at = 0.0, None
+    for k, r in ref.items():
+        g = got[k].to(r.device, torch.float32)
+        r = r.float()
+        rel = float(torch.linalg.vector_norm(g - r)
+                    / torch.linalg.vector_norm(r).clamp_min(1e-30))
+        if rel >= worst:
+            worst, at = rel, k
+    return worst, at
+
+
+@contextlib.contextmanager
+def plain_matmuls():
+    """Every matmul kernel wrapper on its plain version inside the block
+    (this script's hook, as ``checked_kernels`` is): the same exact
+    products, summed in cuBLAS's f32 order."""
+    from repro_torch.kernels import mx_matmul as MM
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    saved = (FM.mxsf_fused_matmul, MM.mxsf_matmul)
+    FM.mxsf_fused_matmul = FM.mxsf_fused_matmul_plain
+    MM.mxsf_matmul = MM.mxsf_matmul_plain
+    try:
+        yield
+    finally:
+        FM.mxsf_fused_matmul, MM.mxsf_matmul = saved
+
+
+def _one_device_grads(torch, cfg, pol, tcfg, state, batch, plain=False):
+    """The one-device gradient function on the whole state and each
+    token's loss from a forward of the same params: (loss, ``{path:
+    grad}``, per-token nll); ``plain``: every matmul on its plain version
+    (the reorder baseline)."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.train import step as T
+    with plain_matmuls() if plain else contextlib.nullcontext():
+        metrics, grads = T.make_grad_fn(cfg, pol, tcfg)(state["params"],
+                                                        batch)
+        with torch.no_grad():
+            logits = TR.forward(state["params"], batch, cfg, pol)
+    nll = token_nll(torch, logits, batch["labels"], cfg.vocab)
+    return float(metrics["loss"]), {"/".join(p): g for p, g in
+                                    T._flatten(grads)}, nll
+
+
+def loss_move_scale(torch, move, block=LOSS_BLOCK):
+    """How far a reorder moves the loss, from its per-token moves ``move``
+    (batch, seq): the larger of the mean move (the baseline's own scalar
+    move) and four standard errors of that mean, estimated by batch means
+    over blocks of ``block`` consecutive tokens of a row (so a move that
+    carries along a row counts within its block; at least four blocks a
+    row).  Returns (scale, mean, standard error)."""
+    m = move.double()
+    block = min(block, m.shape[-1] // 4)
+    means = m.reshape(-1, block).mean(-1)
+    se = float(means.std() / means.numel() ** 0.5)
+    mean = float(m.mean())
+    return max(abs(mean), 4.0 * se), mean, se
+
+
+def planted_losses(torch, nll):
+    """Losses of plumbing faults, from one device's per-token losses
+    (batch, seq): a DP rank's own rows only, each half (a rank that did
+    not sum over DP), and every DP rank's first row twice (rows read at
+    the wrong offset; where a rank has two rows or more).  Returns
+    ``{name: loss}``: recorded beside the loss gate, which they may lie
+    inside (at random init every row's mean loss is near every other's:
+    what ``planted_tokens`` holds the per-token gate to)."""
+    half = nll.shape[0] // 2
+    rows = nll.double().mean(-1)
+    out = {"rows_of_dp_rank_0": float(rows[:half].mean()),
+           "rows_of_dp_rank_1": float(rows[half:].mean())}
+    if half > 1:
+        out["first_row_twice"] = float(rows[::half].mean())
+    return out
+
+
+def token_nll(torch, logits, labels, vocab):
+    """Each token's loss (batch, seq) in f32 from (padded) logits."""
+    logits = logits[..., :vocab].float()
+    labels = labels.long()
+    return torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels[..., None])[..., 0]
+
+
+def _rms(torch, t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def planted_tokens(torch, nll, rows_of):
+    """The per-token losses a rank holding the wrong tokens would report,
+    from one device's ``nll`` (batch, seq) and ``rows_of`` (the rank's
+    rows of a (batch, seq) tensor): the batch's rows rolled by one (rows
+    read at the wrong offset) and each row's tokens rolled by one (labels
+    one position off).  Returns ``{name: (rank rows, seq)}``."""
+    return {"rows_rolled": rows_of(torch.roll(nll, 1, 0)),
+            "positions_rolled": rows_of(torch.roll(nll, 1, 1))}
+
+
+def _nll_file(name: str, rank: int) -> Path:
+    return TRAIN_SHARD_DIR / f"nll_{name}_rank{rank}.pt"
+
+
+def _train_world_one(torch, device, plan, batch, seed):
+    """A world of one rank in this process (``one_rank_world``: NCCL on
+    the card): the sharded step on (1, 1) against the one-device step from
+    the same state, gradients and updated state bit for bit, each layout;
+    its collectives against ``train_collectives``."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    out = {}
+    with one_rank_world(torch, device) as backend:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        for layout in ("2d", "1d"):
+            cfg, pol, tcfg = train_sharded_program(plan, layout)
+            ocfg = OptConfig()
+            states = []
+            for sh in (None, T.state_shardings(cfg, ocfg, mesh)):
+                gen = torch.Generator(device=device).manual_seed(seed)
+                states.append(T.init_state(gen, cfg, ocfg, device=device,
+                                           shardings=sh))
+            m1, g1 = T.make_grad_fn(cfg, pol, tcfg)(states[0]["params"],
+                                                    batch)
+            shd.reset_counts()
+            m2, g2 = T.make_grad_fn(cfg, pol, tcfg, mesh)(
+                states[1]["params"], batch)
+            coll = {k: {a: v[0] for a, v in by.items()} for k, by in
+                    cost.collectives_by_axis(shd.counts()).items()}
+            same_grads = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                T._flatten(g1), T._flatten(g2)))
+            del g1, g2
+            T.make_train_step(cfg, pol, ocfg, tcfg)(states[0], batch)
+            T.make_train_step(cfg, pol, ocfg, tcfg, mesh)(states[1], batch)
+            same_state = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                T._flatten(states[0]), T._flatten(states[1])))
+            want = train_collectives(cfg, pol, tcfg, {"data": 1,
+                                                      "model": 1},
+                                     plan["seq"], step=False)
+            out[layout] = dict(backend=backend, same_loss=float(
+                m1["loss"]) == float(m2["loss"]), same_grads=same_grads,
+                same_state=same_state, collectives=coll,
+                expected_collectives=want)
+            emit("train_sharded", step="world_one", layout=layout,
+                 **out[layout])
+            if not (out[layout]["same_loss"] and same_grads and same_state
+                    and coll == want):
+                raise AssertionError(f"train_sharded (1, 1) {layout}: "
+                                     f"{out[layout]}")
+            del states
+            free_device(torch, device)
+    return out
+
+
+def phase_train_sharded(torch, device, args, rehearsal):
+    """Phase train_sharded: the sharded train step of h2o-danube-1.8b at
+    full width and TRAIN_SHARD_LAYERS layers, global batch 4 x 512 (phase
+    train's first batch).  Two gloo ranks sharing the card
+    (``sharded_train_rank``) run the programs of ``train_sharded_plan``
+    -- a 2D step on (2, 1) and on (1, 2), a 1D step on (1, 2) -- while
+    this process runs a world of one rank on NCCL (``_train_world_one``:
+    bit for bit against one device) and each layout's one-device
+    gradients and their reorder baseline (the same gradients with every
+    matmul on its plain version).  Then each rank's gradient slices
+    against the one-device gradients: the largest leaf's relative L2
+    within REORDER_FACTOR times the baseline's (which may not pass
+    TRAIN_REORDER_CEILING on the card; in the rehearsal the plain versions
+    are the kernels' own, so that gate is the card's alone), and its loss
+    within REORDER_FACTOR times the baseline's ``loss_move_scale`` (which
+    may not pass TRAIN_LOSS_CEILING on the card; at least 4 f32 ulps), and
+    the per-token losses of its rows within REORDER_FACTOR times the RMS
+    of the baseline's per-token moves (which may not pass
+    TRAIN_TOKEN_CEILING on the card), a gate that must reject every one of
+    ``planted_tokens`` (else it could not see a loss of the wrong tokens);
+    and each rank's step against the mesh worker's trace of it.  Returns
+    rank 0's launches of each program's timed step."""
+    import shutil
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    plan = train_sharded_plan(rehearsal)
+    cfg, _, _ = train_sharded_program(plan, "2d")
+    batch = make_batches(torch, cfg, args.seed, 1, plan["batch"],
+                         plan["seq"], device)[0]
+    from repro_torch.configs.base import get_config
+    emit("train_sharded", step="plan", **{k: v for k, v in plan.items()
+                                          if k != "programs"},
+         d_model=cfg.d_model, of_layers=get_config(plan["arch"]).n_layers,
+         programs=[p["name"] for p in plan["programs"]])
+    try:
+        started = start_rank_processes(
+            "sharded_train_rank", dict(plan=plan, seed=args.seed, batch={
+                k: v.tolist() for k, v in batch.items()}),
+            TRAIN_SHARD_DIR, SHARD_TP, rehearsal)
+        ranks = None
+        try:
+            world_one = _train_world_one(torch, device, plan, batch,
+                                         args.seed)
+            refs = {}
+            for layout in ("2d", "1d"):
+                cfg, pol, tcfg = train_sharded_program(plan, layout)
+                gen = torch.Generator(device=device).manual_seed(args.seed)
+                state = T.init_state(gen, cfg, OptConfig(), device=device)
+                loss, grads, nll = _one_device_grads(torch, cfg, pol, tcfg,
+                                                     state, batch)
+                loss_p, plain, nll_p = _one_device_grads(
+                    torch, cfg, pol, tcfg, state, batch, plain=True)
+                base, base_at = _grads_rel(torch, plain, grads)
+                scale, move, move_se = loss_move_scale(torch, nll_p - nll)
+                loss_tol = REORDER_FACTOR * max(scale,
+                                                4 * abs(loss) * F32_EPS)
+                token_rms = _rms(torch, nll_p - nll)
+                full = float(nll.double().mean())
+                planted = {k: abs(v - full) for k, v in
+                           planted_losses(torch, nll).items()}
+                del plain, state, nll_p
+                refs[layout] = dict(loss=loss, grads=grads, baseline=base,
+                                    loss_tol=loss_tol, nll=nll,
+                                    token_tol=REORDER_FACTOR * token_rms)
+                ceiling = TRAIN_REORDER_CEILING[layout]
+                loss_ceiling = TRAIN_LOSS_CEILING[layout]
+                token_ceiling = TRAIN_TOKEN_CEILING[layout]
+                emit("train_sharded", step="reorder_baseline",
+                     layout=layout, loss=loss, loss_plain=loss_p,
+                     mean_token_nll_move=move, token_move_se=move_se,
+                     loss_scale=scale, loss_ceiling=loss_ceiling,
+                     loss_tol=loss_tol, planted_loss_moves=planted,
+                     token_rms_move=token_rms, token_ceiling=token_ceiling,
+                     max_leaf_rel_l2=base, leaf=base_at, ceiling=ceiling)
+                if on_card and ceiling is not None and base > ceiling:
+                    raise AssertionError(
+                        f"train_sharded {layout}: the reorder baseline "
+                        f"moved the gradients by {base}, past its ceiling "
+                        f"{ceiling}")
+                if (on_card and loss_ceiling is not None
+                        and scale > loss_ceiling):
+                    raise AssertionError(
+                        f"train_sharded {layout}: the reorder baseline's "
+                        f"loss scale {scale} is past its ceiling "
+                        f"{loss_ceiling}")
+                if (on_card and token_ceiling is not None
+                        and token_rms > token_ceiling):
+                    raise AssertionError(
+                        f"train_sharded {layout}: the reorder baseline "
+                        f"moved a token's loss by {token_rms} (RMS), past "
+                        f"its ceiling {token_ceiling}")
+                free_device(torch, device)
+        finally:
+            ranks = finish_rank_processes("train_sharded", started,
+                                          TRAIN_SHARD_DIR,
+                                          TRAIN_SHARD_WAIT_S)
+        faults = []
+        mesh_traces = _train_traces(plan, rehearsal)
+        for rank, res in enumerate(ranks):
+            for prog, got in zip(plan["programs"], res["programs"]):
+                ref = refs[prog["layout"]]
+                sh = T.state_shardings(cfg, OptConfig(), shd.AbstractMesh(
+                    tuple(prog["mesh"]), ("data", "model")))["params"]
+                mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
+                mine = {"/".join(p): ref["grads"]["/".join(p)][
+                    shd.shard_slices(ref["grads"]["/".join(p)].shape,
+                                     ns.spec, mesh)]
+                        for p, ns in T._flatten(sh)}
+                slices = torch.load(_grad_file(prog["name"], rank),
+                                    mmap=True)
+                rel, rel_at = _grads_rel(torch, slices, mine)
+                del slices, mine
+                tol = REORDER_FACTOR * ref["baseline"]
+                loss_tol = ref["loss_tol"]
+                dloss = abs(got["loss"] - ref["loss"])
+                token_tol = ref["token_tol"]
+
+                def rows_of(t):
+                    return T.batch_rows({"nll": t}, mesh)["nll"]
+
+                want = rows_of(ref["nll"])
+                token_err = _rms(torch, torch.load(_nll_file(
+                    prog["name"], rank)).to(want.device) - want)
+                planted = {k: _rms(torch, v - want) for k, v in
+                           planted_tokens(torch, ref["nll"],
+                                          rows_of).items()}
+                traced = mesh_traces[prog["name"], rank]
+                ran = got["dispatch"]
+                same_trace = (traced["collectives"] == ran["collectives"]
+                              and traced["argument_bytes"] ==
+                              ran["argument_bytes"]
+                              and (ran["launches"] is None or
+                                   traced["launches"] == ran["launches"]))
+                emit("train_sharded", step="check", program=prog["name"],
+                     rank=rank, loss=got["loss"], ref_loss=ref["loss"],
+                     loss_abs_err=dloss, loss_tol=loss_tol,
+                     token_rms_err=token_err, token_tol=token_tol,
+                     planted_token_rms=planted,
+                     max_leaf_rel_l2=rel, leaf=rel_at, tol=tol,
+                     trace_equal=same_trace,
+                     traced_peak_bytes=traced["peak_bytes"],
+                     trace_seconds=traced["trace_seconds"])
+                if on_card and rel > tol:  # the rehearsal's baseline is 0
+                    faults.append(f"{prog['name']} rank {rank} gradients "
+                                  f"{rel} > {tol}")
+                if dloss > loss_tol:
+                    faults.append(f"{prog['name']} rank {rank} loss off by "
+                                  f"{dloss} > {loss_tol}")
+                if on_card and token_err > token_tol:
+                    faults.append(f"{prog['name']} rank {rank} token losses "
+                                  f"off by {token_err} (RMS) > {token_tol}")
+                blind = {k: v for k, v in planted.items() if v <= token_tol}
+                if blind:
+                    faults.append(f"{prog['name']} rank {rank}: the token "
+                                  f"gate {token_tol} cannot see {blind}")
+                if not same_trace:
+                    faults.append(f"{prog['name']} rank {rank}: traced "
+                                  f"{traced} != ran {ran}")
+        if faults:
+            raise AssertionError(f"train_sharded: {faults}")
+    finally:
+        shutil.rmtree(TRAIN_SHARD_DIR, ignore_errors=True)
+    emit("train_sharded", step="done", seconds=time.perf_counter() - t_phase,
+         world_one={k: v["same_state"] for k, v in world_one.items()})
+    return {f"train_sharded_{p['name']}": r["launches"] or {}
+            for p, r in zip(plan["programs"], ranks[0]["programs"])}
 
 
 def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
@@ -4137,14 +4813,22 @@ def trace_family(arch: str, prog: dict, rank: int, rehearsal: bool) -> dict:
 
 
 def dryrun_mesh_worker(out_dir: str, rehearsal: str):
-    """The mesh worker: each rank of ``sharded_engines``' programs and of
-    ``families_plan``'s on a tracing mesh of (1, SHARD_TP)
-    (``trace_sharded_engine``, ``trace_family``), then ``launch.dryrun``
+    """The mesh worker: each rank of ``train_sharded_plan``'s programs on
+    its tracing mesh (``trace_train_sharded``: the sharded train step),
+    of ``sharded_engines``' programs and of ``families_plan``'s on a
+    tracing mesh of (1, SHARD_TP) (``trace_sharded_engine``,
+    ``trace_family``), then ``launch.dryrun``
     of each of MESH_CELLS on each of MESH_CELL_MESHES (the layer-period
     trace, kernel datapath, packed MXSF cache), written to ``out_dir``."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun
     rehearsal = rehearsal == "1"
+    plan = train_sharded_plan(rehearsal)
+    for prog in plan["programs"]:
+        for rank in range(SHARD_TP):
+            rec = trace_train_sharded(plan, prog, rank, rehearsal)
+            (Path(out_dir) / f"train_{prog['name']}__rank{rank}.json"
+             ).write_text(json.dumps(rec))
     for name, engine in sharded_engines(rehearsal).items():
         for rank in range(SHARD_TP):
             rec = trace_sharded_engine(engine, engine["n_layers"], rank)
@@ -4668,6 +5352,8 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
         torch, device, cfg1, pol1, args, 2, batch, seq, "1d", profile=True)
     phase_train_slice(torch, device, cfg1, pol1, state, batches[0], "1d")
     del state, batches
+    free_device(torch, device)
+    launches.update(phase_train_sharded(torch, device, args, rehearsal))
     free_device(torch, device)
     launches["train_resume"] = phase_train_resume(
         torch, device, train_cfg.replace(n_layers=min(2, train_cfg.n_layers)),

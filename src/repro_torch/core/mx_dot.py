@@ -347,7 +347,7 @@ class _MxDot(torch.autograd.Function):
     packed uint8 ``QuantizedTensor``s (kernel path, or ``save_packed``)."""
 
     @staticmethod
-    def forward(ctx, x, w, policy):
+    def forward(ctx, x, w, policy, f32_out=False):
         xm, lead = _flatten_lead(x)
         dots = _DOTS["mode"]
         kernels = policy.use_kernels and _kernel_shapes_ok(x, w)
@@ -357,13 +357,15 @@ class _MxDot(torch.autograd.Function):
                    _value_residuals(policy, xm, w)[0])
         else:
             if kernels:
-                y, res = _kernel_fwd(policy, xm, w, with_residuals=True)
+                y, res = _kernel_fwd(policy, xm, w, with_residuals=True,
+                                     f32_out=f32_out)
             else:
-                y, res = _value_fwd(policy, xm, w)
+                y, res = _value_fwd(policy, xm, w, f32_out)
             if dots is not None:
                 dots.saved.append(y)
         _save(ctx, res)
         ctx.policy, ctx.lead = policy, lead
+        ctx.dtype = torch.promote_types(x.dtype, w.dtype)
         return y.reshape(*lead, w.shape[-1])
 
     @staticmethod
@@ -376,8 +378,8 @@ class _MxDot(torch.autograd.Function):
             dx, dw = _kernel_bwd(policy, *res, gm)
         else:
             dx, dw = _value_bwd(policy, res, gm)
-        return (dx.reshape(*lead, dx.shape[-1]).to(g.dtype),
-                dw.to(g.dtype), None)
+        return (dx.reshape(*lead, dx.shape[-1]).to(ctx.dtype),
+                dw.to(ctx.dtype), None, None)
 
 
 def _mx_dot_primal(policy: QuantPolicy, x, w, f32_out: bool = False):
@@ -506,9 +508,10 @@ def mx_dot(x: torch.Tensor, w, policy: QuantPolicy,
 
     ``w`` is a raw tensor (quantized per call, with the MX backward) or a
     resident ``blocking.QuantizedTensor`` from the pack-once store (zero
-    weight-quantize passes; frozen, so only dx flows back).  ``f32_out``
-    (no gradient): the f32 sums before the cast to the operands' dtype,
-    the partial a row-parallel linear all-reduces."""
+    weight-quantize passes; frozen, so only dx flows back).  ``f32_out``:
+    the f32 sums before the cast to the operands' dtype, the partial a
+    row-parallel linear all-reduces (with a gradient, on a raw weight: the
+    gradients come back in the operands' dtype)."""
     if isinstance(w, B.QuantizedTensor):
         qw = _layer_qt(w)
         _check_packed(policy, qw)
@@ -520,7 +523,7 @@ def mx_dot(x: torch.Tensor, w, policy: QuantPolicy,
     if not policy.enabled:
         return _mm(x, w, f32_out) if f32_out else torch.matmul(x, w)
     if _needs_grad(x, w):
-        return _MxDot.apply(x, w, policy)
+        return _MxDot.apply(x, w, policy, f32_out)
     return _mx_dot_primal(policy, x, w, f32_out)
 
 

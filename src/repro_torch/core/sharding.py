@@ -28,6 +28,18 @@ axis.  Outside a ``mesh_context`` every collective is a no-op and
   n))``, and zero rows past the end (``shard_shape``).
 * Roles (``spec_for``): 'batch' -> DP axes; 'heads'/'kv'/'experts'/'ff'/
   'hidden'/'seq'/'vocab' -> the TP axis, divisibility-guarded.
+* Adjoints: a collective that autograd passes through states what its
+  backward is, at each call site, since that depends on whether its
+  consumer on the axis is replicated or split (there is no default: a
+  call that needs a gradient without one raises).  ``all_reduce`` of
+  partial sums with a replicated consumer: ``"identity"``; ``all_gather``
+  with a replicated consumer: ``"narrow"`` (this rank's slice of the
+  gradient), with a consumer whose batch differs by rank (an FSDP leaf
+  over the DP axes): ``"reduce_scatter"``; ``enter_split`` (the identity
+  at the entry to a column-parallel region) all-reduces its gradient over
+  the TP axis; ``to_compute`` states its own.  The backward runs the
+  collective on the mesh and axis its forward ran on, wherever autograd
+  runs it; ``carry`` keeps the context for a checkpoint's recompute.
 * ``counts()`` -- collectives issued since ``reset_counts()``, by kind,
   with their host seconds, operand bytes (the local tensor each call is
   handed) and a breakdown by mesh axis; a real rank and a trace of it
@@ -53,7 +65,8 @@ __all__ = ["Mesh", "AbstractMesh", "TracingMesh", "NamedSharding", "P", "normali
            "per_device_nbytes", "shard_slices", "shard_shape",
            "uneven_dims", "local_extent", "to_compute", "map_parts",
            "axis_size", "shard_index", "TP_ROLES", "add_sink",
-           "remove_sink"]
+           "remove_sink", "reduce_scatter", "enter_split", "carry",
+           "split_axes"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mx_mesh_ctx",
                                                       default=None)
@@ -252,6 +265,25 @@ def active() -> Optional[dict]:
     return _CTX.get()
 
 
+def carry(fn):
+    """``fn`` run under the mesh context active now, wherever it is called:
+    a checkpoint's recompute runs inside the backward, on whatever thread
+    the autograd engine gives the device, where the context variable is
+    unset."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        tok = _CTX.set(ctx)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _CTX.reset(tok)
+
+    return run
+
+
 def spec_for(shape: Sequence[int], roles: Sequence[Optional[str]],
              allow_uneven: Sequence[str] = ("experts",)) -> Optional[tuple]:
     """A spec from per-dim roles; None when no context."""
@@ -334,10 +366,10 @@ def _traced(mesh: Mesh, t: torch.Tensor, kind: str) -> bool:
     return True
 
 
-def _run(op, t: torch.Tensor, group, out=None):
-    """Run ``op(t, group)`` (in place on ``t``, or into ``out``).  gloo
-    keeps two ranks on one card: a CUDA tensor goes through host memory
-    there, and only there."""
+def _run(op, t: torch.Tensor, group):
+    """Run ``op(t, group)`` (in place on ``t``, or returning its result: a
+    tensor or a list of them).  gloo keeps two ranks on one card: a CUDA
+    tensor goes through host memory there, and only there."""
     import torch.distributed as dist
     if t.is_cuda and dist.get_backend(group) == "gloo":
         host = t.cpu()
@@ -345,22 +377,39 @@ def _run(op, t: torch.Tensor, group, out=None):
         if res is None:
             t.copy_(host)
             return None
+        if isinstance(res, torch.Tensor):
+            return res.to(t.device)
         return [r.to(t.device) for r in res]
     return op(t, group)
 
 
-def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Sum of ``x`` over ``axis`` (default: the context's TP axis), issued
-    whatever the axis size (a one-rank sum is the identity).  No-op
-    outside a context when no mesh is given; on a tracing mesh (``meta``
-    tensors only) ``x`` itself (the sum's shape), recorded."""
-    import torch.distributed as dist
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _differentiable(kind: str, adjoint, allowed, x: torch.Tensor) -> bool:
+    """Whether a call runs as an autograd op: ``x`` needs a gradient, and
+    then the call site must have stated an ``adjoint`` of ``allowed``."""
+    if adjoint is not None and adjoint not in allowed:
+        raise ValueError(f"{kind}: adjoint {adjoint!r}, expected one of "
+                         f"{allowed}")
+    if not _needs_grad(x):
+        return False
+    if adjoint is None:
+        raise ValueError(f"{kind} of a tensor that needs a gradient: the "
+                         f"call site states its adjoint, one of {allowed} "
+                         "(replicated or split consumer)")
+    return True
+
+
+def _mesh_of(mesh):
     ctx = _CTX.get()
-    mesh = mesh or (ctx["mesh"] if ctx else None)
-    axis = axis or (ctx["tp"] if ctx else None)
-    if mesh is None or axis is None:
-        return x
+    return mesh or (ctx["mesh"] if ctx else None)
+
+
+def _all_reduce(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """The sum over ``axis``, in place on ``x`` made contiguous; recorded."""
+    import torch.distributed as dist
     t0 = time.perf_counter()
     x = x.contiguous()
     if not _traced(mesh, x, "all_reduce"):
@@ -369,36 +418,196 @@ def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
     return x
 
 
+def _all_gather(x: torch.Tensor, axis: str, dim: int,
+                mesh: Mesh) -> torch.Tensor:
+    """The shards of ``x`` along ``dim`` over one axis of size > 1,
+    concatenated; recorded."""
+    import torch.distributed as dist
+    n = mesh.shape[axis]
+    t0 = time.perf_counter()
+
+    def gather(t, g):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        if g is not None:
+            dist.all_gather(parts, t, group=g)
+        return parts
+
+    src = x.contiguous()
+    parts = (gather(src, None) if _traced(mesh, src, "all_gather")
+             else _run(gather, src, mesh.group(axis)))
+    _record("all_gather", t0, axis, n, src)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, axis: str, dim: int,
+                    mesh: Mesh) -> torch.Tensor:
+    """Over one axis of size > 1: the sum of ``x`` over the axis, of which
+    this rank keeps its shard along ``dim``; recorded (the operand: the
+    whole ``x``)."""
+    import torch.distributed as dist
+    n = mesh.shape[axis]
+    t0 = time.perf_counter()
+    src = x.contiguous()
+    if src.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of extent "
+                         f"{src.shape[dim]} does not split {n} ways")
+
+    def scatter(t, g):
+        parts = [p.contiguous() for p in torch.chunk(t, n, dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=g)
+        return out
+
+    if _traced(mesh, src, "reduce_scatter"):
+        shape = list(src.shape)
+        shape[dim] //= n
+        out = torch.empty(shape, dtype=src.dtype, device=src.device)
+    else:
+        out = _run(scatter, src, mesh.group(axis))
+    _record("reduce_scatter", t0, axis, n, src)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over an axis whose consumer is replicated: the gradient of each
+    rank's addend is the sum's own (identity)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                           axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather over one axis, its adjoint stated: ``"narrow"`` (the
+    consumer is replicated over the axis, so every rank holds the same
+    whole gradient) or ``"reduce_scatter"`` (each rank's whole gradient
+    is its own batch's part)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh, adjoint):
+        ctx.axis, ctx.mesh, ctx.adjoint = axis, mesh, adjoint
+        ctx.dim = dim % x.ndim
+        ctx.local = x.shape[ctx.dim]
+        return _all_gather(x, axis, ctx.dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.adjoint == "narrow":
+            i = ctx.mesh.coord(ctx.axis)
+            dx = g.narrow(ctx.dim, i * ctx.local, ctx.local).contiguous()
+        else:
+            dx = reduce_scatter(g, ctx.axis, ctx.dim, ctx.mesh)
+        return dx, None, None, None, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """The identity at the entry to a column-parallel region: each rank's
+    columns take the replicated input, so its gradient is the sum of the
+    ranks' gradients over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                           ctx.axis, ctx.mesh), None, None
+
+
+def _cut(x: torch.Tensor, axis: str, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, replicated over ``axis``
+    (a view)."""
+    c = x.shape[dim] // mesh.shape[axis]
+    return x.narrow(dim, mesh.coord(axis) * c, c)
+
+
+class _Cut(torch.autograd.Function):
+    """``_cut`` of a leaf that needs a gradient: the whole leaf's gradient
+    is the ranks' slices, gathered over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return _cut(x, axis, dim, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axis, ctx.dim, ctx.mesh), None, None, None
+
+
+def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
+               mesh: Optional[Mesh] = None, adjoint=None) -> torch.Tensor:
+    """Sum of ``x`` over ``axis`` (default: the context's TP axis), issued
+    whatever the axis size (a one-rank sum is the identity).  No-op
+    outside a context when no mesh is given; on a tracing mesh (``meta``
+    tensors only) ``x`` itself (the sum's shape), recorded.  Without a
+    gradient the sum is taken in place on ``x`` (made contiguous); with
+    one, the call site's ``adjoint`` must be ``"identity"`` (a replicated
+    consumer) and the sum is a new tensor."""
+    ctx = _CTX.get()
+    mesh = _mesh_of(mesh)
+    axis = axis or (ctx["tp"] if ctx else None)
+    if mesh is None or axis is None:
+        return x
+    if _differentiable("all_reduce", adjoint, ("identity",), x):
+        return _AllReduce.apply(x, axis, mesh)
+    return _all_reduce(x, axis, mesh)
+
+
 def all_gather(x: torch.Tensor, axes, dim: int,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
+               mesh: Optional[Mesh] = None, adjoint=None) -> torch.Tensor:
     """Concatenate the shards of ``x`` along ``dim`` over ``axes`` (one
     axis name or a tuple, major to minor, as in a spec).  Axes of size 1
     hold the whole dim and are skipped; no-op outside a context when no
     mesh is given.  On a tracing mesh (``meta`` tensors only) each part is
-    an empty tensor of the shard's shape (what a real rank receives into), concatenated."""
-    import torch.distributed as dist
-    ctx = _CTX.get()
-    mesh = mesh or (ctx["mesh"] if ctx else None)
+    an empty tensor of the shard's shape (what a real rank receives
+    into), concatenated.  A gradient needs the call site's ``adjoint``:
+    ``"narrow"`` or ``"reduce_scatter"`` (``_AllGather``)."""
+    mesh = _mesh_of(mesh)
     if mesh is None:
         return x
+    grad = _differentiable("all_gather", adjoint,
+                           ("narrow", "reduce_scatter"), x)
     for axis in reversed(axes_of(axes)):  # minor axis first
-        n = mesh.shape[axis]
-        if n == 1:
+        if mesh.shape[axis] == 1:
             continue
-        t0 = time.perf_counter()
-
-        def gather(t, g):
-            parts = [torch.empty_like(t) for _ in range(n)]
-            if g is not None:
-                dist.all_gather(parts, t, group=g)
-            return parts
-
-        src = x.contiguous()
-        parts = (gather(src, None) if _traced(mesh, src, "all_gather")
-                 else _run(gather, src, mesh.group(axis)))
-        x = torch.cat(parts, dim=dim)
-        _record("all_gather", t0, axis, n, src)
+        x = (_AllGather.apply(x, axis, dim, mesh, adjoint) if grad
+             else _all_gather(x, axis, dim, mesh))
     return x
+
+
+def reduce_scatter(x: torch.Tensor, axes, dim: int,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The sum of ``x`` over ``axes`` (one axis name or a tuple, major to
+    minor), each rank keeping its shard along ``dim`` as ``all_gather``
+    over the same axes would have gathered it (its adjoint).  Axes of size
+    1 are skipped; no-op outside a context when no mesh is given; on a
+    tracing mesh (``meta`` tensors only) an empty shard, recorded."""
+    mesh = _mesh_of(mesh)
+    if mesh is None:
+        return x
+    for axis in axes_of(axes):  # major axis first
+        if mesh.shape[axis] > 1:
+            x = _reduce_scatter(x, axis, dim, mesh)
+    return x
+
+
+def enter_split(x: torch.Tensor) -> torch.Tensor:
+    """The entry to a column-parallel region of the context's TP axis: the
+    identity, whose backward all-reduces the gradient over the axis
+    (issued whatever its size, as the row-parallel sum is).  ``x`` itself
+    outside a context or without a gradient."""
+    ctx = _CTX.get()
+    if ctx is None or ctx["tp"] is None or not _needs_grad(x):
+        return x
+    return _EnterSplit.apply(x, ctx["tp"], ctx["mesh"])
 
 
 def broadcast(x: torch.Tensor, axis: str, src: int,
@@ -425,23 +634,38 @@ def map_parts(leaf, fn):
     return fn(leaf)
 
 
+def split_axes(spec, sizes=None) -> Tuple[str, ...]:
+    """The mesh axes a spec splits some dim over, in spec order (with
+    ``sizes``: only those of size > 1)."""
+    out = []
+    for entry in spec:
+        out += [a for a in axes_of(entry) if sizes is None or sizes[a] > 1]
+    return tuple(out)
+
+
 def to_compute(leaf, spec, shape, split: Optional[int]):
     """A rank's slice ``leaf`` of a leaf of logical ``shape`` stored under
     ``spec``, in the layout the tensor-parallel scheme computes with:
     every dim the spec splits is gathered, except ``split`` where the spec
     splits it over the TP axis alone; ``split`` is cut to this rank's TP
     slice where the spec does not split it so.  A packed leaf moves whole
-    blocks, codes and scales together, so every step is exact."""
+    blocks, codes and scales together, so every step is exact.  The
+    adjoints: a gather over a DP axis reduce-scatters the gradient (each
+    DP rank's batch is its own), a gather over the TP axis narrows it (the
+    consumer is replicated there), and the cut gathers it."""
     ctx = _CTX.get()
     mesh, tp = ctx["mesh"], ctx["tp"]
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     for d, entry in enumerate(spec):
         if axes_of(entry) and not (d == split and axes_of(entry) == (tp,)):
-            leaf = map_parts(leaf, lambda t: all_gather(t, entry, d))
+            for axis in reversed(axes_of(entry)):  # minor axis first
+                adj = "reduce_scatter" if axis in ctx["dp"] else "narrow"
+                leaf = map_parts(leaf, lambda t: all_gather(
+                    t, axis, d, adjoint=adj))
     if split is not None and axes_of(spec[split]) != (tp,):
-        n, i = mesh.shape[tp], mesh.coord(tp)
-        leaf = map_parts(leaf, lambda t: t.narrow(
-            split, i * (t.shape[split] // n), t.shape[split] // n))
+        leaf = map_parts(leaf, lambda t: _Cut.apply(t, tp, split, mesh)
+                         if _needs_grad(t) and mesh.shape[tp] > 1
+                         else _cut(t, tp, split, mesh))
     if isinstance(leaf, QuantizedTensor):
         logical = list(shape)
         if split is not None:

@@ -35,7 +35,14 @@ on real tensors:
   issues (on a tracing mesh too): by kind and mesh axis, with the operand
   bytes each call is handed -- ``parse_collectives``' sum of operand
   shapes in the JAX package's dry run.  A process-group op the dispatcher
-  shows (``c10d``) is no aten op: its traffic is the collective term.
+  shows (``c10d``) is no aten op: its traffic is the collective term.  A
+  train step's backward issues its collectives as it runs (the adjoints
+  of ``core/sharding.py``), and a collective inside a recomputed region
+  (remat, ``_attend``'s per-chunk checkpoint) runs again when the region
+  is recomputed, and is counted again, as GSPMD's rematerialized
+  collectives are.  (A checkpoint's recompute stops at the last tensor
+  the backward needs, so a collective after it, such as a layer's last
+  row-parallel sum without a post-norm, runs once.)
 
 The roofline has the JAX dry run's three terms: ``compute_s``,
 ``memory_s`` and ``collective_s``, the last with its ring multipliers
@@ -88,7 +95,7 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 COLL_MULT = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
              "all-to-all": 1.0, "collective-permute": 1.0, "broadcast": 1.0}
 KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-         "broadcast": "broadcast"}
+         "reduce_scatter": "reduce-scatter", "broadcast": "broadcast"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -59,9 +59,14 @@ run lowers there: decoders, the SSM, the hybrid and the encoder-decoder,
 each through ``M.prefill`` and ``M.decode_step`` (the SSD's TP plan in
 ``models/ssd.py``; a hybrid period is one group of SSD layers with the
 shared block, the tail outside; an encoder-decoder period one encoder and
-one decoder layer).  A train cell raises ``NotImplementedError`` naming
-its ROADMAP.md item, which ``main`` counts as a failure.  Results land in
-``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+one decoder layer); and the train cells of the dense decoders: the rank's
+slices of the train state (``state_shardings``), its batch rows and the
+sharded ``make_train_step`` (DP, FSDP and TP, the collectives of its
+backward among the counts), with the per-arch ``ARCH_TRAIN_OVERRIDES``.
+A train cell of any other family (the MoE configs, the SSM, the hybrid,
+the encoder-decoder) raises ``NotImplementedError`` naming its ROADMAP.md
+item (``ROADMAP_TRAINING``), which ``main`` counts as a failure.  Results
+land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k --backend cuda
@@ -81,6 +86,7 @@ import torch
 
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config, \
     list_configs
+from ..core import sharding as shd
 from ..core.policy import MXSF_TRAIN, QuantPolicy
 from ..models import model as M
 from ..models.transformer import hybrid_split
@@ -91,7 +97,8 @@ from . import cost
 from . import mesh as mesh_lib
 
 __all__ = ["ARCH_TRAIN_OVERRIDES", "cell_policy", "cell_config",
-           "cell_inputs", "cell_program", "mesh_cell", "mesh_of",
+           "cell_inputs", "cell_program", "mesh_cell", "mesh_train_cell",
+           "mesh_of",
            "layer_period", "at_depth", "trace_cell", "engine_dispatches",
            "lockstep_counts", "lower_cell", "main"]
 
@@ -106,8 +113,8 @@ ARCH_TRAIN_OVERRIDES = {
 }
 
 ONE_CARD = "1x1"
-# the ROADMAP.md item that brings what a mesh does not run yet
-ROADMAP_TRAINING = "Training on a mesh"
+# the ROADMAP.md item that brings what a mesh does not train yet
+ROADMAP_TRAINING = T.ROADMAP_MESH_TRAINING
 
 
 def mesh_of(name: str):
@@ -246,17 +253,41 @@ def cell_program(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
 
 def mesh_supported(cfg: ModelConfig, shape: ShapeConfig):
     """Raise where a mesh cell is not ported yet, naming its ROADMAP.md
-    item: training."""
+    item: training any family but the dense decoders
+    (``train.step.mesh_train_supported``)."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"a train cell on a mesh is not ported yet (ROADMAP.md, "
-            f"\"{ROADMAP_TRAINING}\")")
+        T.mesh_train_supported(cfg)
 
 
 def _own(t: torch.Tensor) -> torch.Tensor:
     """A ``meta`` tensor of ``t``'s shape with a storage of its own (a
     rank's rows as the per-device argument the JAX cell counts)."""
     return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def mesh_train_cell(cfg: ModelConfig, shape: ShapeConfig,
+                    policy: QuantPolicy, mesh, tcfg: T.TrainConfig,
+                    ocfg: OptConfig, param_dtype: str = "float32"):
+    """One rank's train cell on ``mesh`` (a tracing mesh), on ``meta``:
+    (inputs, run, info).  The inputs are the rank's slices of the train
+    state (``train.step.state_shardings``, each of its own storage) and
+    its rows of the batch (``batch_rows``); ``run`` is the sharded
+    ``make_train_step``; ``info`` the TP plan and the batch rows."""
+    mesh_supported(cfg, shape)
+    whole = T.init_state(torch.Generator(), cfg, ocfg, param_dtype,
+                         device="meta")
+    state = E.place_store(whole, T.state_shardings(cfg, ocfg, mesh,
+                                                   param_dtype),
+                          mesh, "meta")
+    specs = M.train_specs(cfg, shape)
+    rows = T.batch_rows(specs, mesh)
+    step = T.make_train_step(cfg, policy, ocfg, tcfg, mesh)
+    n = rows["tokens"].shape[0]
+    lo = n * shd.shard_index(mesh_lib.MeshRules(mesh).data_spec(
+        tuple(specs["tokens"].shape))[0], mesh)
+    info = {"tp_plan": step.layout.plan._asdict(), "batch_rows": [lo, lo + n]}
+    inputs = {"state": state, "batch": {k: _own(v) for k, v in rows.items()}}
+    return inputs, lambda a: step(a["state"], a["batch"]), info
 
 
 def mesh_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
@@ -362,6 +393,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
         if mesh is None:
             inputs = cell_inputs(c, shape, policy, ocfg, param_dtype)
             run, info = cell_program(c, shape, policy, tcfg, ocfg), {}
+        elif shape.kind == "train":
+            inputs, run, info = mesh_train_cell(c, shape, policy, mesh,
+                                                tcfg, ocfg, param_dtype)
         else:
             inputs, run, info = mesh_cell(c, shape, policy, mesh)
         with cost.count(inputs) as counter:

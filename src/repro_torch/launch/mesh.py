@@ -38,7 +38,7 @@ from ..core.sharding import (AbstractMesh, Mesh, NamedSharding, P,
 __all__ = ["make_production_mesh", "make_tracing_mesh", "make_test_mesh",
            "make_mesh", "mesh_axes", "MESH_AXES", "MeshRules",
            "AbstractMesh", "Mesh", "TracingMesh", "state_shardings",
-           "batch_shardings", "cache_shardings"]
+           "batch_shardings", "cache_shardings", "specs_by_name"]
 
 
 def _world() -> int:
@@ -240,6 +240,38 @@ _BASE_RANK = {
 
 def _base_rank(name: str) -> int:
     return _BASE_RANK.get(name, 0)
+
+
+def specs_by_name(store, shardings, path=()) -> dict:
+    """``{leaf name: (stored spec, logical shape)}`` of each leaf's base
+    dims (the stacked-layer dims are never split): what ``blocks.use``
+    reads.  An MoE shared expert's leaves are filed as ``shared/<name>``,
+    apart from a dense FFN's of the same names, and an encoder-decoder's
+    cross-attention leaves (values, where the self-attention's are packed)
+    as ``cross/<name>``; every leaf of a name must share them."""
+    out = {}
+    if isinstance(store, dict):
+        for k in store:
+            for name, got in specs_by_name(store[k], shardings[k],
+                                           path + (k,)).items():
+                if out.setdefault(name, got) != got:
+                    raise NotImplementedError(
+                        f"leaves named {name!r} differ in shape or spec: "
+                        f"{out[name]} vs {got}")
+        return out
+    r = _base_rank(path[-1])
+    if r == 0:
+        return out
+    ns = shardings.codes if isinstance(shardings, QuantizedTensor) \
+        else shardings
+    spec = tuple(ns.spec)
+    spec += (None,) * (len(store.shape) - len(spec))
+    parent = path[-2] if len(path) > 1 else None
+    name = f"{parent}/{path[-1]}" if parent in _FILED_APART else path[-1]
+    return {name: (spec[-r:], tuple(store.shape[-r:]))}
+
+
+_FILED_APART = ("shared", "cross")
 
 
 def _map_with_path(fn, tree, path=()):

@@ -32,7 +32,10 @@ stored spec splits otherwise).  wq/wk/wv (and biases), wg/wu and the head
 are column-parallel; wo and wd row-parallel, each followed by one f32
 all-reduce over the model axis (wo, where its local rows would tear MX
 blocks: the context gathered and wo whole); head counts come from the
-local shapes.
+local shapes.  In training each column-parallel region starts with
+``sharding.enter_split`` (its backward sums the input's gradient over the
+model axis), each collective states its adjoint, and every FSDP leaf is
+gathered at use (``use``) and its gradient reduce-scattered.
 Expert parallelism: an MoE layer routes and dispatches whole on every
 rank, each rank runs its own experts, and their outputs are gathered
 before the combine; the shared expert splits as a dense FFN does.
@@ -124,19 +127,29 @@ def model_parts(cfg: ModelConfig, store):
 
 
 def tp_plan(cfg: ModelConfig, policy: QuantPolicy, store,
-            tp_size: int) -> TPPlan:
+            tp_size: int, train: bool = False) -> TPPlan:
     """The plan of a store's leaves (``model_parts``, and the top-level
     emb and head) at ``tp_size``.  A row-parallel input is quantized along
     K in the policy's blocks, so its local K must hold whole blocks: then
     its codes equal the one-device codes.  The SSD heads split where each
     of in_proj's segments splits whole column blocks, out_proj's local
     rows hold whole blocks, and there is one group (B and C, whole on
-    every rank, serve every head)."""
+    every rank, serve every head).  ``train`` (a store of f32 leaves):
+    the backward quantizes each column-parallel output's gradient along N
+    (the 2D tile, or ``block_1d`` in 1D) and the 2D forward the weight's
+    tiles, so a column split's local N must hold whole blocks too."""
     xk = (policy.block_1d if policy.block_mode == "1d" else
           policy.tile if policy.block_mode == "2d" else 1)
+    gblk = 1  # the output gradient's block along N in the backward
+    if train and policy.block_mode == "2d":
+        gblk = policy.tile
+    elif train and policy.block_mode == "1d" and policy.quantize_bwd:
+        gblk = policy.block_1d
 
     def cols(w, n):
-        return n % tp_size == 0 and (n // tp_size) % _block(w, -1) == 0
+        local = n // tp_size
+        return (n % tp_size == 0 and local % _block(w, -1) == 0
+                and local % gblk == 0)
 
     def rows(w, n):
         local = n // tp_size
@@ -206,7 +219,8 @@ def _row_parallel(x, p, name, split: bool, policy, key=None):
         out = torch.promote_types(x.dtype, mxblk.torch_dtype(w.dtype))
     else:
         w, out = w.to(x.dtype), x.dtype
-    return shd.all_reduce(mx_dot(x, w, policy, f32_out=True)).to(out)
+    return shd.all_reduce(mx_dot(x, w, policy, f32_out=True),
+                          adjoint="identity").to(out)
 
 
 def _split(part: str):
@@ -333,6 +347,8 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
     hc = 1 if _split("heads") else None  # the column dim kept split
     hb = None if hc is None else 0
 
+    if hc is not None:  # the column-parallel region's entry
+        x = shd.enter_split(x)
     q = dense(x, use(p, "wq", hc, pre + "wq"), policy)
     if "bq" in p:
         q = (q + use(p, "bq", hb, pre + "bq")).to(x.dtype)
@@ -345,7 +361,8 @@ def attention(p, x, cfg: ModelConfig, policy: QuantPolicy, *, positions=None,
         kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64, device=dev)
         return _attend(q, k, v, None, kpos, False, None, p, x, cfg,
                        policy, pre=pre), None
-    src = x if kv_x is None else kv_x
+    src = (x if kv_x is None else kv_x if hc is None
+           else shd.enter_split(kv_x))
     k = dense(src, use(p, "wk", hc, pre + "wk"), policy)
     v = dense(src, use(p, "wv", hc, pre + "wv"), policy)
     if "bk" in p:
@@ -570,7 +587,8 @@ def _attn_out(ctx, p, policy: QuantPolicy, pre: str):
     """wo of the local heads' context: row-parallel, or (``ctx_gather``)
     the context gathered over the model axis and wo whole."""
     if _split("ctx_gather"):
-        ctx = shd.all_gather(ctx, shd.active()["tp"], -1)
+        ctx = shd.all_gather(ctx, shd.active()["tp"], -1,
+                             adjoint="narrow")
         return dense(ctx, use(p, "wo", None, pre + "wo"), policy)
     return _row_parallel(ctx, p, "wo", _split("heads"), policy, pre + "wo")
 
@@ -582,6 +600,8 @@ def mlp(p, x, cfg: ModelConfig, policy: QuantPolicy, part: str = "mlp"):
     split = _split(part)
     col = 1 if split else None
     pre = "" if part == "mlp" else part + "/"
+    if split:  # the column-parallel region's entry
+        x = shd.enter_split(x)
     if cfg.mlp in ("swiglu", "geglu"):
         act = Fn.silu if cfg.mlp == "swiglu" else \
             (lambda v: Fn.gelu(v, approximate="tanh"))

@@ -132,25 +132,6 @@ def _with_lead(stack, lead):
     return stack.reshape(lead + tuple(stack.shape[1:]))
 
 
-def _keep(val, ns, lead: int):
-    """This rank's slice of one drawn leaf (``lead`` stacked dims fewer
-    than the sharding ``ns`` of its stack), a copy: the whole leaf can be
-    freed.  ``ns`` None keeps the leaf."""
-    if ns is None:
-        return val
-    one = ns.codes if isinstance(ns, QuantizedTensor) else ns
-    dims = tuple(d - lead for d in sharding.uneven_dims(one))
-    local = packed_store.shard_leaf(val, tuple(one.spec)[lead:], one.mesh,
-                                    dims)
-    return sharding.map_parts(local, torch.clone)
-
-
-def _at_path(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
 @torch.no_grad()
 def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
                        generator: torch.Generator, device=None,
@@ -176,15 +157,15 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
         raise ValueError("init_packed_params needs a quantizing policy")
     dtype = cfg.compute_dtype
     sh = (lambda *path: None) if shardings is None else \
-        (lambda *path: _at_path(shardings, path))
-    params = {"final_norm": {"w": _keep(torch.ones(
+        (lambda *path: transformer.at_path(shardings, path))
+    params = {"final_norm": {"w": transformer.keep_slice(torch.ones(
         cfg.d_model, device=device), sh("final_norm", "w"), 0)}}
     emb = transformer.draw_embedding(cfg, generator, device)
     head = (emb.T if cfg.tie_embeddings else
             transformer.draw_head(cfg, generator, device))
-    params["emb"] = _keep(emb, sh("emb"), 0)
-    params["head"] = _keep(packed_store.pack_leaf(head, policy, dtype),
-                           sh("head"), 0)
+    params["emb"] = transformer.keep_slice(emb, sh("emb"), 0)
+    params["head"] = transformer.keep_slice(
+        packed_store.pack_leaf(head, policy, dtype), sh("head"), 0)
     del emb, head
     for name, lead, leaves in transformer.stacks(cfg):
         n = math.prod(lead)
@@ -194,7 +175,7 @@ def init_packed_params(cfg: ModelConfig, policy: QuantPolicy,
                 val = transformer.draw_leaf(shape, kind, generator, device)
                 if _packs(cfg, path):
                     val = packed_store.pack_leaf(val, policy, dtype)
-                val = _keep(val, sh(name, *path), len(lead))
+                val = transformer.keep_slice(val, sh(name, *path), len(lead))
                 if stacked[i] is None:
                     stacked[i] = _empty_stack(val, n)
                 _set_layer(stacked[i], layer, val)

@@ -30,6 +30,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..core import packed_store
 from ..core import sharding as shd
 from ..core.blocking import QuantizedTensor
 from ..core.mx_dot import save_dots
@@ -192,32 +193,65 @@ def set_path(tree: dict, path, value):
     tree[path[-1]] = value
 
 
+def keep_slice(val, ns, lead: int):
+    """This rank's slice of one drawn leaf (a tensor or a packed leaf)
+    under ``ns``, the sharding of its stack (``lead`` stacked dims before
+    the leaf's own), a copy: the whole leaf can be freed.  ``ns`` None
+    keeps the leaf."""
+    if ns is None:
+        return val
+    one = ns.codes if isinstance(ns, QuantizedTensor) else ns
+    dims = tuple(d - lead for d in shd.uneven_dims(one))
+    local = packed_store.shard_leaf(val, tuple(one.spec)[lead:], one.mesh,
+                                    dims)
+    return shd.map_parts(local, torch.clone)
+
+
+def at_path(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, shardings=None) -> dict:
     """f32 parameter tree of any family (the JAX layout), on ``device``
-    (``None``: the generator's own device)."""
+    (``None``: the generator's own device).  ``shardings`` (a tree of
+    ``sharding.NamedSharding``, ``launch/mesh.MeshRules.
+    param_sharding_tree``): every leaf is drawn whole, as one device draws
+    it, and only this rank's slice is kept, so the slices equal those of
+    the one-device tree bit for bit and the whole tree never exists."""
     if device is None:
         device = generator.device
-    params = {"final_norm": {"w": torch.ones(cfg.d_model, device=device)}}
+    sh = (lambda *path: None) if shardings is None else \
+        (lambda *path: at_path(shardings, path))
+    params = {"final_norm": {"w": keep_slice(torch.ones(
+        cfg.d_model, device=device), sh("final_norm", "w"), 0)}}
     if cfg.family == "encoder":
-        params["pos"] = torch.randn(
+        params["pos"] = keep_slice(torch.randn(
             (cfg.frontend_tokens + 1, cfg.d_model), generator=generator,
-            device=device, dtype=torch.float32) * 0.02
-        params["cls"] = torch.zeros((1, 1, cfg.d_model), device=device)
-        params["head"] = draw_head(cfg, generator, device)
+            device=device, dtype=torch.float32) * 0.02, sh("pos"), 0)
+        params["cls"] = keep_slice(torch.zeros(
+            (1, 1, cfg.d_model), device=device), sh("cls"), 0)
+        params["head"] = keep_slice(draw_head(cfg, generator, device),
+                                    sh("head"), 0)
     else:
-        params["emb"] = draw_embedding(cfg, generator, device)
+        params["emb"] = keep_slice(draw_embedding(cfg, generator, device),
+                                   sh("emb"), 0)
         if not cfg.tie_embeddings:
-            params["head"] = draw_head(cfg, generator, device)
+            params["head"] = keep_slice(draw_head(cfg, generator, device),
+                                        sh("head"), 0)
     for name, lead, leaves in stacks(cfg):
         per_layer = [[] for _ in leaves]
         for _ in range(math.prod(lead)):
-            for i, (_, shape, kind) in enumerate(leaves):
-                per_layer[i].append(draw_leaf(shape, kind, generator,
-                                              device))
+            for i, (path, shape, kind) in enumerate(leaves):
+                per_layer[i].append(keep_slice(
+                    draw_leaf(shape, kind, generator, device),
+                    sh(name, *path), len(lead)))
         tree: dict = {}
-        for (path, shape, _), vals in zip(leaves, per_layer):
-            set_path(tree, path, torch.stack(vals).reshape(lead + shape))
+        for (path, _, _), vals in zip(leaves, per_layer):
+            set_path(tree, path, torch.stack(vals).reshape(
+                lead + tuple(vals[0].shape)))
         params[name] = tree
     return params
 
@@ -250,7 +284,8 @@ def _lookup(params, tokens: torch.Tensor) -> torch.Tensor:
     ok = (idx >= 0) & (idx < n)
     rows = emb[torch.clamp(idx, 0, n - 1)]
     return shd.all_reduce(torch.where(ok[..., None], rows,
-                                      torch.zeros_like(rows)))
+                                      torch.zeros_like(rows)),
+                          adjoint="identity")
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -270,6 +305,8 @@ def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
     # vocab columns split over the model axis and are gathered after
     pl = blk.plan()
     split = pl is not None and pl.vocab
+    if split:  # the column-parallel region's entry
+        x = shd.enter_split(x)
     if "head" in params:
         w = blk.use(params, "head", 1 if split else None)
     else:
@@ -278,16 +315,18 @@ def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if split:
-        logits = shd.all_gather(logits, shd.active()["tp"], -1)
+        logits = shd.all_gather(logits, shd.active()["tp"], -1,
+                                adjoint="narrow")
     return logits
 
 
 def _embed_tokens(params, batch, cfg: ModelConfig):
     """The training forward's embedding (the JAX package's
-    ``_embed_tokens``): gather in f32, gemma2's sqrt(d) scale in f32, a
-    VLM's patch embeddings (``batch["embeds"]``) prepended, then the cast
-    to the compute dtype -- not the cached decoder's order."""
-    x = params["emb"][batch["tokens"].long()]
+    ``_embed_tokens``): gather in f32 (on a mesh the vocab-parallel
+    ``_lookup``), gemma2's sqrt(d) scale in f32, a VLM's patch embeddings
+    (``batch["embeds"]``) prepended, then the cast to the compute dtype --
+    not the cached decoder's order."""
+    x = _lookup(params, batch["tokens"])
     if cfg.name.startswith("gemma2"):
         x = x * math.sqrt(cfg.d_model)
     if "embeds" in batch and cfg.frontend_tokens:
@@ -367,6 +406,7 @@ def _run_layers(layers, n: int, body, x, remat: str):
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or "
                          "'full'")
+    body = shd.carry(body)  # the recompute runs inside the backward
     for i, lp in enumerate(_unstack(layers, n)):
         if remat == "none":
             x = body(x, lp, i)

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..core import sharding as shd
 from ..core.packed_store import tree_leaves, tree_map
 
 __all__ = ["OptConfig", "init_opt_state", "apply_updates", "lr_at",
@@ -62,9 +63,30 @@ def lr_at(step, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * frac))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  With ``shardings`` (a tree of
+    ``sharding.NamedSharding``: ``tree`` holds this rank's slices) each
+    leaf's sum of squares is summed over the axes of size > 1 its spec
+    splits, so every element counts once and every rank holds one
+    device's norm: the leaves are grouped by those axes, in order, and
+    each group's sum all-reduced over each of them.  On a mesh of one
+    rank that is one device's sum, term for term."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    groups: dict = {}
+    for x, ns in zip(tree_leaves(tree), tree_leaves(shardings)):
+        split = set(shd.split_axes(ns.spec, ns.mesh.shape))
+        key = tuple(a for a in ns.mesh.axis_names if a in split)
+        sq = torch.sum(torch.square(x.float()))
+        groups[key] = (ns.mesh, sq if key not in groups
+                       else groups[key][1] + sq)
+    total = None
+    for key, (mesh, sq) in groups.items():
+        for axis in key:
+            sq = shd.all_reduce(sq, axis, mesh)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -74,12 +96,15 @@ def clip_by_global_norm(grads, max_norm):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptConfig):
+def apply_updates(params, grads, state, cfg: OptConfig, shardings=None):
     """One AdamW step, in place.  Returns (params, state, metrics): the same
-    trees, updated."""
+    trees, updated.  ``shardings`` (the params' NamedSharding tree, on a
+    mesh): the trees hold this rank's slices; every update is
+    elementwise, and only the clip's global norm sums over the mesh
+    (``global_norm``)."""
     step = state["step"] + 1
     lr = lr_at(state["step"], cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = (None if cfg.clip_norm is None else
              torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0))
     b1, b2 = cfg.b1, cfg.b2

@@ -155,36 +155,6 @@ def _check_blocks_aligned(store, shardings, axis_sizes):
                 f"blocks {leaf.block}")
 
 
-def _specs_by_name(store, shardings, path=()) -> dict:
-    """``{leaf name: (stored spec, logical shape)}`` of each leaf's base
-    dims (the stacked-layer dims are never split): what ``blocks.use``
-    reads.  An MoE shared expert's leaves are filed as ``shared/<name>``,
-    apart from a dense FFN's of the same names, and an encoder-decoder's
-    cross-attention leaves (values, where the self-attention's are packed)
-    as ``cross/<name>``; every leaf of a name must share them."""
-    out = {}
-    if isinstance(store, dict):
-        for k in store:
-            for name, got in _specs_by_name(store[k], shardings[k],
-                                            path + (k,)).items():
-                if out.setdefault(name, got) != got:
-                    raise NotImplementedError(
-                        f"leaves named {name!r} differ in shape or spec: "
-                        f"{out[name]} vs {got}")
-        return out
-    r = mesh_lib._base_rank(path[-1])
-    if r == 0:
-        return out
-    spec = tuple(_spec(shardings))
-    spec += (None,) * (len(store.shape) - len(spec))
-    parent = path[-2] if len(path) > 1 else None
-    name = f"{parent}/{path[-1]}" if parent in _FILED_APART else path[-1]
-    return {name: (spec[-r:], tuple(store.shape[-r:]))}
-
-
-_FILED_APART = ("shared", "cross")
-
-
 def cache_parts(cfg: ModelConfig, tree) -> dict:
     """The caches of a cache tree (or of its shardings) by role: ``self``
     the attention cache the layers write (a decoder's, a hybrid's ``attn``,
@@ -309,7 +279,8 @@ def placement(cfg: ModelConfig, policy: QuantPolicy, rules, store,
     mesh = rules.mesh
     plan = blocks.tp_plan(cfg, policy, store, rules.tp_size)
     sh, loc = cache_parts(cfg, cache_sh), cache_parts(cfg, cache)
-    layout = dict(specs=_specs_by_name(store, store_sh), plan=plan)
+    layout = dict(specs=mesh_lib.specs_by_name(store, store_sh),
+                  plan=plan)
     if sh["self"] is not None:
         spec, local = kv_leaf(sh["self"]).spec, kv_leaf(loc["self"]).shape
         layout["cache_sp"], layout["cache_heads"] = _kv_split(

@@ -2,10 +2,23 @@
 AdamW, optional MXSF gradient compression (beyond-paper).
 
 PyTorch counterpart of the JAX package's ``train/step.py``, every family
-(a VLM's loss runs over its text positions only).  ``make_train_step`` returns ``train_step(state, batch)
--> (state, metrics)``; the state is updated in place (``optim/adamw.py``).
-Gradients come from ``torch.autograd.grad`` over detached copies of the
-parameter leaves, so the state itself never carries ``.grad`` buffers.
+(a VLM's loss runs over its text positions only).  ``make_train_step``
+returns ``train_step(state, batch) -> (state, metrics)``; the state is
+updated in place (``optim/adamw.py``).  Gradients come from
+``torch.autograd.grad`` over detached copies of the parameter leaves, so
+the state itself never carries ``.grad`` buffers.
+
+On a mesh (``mesh=``, one process per device on ``torch.distributed``)
+the step computes what the JAX package's step jitted under
+``state_shardings`` / ``batch_shardings`` computes with GSPMD, for the
+dense decoders: each rank holds its slices of the state under the JAX
+rules (``init_state(shardings=)``), takes its rows of the batch
+(``batch_rows``), gathers each FSDP leaf at use and reduce-scatters its
+gradient, splits heads, FFN and vocab over the model axis by the serving
+path's ``blocks.TPPlan`` (built for training), sums the loss over the DP
+axes (the global batch's mean), all-reduces over the DP axes the
+gradients of the leaves the DP axes do not split, and runs AdamW on its
+slices, the clip's norm summed over the mesh.
 """
 from __future__ import annotations
 
@@ -17,14 +30,22 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import blocking as B
 from ..core.packed_store import tree_map
+from ..core import sharding as shd
 from ..core.policy import QuantPolicy
 from ..device import resolve_device
+from ..launch import mesh as mesh_lib
+from ..models import blocks as blk
 from ..models import model as M
 from ..models import transformer as T
 from ..optim import adamw
 
-__all__ = ["TrainConfig", "loss_fn", "make_train_step", "make_serve_step",
-           "init_state"]
+__all__ = ["TrainConfig", "loss_fn", "make_grad_fn", "make_train_step",
+           "make_serve_step", "init_state", "state_shardings", "batch_rows",
+           "mesh_train_supported", "ROADMAP_MESH_TRAINING"]
+
+# the ROADMAP.md item that brings training on a mesh to the families it
+# does not run yet
+ROADMAP_MESH_TRAINING = "Training the MoE and the other families on a mesh"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,20 +80,39 @@ def _xent(logits, labels, vocab: int, ignore=-100):
     return s / torch.clamp(n, min=1.0)
 
 
+def _over_dp(s, m):
+    """The sums (nll, labels) over the DP axes of the active mesh context:
+    one all-reduce of both per DP axis of size > 1, whose consumer (the
+    loss) is replicated, so each rank's addend takes the loss's gradient
+    as it is.  Outside a context, or on one DP rank, the sums themselves."""
+    ctx = shd.active()
+    axes = () if ctx is None else tuple(
+        a for a in ctx["dp"] if ctx["mesh"].shape[a] > 1)
+    if not axes:
+        return s, m
+    both = torch.stack([s, m])
+    for axis in axes:
+        both = shd.all_reduce(both, axis, adjoint="identity")
+    return both[0], both[1]
+
+
 def _chunked_lm_loss(params, hidden, labels, cfg: ModelConfig,
                      policy: QuantPolicy, chunk: int):
     """Head matmul + xent over sequence chunks -- the full (B, S, V) logits
-    tensor never exists at once."""
+    tensor never exists at once.  On a mesh the sums run over the DP
+    axes: the global batch's mean."""
     S = hidden.shape[1]
     if chunk <= 0 or S <= chunk or S % chunk:
-        return _xent(T.lm_head(params, hidden, cfg, policy), labels,
-                     cfg.vocab)
-    s = m = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, S, chunk):
-        sc, mc = _xent_sums(T.lm_head(params, hidden[:, c0:c0 + chunk], cfg,
-                                      policy), labels[:, c0:c0 + chunk],
-                            cfg.vocab)
-        s, m = s + sc, m + mc
+        s, m = _xent_sums(T.lm_head(params, hidden, cfg, policy), labels,
+                          cfg.vocab)
+    else:
+        s = m = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, S, chunk):
+            sc, mc = _xent_sums(T.lm_head(params, hidden[:, c0:c0 + chunk],
+                                          cfg, policy),
+                                labels[:, c0:c0 + chunk], cfg.vocab)
+            s, m = s + sc, m + mc
+    s, m = _over_dp(s, m)
     return s / torch.clamp(m, min=1.0)
 
 
@@ -114,11 +154,16 @@ def _compress_grads(grads, tcfg: TrainConfig):
 
 def init_state(generator: torch.Generator, cfg: ModelConfig,
                ocfg: adamw.OptConfig, param_dtype: str = "float32",
-               device=None):
+               device=None, shardings=None):
     """Parameters from ``generator`` (``models.transformer.init_params``)
     and the AdamW state, on ``device``: ``None`` means the card and raises
-    when CUDA is absent; the generator must live on the same device."""
-    params = T.init_params(cfg, generator, resolve_device(device))
+    when CUDA is absent; the generator must live on the same device.
+    ``shardings`` (``state_shardings``): this rank's slices of the state
+    one device would draw -- each parameter drawn whole and sliced, the
+    moments, master weights and bf16 parameters made from the slices."""
+    params = T.init_params(cfg, generator, resolve_device(device),
+                           None if shardings is None
+                           else shardings["params"])
     if param_dtype != "float32":
         # bf16 stored params; f32 masters live in the opt state
         opt = adamw.init_opt_state(params, ocfg.replace(master_weights=True))
@@ -126,6 +171,36 @@ def init_state(generator: torch.Generator, cfg: ModelConfig,
         return {"params": tree_map(lambda p: p.to(dt), params),
                 "opt": opt}
     return {"params": params, "opt": adamw.init_opt_state(params, ocfg)}
+
+
+def state_shardings(cfg: ModelConfig, ocfg: adamw.OptConfig, mesh,
+                    param_dtype: str = "float32"):
+    """The train state's NamedSharding tree on ``mesh`` under the JAX
+    rules (``launch/mesh.state_shardings``: the moments and master
+    weights follow the parameters)."""
+    meta = init_state(torch.Generator(), cfg, ocfg, param_dtype,
+                      device="meta")
+    return mesh_lib.state_shardings(mesh_lib.MeshRules(mesh), meta)
+
+
+def batch_rows(batch, mesh):
+    """This rank's rows of a global batch on ``mesh`` under
+    ``launch/mesh.batch_shardings`` (dim 0 over the DP axes where it
+    divides): what the sharded step takes, as views."""
+    sh = mesh_lib.batch_shardings(mesh_lib.MeshRules(mesh), batch)
+    return {k: v[shd.shard_slices(v.shape, sh[k].spec, mesh)]
+            for k, v in batch.items()}
+
+
+def mesh_train_supported(cfg: ModelConfig):
+    """Raise where training on a mesh is not ported yet, naming its
+    ROADMAP.md item: everything but the dense decoders (the MoE configs,
+    the SSM, the hybrid, the encoder-decoder and the encoder)."""
+    if cfg.family != "decoder" or cfg.n_experts:
+        kind = "MoE" if cfg.n_experts else cfg.family
+        raise NotImplementedError(
+            f"training {cfg.name} ({kind}) on a mesh is not ported yet "
+            f"(ROADMAP.md, \"{ROADMAP_MESH_TRAINING}\")")
 
 
 def _flatten(tree, prefix=()):
@@ -144,10 +219,59 @@ def _unflatten(pairs):
     return out
 
 
-def make_train_step(cfg: ModelConfig, policy: QuantPolicy,
-                    ocfg: adamw.OptConfig, tcfg: TrainConfig):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.  The step
-    updates ``state``'s tensors in place and returns the same dicts."""
+class _MeshLayout:
+    """What a sharded step needs of its mesh: the rules, the parameters'
+    shardings (whole shapes from ``meta``), each leaf's stored spec by name
+    and the training TP plan (the ``mesh_context`` the model code reads),
+    and the DP axes of size > 1."""
+
+    def __init__(self, cfg: ModelConfig, policy: QuantPolicy, mesh):
+        mesh_train_supported(cfg)
+        self.mesh, self.rules = mesh, mesh_lib.MeshRules(mesh)
+        whole = T.init_params(cfg, torch.Generator(), "meta")
+        self.param_sh = self.rules.param_sharding_tree(whole)
+        self.specs = mesh_lib.specs_by_name(whole, self.param_sh)
+        self.plan = blk.tp_plan(cfg, policy, whole, self.rules.tp_size,
+                                train=True)
+        self.dp = tuple(a for a in self.rules.dp if mesh.shape[a] > 1)
+
+    def hints(self):
+        return shd.mesh_context(self.mesh, self.rules.dp, self.rules.tp,
+                                specs=self.specs, plan=self.plan)
+
+    def reduce(self, grads):
+        """All-reduce over each DP axis of size > 1 the gradient of every
+        leaf whose spec does not split that axis (an FSDP leaf's was
+        reduce-scattered by its gather's adjoint)."""
+
+        def one(g, ns):
+            for axis in self.dp:
+                if axis not in shd.split_axes(ns.spec):
+                    g = shd.all_reduce(g, axis, self.mesh)
+            return g
+
+        return tree_map(one, grads, self.param_sh)
+
+
+def make_grad_fn(cfg: ModelConfig, policy: QuantPolicy, tcfg: TrainConfig,
+                 mesh=None):
+    """Returns ``grad_fn(params, batch) -> (metrics, grads)``: the loss
+    metrics and the gradients AdamW takes (the microbatches' mean, each
+    compressed where ``grad_compress`` asks).
+
+    On ``mesh`` the params are this rank's slices and the batch its rows
+    (``batch_rows``); the loss is the global batch's and each rank's
+    gradients are its slices of one device's.  Microbatch i on a rank is
+    its rows of the step's i-th share (its own rows split into
+    ``microbatches`` parts): the union over the ranks is another partition
+    of the batch than the JAX package's i-th share of the global rows, and
+    gives its loss and gradients wherever every microbatch holds the same
+    number of labels, which ``lm_batch`` guarantees (every label valid).
+    The leaves the DP axes do not split are all-reduced over them once a
+    step, after the microbatches, or per microbatch under
+    ``grad_compress``, which quantizes each microbatch's reduced
+    gradients as the JAX package does."""
+    layout = None if mesh is None else _MeshLayout(cfg, policy, mesh)
 
     def grads_of(params, batch):
         pairs = _flatten(params)
@@ -161,8 +285,12 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy,
         return loss.detach(), aux, _unflatten(
             (p, g) for (p, _), g in zip(pairs, grads))
 
-    def train_step(state, batch):
-        params = state["params"]
+    def reduced(g, last: bool):
+        if layout is not None and (tcfg.grad_compress or last):
+            g = layout.reduce(g)
+        return _compress_grads(g, tcfg)
+
+    def grad_fn(params, batch):
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
             grads = tree_map(
@@ -173,20 +301,49 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy,
                 mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 loss, _, g = grads_of(params, mb)
-                g = _compress_grads(g, tcfg)
+                g = reduced(g, last=False)
                 loss_sum = loss_sum + loss
                 grads = tree_map(torch.add, grads, g)
                 del g
+            if layout is not None and not tcfg.grad_compress:
+                grads = layout.reduce(grads)
             grads = tree_map(lambda g: g / n, grads)
-            metrics = {"loss": loss_sum / n}
-        else:
-            _, metrics, grads = grads_of(params, batch)
-            grads = _compress_grads(grads, tcfg)
+            return {"loss": loss_sum / n}, grads
+        _, metrics, grads = grads_of(params, batch)
+        return metrics, reduced(grads, last=True)
+
+    if layout is None:
+        return grad_fn
+
+    def sharded(params, batch):
+        with layout.hints():
+            return grad_fn(params, batch)
+
+    sharded.layout = layout
+    return sharded
+
+
+def make_train_step(cfg: ModelConfig, policy: QuantPolicy,
+                    ocfg: adamw.OptConfig, tcfg: TrainConfig, mesh=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.  The step
+    updates ``state``'s tensors in place and returns the same dicts.  On
+    ``mesh`` (a mesh over a process group, or a tracing mesh on ``meta``
+    tensors): the state holds this rank's slices (``init_state(
+    shardings=state_shardings(...))``) and the batch is this rank's rows
+    (``batch_rows``); see ``make_grad_fn``."""
+    grad_fn = make_grad_fn(cfg, policy, tcfg, mesh)
+    param_sh = None if mesh is None else grad_fn.layout.param_sh
+
+    def train_step(state, batch):
+        params = state["params"]
+        metrics, grads = grad_fn(params, batch)
         _, opt, opt_metrics = adamw.apply_updates(params, grads, state["opt"],
-                                                  ocfg)
+                                                  ocfg, param_sh)
         del grads
         return {"params": params, "opt": opt}, dict(metrics, **opt_metrics)
 
+    if mesh is not None:
+        train_step.layout = grad_fn.layout
     return train_step
 
 

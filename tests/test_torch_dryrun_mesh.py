@@ -26,8 +26,17 @@ layer-period trace, against the JAX package and against real ranks.
   SWA), llama4 (MoE every 2nd layer) and h2o-danube, on one card and on
   (2, 2), peak included for serving cells; a train step's peak is a lower
   bound within 10% here (its position moves with depth).
-* A train cell on a mesh raises, naming its ROADMAP item, and the CLI
-  writes it as a failure; a mamba2 cell on a mesh writes its record.
+* A train cell of a dense decoder on a mesh traces the sharded train
+  step: a tracing-mesh rank's step of reduced h2o-danube (2D MXSF, the
+  kernel datapath, remat "dots") counts what a real gloo rank's step runs
+  -- kernel launches, collectives by kind, axis and operand bytes (the
+  backward's reduce-scatters and column-entry all-reduces among them) and
+  argument bytes -- on (2, 1), (1, 2) and (2, 2); a reduced train cell's
+  16x16 record has the JAX keys, a non-empty "reduce-scatter" and the
+  argument bytes of the JAX package's ``state_shardings`` and
+  ``batch_shardings``.  A train cell of the MoE configs or the other
+  families on a mesh raises, naming its ROADMAP item, and the CLI writes
+  it as a failure; a mamba2 serving cell on a mesh writes its record.
 """
 import json
 import math
@@ -57,6 +66,9 @@ from repro_torch.train import step as T
 
 import torch_moe_ranks as MR
 import torch_sharded_ranks as R
+import torch_train_ranks as TR
+from repro.optim import adamw as JA
+from repro.train import step as JT
 from torch_dist import run_ranks
 
 torch.set_num_threads(2)
@@ -320,24 +332,35 @@ def test_layer_period_of_each_pattern():
 # ---------------------------------------------------------------------------
 
 def test_train_and_other_families_on_a_mesh_raise(tmp_path):
-    """A train cell on a mesh raises, naming its ROADMAP item, and the CLI
-    writes it as a failure; a mamba2 serving cell on a mesh no longer
-    raises: the CLI writes its record, with the JAX record's keys and
-    its collectives."""
+    """A train cell of an MoE config (or of the SSM, the hybrid, the
+    encoder-decoder) on a mesh raises, naming its ROADMAP item, and the
+    CLI writes it as a failure; a dense decoder's train cell on a mesh
+    writes its record now, and a mamba2 serving cell on a mesh writes
+    its record, with the JAX record's keys and its collectives."""
     SHAPES["mesh_train"] = ShapeConfig("mesh_train", 16, 4, "train")
     try:
-        arch, shape = "qwen2.5-32b-reduced", "mesh_train"
+        shape = "mesh_train"
         item = dryrun.ROADMAP_TRAINING
-        pol = dryrun.cell_policy("mxsf", SHAPES[shape].kind)
-        tcfg, ocfg = dryrun.cell_config(arch)
-        with pytest.raises(NotImplementedError, match=item):
-            dryrun.lower_cell(arch, shape, pol, tcfg, ocfg,
-                              mesh=dryrun.mesh_of("2x2"))
+        for arch in ("qwen2-moe-a2.7b-reduced", "mamba2-780m-reduced",
+                     "zamba2-7b-reduced", "whisper-medium-reduced"):
+            pol = dryrun.cell_policy("mxsf", SHAPES[shape].kind)
+            tcfg, ocfg = dryrun.cell_config(arch)
+            with pytest.raises(NotImplementedError, match=item):
+                dryrun.lower_cell(arch, shape, pol, tcfg, ocfg,
+                                  mesh=dryrun.mesh_of("2x2"))
+        arch = "qwen2-moe-a2.7b-reduced"
         with pytest.raises(SystemExit):
             dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
                          "2x2", "--out", str(tmp_path)])
         err = (tmp_path / f"{arch}__{shape}__2x2.json.err").read_text()
         assert item in err
+        arch = "qwen2.5-32b-reduced"
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "2x2",
+                     "--out", str(tmp_path)])
+        rec = json.loads((tmp_path / f"{arch}__{shape}__2x2.json"
+                          ).read_text())
+        assert rec["train"] and rec["collectives"]["reduce-scatter"][
+            "by_axis"]["data"]["count"] > 0
         arch = "mamba2-780m-reduced"
         dryrun.main(["--arch", arch, "--shape", "mesh_decode", "--mesh",
                      "2x2", "--backend", "cuda", "--out", str(tmp_path)])
@@ -353,6 +376,89 @@ def test_train_and_other_families_on_a_mesh_raise(tmp_path):
             "count"] > 0
     finally:
         del SHAPES["mesh_train"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "h2o-danube-1.8b", 16, 4
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)],
+                         ids=["2x1", "1x2", "2x2"])
+def test_traced_train_step_equals_the_real_ranks(shape):
+    """Each rank of a tracing mesh traces the sharded train step of
+    reduced h2o-danube (2D MXSF on the kernel datapath, remat "dots") on
+    ``meta`` (``dryrun.mesh_train_cell``), and counts what the same rank
+    of a gloo world runs: each kernel's launches, the collectives by kind
+    and axis with their operand bytes, the argument bytes (state slices
+    and batch rows)."""
+    real = run_ranks(TR.run, math.prod(shape), [(
+        "train_counts", (shape, TRAIN_ARCH, "2d", TRAIN_SEQ, TRAIN_BATCH),
+        {})])
+    cfg = get_config(TRAIN_ARCH).reduced().replace(n_layers=TR.LAYERS)
+    tcfg, ocfg = dryrun.cell_config(TRAIN_ARCH)
+    cell = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for rank, (got,) in enumerate(real):
+        mesh = mesh_lib.make_tracing_mesh(shape, rank)
+        inputs, run, info = dryrun.mesh_train_cell(
+            cfg, cell, TR.POLICIES["2d"], mesh, tcfg, ocfg)
+        with cost.count(inputs) as counter:
+            out = run(inputs)
+        traced = counter.summary(out, mesh.shape)
+        assert _as_ranks_count(traced) == {
+            "launches": got["launches"], "collectives": got["collectives"]}
+        assert traced["memory"]["argument_bytes"] == got["argument_bytes"]
+        assert tuple(info["tp_plan"].values())[:3] == (True, True, True)
+    kinds = set(got["collectives"])
+    assert ("reduce-scatter" in kinds) == (shape[0] > 1)
+    assert got["collectives"]["all-reduce"]["model"][0] > 0
+
+
+def _jax_train_argument_bytes(arch, cell, sizes, names):
+    """Per-device bytes of a JAX train cell's inputs under its rules: the
+    state under ``state_shardings``, the batch under ``batch_shardings``."""
+    rules = JML.MeshRules(JaxAbstractMesh(sizes, names))
+    cfg = jax_config(arch).reduced().replace(n_layers=LAYERS)
+    state = jax.eval_shape(lambda: JT.init_state(
+        jax.random.PRNGKey(0), cfg, JA.OptConfig()))
+    batch = JM.train_specs(cfg, JShape(cell.name, cell.seq_len,
+                                       cell.global_batch, cell.kind))
+    ax = dict(zip(names, sizes))
+    return (_jax_bytes(state, JML.state_shardings(rules, state), ax)
+            + _jax_bytes(batch, JML.batch_shardings(rules, batch), ax))
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma2-2b"])
+def test_train_cell_record_on_the_production_mesh(arch):
+    """A reduced dense decoder's train cell on 16x16: the JAX record's
+    keys, the backward's reduce-scatters over the data axis, and the
+    argument bytes of the JAX package's train-state and batch specs."""
+    cell = ShapeConfig("mesh_train16", 16, 32, "train")
+    SHAPES[cell.name] = cell
+    try:
+        pol = dryrun.cell_policy("mxsf", "train", backend="cuda")
+        tcfg, ocfg = dryrun.cell_config(arch)
+        rec = dryrun.lower_cell(
+            arch + "-reduced", cell.name, pol, tcfg, ocfg,
+            mesh=dryrun.mesh_of("16x16"), trace="whole",
+            cfg=get_config(arch).reduced().replace(n_layers=LAYERS))
+    finally:
+        del SHAPES[cell.name]
+    for key in ("mesh", "n_devices", "memory", "cost", "collectives",
+                "collective_axes", "roofline", "fits", "model_flops_global",
+                "model_flops_per_device", "useful_flops_fraction",
+                "params_total", "params_active", "policy", "train",
+                "tp_plan", "batch_rows"):
+        assert key in rec, key
+    assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
+    assert set(rec["collectives"]) == set(cost.COLLECTIVES)
+    rs = rec["collectives"]["reduce-scatter"]
+    assert rs["count"] > 0 and rs["by_axis"]["data"]["count"] == rs["count"]
+    assert rec["batch_rows"] == [0, 2]
+    assert rec["memory"]["argument_bytes"] == _jax_train_argument_bytes(
+        arch, cell, (16, 16), ("data", "model"))
 
 
 def test_tracing_mesh_collectives_have_real_shapes():
@@ -377,6 +483,24 @@ def test_tracing_mesh_collectives_have_real_shapes():
     big = cost.axis_links({"data": 16, "model": 16})
     assert big["model"]["bytes_per_s"] == big["data"]["bytes_per_s"] \
         == cost.NIC_BYTES_PER_S
+
+
+def test_tracing_mesh_reduce_scatter_has_real_shapes():
+    """A reduce-scatter over several axes runs major axis first, each
+    call handed what the one before kept, recorded as the JAX kind
+    "reduce-scatter" with its operand bytes; only ``meta`` tensors."""
+    mesh = shd.TracingMesh((2, 4), ("data", "model"), rank=6)
+    x = torch.empty((8, 6), dtype=torch.float32, device="meta")
+    shd.reset_counts()
+    y = shd.reduce_scatter(x, ("data", "model"), 0, mesh=mesh)
+    assert tuple(y.shape) == (1, 6) and y.is_meta
+    assert shd.counts()["reduce_scatter"]["axes"] == {
+        "data": {"calls": 1, "bytes": 192, "size": 2},
+        "model": {"calls": 1, "bytes": 96, "size": 4}}
+    assert cost.collectives_by_axis(shd.counts()) == {
+        "reduce-scatter": {"data": [1, 192], "model": [1, 96]}}
+    with pytest.raises(RuntimeError, match="only meta tensors"):
+        shd.reduce_scatter(torch.ones((8, 6)), "data", 0, mesh=mesh)
 
 
 def test_tracing_mesh_takes_only_meta_tensors():

@@ -87,7 +87,10 @@ def test_the_examples_are_checked(example):
 
 @pytest.mark.parametrize("module", ["launch/mesh.py", "core/sharding.py",
                                     "runtime/compress.py",
-                                    "runtime/pipeline_par.py"])
+                                    "runtime/pipeline_par.py",
+                                    "train/step.py", "optim/adamw.py",
+                                    "models/blocks.py",
+                                    "models/transformer.py"])
 def test_the_multi_gpu_modules_are_checked(module):
     """The sharding modules are among the files the source check walks,
     and importing each (with the rest of the port) loads no JAX."""
@@ -95,6 +98,27 @@ def test_the_multi_gpu_modules_are_checked(module):
     name = "repro_torch." + module[:-3].replace("/", ".")
     code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
             f"import {name}; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad; print('ok')")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("helper", ["torch_dist", "torch_sharded_ranks",
+                                    "torch_moe_ranks", "torch_family_ranks",
+                                    "torch_train_ranks"])
+def test_the_rank_helpers_load_no_jax(helper):
+    """What a gloo rank of the sharding tests imports (``tests/<helper>``)
+    loads neither JAX nor the JAX package, so the ranks start fast and
+    run the port alone."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
+            f"sys.path.insert(0, {str(ROOT / 'tests')!r}); "
+            f"import {helper}; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
