@@ -139,6 +139,31 @@ Phases, each printed as one JSON line:
               each rank's step equal to the mesh worker's trace of it
               (launches, collectives by kind, axis and bytes, argument
               bytes).
+7c. train_sharded_moe -- (after phase 7b) MoE training's first card
+              run and its sharded step: qwen2-moe-a2.7b at full width and
+              TRAIN_MOE_LAYERS (2) layers, 4 x 512, 2D.  One device first
+              (the state and both ranks do not fit the card at once):
+              the gradient function's loss (within 1.5 of ln(vocab)),
+              gradients, routing and per-token losses, kept on the host;
+              the reorder baseline (every matmul on its plain version,
+              capped by the MOE_TRAIN_*_CEILINGs); the EP backward's
+              reference (layer EP_LAYER without its shared expert, on its
+              captured input and a seeded output gradient); one timed and
+              one profiled step (seconds, peak, idle share, launches equal
+              to the path's).  Then two gloo ranks on (1, 2)
+              (``train_moe_rank``, results in
+              ``build/chip_smoke_train_moe/``), each holding 32 of the 64
+              expert rows: state bytes equal to ``MeshRules.
+              shard_nbytes``; the gradient function teacher-forced at the
+              shard-local shapes; the EP backward teacher-forced, the
+              input gradient and the rank's expert rows' gradients bit for
+              bit against one device's; gradient slices, loss and each
+              token's loss of its rows within REORDER_FACTOR times the
+              baseline's moves (the token gate rejecting
+              ``planted_tokens``), the routing flips per layer printed;
+              one timed step (seconds, the collectives' host share, peak)
+              with launches and collectives against their formulas, and
+              equal to the mesh worker's trace of it.
 8. train_slice -- one more train step of each layout (on the state the
               phase "train" left, with its first batch) teacher-forced:
               every quantize and requantize call (plain or transposed)
@@ -204,8 +229,8 @@ Phases, each printed as one JSON line:
               argument bytes equal to ``MeshRules.shard_nbytes`` of the
               inputs.  It also traces each rank of phase 7b's programs
               (``trace_train_sharded``: ``dryrun.mesh_train_cell``, the
-              sharded train step on ``meta``), which phase 7b holds each
-              rank's step to.
+              sharded train step on ``meta``) and of phase 7c's, which
+              those phases hold each rank's step to.
 12. train_resume -- ``fault.train_loop`` on 2 layers of full-width
               h2o-danube-1.8b (2D, 4 x 512): 4 steps checkpointing every
               2, uninterrupted; again with a failure injected at step 3
@@ -261,9 +286,10 @@ Phases, each printed as one JSON line:
 18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11c and 14 run right after phase 6, phase 7b after phase 8's 1D
-slice, phase 15 after phase 13, phases 16-17 last, and a ``done`` line
-with the whole run's seconds comes before the ``kernels`` line.
+Phases 9-11c and 14 run right after phase 6, phases 7b and 7c after
+phase 8's 1D slice, phase 15 after phase 13, phases 16-17 last, and a
+``done`` line with the whole run's seconds comes before the ``kernels``
+line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -2284,28 +2310,35 @@ def lm_head_calls(cfg, tcfg, seq):
 
 
 def train_collectives(cfg, policy, tcfg, mesh_shape, seq, step=True):
-    """Collectives of one sharded train step of a dense decoder (``step``
-    False: of its gradient function alone) on a mesh of ``mesh_shape``
-    (``{axis: size}``), by kind and axis, ``{kind: {axis: calls}}``, from
-    the path.  Per microbatch, over the model axis: an all-reduce after
-    each row-parallel linear (wo, wd) and for the vocab-parallel lookup,
-    issued whatever the axis size, and in the backward one for each
-    column-parallel entry (before q/k/v, gate/up and each head call);
-    with more than one model rank an all-gather of each head call's
-    logits, of each use of a norm weight the store splits (2 a layer, 4
-    with post-norms, the final one a head call) and, backward, of each
-    small bias cut to its columns.  Over each DP axis of size > 1: an
-    all-gather of every FSDP leaf at each use (7 or 6 linears a layer,
-    the embedding, the head or the tied embedding a head call) and a
-    reduce-scatter of its gradient, and one all-reduce of the loss sums.
-    Remat recomputes each layer's forward in the backward, its
-    collectives with it, up to the last tensor the backward needs: the
-    layer's last row-parallel sum reruns only under a post-norm.  Once a
-    step (per microbatch under ``grad_compress``): an all-reduce over
-    each DP axis of every leaf that axis does not split; and the step's
-    clip norm, one all-reduce of each group of leaves split alike over
-    each axis of size > 1.  Checked for the plans these runs take: heads,
-    FFN and vocab split, the context not gathered."""
+    """Collectives of one sharded train step of a decoder, dense or MoE
+    (``step`` False: of its gradient function alone) on a mesh of
+    ``mesh_shape`` (``{axis: size}``), by kind and axis, ``{kind: {axis:
+    calls}}``, from the path.  Per microbatch, over the model axis: an
+    all-reduce after each row-parallel linear the TP plan splits (wo, a
+    dense FFN's wd, an MoE layer's shared-expert wd) and for the
+    vocab-parallel lookup, issued whatever the axis size, and in the
+    backward one for each column-parallel entry (before q/k/v, gate/up of
+    a split FFN, each head call of a split vocab); with more than one
+    model rank an all-gather of each head call's logits (a split vocab),
+    of each use of a norm weight the store splits (2 a layer, 4 with
+    post-norms, the final one a head call), backward of each small bias
+    cut to its heads' columns, per MoE layer of the experts' outputs
+    (forward) and of the gradient of the rows each rank took for its
+    experts (backward), and of each use of a leaf the store splits over
+    the model axis where the plan computes it whole.  Over each DP axis
+    of size > 1: an all-gather of every FSDP leaf at each use (a
+    sublayer's linears, an MoE layer's router, expert stacks and shared
+    expert among them, the embedding, the head or the tied embedding a
+    head call) and a reduce-scatter of its gradient, and one all-reduce
+    of the loss sums.  Remat recomputes
+    each remat region (one super-layer: ``moe_every`` sublayers) in the
+    backward, its collectives with it, up to the last tensor the backward
+    needs: the region's last collective, where it is a row-parallel sum,
+    reruns only under a post-norm.  Once a step (per microbatch under
+    ``grad_compress``): an all-reduce over each DP axis of every leaf
+    that axis does not split; and the step's clip norm, one all-reduce of
+    each group of leaves split alike over each axis of size > 1.  Checked
+    for the plans these runs take: the context never gathered."""
     import torch
     from collections import Counter
     from repro_torch.core import sharding as shd
@@ -2319,34 +2352,74 @@ def train_collectives(cfg, policy, tcfg, mesh_shape, seq, step=True):
     sh = rules.param_sharding_tree(whole)
     specs = mesh_lib.specs_by_name(whole, sh)
     plan = blocks.tp_plan(cfg, policy, whole, rules.tp_size, train=True)
-    if not (plan.heads and plan.mlp and plan.vocab) or plan.ctx_gather:
+    if plan.ctx_gather:
         raise AssertionError(f"no train count formula for {plan}")
-    L, n = cfg.n_layers, tcfg.microbatches
+    n, p = tcfg.microbatches, cfg.moe_every
+    regions = cfg.n_layers // p
     rc = int(tcfg.remat != "none")
     post = int(cfg.post_norms)
     heads = lm_head_calls(cfg, tcfg, seq)
-    linears = ["wq", "wk", "wv", "wo", "wu", "wd"] + (
-        ["wg"] if cfg.mlp in ("swiglu", "geglu") else [])
+    moe = [TR.is_moe_sublayer(cfg, j) for j in range(p)]
+    # the FFN of each sublayer of a region splits (a dense FFN by the
+    # plan's mlp, an MoE layer's shared expert by its shared)
+    ffn = [(plan.shared and bool(cfg.n_shared_experts)) if m else plan.mlp
+           for m in moe]
+    sums = plan.heads * p + sum(ffn)  # row-parallel sums of a region
+    rerun = sums - int(ffn[-1] and not post)
     out = Counter()
     emb_split = shd.axes_of(specs["emb"][0][0]) == ("model",)
     out["all-reduce", "model"] = n * (
-        L * (2 + 2 + (1 + post) * rc) + emb_split + heads)
+        regions * (sums + plan.heads * p + sum(ffn) + rerun * rc)
+        + emb_split + heads * plan.vocab)
+    head = "emb" if cfg.tie_embeddings else "head"
+    attn = ["wq", "wk", "wv", "wo"]
+    mlp = ["wu", "wd"] + (["wg"] if cfg.mlp in ("swiglu", "geglu") else [])
+    expert = ["router", "we_g", "we_u", "we_d"] + (
+        [f"shared/{k}" for k in mlp] if cfg.n_shared_experts else [])
     if rules.tp_size > 1:
         norm_split = specs["w"][0] == ("model",)
-        bias_cut = cfg.qkv_bias and specs["bq"][0] != ("model",)
+        bias_cut = plan.heads and cfg.qkv_bias and \
+            specs["bq"][0] != ("model",)
+        n_moe = regions * sum(moe) * plan.experts
+
+        def whole(name, split):
+            """A use of a leaf the store splits over the model axis where
+            the plan computes it whole (``split`` None) or split on
+            another dim: gathered over the axis."""
+            spec = specs[name][0]
+            return "model" in shd.split_axes(spec) and (
+                split is None or shd.axes_of(spec[split]) != ("model",))
+
+        def uses(names, split_cols):
+            return sum(whole(k, (1 if k.split("/")[-1] in ("wq", "wk", "wv",
+                                                            "wg", "wu")
+                                 else 0) if split_cols else None)
+                       for k in names)
+
+        biases = ["bq", "bk", "bv"] if cfg.qkv_bias else []
+        per_region = sum(
+            uses(attn + biases, plan.heads)
+            + (uses(["router"], False) + uses(expert[1:4], plan.experts)
+               + uses(expert[4:], plan.shared) if m
+               else uses(mlp, plan.mlp)) for m in moe)
+        head_whole = whole(head, (0 if head == "emb" else 1)
+                           if plan.vocab else None)
         out["all-gather", "model"] = n * (
-            heads + norm_split * ((2 + 2 * post) * L * (1 + rc) + heads)
-            + 3 * L * bias_cut)
-    head = "emb" if cfg.tie_embeddings else "head"
+            heads * plan.vocab + norm_split * (
+                (2 + 2 * post) * cfg.n_layers * (1 + rc) + heads)
+            + 3 * cfg.n_layers * bias_cut + n_moe * (2 + rc)
+            + per_region * regions * (1 + rc) + head_whole * heads)
     for axis in rules.dp:
         if mesh_shape[axis] == 1:
             continue
         fsdp = lambda name: axis in shd.split_axes(specs[name][0])
-        per_layer = sum(fsdp(k) for k in linears)
+        per_region = sum(sum(fsdp(k) for k in attn + (expert if m else mlp))
+                         for m in moe)
         out["all-gather", axis] = n * (
-            per_layer * L * (1 + rc) + fsdp("emb") + fsdp(head) * heads)
+            per_region * regions * (1 + rc) + fsdp("emb")
+            + fsdp(head) * heads)
         out["reduce-scatter", axis] = n * (
-            per_layer * L + fsdp("emb") + fsdp(head) * heads)
+            per_region * regions + fsdp("emb") + fsdp(head) * heads)
         whole_leaves = sum(axis not in shd.split_axes(ns.spec)
                            for _, ns in _flatten(sh))
         out["all-reduce", axis] = n + whole_leaves * (
@@ -2935,24 +3008,16 @@ def _grad_file(name: str, rank: int) -> Path:
     return TRAIN_SHARD_DIR / f"grads_{name}_rank{rank}.pt"
 
 
-def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
-    """One program of the two-rank run on this rank: the state slices
-    (bytes against ``MeshRules.shard_nbytes``), the gradient function
-    teacher-forced (``checked_kernels`` at the shard-local shapes; the
-    gradient slices written for the script's process), each token's loss
-    of its rows from a forward through the sharded path, then one timed
-    train step: seconds, the collectives' host share, the peak, the
-    launches and collectives against their formulas, and the counts
-    phase train_sharded holds the rank's trace to."""
-    from repro_torch.core import sharding as shd
-    from repro_torch.launch import cost
+def _rank_state(torch, device, cfg, prog, batch, seed):
+    """A sharded train program's set-up on this rank: its mesh, its slices
+    of the state one device draws from ``seed`` (bytes against
+    ``MeshRules.shard_nbytes``) and its rows of ``batch``.  Returns (mesh,
+    state, rows, results, faults)."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
-    cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
     shape = tuple(prog["mesh"])
     mesh = mesh_lib.make_mesh(shape, ("data", "model"))
-    on_card = device.type == "cuda"
     ocfg = OptConfig()
     sh = T.state_shardings(cfg, ocfg, mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -2960,48 +3025,31 @@ def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
     state_b = _tree_bytes(state)
     predicted = mesh_lib.MeshRules(mesh).shard_nbytes(T.init_state(
         torch.Generator(), cfg, ocfg, device="meta"), sh)
-    rows = T.batch_rows(batch, mesh)
     faults = [] if state_b == predicted else [
         f"state {state_b} B != MeshRules' {predicted} B"]
     out = dict(program=prog["name"], mesh=list(shape),
                layout=prog["layout"], state_bytes=state_b,
                predicted_state_bytes=predicted,
                coords={a: mesh.coord(a) for a in mesh.shape})
-    # the gradients, every kernel call teacher-forced
-    grad_fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
-    out["tp_plan"] = grad_fn.layout.plan._asdict()
-    _sync(torch, device)
-    t0 = time.perf_counter()
-    with checked_kernels(torch, train_rtol, None) as chk:
-        metrics, grads = grad_fn(state["params"], rows)
-    out["checked_seconds"] = time.perf_counter() - t0
-    rows_k, kfaults = chk.rows(train_launch_counts(cfg, pol))
-    faults += kfaults
-    if prog["layout"] == "2d":  # the forward's fused calls
-        got = sorted({(c["k"], c["n"])
-                      for c in chk.calls["mxsf_fused_matmul"]})
-        want = sorted(set(shard_local_shapes(cfg, shape[1])))
-        m = sorted({c["m"] for c in chk.calls["mxsf_fused_matmul"]})
-        if got != want or m != [rows["tokens"].numel()]:
-            faults.append(f"fused shapes {got} at m {m} != {want}")
-        out["fused_shapes"] = dict(kn=got, m=m)
-    out.update(loss=float(metrics["loss"]), kernels=rows_k)
-    torch.save({"/".join(p): g.detach().float().cpu()
-                for p, g in T._flatten(grads)}, _grad_file(prog["name"],
-                                                           rank))
-    del grads
-    # each token's loss of this rank's rows, a forward on the sharded path
-    from repro_torch.models import transformer as TR
-    with torch.no_grad(), grad_fn.layout.hints():
-        logits = TR.forward(state["params"], rows, cfg, pol)
-    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
-               _nll_file(prog["name"], rank))
-    del logits
-    # one timed train step
-    step = T.make_train_step(cfg, pol, ocfg, tcfg, mesh)
+    return mesh, state, T.batch_rows(batch, mesh), out, faults
+
+
+def _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
+                     out, faults):
+    """One timed sharded train step on this rank, into ``out``: seconds,
+    the collectives' host share, the peak, the launches and collectives
+    against their formulas (a mismatch appended to ``faults``), and the
+    counts the rank's trace is held to."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import cost
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    on_card = device.type == "cuda"
+    step = T.make_train_step(cfg, pol, OptConfig(), tcfg, mesh)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    arg = state_b + sum(t.numel() * t.element_size() for t in rows.values())
+    arg = out["state_bytes"] + sum(t.numel() * t.element_size()
+                                   for t in rows.values())
     _sync(torch, device)
     reset_launches()
     shd.reset_counts()
@@ -3014,8 +3062,7 @@ def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
                 if on_card else None)
     coll = {k: {a: v[0] for a, v in by.items()}
             for k, by in cost.collectives_by_axis(counts).items()}
-    want_coll = train_collectives(cfg, pol, tcfg, dict(zip(
-        ("data", "model"), shape)), plan["seq"])
+    want_coll = train_collectives(cfg, pol, tcfg, mesh.shape, plan["seq"])
     want_launches = {k: v for k, v in train_launch_counts(
         cfg, pol, tcfg.remat).items() if v}
     if coll != want_coll:
@@ -3040,6 +3087,53 @@ def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
                              collectives=cost.collectives_by_axis(counts),
                              argument_bytes=arg),
                faults=faults)
+
+
+def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
+    """One program of the two-rank run on this rank: the state slices
+    (bytes against ``MeshRules.shard_nbytes``), the gradient function
+    teacher-forced (``checked_kernels`` at the shard-local shapes; the
+    gradient slices written for the script's process), each token's loss
+    of its rows from a forward through the sharded path, then one timed
+    train step: seconds, the collectives' host share, the peak, the
+    launches and collectives against their formulas, and the counts
+    phase train_sharded holds the rank's trace to."""
+    from repro_torch.train import step as T
+    cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
+    mesh, state, rows, out, faults = _rank_state(torch, device, cfg, prog,
+                                                 batch, seed)
+    # the gradients, every kernel call teacher-forced
+    grad_fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+    out["tp_plan"] = grad_fn.layout.plan._asdict()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with checked_kernels(torch, train_rtol, None) as chk:
+        metrics, grads = grad_fn(state["params"], rows)
+    out["checked_seconds"] = time.perf_counter() - t0
+    rows_k, kfaults = chk.rows(train_launch_counts(cfg, pol))
+    faults += kfaults
+    if prog["layout"] == "2d":  # the forward's fused calls
+        got = sorted({(c["k"], c["n"])
+                      for c in chk.calls["mxsf_fused_matmul"]})
+        want = sorted(set(shard_local_shapes(cfg, mesh.shape["model"])))
+        m = sorted({c["m"] for c in chk.calls["mxsf_fused_matmul"]})
+        if got != want or m != [rows["tokens"].numel()]:
+            faults.append(f"fused shapes {got} at m {m} != {want}")
+        out["fused_shapes"] = dict(kn=got, m=m)
+    out.update(loss=float(metrics["loss"]), kernels=rows_k)
+    torch.save({"/".join(p): g.detach().float().cpu()
+                for p, g in T._flatten(grads)}, _grad_file(prog["name"],
+                                                           rank))
+    del grads
+    # each token's loss of this rank's rows, a forward on the sharded path
+    from repro_torch.models import transformer as TR
+    with torch.no_grad(), grad_fn.layout.hints():
+        logits = TR.forward(state["params"], rows, cfg, pol)
+    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
+               _nll_file(prog["name"], rank))
+    del logits
+    _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
+                     out, faults)
     del state
     free_device(torch, device)
     return out
@@ -3168,6 +3262,57 @@ def planted_tokens(torch, nll, rows_of):
 
 def _nll_file(name: str, rank: int) -> Path:
     return TRAIN_SHARD_DIR / f"nll_{name}_rank{rank}.pt"
+
+
+def _rank_gates(torch, ref, got, rel, rel_at, nll, mesh, traced, on_card,
+                who):
+    """The gates of a sharded train rank's results ``got`` against one
+    device's ``ref`` (loss and its tolerance, per-token losses and their
+    tolerance, the reorder baseline's gradient move): its gradient
+    slices' largest leaf move ``rel`` (at ``rel_at``) within
+    REORDER_FACTOR times the baseline's (on the card: the rehearsal's
+    baseline is 0), its loss, its rows' per-token losses ``nll`` (a gate
+    that must reject ``planted_tokens``), and its timed step equal to the
+    mesh worker's trace ``traced``.  Returns (the fields to print, the
+    faults, each naming ``who``)."""
+    from repro_torch.train import step as T
+    tol = REORDER_FACTOR * ref["baseline"]
+    dloss = abs(got["loss"] - ref["loss"])
+
+    def rows_of(t):
+        return T.batch_rows({"nll": t}, mesh)["nll"]
+
+    want = rows_of(ref["nll"])
+    token_err = _rms(torch, nll.to(want.device) - want)
+    planted = {k: _rms(torch, v - want) for k, v in
+               planted_tokens(torch, ref["nll"], rows_of).items()}
+    ran = got["dispatch"]
+    same_trace = (traced["collectives"] == ran["collectives"]
+                  and traced["argument_bytes"] == ran["argument_bytes"]
+                  and (ran["launches"] is None or
+                       traced["launches"] == ran["launches"]))
+    fields = dict(loss=got["loss"], ref_loss=ref["loss"], loss_abs_err=dloss,
+                  loss_tol=ref["loss_tol"], token_rms_err=token_err,
+                  token_tol=ref["token_tol"], planted_token_rms=planted,
+                  max_leaf_rel_l2=rel, leaf=rel_at, tol=tol,
+                  trace_equal=same_trace,
+                  traced_peak_bytes=traced["peak_bytes"],
+                  trace_seconds=traced["trace_seconds"])
+    faults = []
+    if on_card and rel > tol:
+        faults.append(f"{who} gradients {rel} > {tol}")
+    if dloss > ref["loss_tol"]:
+        faults.append(f"{who} loss off by {dloss} > {ref['loss_tol']}")
+    if on_card and token_err > ref["token_tol"]:
+        faults.append(f"{who} token losses off by {token_err} (RMS) > "
+                      f"{ref['token_tol']}")
+    blind = {k: v for k, v in planted.items() if v <= ref["token_tol"]}
+    if blind:
+        faults.append(f"{who}: the token gate {ref['token_tol']} cannot "
+                      f"see {blind}")
+    if not same_trace:
+        faults.append(f"{who}: traced {traced} != ran {ran}")
+    return fields, faults
 
 
 def _train_world_one(torch, device, plan, batch, seed):
@@ -3339,52 +3484,14 @@ def phase_train_sharded(torch, device, args, rehearsal):
                                     mmap=True)
                 rel, rel_at = _grads_rel(torch, slices, mine)
                 del slices, mine
-                tol = REORDER_FACTOR * ref["baseline"]
-                loss_tol = ref["loss_tol"]
-                dloss = abs(got["loss"] - ref["loss"])
-                token_tol = ref["token_tol"]
-
-                def rows_of(t):
-                    return T.batch_rows({"nll": t}, mesh)["nll"]
-
-                want = rows_of(ref["nll"])
-                token_err = _rms(torch, torch.load(_nll_file(
-                    prog["name"], rank)).to(want.device) - want)
-                planted = {k: _rms(torch, v - want) for k, v in
-                           planted_tokens(torch, ref["nll"],
-                                          rows_of).items()}
-                traced = mesh_traces[prog["name"], rank]
-                ran = got["dispatch"]
-                same_trace = (traced["collectives"] == ran["collectives"]
-                              and traced["argument_bytes"] ==
-                              ran["argument_bytes"]
-                              and (ran["launches"] is None or
-                                   traced["launches"] == ran["launches"]))
+                fields, bad = _rank_gates(
+                    torch, ref, got, rel, rel_at, torch.load(_nll_file(
+                        prog["name"], rank)), mesh,
+                    mesh_traces[prog["name"], rank], on_card,
+                    f"{prog['name']} rank {rank}")
                 emit("train_sharded", step="check", program=prog["name"],
-                     rank=rank, loss=got["loss"], ref_loss=ref["loss"],
-                     loss_abs_err=dloss, loss_tol=loss_tol,
-                     token_rms_err=token_err, token_tol=token_tol,
-                     planted_token_rms=planted,
-                     max_leaf_rel_l2=rel, leaf=rel_at, tol=tol,
-                     trace_equal=same_trace,
-                     traced_peak_bytes=traced["peak_bytes"],
-                     trace_seconds=traced["trace_seconds"])
-                if on_card and rel > tol:  # the rehearsal's baseline is 0
-                    faults.append(f"{prog['name']} rank {rank} gradients "
-                                  f"{rel} > {tol}")
-                if dloss > loss_tol:
-                    faults.append(f"{prog['name']} rank {rank} loss off by "
-                                  f"{dloss} > {loss_tol}")
-                if on_card and token_err > token_tol:
-                    faults.append(f"{prog['name']} rank {rank} token losses "
-                                  f"off by {token_err} (RMS) > {token_tol}")
-                blind = {k: v for k, v in planted.items() if v <= token_tol}
-                if blind:
-                    faults.append(f"{prog['name']} rank {rank}: the token "
-                                  f"gate {token_tol} cannot see {blind}")
-                if not same_trace:
-                    faults.append(f"{prog['name']} rank {rank}: traced "
-                                  f"{traced} != ran {ran}")
+                     rank=rank, **fields)
+                faults += bad
         if faults:
             raise AssertionError(f"train_sharded: {faults}")
     finally:
@@ -3393,6 +3500,345 @@ def phase_train_sharded(torch, device, args, rehearsal):
          world_one={k: v["same_state"] for k, v in world_one.items()})
     return {f"train_sharded_{p['name']}": r["launches"] or {}
             for p, r in zip(plan["programs"], ranks[0]["programs"])}
+
+
+# ---------------------------------------------------------------------------
+# training the MoE configs on a mesh ("train_sharded_moe")
+# ---------------------------------------------------------------------------
+
+TRAIN_MOE_DIR = ROOT / "build" / "chip_smoke_train_moe"  # results and
+# the ranks' gradient slices (removed when the phase ends)
+TRAIN_MOE_REF_DIR = ROOT / "build" / "chip_smoke_train_moe_ref"  # the EP
+# backward's references, one file a rank (removed when the phase ends)
+TRAIN_MOE_LAYERS = 2  # qwen2-moe-a2.7b's depth in phase train_sharded_moe:
+# one MoE layer's input gradient feeds the other's routing and experts
+TRAIN_MOE_WAIT_S = 480  # the two-rank run's time limit
+EP_LAYER = 1  # the layer whose MoE backward the ranks teacher-force
+# the most the one-device reorder baseline may move the gradients (the
+# largest leaf's relative L2; layers/sub0/attn/bk at every seed), the loss
+# (``loss_move_scale``) and a token's loss (RMS) on the card: the largest
+# reading of seeds 0-2 on the H100 (seed 0's each time), plus a sixteenth
+MOE_TRAIN_REORDER_CEILING = 0.053678471595048904 * 1.0625
+MOE_TRAIN_LOSS_CEILING = 0.0016078283998470142 * 1.0625
+MOE_TRAIN_TOKEN_CEILING = 0.019434751136773468 * 1.0625
+
+
+def train_moe_plan(rehearsal: bool) -> dict:
+    """Phase train_sharded_moe's run: qwen2-moe-a2.7b (reduced in the
+    rehearsal) at TRAIN_MOE_LAYERS layers, phase train's batch, one 2D
+    program on (1, SHARD_TP)."""
+    return dict(arch="qwen2-moe-a2.7b" + ("-reduced" if rehearsal else ""),
+                n_layers=TRAIN_MOE_LAYERS,
+                batch=2 if rehearsal else 4, seq=32 if rehearsal else 512,
+                block_1d=BLOCK_1D[rehearsal],
+                programs=[dict(name=f"moe_1x{SHARD_TP}_2d",
+                               mesh=[1, SHARD_TP], layout="2d")])
+
+
+@contextlib.contextmanager
+def moe_train_taps(torch, ep_layer):
+    """Inside the block: each ``blocks._top_k`` call's expert indices (the
+    forward's MoE layers, then a recompute's) and the input of the
+    ``ep_layer``-th call of ``blocks.moe`` (detached), in the dict it
+    yields (``topi``: a list; ``x``)."""
+    from repro_torch.models import blocks
+    got = {"topi": [], "x": None}
+    top_k, moe = blocks._top_k, blocks.moe
+    calls = [0]
+
+    def record(probs, k):
+        vals, idx = top_k(probs, k)
+        got["topi"].append(idx.detach().cpu())
+        return vals, idx
+
+    def tapped(p, x, cfg, policy):
+        if calls[0] == ep_layer:
+            got["x"] = x.detach().clone()
+        calls[0] += 1
+        return moe(p, x, cfg, policy)
+
+    blocks._top_k, blocks.moe = record, tapped
+    try:
+        yield got
+    finally:
+        blocks._top_k, blocks.moe = top_k, moe
+
+
+def ep_backward(torch, params, cfg, policy, x, dy, ep_layer):
+    """The MoE layer ``ep_layer`` of ``params`` without its shared expert
+    (routing, dispatch, the experts, the combine: no kernel runs) on ``x``
+    with output gradient ``dy``: ``{"dx", "router", "we_g", "we_u",
+    "we_d"}`` gradients, under whatever mesh context is active (a rank's
+    expert slices, gathered outputs, the take's gathered input
+    gradient)."""
+    from repro_torch.models import blocks
+    ffn = params["layers"][f"sub{cfg.moe_every - 1}"]["ffn"]
+    names = ("router", "we_g", "we_u", "we_d")
+    p = {n: ffn[n][ep_layer].detach().requires_grad_() for n in names}
+    x = x.detach().requires_grad_()
+    y = blocks.moe(p, x, cfg, policy)
+    grads = torch.autograd.grad(y, [x] + [p[n] for n in names], dy)
+    return dict(zip(("dx",) + names, grads))
+
+
+def _moe_file(name: str, rank: int) -> Path:
+    return (TRAIN_MOE_REF_DIR if name == "ep_ref" else TRAIN_MOE_DIR) / \
+        f"{name}_rank{rank}.pt"
+
+
+def moe_flips(torch, got, want):
+    """Per MoE layer, the tokens whose expert choice differs (as sets):
+    ``got`` a rank's forward top-k indices, ``want`` one device's on the
+    same rows."""
+    return [int((torch.sort(g, -1).values != torch.sort(w, -1).values)
+                .any(-1).sum()) for g, w in zip(got, want)]
+
+
+def _moe_one_device(torch, device, plan, batch, args):
+    """The one-device references of phase train_sharded_moe, on the card
+    before the ranks start (both do not fit it at once): the gradient
+    function's loss, gradients (to the host), each token's loss and each
+    MoE layer's routing; the reorder baseline (every matmul on its plain
+    version) and the gates it sets; the EP backward of layer EP_LAYER on
+    its captured input and a seeded output gradient, each rank's expert
+    rows saved for it; then the step timed and profiled (seconds, peak,
+    idle share, launches).  Returns the references for the ranks' gates
+    and the step's launches."""
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    on_card = device.type == "cuda"
+    cfg, pol, tcfg = train_sharded_program(plan, "2d")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = T.init_state(gen, cfg, OptConfig(), device=device)
+    n_moe = cfg.n_layers // cfg.moe_every
+    with moe_train_taps(torch, EP_LAYER) as taps:
+        loss, grads, nll = _one_device_grads(torch, cfg, pol, tcfg, state,
+                                             batch)
+    topi, x_ep = taps["topi"][:n_moe], taps["x"]
+    ln_v = math.log(n_out(cfg))
+    emit("train_sharded_moe", step="one_device", loss=loss, ln_vocab=ln_v,
+         n_layers=cfg.n_layers, d_model=cfg.d_model,
+         experts=cfg.padded_experts, top_k=cfg.top_k)
+    if not math.isfinite(loss) or abs(loss - ln_v) > 1.5:
+        raise AssertionError(f"train_sharded_moe: loss {loss} is not near "
+                             f"ln({n_out(cfg)})")
+    loss_p, plain, nll_p = _one_device_grads(torch, cfg, pol, tcfg, state,
+                                             batch, plain=True)
+    base, base_at = _grads_rel(torch, plain, grads)
+    del plain
+    scale, move, move_se = loss_move_scale(torch, nll_p - nll)
+    token_rms = _rms(torch, nll_p - nll)
+    ref = dict(loss=loss, baseline=base, topi=topi,
+               loss_tol=REORDER_FACTOR * max(scale, 4 * abs(loss) * F32_EPS),
+               token_tol=REORDER_FACTOR * token_rms, nll=nll.cpu(),
+               grads={k: g.float().cpu() for k, g in grads.items()})
+    del grads, nll, nll_p
+    ceilings = dict(grads=MOE_TRAIN_REORDER_CEILING,
+                    loss=MOE_TRAIN_LOSS_CEILING,
+                    token=MOE_TRAIN_TOKEN_CEILING)
+    emit("train_sharded_moe", step="reorder_baseline", loss=loss,
+         loss_plain=loss_p, mean_token_nll_move=move, token_move_se=move_se,
+         loss_scale=scale, token_rms_move=token_rms, max_leaf_rel_l2=base,
+         leaf=base_at, loss_tol=ref["loss_tol"], token_tol=ref["token_tol"],
+         ceilings=ceilings, max_memory_allocated=(
+             torch.cuda.max_memory_allocated() if on_card else None))
+    for name, value in (("grads", base), ("loss", scale),
+                        ("token", token_rms)):
+        if on_card and ceilings[name] is not None and value > ceilings[name]:
+            raise AssertionError(
+                f"train_sharded_moe: the reorder baseline's {name} move "
+                f"{value} is past its ceiling {ceilings[name]}")
+    # the EP backward on one device, each rank's expert rows saved for it
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    dy = torch.randn(x_ep.shape, generator=gen, device=device).to(
+        x_ep.dtype)
+    ep = ep_backward(torch, state["params"], cfg, pol, x_ep, dy, EP_LAYER)
+    c = -(-cfg.padded_experts // SHARD_TP)
+    for r in range(SHARD_TP):
+        torch.save({"x": x_ep.cpu(), "dy": dy.cpu(),
+                    **{k: (v[r * c:(r + 1) * c] if k.startswith("we_")
+                           else v).cpu() for k, v in ep.items()}},
+                   _moe_file("ep_ref", r))
+    del ep, x_ep, dy
+    free_device(torch, device)
+    # the step, timed and profiled, on the same state
+    _, _, launches = phase_train(torch, device, cfg, pol, args, 1,
+                                 plan["batch"], plan["seq"], "one_device",
+                                 profile=True, phase="train_sharded_moe",
+                                 state=state,
+                                 batches=[batch] * (1 + on_card))
+    del state
+    free_device(torch, device)
+    return ref, launches
+
+
+def _moe_rank_program(torch, device, plan, prog, rank, batch, seed):
+    """The (1, SHARD_TP) program of phase train_sharded_moe on this rank:
+    the state slices (bytes against ``MeshRules.shard_nbytes``), the
+    gradient function teacher-forced (``checked_kernels`` at the
+    shard-local shapes; the gradient slices and the forward's routing
+    saved for the script's process), the EP backward teacher-forced on
+    one device's layer input and output gradient (against one device's
+    input gradient and this rank's expert rows, bit for bit), each
+    token's loss of its rows, then one timed step: seconds, the
+    collectives' host share, the peak, launches and collectives against
+    their formulas, and the counts the rank's trace is held to."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.train import step as T
+    cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
+    mesh, state, rows, out, faults = _rank_state(torch, device, cfg, prog,
+                                                 batch, seed)
+    out["expert_rows"] = int(state["params"]["layers"]["sub0"]["ffn"][
+        "we_g"].shape[1])
+    grad_fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+    out["tp_plan"] = grad_fn.layout.plan._asdict()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with checked_kernels(torch, train_rtol, None) as chk, \
+            moe_train_taps(torch, -1) as taps:
+        metrics, grads = grad_fn(state["params"], rows)
+    out["checked_seconds"] = time.perf_counter() - t0
+    rows_k, kfaults = chk.rows(train_launch_counts(cfg, pol))
+    faults += kfaults
+    got = sorted({(c["k"], c["n"]) for c in chk.calls["mxsf_fused_matmul"]})
+    want = sorted(set(shard_local_shapes(cfg, mesh.shape["model"])))
+    if got != want:
+        faults.append(f"fused shapes {got} != {want}")
+    out.update(loss=float(metrics["loss"]), kernels=rows_k, fused_kn=got)
+    torch.save({"grads": {"/".join(p): g.detach().float().cpu()
+                          for p, g in T._flatten(grads)},
+                "topi": taps["topi"][:cfg.n_layers // cfg.moe_every]},
+               _moe_file("grads", rank))
+    del grads
+    # the EP backward, teacher-forced on one device's input and gradient
+    ref = torch.load(_moe_file("ep_ref", rank), mmap=True)
+    with grad_fn.layout.hints():
+        ep = ep_backward(torch, state["params"], cfg, pol,
+                         ref["x"].to(device), ref["dy"].to(device), EP_LAYER)
+    out["ep"] = {k: dict(bitwise=bool(torch.equal(v.cpu(), ref[k])),
+                         max_abs_err=float((v.float().cpu()
+                                            - ref[k].float()).abs().max()))
+                 for k, v in ep.items()}
+    del ep, ref
+    # each token's loss of this rank's rows, a forward on the sharded path
+    with torch.no_grad(), grad_fn.layout.hints():
+        logits = TR.forward(state["params"], rows, cfg, pol)
+    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
+               _moe_file("nll", rank))
+    del logits
+    out["checked_peak"] = (torch.cuda.max_memory_allocated()
+                           if device.type == "cuda" else None)
+    _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
+                     out, faults)
+    del state
+    free_device(torch, device)
+    return out
+
+
+def train_moe_rank(rank: str, world: str, port: str, rehearsal: str,
+                   spec_file: str):
+    """One rank of phase train_sharded_moe's two-rank run: the plan's
+    program on the batch the script's process drew; results to
+    TRAIN_MOE_DIR."""
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, TRAIN_MOE_DIR) as (
+            torch, device, rank, world, out):
+        batch = {k: torch.tensor(v, dtype=torch.int32, device=device)
+                 for k, v in spec["batch"].items()}
+        out["programs"] = []
+        for prog in spec["plan"]["programs"]:
+            res = _moe_rank_program(torch, device, spec["plan"], prog, rank,
+                                    batch, spec["seed"])
+            out["programs"].append(res)
+            if res["faults"]:
+                raise AssertionError(f"{prog['name']}: {res['faults']}")
+
+
+def phase_train_sharded_moe(torch, device, args, rehearsal):
+    """Phase train_sharded_moe: the sharded train step of qwen2-moe-a2.7b
+    (expert parallelism in the backward) at full width and
+    TRAIN_MOE_LAYERS layers, global batch 4 x 512 (phase train's first
+    batch), 2D.  First one device (``_moe_one_device``: MoE training's
+    step on the card, its gradients, routing and each token's loss, the
+    reorder baseline, the EP backward's reference), then two gloo ranks
+    sharing the card on (1, SHARD_TP) (``train_moe_rank``), each holding
+    half the experts.  Gates: state bytes a rank equal to
+    ``MeshRules.shard_nbytes``; every kernel call within ``train_rtol`` at
+    the shard-local shapes; the EP backward of layer EP_LAYER on one
+    device's input and output gradient -- its input gradient and the
+    rank's expert rows' gradients -- bit for bit against one device's
+    (phase serve_sharded_moe's gathered expert outputs are); the gradient
+    slices, the loss and each token's loss of a rank's rows within
+    REORDER_FACTOR times the baseline's moves, the token gate rejecting ``planted_tokens``; the
+    routing flips per layer printed; launches and collectives a step
+    against their formulas; each rank's step equal to the mesh worker's
+    trace of it.  Returns the launches of the one-device step and of
+    rank 0's timed step."""
+    import shutil
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    plan = train_moe_plan(rehearsal)
+    cfg, _, _ = train_sharded_program(plan, "2d")
+    batch = make_batches(torch, cfg, args.seed, 1, plan["batch"],
+                         plan["seq"], device)[0]
+    from repro_torch.configs.base import get_config
+    emit("train_sharded_moe", step="plan", **{k: v for k, v in plan.items()
+                                              if k != "programs"},
+         d_model=cfg.d_model, of_layers=get_config(plan["arch"]).n_layers,
+         programs=[p["name"] for p in plan["programs"]])
+    shutil.rmtree(TRAIN_MOE_REF_DIR, ignore_errors=True)
+    TRAIN_MOE_REF_DIR.mkdir(parents=True)
+    try:
+        ref, one_launches = _moe_one_device(torch, device, plan, batch,
+                                            args)
+        ranks = finish_rank_processes(
+            "train_sharded_moe", start_rank_processes(
+                "train_moe_rank", dict(plan=plan, seed=args.seed, batch={
+                    k: v.tolist() for k, v in batch.items()}),
+                TRAIN_MOE_DIR, SHARD_TP, rehearsal),
+            TRAIN_MOE_DIR, TRAIN_MOE_WAIT_S)
+        faults = []
+        traces = _train_traces(plan, rehearsal)
+        sh = T.state_shardings(cfg, OptConfig(), shd.AbstractMesh(
+            tuple(plan["programs"][0]["mesh"]), ("data", "model")))["params"]
+        for rank, res in enumerate(ranks):
+            for prog, got in zip(plan["programs"], res["programs"]):
+                mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
+                saved = torch.load(_moe_file("grads", rank), mmap=True)
+                mine = {"/".join(p): ref["grads"]["/".join(p)][
+                    shd.shard_slices(ref["grads"]["/".join(p)].shape,
+                                     ns.spec, mesh, shd.uneven_dims(ns))]
+                        for p, ns in T._flatten(sh)}
+                rel, rel_at = _grads_rel(torch, saved["grads"], mine)
+                flips = moe_flips(torch, saved["topi"], ref["topi"])
+                del saved, mine
+                fields, bad = _rank_gates(
+                    torch, ref, got, rel, rel_at, torch.load(_moe_file(
+                        "nll", rank)), mesh, traces[prog["name"], rank],
+                    on_card, f"rank {rank}")
+                ep_bitwise = all(v["bitwise"] for v in got["ep"].values())
+                emit("train_sharded_moe", step="check",
+                     program=prog["name"], rank=rank, routing_flips=flips,
+                     ep=got["ep"], ep_bitwise=ep_bitwise, **fields)
+                faults += bad
+                if not ep_bitwise:
+                    faults.append(f"rank {rank}: EP backward {got['ep']}")
+        if faults:
+            raise AssertionError(f"train_sharded_moe: {faults}")
+    finally:
+        for d in (TRAIN_MOE_DIR, TRAIN_MOE_REF_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    emit("train_sharded_moe", step="done",
+         seconds=time.perf_counter() - t_phase)
+    return {"train_sharded_moe_one_device": one_launches,
+            **{f"train_sharded_{p['name']}": r["launches"] or {}
+               for p, r in zip(plan["programs"], ranks[0]["programs"])}}
 
 
 def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
@@ -3632,10 +4078,11 @@ def phase_ring_swa(torch, device, args, rehearsal):
     return launches
 
 
-MOE_LAYERS = 8  # serve_moe's depth, and so serve_sharded_moe's: at all
+MOE_LAYERS = 4  # serve_moe's depth, and so serve_sharded_moe's: at all
 # 24 layers the two phases took 77 + 244 s of a 1151 s script on the H100,
 # too close to its 1200 s limit; at 12, 40 + 132 s of a script that took
-# 1046.7-1213.5 s once phase serve_sharded_families joined it
+# 1046.7-1213.5 s once phase serve_sharded_families joined it; at 8, 26 +
+# 101 s, given back to phase train_sharded_moe
 
 
 def phase_serve_moe(torch, device, args, rehearsal):
@@ -4339,10 +4786,11 @@ def phase_serve_vlm(torch, device, args, rehearsal):
 def phase_train_families(torch, device, args, rehearsal):
     """``MXSF_TRAIN`` (2D) under the default remat ``"dots"``, 2 steps and
     one profiled, at full width: mamba2-780m (48 layers, 4 x 512),
-    whisper-medium cut to 12 + 12 of its 24 + 24 layers (2 x 448 over
+    whisper-medium cut to 6 + 6 of its 24 + 24 layers (2 x 448 over
     1500 frames; at full depth its profiled step alone took 65 s, which
     the script's time budget no longer holds beside phase
-    serve_sharded_families), internvl2-1b (24 layers, 4 x 512 behind the
+    serve_sharded_families; at 12 + 12, 41 s the arch, given back to
+    phase train_sharded_moe), internvl2-1b (24 layers, 4 x 512 behind the
     256-embedding prefix) and zamba2-7b cut to 12 of its 81 layers (2
     groups of 6: f32 weights and AdamW state at full depth exceed the
     card); each cut printed.  Each step
@@ -4358,7 +4806,7 @@ def phase_train_families(torch, device, args, rehearsal):
     policy = MXSF_TRAIN.replace(backend="cuda")
     launches = {}
     runs = (("mamba2-780m", 4, 512, None, True),
-            ("whisper-medium", 2, 448, 12, True),
+            ("whisper-medium", 2, 448, 6, True),
             ("internvl2-1b", 4, 512, None, False),
             ("zamba2-7b", 4, 512, 12, False))
     for arch, batch, seq, depth, no_remat in runs:
@@ -4823,12 +5271,12 @@ def dryrun_mesh_worker(out_dir: str, rehearsal: str):
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun
     rehearsal = rehearsal == "1"
-    plan = train_sharded_plan(rehearsal)
-    for prog in plan["programs"]:
-        for rank in range(SHARD_TP):
-            rec = trace_train_sharded(plan, prog, rank, rehearsal)
-            (Path(out_dir) / f"train_{prog['name']}__rank{rank}.json"
-             ).write_text(json.dumps(rec))
+    for plan in (train_sharded_plan(rehearsal), train_moe_plan(rehearsal)):
+        for prog in plan["programs"]:
+            for rank in range(SHARD_TP):
+                rec = trace_train_sharded(plan, prog, rank, rehearsal)
+                (Path(out_dir) / f"train_{prog['name']}__rank{rank}.json"
+                 ).write_text(json.dumps(rec))
     for name, engine in sharded_engines(rehearsal).items():
         for rank in range(SHARD_TP):
             rec = trace_sharded_engine(engine, engine["n_layers"], rank)
@@ -5354,6 +5802,8 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
     del state, batches
     free_device(torch, device)
     launches.update(phase_train_sharded(torch, device, args, rehearsal))
+    free_device(torch, device)
+    launches.update(phase_train_sharded_moe(torch, device, args, rehearsal))
     free_device(torch, device)
     launches["train_resume"] = phase_train_resume(
         torch, device, train_cfg.replace(n_layers=min(2, train_cfg.n_layers)),

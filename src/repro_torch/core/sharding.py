@@ -66,7 +66,7 @@ __all__ = ["Mesh", "AbstractMesh", "TracingMesh", "NamedSharding", "P", "normali
            "uneven_dims", "local_extent", "to_compute", "map_parts",
            "axis_size", "shard_index", "TP_ROLES", "add_sink",
            "remove_sink", "reduce_scatter", "enter_split", "carry",
-           "split_axes"]
+           "split_axes", "take_slots"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mx_mesh_ctx",
                                                       default=None)
@@ -521,25 +521,58 @@ class _EnterSplit(torch.autograd.Function):
                            ctx.axis, ctx.mesh), None, None
 
 
-def _cut(x: torch.Tensor, axis: str, dim: int, mesh: Mesh) -> torch.Tensor:
-    """This rank's slice along ``dim`` of ``x``, replicated over ``axis``
-    (a view)."""
-    c = x.shape[dim] // mesh.shape[axis]
-    return x.narrow(dim, mesh.coord(axis) * c, c)
+def _take(x: torch.Tensor, axis: str, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's ``c = ceil(n / ranks)`` slots along ``dim`` (extent
+    ``n``) of ``x``, replicated over ``axis``: ``[i c, min((i+1) c, n))``,
+    zero rows past ``n`` (a copy where it pads, else a view)."""
+    n = x.shape[dim]
+    c = -(-n // mesh.shape[axis])
+    lo = min(mesh.coord(axis) * c, n)
+    part = x.narrow(dim, lo, min(lo + c, n) - lo)
+    if part.shape[dim] == c:
+        return part
+    pad = list(x.shape)
+    pad[dim] = c - part.shape[dim]
+    return torch.cat([part, x.new_zeros(pad)], dim)
 
 
-class _Cut(torch.autograd.Function):
-    """``_cut`` of a leaf that needs a gradient: the whole leaf's gradient
-    is the ranks' slices, gathered over the axis."""
+class _Take(torch.autograd.Function):
+    """``_take`` of a tensor that needs a gradient: the whole tensor's
+    gradient is the ranks' disjoint slices, gathered over the axis and
+    trimmed to the extent (no sum: 1 / ranks of an all-reduce's bytes;
+    an even split's slices, a leaf cut to its TP columns, gather as they
+    are)."""
 
     @staticmethod
     def forward(ctx, x, axis, dim, mesh):
-        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
-        return _cut(x, axis, dim, mesh).clone()
+        ctx.axis, ctx.dim, ctx.mesh, ctx.n = axis, dim, mesh, x.shape[dim]
+        return _take(x, axis, dim, mesh).clone()
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.axis, ctx.dim, ctx.mesh), None, None, None
+        whole = _all_gather(g, ctx.axis, ctx.dim, ctx.mesh)
+        return whole.narrow(ctx.dim, 0, ctx.n), None, None, None
+
+
+def take_slots(x: torch.Tensor, dim: int, axis: Optional[str] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's slots along ``dim`` of ``x``, which is replicated over
+    ``axis`` (default: the context's TP axis): ``c = ceil(n / ranks)`` of
+    the ``n`` rows, zero rows past ``n`` on the last ranks, as an uneven
+    split of the expert dim pads them.  With a gradient, the backward
+    all-gathers the ranks' gradient slices over the axis (recorded, on a
+    tracing mesh too) and trims them to ``n``: the slices are disjoint,
+    so that is the whole gradient, exactly.  ``x`` itself outside a
+    context when no mesh is given, or on an axis of one rank."""
+    ctx = _CTX.get()
+    mesh = _mesh_of(mesh)
+    axis = axis or (ctx["tp"] if ctx else None)
+    if mesh is None or axis is None or mesh.shape[axis] == 1:
+        return x
+    dim = dim % x.ndim
+    if _needs_grad(x):
+        return _Take.apply(x, axis, dim, mesh)
+    return _take(x, axis, dim, mesh)
 
 
 def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
@@ -648,11 +681,12 @@ def to_compute(leaf, spec, shape, split: Optional[int]):
     ``spec``, in the layout the tensor-parallel scheme computes with:
     every dim the spec splits is gathered, except ``split`` where the spec
     splits it over the TP axis alone; ``split`` is cut to this rank's TP
-    slice where the spec does not split it so.  A packed leaf moves whole
-    blocks, codes and scales together, so every step is exact.  The
+    slice (``take_slots``) where the spec does not split it so.  A packed
+    leaf moves whole blocks, codes and scales together, so every step is
+    exact.  The
     adjoints: a gather over a DP axis reduce-scatters the gradient (each
     DP rank's batch is its own), a gather over the TP axis narrows it (the
-    consumer is replicated there), and the cut gathers it."""
+    consumer is replicated there), and the take gathers it."""
     ctx = _CTX.get()
     mesh, tp = ctx["mesh"], ctx["tp"]
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
@@ -663,9 +697,7 @@ def to_compute(leaf, spec, shape, split: Optional[int]):
                 leaf = map_parts(leaf, lambda t: all_gather(
                     t, axis, d, adjoint=adj))
     if split is not None and axes_of(spec[split]) != (tp,):
-        leaf = map_parts(leaf, lambda t: _Cut.apply(t, tp, split, mesh)
-                         if _needs_grad(t) and mesh.shape[tp] > 1
-                         else _cut(t, tp, split, mesh))
+        leaf = map_parts(leaf, lambda t: take_slots(t, split, tp, mesh))
     if isinstance(leaf, QuantizedTensor):
         logical = list(shape)
         if split is not None:

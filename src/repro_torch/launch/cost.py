@@ -37,9 +37,12 @@ on real tensors:
   shapes in the JAX package's dry run.  A process-group op the dispatcher
   shows (``c10d``) is no aten op: its traffic is the collective term.  A
   train step's backward issues its collectives as it runs (the adjoints
-  of ``core/sharding.py``), and a collective inside a recomputed region
-  (remat, ``_attend``'s per-chunk checkpoint) runs again when the region
-  is recomputed, and is counted again, as GSPMD's rematerialized
+  of ``core/sharding.py``: an FSDP gather's reduce-scatter, a column
+  entry's all-reduce, an expert take's all-gather of its rows'
+  gradient), and a collective inside a recomputed region (remat
+  ``"dots"`` or ``"full"``, ``_attend``'s per-chunk checkpoint; an MoE
+  layer's gather of its experts' outputs among them) runs again when the
+  region is recomputed, and is counted again, as GSPMD's rematerialized
   collectives are.  (A checkpoint's recompute stops at the last tensor
   the backward needs, so a collective after it, such as a layer's last
   row-parallel sum without a post-norm, runs once.)

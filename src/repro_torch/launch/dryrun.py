@@ -59,13 +59,16 @@ run lowers there: decoders, the SSM, the hybrid and the encoder-decoder,
 each through ``M.prefill`` and ``M.decode_step`` (the SSD's TP plan in
 ``models/ssd.py``; a hybrid period is one group of SSD layers with the
 shared block, the tail outside; an encoder-decoder period one encoder and
-one decoder layer); and the train cells of the dense decoders: the rank's
-slices of the train state (``state_shardings``), its batch rows and the
-sharded ``make_train_step`` (DP, FSDP and TP, the collectives of its
-backward among the counts), with the per-arch ``ARCH_TRAIN_OVERRIDES``.
-A train cell of any other family (the MoE configs, the SSM, the hybrid,
-the encoder-decoder) raises ``NotImplementedError`` naming its ROADMAP.md
-item (``ROADMAP_TRAINING``), which ``main`` counts as a failure.  Results
+one decoder layer); and the train cells of the decoders, dense and MoE:
+the rank's slices of the train state (``state_shardings``; an uneven
+expert split's zero rows included), its batch rows and the sharded
+``make_train_step`` (DP, FSDP, TP and the experts split over the model
+axis, the collectives of its backward among the counts), with the
+per-arch ``ARCH_TRAIN_OVERRIDES`` (llama4-maverick: microbatches 4, bf16
+moments, remat "full").  A train cell of any other family (the SSM, the
+hybrid, the encoder-decoder) raises ``NotImplementedError`` naming its
+ROADMAP.md item (``ROADMAP_TRAINING``), which ``main`` counts as a
+failure.  Results
 land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
 Usage:
@@ -253,7 +256,7 @@ def cell_program(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
 
 def mesh_supported(cfg: ModelConfig, shape: ShapeConfig):
     """Raise where a mesh cell is not ported yet, naming its ROADMAP.md
-    item: training any family but the dense decoders
+    item: training any family but the decoders, dense and MoE
     (``train.step.mesh_train_supported``)."""
     if shape.kind == "train":
         T.mesh_train_supported(cfg)

@@ -38,7 +38,10 @@ model axis), each collective states its adjoint, and every FSDP leaf is
 gathered at use (``use``) and its gradient reduce-scattered.
 Expert parallelism: an MoE layer routes and dispatches whole on every
 rank, each rank runs its own experts, and their outputs are gathered
-before the combine; the shared expert splits as a dense FFN does.
+before the combine; the shared expert splits as a dense FFN does.  In
+training the router and the dispatch stay replicated with no entry
+all-reduce (their input gradient is whole on every rank already); only
+the rows a rank takes for its experts gather their gradient.
 Where the cache's position axis is sharded (sequence parallelism) each
 rank writes the columns it owns and gathers the cache at use.  Outside a
 context all of this is a no-op.
@@ -669,21 +672,19 @@ def _combine(ye, slot, valid, st, sw, S: int, k: int):
 def _expert_ffn(p, xe, cfg: ModelConfig, policy: QuantPolicy):
     """The expert FFNs on the dispatched rows xe (R, E, C, d) -> ye (R, E,
     C, d).  Under a plan that splits the experts each rank runs its own
-    c = ceil(E / ranks) of them (zero rows past the end: never routed, and
-    zero out) and ye is gathered over the model axis along the expert dim:
-    whole expert outputs move, so the combine sees one device's rows."""
+    c = ceil(E / ranks) of them (``sharding.take_slots``: zero rows past
+    the end, never routed, and zero out; in the backward the ranks' slices
+    of xe's gradient are gathered, so every rank's dispatch sees the whole
+    of it) and ye is gathered over the model axis along the expert dim:
+    whole expert outputs move, so the combine sees one device's rows, and
+    each rank keeps its own experts' share of ye's gradient (the combine
+    runs replicated)."""
     split = _split("experts")
     wg, wu, wd = (use(p, n, 0 if split else None)
                   for n in ("we_g", "we_u", "we_d"))
-    R, E = xe.shape[:2]
+    E = xe.shape[1]
     if split:
-        ctx = shd.active()
-        c = wg.shape[0]
-        lo = min(ctx["mesh"].coord(ctx["tp"]) * c, E)
-        xe = xe[:, lo:lo + c]
-        if xe.shape[1] < c:
-            xe = torch.cat([xe, xe.new_zeros((R, c - xe.shape[1]) +
-                                             tuple(xe.shape[2:]))], 1)
+        xe = shd.take_slots(xe, 1)
     act = Fn.silu if cfg.mlp != "gelu" else \
         (lambda v: Fn.gelu(v, approximate="tanh"))
     # one expert stack cast to the activation dtype at a time (each cast
@@ -695,7 +696,8 @@ def _expert_ffn(p, xe, cfg: ModelConfig, policy: QuantPolicy):
     ye = mx_einsum("becf,efd->becd", gate * up, wd.to(xe.dtype), policy,
                    axes=(-1, -2), g_axes=(-1, -2))
     if split:
-        ye = shd.all_gather(ye, ctx["tp"], 1)[:, :E]
+        ye = shd.all_gather(ye, shd.active()["tp"], 1,
+                            adjoint="narrow")[:, :E]
     return ye
 
 
@@ -709,7 +711,8 @@ def moe(p, x, cfg: ModelConfig, policy: QuantPolicy):
     B, S, d = x.shape
     E, k = cfg.padded_experts, cfg.top_k
     C = max(1, int(math.ceil(S * k * cfg.capacity_factor / cfg.n_experts)))
-    logits = torch.einsum("bsd,de->bse", x.float(), use(p, "router"))
+    logits = torch.einsum("bsd,de->bse", x.float(),
+                          use(p, "router").float())  # bf16 params promote
     if E != cfg.n_experts:  # mask padded (dead) experts out of routing
         dead = torch.arange(E, device=x.device) >= cfg.n_experts
         logits = logits + torch.where(dead, -1e30, 0.0)

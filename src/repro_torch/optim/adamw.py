@@ -70,7 +70,9 @@ def global_norm(tree, shardings=None) -> torch.Tensor:
     splits, so every element counts once and every rank holds one
     device's norm: the leaves are grouped by those axes, in order, and
     each group's sum all-reduced over each of them.  On a mesh of one
-    rank that is one device's sum, term for term."""
+    rank that is one device's sum, term for term.  The zero rows an
+    uneven split pads (the MoE expert dim) add nothing: the norm is one
+    device's there too."""
     if shardings is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for x in tree_leaves(tree)))

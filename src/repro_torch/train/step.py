@@ -11,11 +11,14 @@ the state itself never carries ``.grad`` buffers.
 On a mesh (``mesh=``, one process per device on ``torch.distributed``)
 the step computes what the JAX package's step jitted under
 ``state_shardings`` / ``batch_shardings`` computes with GSPMD, for the
-dense decoders: each rank holds its slices of the state under the JAX
-rules (``init_state(shardings=)``), takes its rows of the batch
+decoders, dense and MoE: each rank holds its slices of the state under
+the JAX rules (``init_state(shardings=)``; an uneven expert split's
+padded rows are zeros, and stay zeros), takes its rows of the batch
 (``batch_rows``), gathers each FSDP leaf at use and reduce-scatters its
 gradient, splits heads, FFN and vocab over the model axis by the serving
-path's ``blocks.TPPlan`` (built for training), sums the loss over the DP
+path's ``blocks.TPPlan`` (built for training) and runs its own experts
+(routing and dispatch replicated, the experts' outputs gathered, the
+gradient of their inputs gathered back), sums the loss over the DP
 axes (the global batch's mean), all-reduces over the DP axes the
 gradients of the leaves the DP axes do not split, and runs AdamW on its
 slices, the clip's norm summed over the mesh.
@@ -45,7 +48,8 @@ __all__ = ["TrainConfig", "loss_fn", "make_grad_fn", "make_train_step",
 
 # the ROADMAP.md item that brings training on a mesh to the families it
 # does not run yet
-ROADMAP_MESH_TRAINING = "Training the MoE and the other families on a mesh"
+ROADMAP_MESH_TRAINING = ("Training the SSM, hybrid, encoder-decoder and "
+                         "encoder families on a mesh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,13 +198,12 @@ def batch_rows(batch, mesh):
 
 def mesh_train_supported(cfg: ModelConfig):
     """Raise where training on a mesh is not ported yet, naming its
-    ROADMAP.md item: everything but the dense decoders (the MoE configs,
-    the SSM, the hybrid, the encoder-decoder and the encoder)."""
-    if cfg.family != "decoder" or cfg.n_experts:
-        kind = "MoE" if cfg.n_experts else cfg.family
+    ROADMAP.md item: every family but the decoders (the SSM, the hybrid,
+    the encoder-decoder and the encoder)."""
+    if cfg.family != "decoder":
         raise NotImplementedError(
-            f"training {cfg.name} ({kind}) on a mesh is not ported yet "
-            f"(ROADMAP.md, \"{ROADMAP_MESH_TRAINING}\")")
+            f"training {cfg.name} ({cfg.family}) on a mesh is not ported "
+            f"yet (ROADMAP.md, \"{ROADMAP_MESH_TRAINING}\")")
 
 
 def _flatten(tree, prefix=()):

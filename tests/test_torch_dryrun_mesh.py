@@ -34,9 +34,13 @@ layer-period trace, against the JAX package and against real ranks.
   argument bytes -- on (2, 1), (1, 2) and (2, 2); a reduced train cell's
   16x16 record has the JAX keys, a non-empty "reduce-scatter" and the
   argument bytes of the JAX package's ``state_shardings`` and
-  ``batch_shardings``.  A train cell of the MoE configs or the other
-  families on a mesh raises, naming its ROADMAP item, and the CLI writes
-  it as a failure; a mamba2 serving cell on a mesh writes its record.
+  ``batch_shardings``.  The same for the MoE decoders: reduced
+  qwen2-moe's traced step equals the real ranks' on (1, 2) and on the
+  uneven (1, 3), and its 16x16 record's model-axis all-gathers are the
+  experts' output gathers and the takes' gradient gathers.  A train cell
+  of the other families on a mesh raises, naming its ROADMAP item, and
+  the CLI writes it as a failure; a mamba2 serving cell on a mesh writes
+  its record.
 """
 import json
 import math
@@ -64,7 +68,9 @@ from repro_torch.serve import engine as E
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train import step as T
 
+import chip_smoke as CS
 import torch_moe_ranks as MR
+import torch_moe_train_ranks as MTR
 import torch_sharded_ranks as R
 import torch_train_ranks as TR
 from repro.optim import adamw as JA
@@ -332,23 +338,23 @@ def test_layer_period_of_each_pattern():
 # ---------------------------------------------------------------------------
 
 def test_train_and_other_families_on_a_mesh_raise(tmp_path):
-    """A train cell of an MoE config (or of the SSM, the hybrid, the
-    encoder-decoder) on a mesh raises, naming its ROADMAP item, and the
-    CLI writes it as a failure; a dense decoder's train cell on a mesh
-    writes its record now, and a mamba2 serving cell on a mesh writes
-    its record, with the JAX record's keys and its collectives."""
+    """A train cell of the SSM, the hybrid or the encoder-decoder on a
+    mesh raises, naming its ROADMAP item, and the CLI writes it as a
+    failure; a dense decoder's train cell on a mesh writes its record now,
+    and a mamba2 serving cell on a mesh writes its record, with the JAX
+    record's keys and its collectives."""
     SHAPES["mesh_train"] = ShapeConfig("mesh_train", 16, 4, "train")
     try:
         shape = "mesh_train"
         item = dryrun.ROADMAP_TRAINING
-        for arch in ("qwen2-moe-a2.7b-reduced", "mamba2-780m-reduced",
-                     "zamba2-7b-reduced", "whisper-medium-reduced"):
+        for arch in ("mamba2-780m-reduced", "zamba2-7b-reduced",
+                     "whisper-medium-reduced"):
             pol = dryrun.cell_policy("mxsf", SHAPES[shape].kind)
             tcfg, ocfg = dryrun.cell_config(arch)
             with pytest.raises(NotImplementedError, match=item):
                 dryrun.lower_cell(arch, shape, pol, tcfg, ocfg,
                                   mesh=dryrun.mesh_of("2x2"))
-        arch = "qwen2-moe-a2.7b-reduced"
+        arch = "zamba2-7b-reduced"
         with pytest.raises(SystemExit):
             dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
                          "2x2", "--out", str(tmp_path)])
@@ -416,6 +422,38 @@ def test_traced_train_step_equals_the_real_ranks(shape):
     assert got["collectives"]["all-reduce"]["model"][0] > 0
 
 
+@pytest.mark.parametrize("shape", [(1, 2), (1, 3)], ids=["1x2", "1x3"])
+def test_traced_moe_train_step_equals_the_real_ranks(shape):
+    """The sharded train step of reduced qwen2-moe (12 live experts of 16
+    rows; on (1, 3) split 6 / 6 / 4 and 2 zero rows): each rank of a
+    tracing mesh counts what the same rank of a gloo world runs --
+    launches, collectives by kind, axis and operand bytes (the experts'
+    output gathers and the takes' gradient gathers among them, as many as
+    ``chip_smoke.train_collectives`` counts) and argument bytes."""
+    real = run_ranks(MTR.run, math.prod(shape), [(
+        "train_counts", (shape, "2d", TRAIN_SEQ, TRAIN_BATCH), {})])
+    cfg = MTR.config(MTR.QWEN).replace(compute_dtype=get_config(
+        MTR.QWEN).compute_dtype)
+    tcfg, ocfg = dryrun.cell_config(MTR.QWEN)
+    cell = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for rank, (got,) in enumerate(real):
+        mesh = mesh_lib.make_tracing_mesh(shape, rank)
+        inputs, run, info = dryrun.mesh_train_cell(
+            cfg, cell, TR.POLICIES["2d"], mesh, tcfg, ocfg)
+        with cost.count(inputs) as counter:
+            out = run(inputs)
+        traced = counter.summary(out, mesh.shape)
+        assert _as_ranks_count(traced) == {
+            "launches": got["launches"], "collectives": got["collectives"]}
+        assert traced["memory"]["argument_bytes"] == got["argument_bytes"]
+        assert info["tp_plan"]["experts"]
+    want = CS.train_collectives(cfg, TR.POLICIES["2d"], tcfg,
+                                dict(zip(("data", "model"), shape)),
+                                TRAIN_SEQ)
+    assert {k: {a: v[0] for a, v in by.items()}
+            for k, by in got["collectives"].items()} == want
+
+
 def _jax_train_argument_bytes(arch, cell, sizes, names):
     """Per-device bytes of a JAX train cell's inputs under its rules: the
     state under ``state_shardings``, the batch under ``batch_shardings``."""
@@ -459,6 +497,41 @@ def test_train_cell_record_on_the_production_mesh(arch):
     assert rec["batch_rows"] == [0, 2]
     assert rec["memory"]["argument_bytes"] == _jax_train_argument_bytes(
         arch, cell, (16, 16), ("data", "model"))
+
+
+def test_moe_train_cell_record_on_the_production_mesh():
+    """Reduced qwen2-moe's train cell on 16x16 (its 16 expert rows one a
+    model rank): the JAX record's keys, the argument bytes of the JAX
+    package's train-state and batch specs, and the model axis's
+    all-gathers: each MoE layer's gather of its experts' outputs (run
+    again in the remat's recompute) and the take's gather of their input
+    gradient, as ``chip_smoke.train_collectives`` counts them."""
+    arch = "qwen2-moe-a2.7b"
+    cell = ShapeConfig("mesh_train16", 16, 32, "train")
+    cfg = get_config(arch).reduced().replace(n_layers=LAYERS)
+    pol = dryrun.cell_policy("mxsf", "train", backend="cuda")
+    tcfg, ocfg = dryrun.cell_config(arch)
+    SHAPES[cell.name] = cell
+    try:
+        rec = dryrun.lower_cell(arch + "-reduced", cell.name, pol, tcfg,
+                                ocfg, mesh=dryrun.mesh_of("16x16"),
+                                trace="whole", cfg=cfg)
+    finally:
+        del SHAPES[cell.name]
+    for key in ("mesh", "n_devices", "memory", "cost", "collectives",
+                "collective_axes", "roofline", "fits", "model_flops_global",
+                "params_total", "params_active", "policy", "train",
+                "tp_plan", "batch_rows"):
+        assert key in rec, key
+    assert rec["tp_plan"]["experts"] and rec["n_devices"] == 256
+    assert rec["memory"]["argument_bytes"] == _jax_train_argument_bytes(
+        arch, cell, (16, 16), ("data", "model"))
+    want = CS.train_collectives(cfg, pol, tcfg, {"data": 16, "model": 16},
+                                cell.seq_len)
+    gathers = rec["collectives"]["all-gather"]["by_axis"]["model"]["count"]
+    assert gathers == want["all-gather"]["model"] >= 3 * LAYERS
+    assert rec["collectives"]["reduce-scatter"]["by_axis"]["data"][
+        "count"] == want["reduce-scatter"]["data"]
 
 
 def test_tracing_mesh_collectives_have_real_shapes():
