@@ -164,6 +164,23 @@ Phases, each printed as one JSON line:
               one timed step (seconds, the collectives' host share, peak)
               with launches and collectives against their formulas, and
               equal to the mesh worker's trace of it.
+7d. train_sharded_families -- (after phase 7c) the sharded train step
+              of the other families at full width, 2D, the SSD split
+              over the model axis: mamba2-780m (2 of 48 layers, 4 x 512),
+              zamba2-7b (one group of 6 SSD layers and its shared block,
+              4 x 512) and whisper-medium (2 + 2 of 24 + 24 layers, 2 x
+              448 over 1500 frames), each cut printed.  One device per
+              family first (``reorder_reference``: gradients, loss and
+              per-token losses kept on the host, the reorder baseline
+              capped by TRAIN_FAM_CEILING), then one pair of gloo ranks
+              on (1, 2) (``train_family_rank``, results in
+              ``build/chip_smoke_train_families/``) runs the three in
+              turn, with phase 7b's gates: state bytes, every kernel call
+              at the shard-local shapes (``train_local_shapes``),
+              gradients, loss and tokens within REORDER_FACTOR times the
+              baseline's moves, launches and collectives against their
+              formulas, each rank's step equal to its trace; seconds,
+              peak and the collectives' share printed.
 8. train_slice -- one more train step of each layout (on the state the
               phase "train" left, with its first batch) teacher-forced:
               every quantize and requantize call (plain or transposed)
@@ -260,10 +277,11 @@ Phases, each printed as one JSON line:
               its first prefill and decode step teacher-forced as in
               ``slice``.
 15. train_families -- ``MXSF_TRAIN`` (2D, remat ``"dots"``), 2 steps and
-              one profiled, of mamba2-780m (4 x 512), whisper-medium (2 x
-              448 over 1500 frames), internvl2-1b (4 x 512 behind its
-              256-embedding prefix) and zamba2-7b at 12 of its 81 layers
-              (printed), with launches equal to the path's; then one
+              one profiled, of mamba2-780m at 24 of its 48 layers (4 x
+              512), whisper-medium at 6 + 6 of 24 + 24 (2 x 448 over 1500
+              frames), internvl2-1b (4 x 512 behind its 256-embedding
+              prefix) and zamba2-7b at 12 of its 81 layers (each cut
+              printed), with launches equal to the path's; then one
               step of each teacher-forced as in ``train_slice``, and for
               mamba2-780m and whisper-medium two more steps at remat
               ``"none"`` (peak and seconds beside ``"dots"``').
@@ -2309,36 +2327,65 @@ def lm_head_calls(cfg, tcfg, seq):
     return seq // c if 0 < c < seq and seq % c == 0 else 1
 
 
+def _leaf_use(specs, sizes, name, split=None, consumer="replicated"):
+    """(forward, backward) collectives of one ``blocks.use`` of leaf
+    ``name``, ``Counter``s over (kind, axis): a gather of each axis of
+    size > 1 its stored spec splits (``split``'s model axis kept), whose
+    gradient a DP axis reduce-scatters and the model axis narrows, or
+    reduce-scatters where the consumer is split; a split consumer of a leaf
+    the spec keeps whole over "model" enters the split (an all-reduce in
+    the backward, issued whatever the axis size); the cut to the rank's
+    slice of ``split`` (``take_slots``) gathers its gradient."""
+    from collections import Counter
+    from repro_torch.core import sharding as shd
+    spec = specs[name][0]
+    fwd, bwd = Counter(), Counter()
+    for d, entry in enumerate(spec):
+        if d == split and shd.axes_of(entry) == ("model",):
+            continue
+        for axis in shd.axes_of(entry):
+            if sizes[axis] > 1:
+                fwd["all-gather", axis] += 1
+                if axis != "model" or consumer == "split":
+                    bwd["reduce-scatter", axis] += 1
+    if consumer == "split" and "model" not in shd.split_axes(spec):
+        bwd["all-reduce", "model"] += 1
+    if (split is not None and sizes["model"] > 1
+            and shd.axes_of(spec[split]) != ("model",)):
+        bwd["all-gather", "model"] += 1
+    return fwd, bwd
+
+
 def train_collectives(cfg, policy, tcfg, mesh_shape, seq, step=True):
-    """Collectives of one sharded train step of a decoder, dense or MoE
-    (``step`` False: of its gradient function alone) on a mesh of
-    ``mesh_shape`` (``{axis: size}``), by kind and axis, ``{kind: {axis:
-    calls}}``, from the path.  Per microbatch, over the model axis: an
-    all-reduce after each row-parallel linear the TP plan splits (wo, a
-    dense FFN's wd, an MoE layer's shared-expert wd) and for the
-    vocab-parallel lookup, issued whatever the axis size, and in the
-    backward one for each column-parallel entry (before q/k/v, gate/up of
-    a split FFN, each head call of a split vocab); with more than one
-    model rank an all-gather of each head call's logits (a split vocab),
-    of each use of a norm weight the store splits (2 a layer, 4 with
-    post-norms, the final one a head call), backward of each small bias
-    cut to its heads' columns, per MoE layer of the experts' outputs
-    (forward) and of the gradient of the rows each rank took for its
-    experts (backward), and of each use of a leaf the store splits over
-    the model axis where the plan computes it whole.  Over each DP axis
-    of size > 1: an all-gather of every FSDP leaf at each use (a
-    sublayer's linears, an MoE layer's router, expert stacks and shared
-    expert among them, the embedding, the head or the tied embedding a
-    head call) and a reduce-scatter of its gradient, and one all-reduce
-    of the loss sums.  Remat recomputes
-    each remat region (one super-layer: ``moe_every`` sublayers) in the
-    backward, its collectives with it, up to the last tensor the backward
-    needs: the region's last collective, where it is a row-parallel sum,
-    reruns only under a post-norm.  Once a step (per microbatch under
-    ``grad_compress``): an all-reduce over each DP axis of every leaf
-    that axis does not split; and the step's clip norm, one all-reduce of
-    each group of leaves split alike over each axis of size > 1.  Checked
-    for the plans these runs take: the context never gathered."""
+    """Collectives of one sharded train step of any family (``step``
+    False: of its gradient function alone) on a mesh of ``mesh_shape``
+    (``{axis: size}``), by kind and axis, ``{kind: {axis: calls}}``, from
+    the path, as a program of events -- each a leaf use (``_leaf_use``:
+    the norms' weights, every linear, bias, router and expert stack, the
+    embedding, the head), a column entry (``enter_split``, before q/k/v
+    (and a cross-attention's k/v), gate/up, the SSD's in_proj and each
+    head call of a split part: an all-reduce over "model" in the
+    backward), a row-parallel sum (after wo, a dense or shared FFN's down
+    and the SSD's out_proj, and the vocab-parallel lookup: an all-reduce
+    over "model", issued whatever the axis size), the SSD norm's squares
+    (a split consumer's sum: an all-reduce forward and backward), an MoE
+    layer's experts (with more than one model rank: the take's gradient
+    gathered, the outputs gathered) and each LM head call's logits
+    (gathered over "model" where the vocab splits) -- in the remat regions
+    ``_run_layers`` makes: a decoder's super-layer of ``moe_every``
+    sublayers, an SSD layer, a hybrid's group of SSD layers with the
+    shared block (whose leaves are gathered and their gradients
+    reduce-scattered at every application), an encoder or decoder layer.
+    A region's recompute reruns its forward collectives up to the last
+    tensor the backward needs: all but a row-parallel sum that ends the
+    region (a post-norm after it needs it).  Per microbatch besides: the
+    lookup, the head calls (``lm_head_calls``), the encoder's cls,
+    positions, final norm and whole head, and the loss sums over each DP
+    axis of size > 1; then once a step (per microbatch under
+    ``grad_compress``) the all-reduce over each DP axis of every leaf it
+    does not split, and the clip norm's, one all-reduce of each group of
+    leaves split alike over each axis of size > 1.  Checked for the plans
+    these runs take: the context never gathered."""
     import torch
     from collections import Counter
     from repro_torch.core import sharding as shd
@@ -2354,75 +2401,132 @@ def train_collectives(cfg, policy, tcfg, mesh_shape, seq, step=True):
     plan = blocks.tp_plan(cfg, policy, whole, rules.tp_size, train=True)
     if plan.ctx_gather:
         raise AssertionError(f"no train count formula for {plan}")
-    n, p = tcfg.microbatches, cfg.moe_every
-    regions = cfg.n_layers // p
-    rc = int(tcfg.remat != "none")
-    post = int(cfg.post_norms)
-    heads = lm_head_calls(cfg, tcfg, seq)
-    moe = [TR.is_moe_sublayer(cfg, j) for j in range(p)]
-    # the FFN of each sublayer of a region splits (a dense FFN by the
-    # plan's mlp, an MoE layer's shared expert by its shared)
-    ffn = [(plan.shared and bool(cfg.n_shared_experts)) if m else plan.mlp
-           for m in moe]
-    sums = plan.heads * p + sum(ffn)  # row-parallel sums of a region
-    rerun = sums - int(ffn[-1] and not post)
+    sizes = dict(mesh_shape)
+    AR, AG = ("all-reduce", "model"), ("all-gather", "model")
+    tp = sizes["model"] > 1
+
+    def use(name, split=None, consumer="replicated"):
+        fwd, bwd = _leaf_use(specs, sizes, name, split, consumer)
+        return [(fwd, bwd, False)]
+
+    def enter():
+        return [(Counter(), Counter({AR: 1}), False)]
+
+    def row_sum():
+        return [(Counter({AR: 1}), Counter(), True)]
+
+    def gathered_grad():  # a take's backward
+        return [(Counter(), Counter({AG: 1}), False)] if tp else []
+
+    def norm():
+        return use("w")
+
+    def cols(names, split: bool, pre=""):
+        """Column-parallel linears (and biases: their one dim), or whole."""
+        ev = []
+        for name in names:
+            dim = 0 if name.startswith("b") else 1
+            ev += use(pre + name, dim if split else None)
+        return ev
+
+    def row(name, split: bool, pre=""):
+        return (use(pre + name, 0) + row_sum() if split
+                else use(pre + name))
+
+    def attention(pre="", cross=False):
+        hs = plan.heads
+        bias = cfg.qkv_bias
+        ev = (enter() if hs else []) + cols(["wq"] + ["bq"] * bias, hs, pre)
+        ev += enter() if hs and cross else []
+        ev += cols(["wk", "wv"] + ["bk", "bv"] * bias, hs, pre)
+        return ev + row("wo", hs, pre)
+
+    def mlp(split, pre=""):
+        gated = cfg.mlp in ("swiglu", "geglu")
+        ev = enter() if split else []
+        ev += cols((["wg"] if gated else []) + ["wu"], split, pre)
+        return ev + row("wd", split, pre)
+
+    def moe():
+        ev = use("router")
+        for name in ("we_g", "we_u", "we_d"):
+            ev += use(name, 0 if plan.experts else None)
+        if plan.experts:  # the take's gradient, the outputs gathered
+            ev += gathered_grad()
+            ev += [(Counter({AG: 1}), Counter(), False)] if tp else []
+        if cfg.n_shared_experts:
+            ev += mlp(plan.shared, "shared/")
+        return ev
+
+    def sublayer(is_moe=False):
+        post = norm() if cfg.post_norms else []
+        return (norm() + attention() + post + norm()
+                + (moe() if is_moe else mlp(plan.mlp)) + post)
+
+    def ssd_layer():
+        if not plan.ssm:
+            ev = norm()
+            for name in ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log",
+                         "D", "norm_w", "out_proj"):
+                ev += use(name)
+            return ev
+        ev = norm() + enter()
+        for name in ("in_proj", "conv_w", "conv_b"):
+            ev += use(name, consumer="split")
+        for name in ("dt_bias", "A_log", "D"):
+            ev += use(name) + gathered_grad()
+        ev += [(Counter({AR: 1}), Counter({AR: 1}), False)]  # the squares
+        return ev + use("norm_w", 0) + row("out_proj", True)
+
+    def decoder_layer():
+        return (norm() + attention() + norm() + attention("cross/", True)
+                + norm() + mlp(plan.mlp))
+
+    outside = []
+    if cfg.family == "decoder":
+        regions = [sum((sublayer(TR.is_moe_sublayer(cfg, j))
+                        for j in range(cfg.moe_every)), [])] * (
+            cfg.n_layers // cfg.moe_every)
+    elif cfg.family == "ssm":
+        regions = [ssd_layer()] * cfg.n_layers
+    elif cfg.family == "hybrid":
+        G, per, tail = TR.hybrid_split(cfg)
+        regions = [ssd_layer() * per + sublayer()] * G + [ssd_layer()] * tail
+    elif cfg.family == "encdec":
+        regions = ([sublayer()] * cfg.n_enc_layers
+                   + [decoder_layer()] * cfg.n_layers)
+        outside += norm()  # enc_norm
+    elif cfg.family == "encoder":
+        regions = [sublayer()] * cfg.n_layers
+        outside += use("cls") + use("pos") + norm() + use("head")
+    else:
+        raise AssertionError(f"no train count formula for {cfg.family}")
+    if cfg.family != "encoder":  # the lookup and the LM head calls
+        emb_split = shd.axes_of(specs["emb"][0][0]) == ("model",)
+        outside += use("emb", 0) + row_sum() if emb_split else use("emb")
+        head = ("emb", 0) if cfg.tie_embeddings else ("head", 1)
+        call = norm() + (enter() if plan.vocab else []) + use(
+            head[0], head[1] if plan.vocab else None)
+        call += [(Counter({AG: 1}), Counter(), False)] if (
+            plan.vocab and tp) else []
+        outside += call * lm_head_calls(cfg, tcfg, seq)
     out = Counter()
-    emb_split = shd.axes_of(specs["emb"][0][0]) == ("model",)
-    out["all-reduce", "model"] = n * (
-        regions * (sums + plan.heads * p + sum(ffn) + rerun * rc)
-        + emb_split + heads * plan.vocab)
-    head = "emb" if cfg.tie_embeddings else "head"
-    attn = ["wq", "wk", "wv", "wo"]
-    mlp = ["wu", "wd"] + (["wg"] if cfg.mlp in ("swiglu", "geglu") else [])
-    expert = ["router", "we_g", "we_u", "we_d"] + (
-        [f"shared/{k}" for k in mlp] if cfg.n_shared_experts else [])
-    if rules.tp_size > 1:
-        norm_split = specs["w"][0] == ("model",)
-        bias_cut = plan.heads and cfg.qkv_bias and \
-            specs["bq"][0] != ("model",)
-        n_moe = regions * sum(moe) * plan.experts
-
-        def whole(name, split):
-            """A use of a leaf the store splits over the model axis where
-            the plan computes it whole (``split`` None) or split on
-            another dim: gathered over the axis."""
-            spec = specs[name][0]
-            return "model" in shd.split_axes(spec) and (
-                split is None or shd.axes_of(spec[split]) != ("model",))
-
-        def uses(names, split_cols):
-            return sum(whole(k, (1 if k.split("/")[-1] in ("wq", "wk", "wv",
-                                                            "wg", "wu")
-                                 else 0) if split_cols else None)
-                       for k in names)
-
-        biases = ["bq", "bk", "bv"] if cfg.qkv_bias else []
-        per_region = sum(
-            uses(attn + biases, plan.heads)
-            + (uses(["router"], False) + uses(expert[1:4], plan.experts)
-               + uses(expert[4:], plan.shared) if m
-               else uses(mlp, plan.mlp)) for m in moe)
-        head_whole = whole(head, (0 if head == "emb" else 1)
-                           if plan.vocab else None)
-        out["all-gather", "model"] = n * (
-            heads * plan.vocab + norm_split * (
-                (2 + 2 * post) * cfg.n_layers * (1 + rc) + heads)
-            + 3 * cfg.n_layers * bias_cut + n_moe * (2 + rc)
-            + per_region * regions * (1 + rc) + head_whole * heads)
+    for ev in [e for r in regions for e in r] + outside:
+        out.update(ev[0])
+        out.update(ev[1])
+    if tcfg.remat != "none":
+        for r in regions:
+            for e in (r[:-1] if r and r[-1][2] else r):
+                out.update(e[0])
+    n = tcfg.microbatches
+    out = Counter({k: v * n for k, v in out.items()})
     for axis in rules.dp:
-        if mesh_shape[axis] == 1:
+        if sizes[axis] == 1:
             continue
-        fsdp = lambda name: axis in shd.split_axes(specs[name][0])
-        per_region = sum(sum(fsdp(k) for k in attn + (expert if m else mlp))
-                         for m in moe)
-        out["all-gather", axis] = n * (
-            per_region * regions * (1 + rc) + fsdp("emb")
-            + fsdp(head) * heads)
-        out["reduce-scatter", axis] = n * (
-            per_region * regions + fsdp("emb") + fsdp(head) * heads)
+        out["all-reduce", axis] += n  # the loss sums
         whole_leaves = sum(axis not in shd.split_axes(ns.spec)
                            for _, ns in _flatten(sh))
-        out["all-reduce", axis] = n + whole_leaves * (
+        out["all-reduce", axis] += whole_leaves * (
             n if tcfg.grad_compress else 1)
     if step:
         groups = {tuple(a for a in mesh.axis_names if a in set(
@@ -2923,20 +3027,18 @@ TRAIN_SHARD_WAIT_S = 480  # the two-rank run's time limit
 # the programs of the two-rank run: (mesh, layout)
 TRAIN_SHARD_PROGRAMS = (((2, 1), "2d"), ((1, 2), "2d"), ((1, 2), "1d"))
 # the most the one-device reorder baseline may move the gradients (the
-# largest leaf's relative L2) on the card: the move recorded on the H100
-# at TRAIN_SHARD_LAYERS (layers/sub0/attn/wq in both layouts; at 4 layers
-# 0.0540 and 0.0531), plus a sixteenth
-TRAIN_REORDER_CEILING = {"2d": 0.03988563269376755 * 1.0625,
-                         "1d": 0.038670189678668976 * 1.0625}
+# largest leaf's relative L2; layers/sub0/attn/wq in both layouts at every
+# seed), the loss (``loss_move_scale``) and a token's loss (the RMS of its
+# per-token moves) on the card: the largest reading of seeds 0-4 on the
+# H100 at TRAIN_SHARD_LAYERS, plus a sixteenth
+TRAIN_REORDER_CEILING = {"2d": 0.041955478489398956 * 1.0625,
+                         "1d": 0.0421755388379097 * 1.0625}
 # tokens in a block of ``loss_move_scale``'s batch means
 LOSS_BLOCK = 64
-# the most ``loss_move_scale`` of the one-device reorder baseline (the loss)
-# and the RMS of its per-token moves may be on the card: the readings on
-# the H100 at TRAIN_SHARD_LAYERS and seed 0, plus a sixteenth
-TRAIN_LOSS_CEILING = {"2d": 0.0008288274963664516 * 1.0625,
-                      "1d": 0.0008610936891623272 * 1.0625}
-TRAIN_TOKEN_CEILING = {"2d": 0.012158010310409499 * 1.0625,
-                       "1d": 0.010085006605292155 * 1.0625}
+TRAIN_LOSS_CEILING = {"2d": 0.001568137381958805 * 1.0625,
+                      "1d": 0.0014469788008795931 * 1.0625}
+TRAIN_TOKEN_CEILING = {"2d": 0.01571168934384654 * 1.0625,
+                       "1d": 0.015777585372988658 * 1.0625}
 
 
 def train_sharded_plan(rehearsal: bool) -> dict:
@@ -2954,11 +3056,14 @@ def train_sharded_plan(rehearsal: bool) -> dict:
 
 def train_sharded_program(plan: dict, layout: str, backend: str = "cuda"):
     """(config, policy, TrainConfig) of one of the plan's layouts: 2D
-    MXSF_TRAIN, or the 1D layout at the plan's block; remat "dots"."""
+    MXSF_TRAIN, or the 1D layout at the plan's block; remat "dots".  The
+    plan's arch at its ``n_layers`` and the fields of its ``replace``, if
+    any."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.policy import MXSF_TRAIN
     from repro_torch.train import step as T
-    cfg = get_config(plan["arch"]).replace(n_layers=plan["n_layers"])
+    cfg = get_config(plan["arch"]).replace(n_layers=plan["n_layers"],
+                                           **plan.get("replace", {}))
     pol = MXSF_TRAIN.replace(backend=backend)
     if layout == "1d":
         pol = pol.replace(block_mode="1d", quantize_bwd=True,
@@ -2969,16 +3074,18 @@ def train_sharded_program(plan: dict, layout: str, backend: str = "cuda"):
 def trace_train_sharded(plan: dict, prog: dict, rank: int,
                         rehearsal: bool) -> dict:
     """``dryrun.mesh_train_cell`` of one rank of one of the plan's
-    programs on ``meta``: its launches, collectives by kind and axis with
-    their operand bytes, and argument bytes.  The kernels' ``meta``
-    branches take 64-element 1D blocks only, so the rehearsal's 1D
-    program traces through the torch datapath (it launches nothing)."""
+    programs on ``meta`` (a program's own arch and shape, where it names
+    them, in place of the plan's): its launches, collectives by kind and
+    axis with their operand bytes, and argument bytes.  The kernels'
+    ``meta`` branches take 64-element 1D blocks only, so the rehearsal's
+    1D program traces through the torch datapath (it launches nothing)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import cost, dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.optim.adamw import OptConfig
     t0 = time.perf_counter()
     backend = "torch" if rehearsal and prog["layout"] == "1d" else "cuda"
+    plan = dict(plan, **prog)
     cfg, pol, tcfg = train_sharded_program(plan, prog["layout"], backend)
     mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
     inputs, run, info = dryrun.mesh_train_cell(
@@ -3517,7 +3624,7 @@ EP_LAYER = 1  # the layer whose MoE backward the ranks teacher-force
 # the most the one-device reorder baseline may move the gradients (the
 # largest leaf's relative L2; layers/sub0/attn/bk at every seed), the loss
 # (``loss_move_scale``) and a token's loss (RMS) on the card: the largest
-# reading of seeds 0-2 on the H100 (seed 0's each time), plus a sixteenth
+# reading of seeds 0-4 on the H100 (seed 0's each time), plus a sixteenth
 MOE_TRAIN_REORDER_CEILING = 0.053678471595048904 * 1.0625
 MOE_TRAIN_LOSS_CEILING = 0.0016078283998470142 * 1.0625
 MOE_TRAIN_TOKEN_CEILING = 0.019434751136773468 * 1.0625
@@ -3594,6 +3701,55 @@ def moe_flips(torch, got, want):
                 .any(-1).sum()) for g, w in zip(got, want)]
 
 
+def reorder_reference(torch, device, cfg, pol, tcfg, state, batch, phase,
+                      ceilings, **fields):
+    """One device's references for a sharded train program's gates, from
+    ``state`` on ``batch``: the gradient function's loss (finite, within
+    1.5 of ln(outputs) at init), gradients and each token's loss, then
+    the reorder baseline -- the same with every matmul on its plain
+    version (``plain_matmuls``) -- and the tolerances it sets: the
+    gradients' largest leaf move, the loss's ``loss_move_scale`` and the
+    RMS of a token's loss move, each of which may not pass its
+    ``ceilings`` entry (``grads``, ``loss``, ``token``; None: ungated) on
+    the card.  Prints both.  Returns ``dict(loss, baseline, loss_tol,
+    token_tol, nll, grads)``, the tensors on the host (the ranks that
+    follow need the card)."""
+    on_card = device.type == "cuda"
+    loss, grads, nll = _one_device_grads(torch, cfg, pol, tcfg, state,
+                                         batch)
+    ln_v = math.log(n_out(cfg))
+    emit(phase, step="one_device", loss=loss, ln_vocab=ln_v,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, **fields)
+    if not math.isfinite(loss) or abs(loss - ln_v) > 1.5:
+        raise AssertionError(f"{phase}: loss {loss} is not near "
+                             f"ln({n_out(cfg)})")
+    loss_p, plain, nll_p = _one_device_grads(torch, cfg, pol, tcfg, state,
+                                             batch, plain=True)
+    base, base_at = _grads_rel(torch, plain, grads)
+    del plain
+    scale, move, move_se = loss_move_scale(torch, nll_p - nll)
+    token_rms = _rms(torch, nll_p - nll)
+    ref = dict(loss=loss, baseline=base,
+               loss_tol=REORDER_FACTOR * max(scale, 4 * abs(loss) * F32_EPS),
+               token_tol=REORDER_FACTOR * token_rms, nll=nll.cpu(),
+               grads={k: g.float().cpu() for k, g in grads.items()})
+    del grads, nll, nll_p
+    emit(phase, step="reorder_baseline", loss=loss, loss_plain=loss_p,
+         mean_token_nll_move=move, token_move_se=move_se, loss_scale=scale,
+         token_rms_move=token_rms, max_leaf_rel_l2=base, leaf=base_at,
+         loss_tol=ref["loss_tol"], token_tol=ref["token_tol"],
+         ceilings=ceilings, max_memory_allocated=(
+             torch.cuda.max_memory_allocated() if on_card else None),
+         **fields)
+    for name, value in (("grads", base), ("loss", scale),
+                        ("token", token_rms)):
+        if on_card and ceilings[name] is not None and value > ceilings[name]:
+            raise AssertionError(
+                f"{phase}: the reorder baseline's {name} move {value} is "
+                f"past its ceiling {ceilings[name]}")
+    return ref
+
+
 def _moe_one_device(torch, device, plan, batch, args):
     """The one-device references of phase train_sharded_moe, on the card
     before the ranks start (both do not fit it at once): the gradient
@@ -3614,42 +3770,13 @@ def _moe_one_device(torch, device, plan, batch, args):
     state = T.init_state(gen, cfg, OptConfig(), device=device)
     n_moe = cfg.n_layers // cfg.moe_every
     with moe_train_taps(torch, EP_LAYER) as taps:
-        loss, grads, nll = _one_device_grads(torch, cfg, pol, tcfg, state,
-                                             batch)
-    topi, x_ep = taps["topi"][:n_moe], taps["x"]
-    ln_v = math.log(n_out(cfg))
-    emit("train_sharded_moe", step="one_device", loss=loss, ln_vocab=ln_v,
-         n_layers=cfg.n_layers, d_model=cfg.d_model,
-         experts=cfg.padded_experts, top_k=cfg.top_k)
-    if not math.isfinite(loss) or abs(loss - ln_v) > 1.5:
-        raise AssertionError(f"train_sharded_moe: loss {loss} is not near "
-                             f"ln({n_out(cfg)})")
-    loss_p, plain, nll_p = _one_device_grads(torch, cfg, pol, tcfg, state,
-                                             batch, plain=True)
-    base, base_at = _grads_rel(torch, plain, grads)
-    del plain
-    scale, move, move_se = loss_move_scale(torch, nll_p - nll)
-    token_rms = _rms(torch, nll_p - nll)
-    ref = dict(loss=loss, baseline=base, topi=topi,
-               loss_tol=REORDER_FACTOR * max(scale, 4 * abs(loss) * F32_EPS),
-               token_tol=REORDER_FACTOR * token_rms, nll=nll.cpu(),
-               grads={k: g.float().cpu() for k, g in grads.items()})
-    del grads, nll, nll_p
-    ceilings = dict(grads=MOE_TRAIN_REORDER_CEILING,
-                    loss=MOE_TRAIN_LOSS_CEILING,
-                    token=MOE_TRAIN_TOKEN_CEILING)
-    emit("train_sharded_moe", step="reorder_baseline", loss=loss,
-         loss_plain=loss_p, mean_token_nll_move=move, token_move_se=move_se,
-         loss_scale=scale, token_rms_move=token_rms, max_leaf_rel_l2=base,
-         leaf=base_at, loss_tol=ref["loss_tol"], token_tol=ref["token_tol"],
-         ceilings=ceilings, max_memory_allocated=(
-             torch.cuda.max_memory_allocated() if on_card else None))
-    for name, value in (("grads", base), ("loss", scale),
-                        ("token", token_rms)):
-        if on_card and ceilings[name] is not None and value > ceilings[name]:
-            raise AssertionError(
-                f"train_sharded_moe: the reorder baseline's {name} move "
-                f"{value} is past its ceiling {ceilings[name]}")
+        ref = reorder_reference(
+            torch, device, cfg, pol, tcfg, state, batch,
+            "train_sharded_moe", dict(grads=MOE_TRAIN_REORDER_CEILING,
+                                      loss=MOE_TRAIN_LOSS_CEILING,
+                                      token=MOE_TRAIN_TOKEN_CEILING),
+            experts=cfg.padded_experts, top_k=cfg.top_k)
+    ref["topi"], x_ep = taps["topi"][:n_moe], taps["x"]
     # the EP backward on one device, each rank's expert rows saved for it
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     dy = torch.randn(x_ep.shape, generator=gen, device=device).to(
@@ -3839,6 +3966,248 @@ def phase_train_sharded_moe(torch, device, args, rehearsal):
     return {"train_sharded_moe_one_device": one_launches,
             **{f"train_sharded_{p['name']}": r["launches"] or {}
                for p, r in zip(plan["programs"], ranks[0]["programs"])}}
+
+
+# ---------------------------------------------------------------------------
+# training the SSM, hybrid and encoder-decoder families on a mesh
+# ("train_sharded_families")
+# ---------------------------------------------------------------------------
+
+TRAIN_FAM_DIR = ROOT / "build" / "chip_smoke_train_families"  # results
+# and the ranks' gradient slices (removed when the phase ends)
+TRAIN_FAM_BATCH_DIR = ROOT / "build" / "chip_smoke_train_families_batch"
+# each program's batch, saved for the ranks (removed when the phase ends)
+TRAIN_FAM_WAIT_S = 480  # the two-rank run's time limit
+# each family's cut in phase train_sharded_families -- (layers, encoder
+# layers, batch, seq) -- at phase train_families' batch shapes: mamba2 2
+# of 48 layers, zamba2 one group of 6 SSD layers and its shared block (6
+# of 81), whisper 2 + 2 of 24 + 24 over 1500 frames
+TRAIN_FAM_RUNS = {"mamba2-780m": (2, 0, 4, 512), "zamba2-7b": (6, 0, 4, 512),
+                  "whisper-medium": (2, 2, 2, 448)}
+# the most the one-device reorder baseline may move each family's
+# gradients (the largest leaf's relative L2), loss (``loss_move_scale``)
+# and a token's loss (RMS) on the card: the largest reading of seeds 0-4
+# on the H100 at TRAIN_FAM_RUNS' depths, plus a sixteenth
+TRAIN_FAM_CEILING = {
+    arch: {k: v * 1.0625 for k, v in zip(("grads", "loss", "token"), m)}
+    for arch, m in (
+        ("mamba2-780m", (0.009379420429468155, 8.249252346959368e-05,
+                         0.000989145724039573)),
+        ("zamba2-7b", (0.06495145708322525, 0.0032358466392943095,
+                       0.031234403184233532)),
+        ("whisper-medium", (0.03465651348233223, 0.002239376328369632,
+                            0.010136894649202135)))}
+
+
+def train_families_plan(rehearsal: bool) -> dict:
+    """Phase train_sharded_families' programs: each of TRAIN_FAM_RUNS,
+    2D on (1, SHARD_TP), at full width (the rehearsal: the reduced
+    configs at batch 2 x 32, the SSM ones at ``d_model`` 128 so that
+    their SSD splits, zamba2 at one group)."""
+    from repro_torch.configs.base import get_config
+    progs = []
+    for arch, (layers, enc, batch, seq) in TRAIN_FAM_RUNS.items():
+        cfg = get_config(arch)
+        replace = {"n_enc_layers": enc} if enc else {}
+        if rehearsal:
+            arch, batch, seq = arch + "-reduced", 2, 32
+            cfg = cfg.reduced()
+            if cfg.ssm_state:
+                replace["d_model"] = 128
+        if cfg.family == "hybrid":
+            layers = cfg.hybrid_attn_every  # one group, its shared block
+        progs.append(dict(name=f"{cfg.name}_1x{SHARD_TP}_2d", arch=arch,
+                          n_layers=layers, replace=replace, batch=batch,
+                          seq=seq, of_layers=cfg.n_layers,
+                          of_enc_layers=cfg.n_enc_layers,
+                          mesh=[1, SHARD_TP], layout="2d"))
+    return dict(block_1d=BLOCK_1D[rehearsal], programs=progs)
+
+
+def train_local_shapes(cfg, tp=SHARD_TP):
+    """(K, N) of each fused matmul of a train step's forward at ``tp``
+    ranks on the model axis, every part split: the SSD's
+    (``ssd_local_shapes``), the attention's and the FFNs'
+    (``shard_local_shapes``, a cross-attention's alike) and the LM
+    head's."""
+    out = {(cfg.d_model, cfg.padded_vocab // tp)}
+    if cfg.ssm_state:
+        out |= set(ssd_local_shapes(cfg, tp))
+    if cfg.family != "ssm":
+        out |= set(shard_local_shapes(cfg, tp))
+    return sorted(out)
+
+
+def _fam_file(name: str, rank=None) -> Path:
+    if rank is None:
+        return TRAIN_FAM_BATCH_DIR / f"{name}.pt"
+    return TRAIN_FAM_DIR / f"{name}_rank{rank}.pt"
+
+
+def _family_rank_program(torch, device, plan, prog, rank, seed):
+    """One family's (1, SHARD_TP) program of phase train_sharded_families
+    on this rank: the state slices (bytes against ``MeshRules.
+    shard_nbytes``), the gradient function teacher-forced
+    (``checked_kernels`` at the shard-local shapes; the gradient slices
+    saved), each token's loss of its rows from a forward through the
+    sharded path, then one timed step: seconds, the collectives' host
+    share, the peak, launches and collectives against their formulas, and
+    the counts the rank's trace is held to."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.train import step as T
+    prog_plan = dict(plan, **prog)
+    cfg, pol, tcfg = train_sharded_program(prog_plan, prog["layout"])
+    batch = {k: v.to(device) for k, v in torch.load(
+        _fam_file(f"batch_{prog['name']}")).items()}
+    mesh, state, rows, out, faults = _rank_state(torch, device, cfg, prog,
+                                                 batch, seed)
+    grad_fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+    out["tp_plan"] = grad_fn.layout.plan._asdict()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with checked_kernels(torch, train_rtol, None) as chk:
+        metrics, grads = grad_fn(state["params"], rows)
+    out["checked_seconds"] = time.perf_counter() - t0
+    rows_k, kfaults = chk.rows(train_launch_counts(cfg, pol))
+    faults += kfaults
+    got = sorted({(c["k"], c["n"]) for c in chk.calls["mxsf_fused_matmul"]})
+    want = train_local_shapes(cfg, mesh.shape["model"])
+    if got != want:
+        faults.append(f"fused shapes {got} != {want}")
+    out.update(loss=float(metrics["loss"]), kernels=rows_k, fused_kn=got,
+               fused_m=sorted({c["m"] for c in
+                               chk.calls["mxsf_fused_matmul"]}))
+    torch.save({"/".join(p): g.detach().float().cpu()
+                for p, g in T._flatten(grads)},
+               _fam_file(f"grads_{prog['name']}", rank))
+    del grads
+    with torch.no_grad(), grad_fn.layout.hints():
+        logits = TR.forward(state["params"], rows, cfg, pol)
+    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
+               _fam_file(f"nll_{prog['name']}", rank))
+    del logits
+    out["checked_peak"] = (torch.cuda.max_memory_allocated()
+                           if device.type == "cuda" else None)
+    _rank_timed_step(torch, device, prog_plan, cfg, pol, tcfg, mesh, state,
+                     rows, out, faults)
+    del state
+    free_device(torch, device)
+    return out
+
+
+def train_family_rank(rank: str, world: str, port: str, rehearsal: str,
+                      spec_file: str):
+    """One rank of phase train_sharded_families' two-rank run: each
+    family's program in turn (one process start for the three), on the
+    batches the script's process saved; results to TRAIN_FAM_DIR."""
+    spec = json.loads(Path(spec_file).read_text())
+    with gloo_rank(rank, world, port, rehearsal, TRAIN_FAM_DIR) as (
+            torch, device, rank, world, out):
+        out["programs"] = []
+        for prog in spec["plan"]["programs"]:
+            res = _family_rank_program(torch, device, spec["plan"], prog,
+                                       rank, spec["seed"])
+            out["programs"].append(res)
+            if res["faults"]:
+                raise AssertionError(f"{prog['name']}: {res['faults']}")
+
+
+def phase_train_sharded_families(torch, device, args, rehearsal):
+    """Phase train_sharded_families: the sharded train step of mamba2-780m
+    (SSM), zamba2-7b (hybrid) and whisper-medium (encoder-decoder) at full
+    width, cut in depth (TRAIN_FAM_RUNS, each cut printed), 2D, remat
+    "dots", the SSD heads split over the model axis.  First one device,
+    family by family (``reorder_reference``: the gradients, the loss and
+    each token's loss, the reorder baseline and the tolerances it sets,
+    kept on the host; the batch saved for the ranks), then two gloo ranks
+    sharing the card on (1, SHARD_TP) (``train_family_rank``: one pair of
+    processes for the three families).  Gates, per family and rank: state
+    bytes equal to ``MeshRules.shard_nbytes``; every kernel call within
+    ``train_rtol`` at the shard-local shapes (``train_local_shapes``);
+    launches and collectives a step against ``train_launch_counts`` and
+    ``train_collectives``; the gradient slices, the loss and each token's
+    loss of the rank's rows within REORDER_FACTOR times the baseline's
+    moves (capped by TRAIN_FAM_CEILING on the card; the token gate
+    rejecting ``planted_tokens``); each rank's step equal to the mesh
+    worker's trace of it.  Prints each rank's step seconds, peak and the
+    collectives' share.  Returns rank 0's launches of each timed step."""
+    import shutil
+    from repro_torch.core import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    plan = train_families_plan(rehearsal)
+    shutil.rmtree(TRAIN_FAM_BATCH_DIR, ignore_errors=True)
+    TRAIN_FAM_BATCH_DIR.mkdir(parents=True)
+    refs = {}
+    try:
+        for prog in plan["programs"]:
+            cfg, pol, tcfg = train_sharded_program(dict(plan, **prog),
+                                                   prog["layout"])
+            emit("train_sharded_families", step="cut", program=prog["name"],
+                 n_layers=cfg.n_layers, of=prog["of_layers"],
+                 n_enc_layers=cfg.n_enc_layers,
+                 of_enc_layers=prog["of_enc_layers"], batch=prog["batch"],
+                 seq=prog["seq"], d_model=cfg.d_model, mesh=prog["mesh"])
+            batch = make_batches(torch, cfg, args.seed, 1, prog["batch"],
+                                 prog["seq"], device)[0]
+            torch.save({k: v.cpu() for k, v in batch.items()},
+                       _fam_file(f"batch_{prog['name']}"))
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            state = T.init_state(gen, cfg, OptConfig(), device=device)
+            refs[prog["name"]] = reorder_reference(
+                torch, device, cfg, pol, tcfg, state, batch,
+                "train_sharded_families",
+                TRAIN_FAM_CEILING[cfg.name.removesuffix("-reduced")],
+                program=prog["name"])
+            del state, batch
+            free_device(torch, device)
+        ranks = finish_rank_processes(
+            "train_sharded_families", start_rank_processes(
+                "train_family_rank", dict(plan=plan, seed=args.seed),
+                TRAIN_FAM_DIR, SHARD_TP, rehearsal),
+            TRAIN_FAM_DIR, TRAIN_FAM_WAIT_S)
+        faults = []
+        traces = _train_traces(plan, rehearsal)
+        for rank, res in enumerate(ranks):
+            for prog, got in zip(plan["programs"], res["programs"]):
+                cfg, _, _ = train_sharded_program(dict(plan, **prog),
+                                                  prog["layout"])
+                ref = refs[prog["name"]]
+                sh = T.state_shardings(cfg, OptConfig(), shd.AbstractMesh(
+                    tuple(prog["mesh"]), ("data", "model")))["params"]
+                mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
+                mine = {"/".join(p): ref["grads"]["/".join(p)][
+                    shd.shard_slices(ref["grads"]["/".join(p)].shape,
+                                     ns.spec, mesh)]
+                        for p, ns in T._flatten(sh)}
+                rel, rel_at = _grads_rel(torch, torch.load(_fam_file(
+                    f"grads_{prog['name']}", rank), mmap=True), mine)
+                del mine
+                fields, bad = _rank_gates(
+                    torch, ref, got, rel, rel_at, torch.load(_fam_file(
+                        f"nll_{prog['name']}", rank)), mesh,
+                    traces[prog["name"], rank], on_card,
+                    f"{prog['name']} rank {rank}")
+                emit("train_sharded_families", step="check",
+                     program=prog["name"], rank=rank,
+                     tp_plan=got["tp_plan"], state_bytes=got["state_bytes"],
+                     seconds=got["seconds"],
+                     collective_share=got["collective_share"],
+                     max_memory_allocated=got["max_memory_allocated"],
+                     **fields)
+                faults += bad
+        if faults:
+            raise AssertionError(f"train_sharded_families: {faults}")
+    finally:
+        for d in (TRAIN_FAM_DIR, TRAIN_FAM_BATCH_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    emit("train_sharded_families", step="done",
+         seconds=time.perf_counter() - t_phase)
+    return {f"train_sharded_{p['name']}": r["launches"] or {}
+            for p, r in zip(plan["programs"], ranks[0]["programs"])}
 
 
 def phase_train_resume(torch, device, cfg, policy, args, batch, seq,
@@ -4785,7 +5154,9 @@ def phase_serve_vlm(torch, device, args, rehearsal):
 
 def phase_train_families(torch, device, args, rehearsal):
     """``MXSF_TRAIN`` (2D) under the default remat ``"dots"``, 2 steps and
-    one profiled, at full width: mamba2-780m (48 layers, 4 x 512),
+    one profiled, at full width: mamba2-780m cut to 24 of its 48 layers
+    (4 x 512; at 48, 33.6 s the arch on the H100, given back to phase
+    train_sharded_families),
     whisper-medium cut to 6 + 6 of its 24 + 24 layers (2 x 448 over
     1500 frames; at full depth its profiled step alone took 65 s, which
     the script's time budget no longer holds beside phase
@@ -4805,7 +5176,7 @@ def phase_train_families(torch, device, args, rehearsal):
     from repro_torch.core.policy import MXSF_TRAIN
     policy = MXSF_TRAIN.replace(backend="cuda")
     launches = {}
-    runs = (("mamba2-780m", 4, 512, None, True),
+    runs = (("mamba2-780m", 4, 512, 24, True),
             ("whisper-medium", 2, 448, 6, True),
             ("internvl2-1b", 4, 512, None, False),
             ("zamba2-7b", 4, 512, 12, False))
@@ -5261,8 +5632,9 @@ def trace_family(arch: str, prog: dict, rank: int, rehearsal: bool) -> dict:
 
 
 def dryrun_mesh_worker(out_dir: str, rehearsal: str):
-    """The mesh worker: each rank of ``train_sharded_plan``'s programs on
-    its tracing mesh (``trace_train_sharded``: the sharded train step),
+    """The mesh worker: each rank of ``train_sharded_plan``'s,
+    ``train_moe_plan``'s and ``train_families_plan``'s programs on its
+    tracing mesh (``trace_train_sharded``: the sharded train step),
     of ``sharded_engines``' programs and of ``families_plan``'s on a
     tracing mesh of (1, SHARD_TP) (``trace_sharded_engine``,
     ``trace_family``), then ``launch.dryrun``
@@ -5271,7 +5643,8 @@ def dryrun_mesh_worker(out_dir: str, rehearsal: str):
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun
     rehearsal = rehearsal == "1"
-    for plan in (train_sharded_plan(rehearsal), train_moe_plan(rehearsal)):
+    for plan in (train_sharded_plan(rehearsal), train_moe_plan(rehearsal),
+                 train_families_plan(rehearsal)):
         for prog in plan["programs"]:
             for rank in range(SHARD_TP):
                 rec = trace_train_sharded(plan, prog, rank, rehearsal)
@@ -5804,6 +6177,9 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
     launches.update(phase_train_sharded(torch, device, args, rehearsal))
     free_device(torch, device)
     launches.update(phase_train_sharded_moe(torch, device, args, rehearsal))
+    free_device(torch, device)
+    launches.update(phase_train_sharded_families(torch, device, args,
+                                                 rehearsal))
     free_device(torch, device)
     launches["train_resume"] = phase_train_resume(
         torch, device, train_cfg.replace(n_layers=min(2, train_cfg.n_layers)),

@@ -32,12 +32,17 @@ axis.  Outside a ``mesh_context`` every collective is a no-op and
   backward is, at each call site, since that depends on whether its
   consumer on the axis is replicated or split (there is no default: a
   call that needs a gradient without one raises).  ``all_reduce`` of
-  partial sums with a replicated consumer: ``"identity"``; ``all_gather``
+  partial sums with a replicated consumer: ``"identity"``; with a split
+  consumer (each rank reads the sum for its own part of the work, as the
+  SSD's gated norm reads the summed squares for its own heads):
+  ``"all_reduce"``, the gradient summed over the axis; ``all_gather``
   with a replicated consumer: ``"narrow"`` (this rank's slice of the
   gradient), with a consumer whose batch differs by rank (an FSDP leaf
-  over the DP axes): ``"reduce_scatter"``; ``enter_split`` (the identity
-  at the entry to a column-parallel region) all-reduces its gradient over
-  the TP axis; ``to_compute`` states its own.  The backward runs the
+  over the DP axes) or whose part of the work does (a leaf whose columns
+  each TP rank reads its own of): ``"reduce_scatter"``; ``enter_split``
+  (the identity at the entry to a column-parallel region) all-reduces its
+  gradient over the TP axis; ``to_compute`` states its own from its
+  ``consumer``.  The backward runs the
   collective on the mesh and axis its forward ran on, wherever autograd
   runs it; ``carry`` keeps the context for a checkpoint's recompute.
 * ``counts()`` -- collectives issued since ``reset_counts()``, by kind,
@@ -469,17 +474,25 @@ def _reduce_scatter(x: torch.Tensor, axis: str, dim: int,
 
 
 class _AllReduce(torch.autograd.Function):
-    """Sum over an axis whose consumer is replicated: the gradient of each
-    rank's addend is the sum's own (identity)."""
+    """Sum over an axis, its adjoint stated: ``"identity"`` (the consumer
+    is replicated over the axis, so every rank holds the sum's whole
+    gradient, which is each addend's) or ``"all_reduce"`` (each rank's
+    consumer reads the sum for its own part of the work, so each rank
+    holds a partial gradient of the sum, and every addend's is their sum
+    over the axis)."""
 
     @staticmethod
-    def forward(ctx, x, axis, mesh):
+    def forward(ctx, x, axis, mesh, adjoint):
+        ctx.axis, ctx.mesh, ctx.adjoint = axis, mesh, adjoint
         return _all_reduce(x.clone(memory_format=torch.contiguous_format),
                            axis, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        if ctx.adjoint == "all_reduce":
+            g = _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                            ctx.axis, ctx.mesh)
+        return g, None, None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -583,14 +596,16 @@ def all_reduce(x: torch.Tensor, axis: Optional[str] = None,
     tensors only) ``x`` itself (the sum's shape), recorded.  Without a
     gradient the sum is taken in place on ``x`` (made contiguous); with
     one, the call site's ``adjoint`` must be ``"identity"`` (a replicated
-    consumer) and the sum is a new tensor."""
+    consumer) or ``"all_reduce"`` (a split consumer: the backward sums the
+    gradient over the same axis, recorded) and the sum is a new tensor."""
     ctx = _CTX.get()
     mesh = _mesh_of(mesh)
     axis = axis or (ctx["tp"] if ctx else None)
     if mesh is None or axis is None:
         return x
-    if _differentiable("all_reduce", adjoint, ("identity",), x):
-        return _AllReduce.apply(x, axis, mesh)
+    if _differentiable("all_reduce", adjoint, ("identity", "all_reduce"),
+                       x):
+        return _AllReduce.apply(x, axis, mesh, adjoint)
     return _all_reduce(x, axis, mesh)
 
 
@@ -676,26 +691,41 @@ def split_axes(spec, sizes=None) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def to_compute(leaf, spec, shape, split: Optional[int]):
+def to_compute(leaf, spec, shape, split: Optional[int],
+               consumer: str = "replicated"):
     """A rank's slice ``leaf`` of a leaf of logical ``shape`` stored under
     ``spec``, in the layout the tensor-parallel scheme computes with:
     every dim the spec splits is gathered, except ``split`` where the spec
     splits it over the TP axis alone; ``split`` is cut to this rank's TP
     slice (``take_slots``) where the spec does not split it so.  A packed
     leaf moves whole blocks, codes and scales together, so every step is
-    exact.  The
-    adjoints: a gather over a DP axis reduce-scatters the gradient (each
-    DP rank's batch is its own), a gather over the TP axis narrows it (the
-    consumer is replicated there), and the take gathers it."""
+    exact.  The adjoints: a gather over a DP axis reduce-scatters the
+    gradient (each DP rank's batch is its own), and the take gathers it.
+    Over the TP axis the whole leaf's ``consumer`` decides:
+    ``"replicated"`` (every TP rank computes with all of it alike), the
+    gather narrows the gradient; ``"split"`` (each TP rank reads its own
+    parts of the whole leaf, parts that may overlap, as the SSD's heads
+    read their segments of in_proj and all of its B and C columns), each
+    rank holds a partial gradient of the whole leaf: the gather
+    reduce-scatters it into the stored slice, and a leaf the spec keeps
+    whole over the TP axis enters the split (``enter_split``: its
+    gradient all-reduced over the axis)."""
+    if consumer not in ("replicated", "split"):
+        raise ValueError(f"consumer {consumer!r}: expected 'replicated' or "
+                         "'split'")
     ctx = _CTX.get()
     mesh, tp = ctx["mesh"], ctx["tp"]
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    split_tp = consumer == "split"
     for d, entry in enumerate(spec):
         if axes_of(entry) and not (d == split and axes_of(entry) == (tp,)):
             for axis in reversed(axes_of(entry)):  # minor axis first
-                adj = "reduce_scatter" if axis in ctx["dp"] else "narrow"
+                adj = ("reduce_scatter" if axis in ctx["dp"]
+                       or (split_tp and axis == tp) else "narrow")
                 leaf = map_parts(leaf, lambda t: all_gather(
                     t, axis, d, adjoint=adj))
+    if split_tp and tp is not None and tp not in split_axes(spec):
+        leaf = map_parts(leaf, enter_split)
     if split is not None and axes_of(spec[split]) != (tp,):
         leaf = map_parts(leaf, lambda t: take_slots(t, split, tp, mesh))
     if isinstance(leaf, QuantizedTensor):

@@ -59,17 +59,15 @@ run lowers there: decoders, the SSM, the hybrid and the encoder-decoder,
 each through ``M.prefill`` and ``M.decode_step`` (the SSD's TP plan in
 ``models/ssd.py``; a hybrid period is one group of SSD layers with the
 shared block, the tail outside; an encoder-decoder period one encoder and
-one decoder layer); and the train cells of the decoders, dense and MoE:
-the rank's slices of the train state (``state_shardings``; an uneven
-expert split's zero rows included), its batch rows and the sharded
-``make_train_step`` (DP, FSDP, TP and the experts split over the model
-axis, the collectives of its backward among the counts), with the
-per-arch ``ARCH_TRAIN_OVERRIDES`` (llama4-maverick: microbatches 4, bf16
-moments, remat "full").  A train cell of any other family (the SSM, the
-hybrid, the encoder-decoder) raises ``NotImplementedError`` naming its
-ROADMAP.md item (``ROADMAP_TRAINING``), which ``main`` counts as a
-failure.  Results
-land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+one decoder layer); and the train cells of every family: the rank's
+slices of the train state (``state_shardings``; an uneven expert split's
+zero rows included), its batch rows and the sharded ``make_train_step``
+(DP, FSDP, TP, the SSD heads and the experts split over the model axis
+where the training plan splits them, the collectives of its backward
+among the counts), with the per-arch ``ARCH_TRAIN_OVERRIDES``
+(llama4-maverick: microbatches 4, bf16 moments, remat "full").  As in
+the JAX dry run, deit-tiny stays out of the grid.  Results land in
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k --backend cuda
@@ -116,8 +114,6 @@ ARCH_TRAIN_OVERRIDES = {
 }
 
 ONE_CARD = "1x1"
-# the ROADMAP.md item that brings what a mesh does not train yet
-ROADMAP_TRAINING = T.ROADMAP_MESH_TRAINING
 
 
 def mesh_of(name: str):
@@ -254,14 +250,6 @@ def cell_program(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
     return lambda a: serve(a["params"], a["tokens"], a["cache"], a["pos"])
 
 
-def mesh_supported(cfg: ModelConfig, shape: ShapeConfig):
-    """Raise where a mesh cell is not ported yet, naming its ROADMAP.md
-    item: training any family but the decoders, dense and MoE
-    (``train.step.mesh_train_supported``)."""
-    if shape.kind == "train":
-        T.mesh_train_supported(cfg)
-
-
 def _own(t: torch.Tensor) -> torch.Tensor:
     """A ``meta`` tensor of ``t``'s shape with a storage of its own (a
     rank's rows as the per-device argument the JAX cell counts)."""
@@ -276,7 +264,6 @@ def mesh_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     state (``train.step.state_shardings``, each of its own storage) and
     its rows of the batch (``batch_rows``); ``run`` is the sharded
     ``make_train_step``; ``info`` the TP plan and the batch rows."""
-    mesh_supported(cfg, shape)
     whole = T.init_state(torch.Generator(), cfg, ocfg, param_dtype,
                          device="meta")
     state = E.place_store(whole, T.state_shardings(cfg, ocfg, mesh,
@@ -285,9 +272,10 @@ def mesh_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     specs = M.train_specs(cfg, shape)
     rows = T.batch_rows(specs, mesh)
     step = T.make_train_step(cfg, policy, ocfg, tcfg, mesh)
-    n = rows["tokens"].shape[0]
+    first = next(iter(specs))  # every batch leaf splits its rows alike
+    n = rows[first].shape[0]
     lo = n * shd.shard_index(mesh_lib.MeshRules(mesh).data_spec(
-        tuple(specs["tokens"].shape))[0], mesh)
+        tuple(specs[first].shape))[0], mesh)
     info = {"tp_plan": step.layout.plan._asdict(), "batch_rows": [lo, lo + n]}
     inputs = {"state": state, "batch": {k: _own(v) for k, v in rows.items()}}
     return inputs, lambda a: step(a["state"], a["batch"]), info
@@ -303,7 +291,6 @@ def mesh_cell(cfg: ModelConfig, shape: ShapeConfig, policy: QuantPolicy,
     the engine's dispatch around ``M.decode_step`` or ``M.prefill``;
     ``info`` the attention path, the TP plan, the slot rows and the spec of
     the attention cache (of the SSD state where there is none)."""
-    mesh_supported(cfg, shape)
     rules = mesh_lib.MeshRules(mesh)
     whole = M.init_params(cfg, torch.Generator(), "meta")
     store_sh = rules.param_sharding_tree(whole)
@@ -501,8 +488,6 @@ def lower_cell(arch: str, shape_name: str, policy: QuantPolicy,
     ok, reason = M.cell_supported(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": reason}
-    if mesh is not None:
-        mesh_supported(cfg, shape)
     if trace == "auto":
         trace = "whole" if mesh is None else "period"
     tally, info, trace_rec = trace_cell(cfg, shape, policy, tcfg, ocfg,

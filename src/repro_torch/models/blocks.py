@@ -34,8 +34,9 @@ all-reduce over the model axis (wo, where its local rows would tear MX
 blocks: the context gathered and wo whole); head counts come from the
 local shapes.  In training each column-parallel region starts with
 ``sharding.enter_split`` (its backward sums the input's gradient over the
-model axis), each collective states its adjoint, and every FSDP leaf is
-gathered at use (``use``) and its gradient reduce-scattered.
+model axis; in f32 where the region is one linear, ``entered_dense``),
+each collective states its adjoint, and every FSDP leaf is gathered at
+use (``use``) and its gradient reduce-scattered.
 Expert parallelism: an MoE layer routes and dispatches whole on every
 rank, each rank runs its own experts, and their outputs are gathered
 before the combine; the shared expert splits as a dense FFN does.  In
@@ -112,8 +113,8 @@ def model_parts(cfg: ModelConfig, store):
     sublayers, FFNs, SSD blocks).  A decoder's super-layer sublayers; a
     hybrid's shared block and its SSD layers (the tail's share their
     shapes); an encoder-decoder's encoder layers and its decoder's
-    self-, cross-attention and MLP.  The leaves keep their stacked dims:
-    a packed leaf's block covers its trailing dims."""
+    self-, cross-attention and MLP; an encoder's layers.  The leaves keep
+    their stacked dims: a packed leaf's block covers its trailing dims."""
     if cfg.family == "decoder":
         subs = [store["layers"][k] for k in sorted(store["layers"])]
         return [s["attn"] for s in subs], [s["ffn"] for s in subs], []
@@ -126,6 +127,8 @@ def model_parts(cfg: ModelConfig, store):
         enc, dec = store["enc_layers"], store["dec_layers"]
         return ([enc["attn"], dec["self"], dec["cross"]],
                 [enc["ffn"], dec["mlp"]], [])
+    if cfg.family == "encoder":
+        return [store["layers"]["attn"]], [store["layers"]["ffn"]], []
     raise ValueError(f"no tensor-parallel plan for family {cfg.family!r}")
 
 
@@ -196,18 +199,36 @@ def plan():
     return None if ctx is None else ctx.get("plan")
 
 
-def use(p, name, split=None, key=None):
+def use(p, name, split=None, key=None, consumer="replicated"):
     """Leaf ``p[name]`` in the compute layout of the active mesh context
     (``sharding.to_compute``: ``split`` the dim kept split over the model
-    axis); the leaf itself outside one.  ``key``: the name the context
-    files the leaf's spec under, where it is not ``name`` (the MoE shared
-    expert's ``shared/wg``...)."""
+    axis, ``consumer`` whether the model ranks compute with the whole leaf
+    alike or each with its own parts of it); the leaf itself outside one.
+    ``key``: the name the context files the leaf's spec under, where it is
+    not ``name`` (the MoE shared expert's ``shared/wg``...)."""
     ctx = shd.active()
     leaf, key = p[name], key or name
     if ctx is None or key not in ctx.get("specs", {}):
         return leaf
     spec, shape = ctx["specs"][key]
-    return shd.to_compute(leaf, spec, shape, split)
+    return shd.to_compute(leaf, spec, shape, split, consumer)
+
+
+def entered_dense(x, w, policy):
+    """``dense`` of the one linear of a column-parallel region (the LM
+    head, the SSD's in_proj), entering the region itself: with a gradient,
+    x enters (``sharding.enter_split``) as its own values in f32, so each
+    rank's partial input gradient reaches the all-reduce in f32 and is
+    rounded to x's dtype once, after the sum -- as one device rounds its
+    whole f32 sum once -- where a bf16 entry would round each partial
+    first.  The forward is ``dense``'s: w cast to x's dtype, the output
+    rounded to it.  Outside a mesh context or without a gradient:
+    ``dense``."""
+    if shd.active() is None or not (torch.is_grad_enabled()
+                                    and x.requires_grad):
+        return dense(x, w, policy)
+    x32 = shd.enter_split(x.float())
+    return dense(x32, w.to(x.dtype), policy).to(x.dtype)
 
 
 def _row_parallel(x, p, name, split: bool, policy, key=None):

@@ -30,7 +30,14 @@ recurrence runs on local heads with no collective; ``A_log``, ``D`` and
 d_inner sums each rank's f32 squares and all-reduces that sum over the
 model axis (one (B, L, 1) f32 all-reduce; gathering y would move d_inner /
 tp times more); ``norm_w``'s stored split falls on head boundaries.
-``out_proj`` is row-parallel (``blocks._row_parallel``).  The conv tail is
+``out_proj`` is row-parallel (``blocks._row_parallel``).  In training the
+input enters the split (``blocks.entered_dense``), the gathers of
+in_proj, ``conv_w`` and ``conv_b`` reduce-scatter the ranks' partial
+gradients into the stored slices (their consumer is split: B and C serve
+every rank's heads; a leaf stored whole all-reduces them), ``A_log``,
+``D`` and ``dt_bias`` gather their heads' gradients back
+(``sharding.take_slots``), and the norm's all-reduce sums its gradient
+over the model axis.  The conv tail is
 stored split contiguously over its channels: a decode step gathers it,
 cuts its compute channels, gathers the new column's x channels and writes
 back only the slice the rank stores, in place; a prefill returns the tail
@@ -147,10 +154,13 @@ def _take(t: torch.Tensor, dim: int, segments, unit: int = 1):
 def _use_segments(p, name: str, cfg: ModelConfig, proj: bool):
     """Leaf ``p[name]`` whose last dim is in_proj's columns (``proj``) or
     the conv channels, gathered whole and cut to this rank's segments
-    where the plan splits the heads (codes and scales together)."""
-    leaf = blk.use(p, name)
+    where the plan splits the heads (codes and scales together).  Its
+    consumer is split then: each rank reads its heads' columns and all of
+    B and C, so the gather's adjoint reduce-scatters the ranks' partial
+    gradients into the stored slice."""
     if _tp() is None:
-        return leaf
+        return blk.use(p, name)
+    leaf = blk.use(p, name, consumer="split")
     seg = _segments(cfg, proj)
     if not isinstance(leaf, QuantizedTensor):
         return _take(leaf, -1, seg)
@@ -163,13 +173,13 @@ def _use_segments(p, name: str, cfg: ModelConfig, proj: bool):
 
 
 def _use_heads(p, name: str):
-    """A per-head leaf (A_log, D, dt_bias), cut to this rank's heads."""
+    """A per-head leaf (A_log, D, dt_bias; replicated), cut to this rank's
+    heads (``sharding.take_slots``: in the backward the ranks' disjoint
+    slices of its gradient are gathered)."""
     t = blk.use(p, name)
-    tp = _tp()
-    if tp is None:
+    if _tp() is None:
         return t
-    n = t.shape[-1] // tp[2]
-    return t.narrow(-1, tp[1] * n, n)
+    return shd.take_slots(t, -1)
 
 
 def _stored_split(entry: str) -> bool:
@@ -219,8 +229,9 @@ def _gate_out(p, y, z, x_resid, cfg: ModelConfig, policy: QuantPolicy):
     if tp is None:
         var = torch.mean(gf * gf, dim=-1, keepdim=True)
     else:
+        # each rank's heads read the sum: a split consumer
         var = shd.all_reduce(torch.sum(gf * gf, dim=-1, keepdim=True),
-                             tp[0]) / cfg.d_inner
+                             tp[0], adjoint="all_reduce") / cfg.d_inner
     w = blk.use(p, "norm_w", None if tp is None else 0)
     y = (gf * torch.rsqrt(var + 1e-6) * w).to(g.dtype)
     return blk._row_parallel(y, p, "out_proj", tp is not None, policy)
@@ -240,7 +251,9 @@ def ssd_forward(p, u, cfg: ModelConfig, policy: QuantPolicy, *,
     nc = L // Q
     f32 = torch.float32
 
-    zxbcdt = dense(u, _use_segments(p, "in_proj", cfg, True), policy)
+    # the column-parallel region's entry, where the heads split
+    zxbcdt = (blk.entered_dense if _tp() else dense)(
+        u, _use_segments(p, "in_proj", cfg, True), policy)
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     xBC_conv = Fn.silu(_causal_conv(xBC, _use_segments(p, "conv_w", cfg,
                                                        False),

@@ -305,13 +305,13 @@ def lm_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
     # vocab columns split over the model axis and are gathered after
     pl = blk.plan()
     split = pl is not None and pl.vocab
-    if split:  # the column-parallel region's entry
-        x = shd.enter_split(x)
     if "head" in params:
         w = blk.use(params, "head", 1 if split else None)
     else:
         w = blk.use(params, "emb", 0 if split else None).T
-    logits = blk.dense(x, w, policy).float()
+    # the column-parallel region's entry
+    logits = (blk.entered_dense if split else blk.dense)(x, w, policy)
+    logits = logits.float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if split:
@@ -462,7 +462,10 @@ def _hybrid_forward(params, x, positions, cfg: ModelConfig,
                     policy: QuantPolicy, remat: str):
     """Groups of ``per`` SSM layers, each followed by the ONE shared
     attention sublayer (its gradient sums over the applications), then the
-    tail; each group and each tail layer is one remat region."""
+    tail; each group and each tail layer is one remat region.  On a mesh
+    each application gathers the shared block's FSDP leaves at use (again
+    in its group's recompute) and reduce-scatters their gradient: once an
+    application, not once a step."""
     G, per, tail = hybrid_split(cfg)
 
     def group(x, glp, i):
@@ -483,11 +486,13 @@ def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                      remat: str):
     """Encoder classifier: the cls token and learned positions before
     non-causal sublayers, the final rmsnorm, and the head on the cls row,
-    in f32."""
+    in f32.  On a mesh every leaf is brought to its compute layout
+    (``blocks.use``); the head is gathered whole (deit-tiny's 100 classes
+    split two ways leave 50 columns a rank: no whole 8x8 tiles)."""
     x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
     B = x.shape[0]
-    cls = params["cls"].to(x.dtype).expand(B, 1, cfg.d_model)
-    x = torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
+    cls = blk.use(params, "cls").to(x.dtype).expand(B, 1, cfg.d_model)
+    x = torch.cat([cls, x], dim=1) + blk.use(params, "pos").to(x.dtype)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
@@ -497,7 +502,7 @@ def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
 
     x = _run_layers(params["layers"], cfg.n_layers, body, x, remat)
     x = blk.rmsnorm(params["final_norm"], x)
-    return blk.dense(x[:, 0], params["head"], policy).float()
+    return blk.dense(x[:, 0], blk.use(params, "head"), policy).float()
 
 
 def sinusoid_pos(S: int, d: int, offset: int = 0, device=None):
@@ -532,9 +537,10 @@ def _encdec_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
                     remat: str):
     """Decoder hidden states of an encoder-decoder: ``encode`` the
     ``frames``, then causal self-attention, cross-attention to the
-    encoder's states and the MLP per layer."""
+    encoder's states and the MLP per layer.  The tokens' embedding goes
+    through the vocab-parallel ``_lookup``."""
     enc = encode(params, batch["frames"], cfg, policy, remat)
-    x = params["emb"][batch["tokens"].long()].to(
+    x = _lookup(params, batch["tokens"]).to(
         getattr(torch, cfg.compute_dtype))
     B, S, _ = x.shape
     x = x + sinusoid_pos(S, cfg.d_model, device=x.device).to(x.dtype)

@@ -10,18 +10,19 @@ the state itself never carries ``.grad`` buffers.
 
 On a mesh (``mesh=``, one process per device on ``torch.distributed``)
 the step computes what the JAX package's step jitted under
-``state_shardings`` / ``batch_shardings`` computes with GSPMD, for the
-decoders, dense and MoE: each rank holds its slices of the state under
-the JAX rules (``init_state(shardings=)``; an uneven expert split's
+``state_shardings`` / ``batch_shardings`` computes with GSPMD, for every
+family -- the decoders, dense and MoE, the SSM, the hybrid, the
+encoder-decoder and the encoder: each rank holds its slices of the state
+under the JAX rules (``init_state(shardings=)``; an uneven expert split's
 padded rows are zeros, and stay zeros), takes its rows of the batch
 (``batch_rows``), gathers each FSDP leaf at use and reduce-scatters its
-gradient, splits heads, FFN and vocab over the model axis by the serving
-path's ``blocks.TPPlan`` (built for training) and runs its own experts
-(routing and dispatch replicated, the experts' outputs gathered, the
-gradient of their inputs gathered back), sums the loss over the DP
-axes (the global batch's mean), all-reduces over the DP axes the
-gradients of the leaves the DP axes do not split, and runs AdamW on its
-slices, the clip's norm summed over the mesh.
+gradient, splits heads, FFN, vocab and the SSD heads over the model axis
+by the serving path's ``blocks.TPPlan`` (built for training) and runs its
+own experts (routing and dispatch replicated, the experts' outputs
+gathered, the gradient of their inputs gathered back), sums the loss
+over the DP axes (the global batch's mean), all-reduces over the DP axes
+the gradients of the leaves the DP axes do not split, and runs AdamW on
+its slices, the clip's norm summed over the mesh.
 """
 from __future__ import annotations
 
@@ -43,13 +44,7 @@ from ..models import transformer as T
 from ..optim import adamw
 
 __all__ = ["TrainConfig", "loss_fn", "make_grad_fn", "make_train_step",
-           "make_serve_step", "init_state", "state_shardings", "batch_rows",
-           "mesh_train_supported", "ROADMAP_MESH_TRAINING"]
-
-# the ROADMAP.md item that brings training on a mesh to the families it
-# does not run yet
-ROADMAP_MESH_TRAINING = ("Training the SSM, hybrid, encoder-decoder and "
-                         "encoder families on a mesh")
+           "make_serve_step", "init_state", "state_shardings", "batch_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,20 +79,21 @@ def _xent(logits, labels, vocab: int, ignore=-100):
     return s / torch.clamp(n, min=1.0)
 
 
-def _over_dp(s, m):
-    """The sums (nll, labels) over the DP axes of the active mesh context:
-    one all-reduce of both per DP axis of size > 1, whose consumer (the
-    loss) is replicated, so each rank's addend takes the loss's gradient
-    as it is.  Outside a context, or on one DP rank, the sums themselves."""
+def _over_dp(*sums):
+    """Scalar sums (nll, labels, ...) over the DP axes of the active mesh
+    context: one all-reduce of them all per DP axis of size > 1, whose
+    consumer (the loss) is replicated, so each rank's addend takes the
+    loss's gradient as it is.  Outside a context, or on one DP rank, the
+    sums themselves."""
     ctx = shd.active()
     axes = () if ctx is None else tuple(
         a for a in ctx["dp"] if ctx["mesh"].shape[a] > 1)
     if not axes:
-        return s, m
-    both = torch.stack([s, m])
+        return sums
+    both = torch.stack(sums)
     for axis in axes:
         both = shd.all_reduce(both, axis, adjoint="identity")
-    return both[0], both[1]
+    return tuple(both.unbind())
 
 
 def _chunked_lm_loss(params, hidden, labels, cfg: ModelConfig,
@@ -129,10 +125,13 @@ def loss_fn(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         logits = T.forward(params, batch, cfg, policy, remat=tcfg.remat)
         label = batch["label"].long()
         onehot = torch.nn.functional.one_hot(label, cfg.n_classes)
-        loss = -torch.mean(torch.sum(
-            torch.log_softmax(logits, dim=-1) * onehot, dim=-1))
-        acc = torch.mean((torch.argmax(logits, dim=-1) == label).float())
-        return loss, {"loss": loss, "acc": acc}
+        gold = torch.sum(torch.log_softmax(logits, dim=-1) * onehot, dim=-1)
+        hit = (torch.argmax(logits, dim=-1) == label).float()
+        # the global batch's means (on a mesh each DP rank holds its rows)
+        s, h, n = _over_dp(-gold.sum(), hit.sum(),
+                           gold.new_tensor(float(gold.shape[0])))
+        loss = s / n
+        return loss, {"loss": loss, "acc": h / n}
     hidden = T.forward_hidden(params, batch, cfg, policy, remat=tcfg.remat)
     if cfg.frontend_tokens and "embeds" in batch:
         hidden = hidden[:, cfg.frontend_tokens:]  # loss over text positions
@@ -196,16 +195,6 @@ def batch_rows(batch, mesh):
             for k, v in batch.items()}
 
 
-def mesh_train_supported(cfg: ModelConfig):
-    """Raise where training on a mesh is not ported yet, naming its
-    ROADMAP.md item: every family but the decoders (the SSM, the hybrid,
-    the encoder-decoder and the encoder)."""
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) on a mesh is not ported "
-            f"yet (ROADMAP.md, \"{ROADMAP_MESH_TRAINING}\")")
-
-
 def _flatten(tree, prefix=()):
     if isinstance(tree, dict):
         out = []
@@ -229,7 +218,6 @@ class _MeshLayout:
     and the DP axes of size > 1."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy, mesh):
-        mesh_train_supported(cfg)
         self.mesh, self.rules = mesh, mesh_lib.MeshRules(mesh)
         whole = T.init_params(cfg, torch.Generator(), "meta")
         self.param_sh = self.rules.param_sharding_tree(whole)

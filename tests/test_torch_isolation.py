@@ -112,7 +112,8 @@ def test_the_multi_gpu_modules_are_checked(module):
 @pytest.mark.parametrize("helper", ["torch_dist", "torch_sharded_ranks",
                                     "torch_moe_ranks", "torch_family_ranks",
                                     "torch_train_ranks",
-                                    "torch_moe_train_ranks"])
+                                    "torch_moe_train_ranks",
+                                    "torch_family_train_ranks"])
 def test_the_rank_helpers_load_no_jax(helper):
     """What a gloo rank of the sharding tests imports (``tests/<helper>``)
     loads neither JAX nor the JAX package, so the ranks start fast and

@@ -437,13 +437,15 @@ def test_take_slots_and_its_adjoint(ranks, rank, lo, live):
 
 @pytest.mark.parametrize("arch", [QWEN, LLAMA])
 def test_moe_configs_train_on_a_mesh(arch):
-    """The MoE configs pass the mesh's gate (``mesh_train_supported``,
-    ``dryrun.mesh_supported``) and build a sharded step whose plan splits
-    the experts."""
+    """The MoE configs build a sharded step whose plan splits the experts,
+    and their dry-run train cell on the same mesh."""
     from repro_torch.configs.base import get_config
     cfg = get_config(arch).reduced()
-    T.mesh_train_supported(cfg)
-    dryrun.mesh_supported(cfg, dryrun.SHAPES["train_4k"])
     step = T.make_train_step(cfg, TR.POLICIES["2d"], TR.OCFG,
                              T.TrainConfig(), dryrun.mesh_of("2x2"))
     assert step.layout.plan.experts
+    tcfg, ocfg = dryrun.cell_config(cfg.name)
+    _, _, info = dryrun.mesh_train_cell(
+        cfg, dryrun.SHAPES["train_4k"], TR.POLICIES["2d"],
+        dryrun.mesh_of("2x2"), tcfg, ocfg)
+    assert info["tp_plan"]["experts"]

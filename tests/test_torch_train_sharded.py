@@ -374,33 +374,44 @@ def test_checkpoint_saved_on_2x1_restores_on_1x2_bitwise(runs):
 
 
 # ---------------------------------------------------------------------------
-# what training on a mesh refuses
+# every family trains on a mesh
 # ---------------------------------------------------------------------------
+
+def _train_cell_builds(cfg):
+    """The dry run's train_4k cell of ``cfg`` builds on rank 0 of a 2x2
+    tracing mesh (the rank's state slices and batch rows on ``meta``, the
+    sharded step); returns its TP plan."""
+    tcfg, ocfg = dryrun.cell_config(cfg.name)
+    _, run, info = dryrun.mesh_train_cell(
+        cfg, dryrun.SHAPES["train_4k"], R.POLICIES["2d"],
+        dryrun.mesh_of("2x2"), tcfg, ocfg)
+    assert callable(run)
+    return info["tp_plan"]
+
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
                                   "whisper-medium", "deit-tiny"])
 def test_other_families_refuse_to_train_on_a_mesh(arch):
+    """The SSM, hybrid, encoder-decoder and encoder families train on a
+    mesh now (``test_torch_families_train_sharded.py`` holds their sharded
+    step): each family's step builds on a 2x2 tracing mesh, and its
+    dry-run train cell builds too."""
     cfg = get_config(arch).reduced()
-    mesh = dryrun.mesh_of("2x2")
-    item = T.ROADMAP_MESH_TRAINING
-    assert dryrun.ROADMAP_TRAINING == item
-    with pytest.raises(NotImplementedError, match=item):
-        T.make_train_step(cfg, R.POLICIES["2d"], R.OCFG, T.TrainConfig(),
-                          mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        dryrun.mesh_supported(cfg, dryrun.SHAPES["train_4k"])
+    step = T.make_train_step(cfg, R.POLICIES["2d"], R.OCFG,
+                             T.TrainConfig(), dryrun.mesh_of("2x2"))
+    plan = _train_cell_builds(cfg)
+    assert plan == step.layout.plan._asdict()
+    assert not hasattr(T, "mesh_train_supported")
 
 
 def test_a_moe_config_trains_on_a_mesh():
-    """qwen2-moe passes the mesh's train gate now (``test_torch_moe_train_
-    sharded.py`` holds its sharded step): its train step builds on a 2x2
-    tracing mesh with the experts split, and its dry-run cell is
-    supported."""
+    """qwen2-moe trains on a mesh (``test_torch_moe_train_sharded.py``
+    holds its sharded step): its train step builds on a 2x2 tracing mesh
+    with the experts split, and its dry-run train cell builds."""
     cfg = get_config("qwen2-moe-a2.7b").reduced()
-    dryrun.mesh_supported(cfg, dryrun.SHAPES["train_4k"])
     step = T.make_train_step(cfg, R.POLICIES["2d"], R.OCFG,
                              T.TrainConfig(), dryrun.mesh_of("2x2"))
-    assert step.layout.plan.experts
+    assert step.layout.plan.experts and _train_cell_builds(cfg)["experts"]
 
 
 def test_a_collective_on_the_gradient_path_states_its_adjoint():
@@ -429,3 +440,36 @@ def test_a_collective_on_the_gradient_path_states_its_adjoint():
                                             "size": 2}},
                    "reduce_scatter": {"data": {"calls": 1, "bytes": 64,
                                                "size": 2}}}
+
+
+def test_a_split_consumer_states_its_adjoint():
+    """The split-consumer adjoints, recorded on a tracing mesh: an
+    all-reduce whose ranks each read the sum for their own part (the SSD
+    norm's squares) all-reduces its gradient over the same axis; a gather
+    over the model axis whose consumer is split (the SSD's segments of
+    in_proj) reduce-scatters it into the stored slice, and a leaf stored
+    whole over the model axis enters the split instead (an all-reduce)."""
+    mesh = shd.TracingMesh((2, 2), ("data", "model"))
+    x = torch.zeros((4, 2), device="meta", requires_grad=True)
+    shd.reset_counts()
+    y = shd.all_reduce(x, "model", mesh=mesh, adjoint="all_reduce")
+    (g,) = torch.autograd.grad(y.sum(), x)
+    assert tuple(g.shape) == (4, 2)
+    assert {k: v["axes"] for k, v in shd.counts().items()} == {
+        "all_reduce": {"model": {"calls": 2, "bytes": 64, "size": 2}}}
+    with shd.mesh_context(mesh, ("data",), "model"):
+        for spec, kinds in (((None, "model"), {"all_gather", "reduce_scatter"}),
+                            ((None, None), {"all_reduce"})):
+            shd.reset_counts()
+            w = shd.to_compute(x, spec, (4, 4 if spec[1] else 2), None,
+                               consumer="split")
+            (g,) = torch.autograd.grad(w.sum(), x)
+            assert tuple(g.shape) == (4, 2)
+            got = {k: v["axes"] for k, v in shd.counts().items()}
+            assert set(got) == kinds and all(
+                set(a) == {"model"} for a in got.values())
+            if spec[1]:
+                assert tuple(w.shape) == (4, 4)
+                assert got["reduce_scatter"]["model"]["bytes"] == 64
+        with pytest.raises(ValueError, match="consumer"):
+            shd.to_compute(x, (None, None), (4, 2), None, consumer="all")
