@@ -189,8 +189,10 @@ Phases, each printed as one JSON line:
               inputs, every matmul call within ``train_rtol(K)`` =
               TRAIN_SUM_C sqrt(K) 2^-24 of sum|x w| of the exact sum of
               the plain version's products (the plain f32 version's own
-              distance from it printed beside), and the loss within the
-              head's tolerance of the loss of the plain head's logits.
+              distance from it printed beside), the head's forward calls
+              (one a chunk of the chunked loss) the path's, and the loss
+              within the head's tolerance of the loss of the plain head's
+              softcapped logits over every head call.
 9. serve_gemma2 -- gemma2-9b at full width and all 42 layers (softcaps,
               alternating 4096-token SWA: the value-domain cached
               attention): one packed store (~13 GB) shared by two
@@ -285,6 +287,17 @@ Phases, each printed as one JSON line:
               step of each teacher-forced as in ``train_slice``, and for
               mamba2-780m and whisper-medium two more steps at remat
               ``"none"`` (peak and seconds beside ``"dots"``').
+15b. train_gemma2 -- gemma2-2b (``MXSF_TRAIN``, remat ``"dots"``, f32
+              AdamW, uniform seeded tokens: ``lm_source`` prints that its
+              256000^2 table would not fit): run ``full``, all 26 layers
+              at full width, 4 x 512, 2D; run ``long``, 6 of 26 layers
+              (local with the 4096 window and global in turn), 1 x 8192, 2D
+              and 1D, through 8 query chunks of the training attention
+              and 8 head chunks of the chunked loss, with both softcaps.
+              Each: 2 steps and one profiled as in ``train`` (loss within
+              1.5 of ln(vocab), launches equal to the path's, which count
+              one head call a loss chunk), then one teacher-forced as in
+              ``train_slice``, the loss gate over every head chunk.
 16. dryrun -- ``launch/dryrun.py`` traces, on ``meta`` tensors with the
               kernel datapath, phase 7's training shape (h2o-danube-1.8b,
               4 x 512, 2D, remat ``"dots"``) and the decode cells that may
@@ -305,7 +318,7 @@ Phases, each printed as one JSON line:
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
 Phases 9-11c and 14 run right after phase 6, phases 7b and 7c after
-phase 8's 1D slice, phase 15 after phase 13, phases 16-17 last, and a
+phase 8's 1D slice, phases 15-15b after phase 13, phases 16-17 last, and a
 ``done`` line with the whole run's seconds comes before the ``kernels``
 line.
 
@@ -515,15 +528,18 @@ def _f32_steps(kind, reset=True):
     return C.read_f32_steps(kind, reset=reset)
 
 
-def held_to_plain(torch, y, y_ref, xq, wq, keep=False, rtol=MATMUL_RTOL):
+def held_to_plain(torch, y, y_ref, xq, wq, keep=False, rtol=MATMUL_RTOL,
+                  sums=None):
     """A matmul kernel's y against the plain version's y_ref on the same
     inputs (xq, wq: the f32 operands both multiply): max error and its
-    ratio to rtol * sum_k |x_k w_k|; with ``keep`` also the plain output
-    and the tolerance (tensors)."""
+    ratio to rtol * sum_k |x_k w_k| (``sums``, where the caller has it);
+    with ``keep`` also the plain output and the tolerance (tensors)."""
+    if sums is None:
+        sums = torch.matmul(xq.abs(), wq.abs())
+    tol = rtol * sums + 1e-30
     err = (y - y_ref).abs()
-    tol = rtol * torch.matmul(xq.abs(), wq.abs()) + 1e-30
     out = dict(max_abs_err=float(err.max()),
-               err_over_tol=float((err / tol).max()),
+               err_over_tol=float(err.div_(tol).max()),
                finite=bool(torch.isfinite(y).all()
                            and torch.isfinite(y_ref).all()))
     if keep:
@@ -1374,15 +1390,18 @@ def layer_matmuls(cfg):
     return n["ssd"] + 4 * n["attn"] + n["mlp"] + n["enc"] + 4 * n["cross"]
 
 
-def train_launch_counts(cfg, policy, remat="dots"):
+def train_launch_counts(cfg, policy, remat="dots", seq=None, tcfg=None):
     """Kernel launches of one train step, from the path: the layers' raw-
-    weight mx_dots (``layer_matmuls``) plus the head (once: the LM head's
-    S <= xent_chunk; the encoder's on the cls row), each with its
-    backward.  Remat ``"dots"`` recomputes each layer's forward but its
-    matmuls: x and w of each layer matmul are quantized again;
-    ``"full"`` runs the layers' forward again."""
+    weight mx_dots (``layer_matmuls``) plus the head's calls, each with
+    its backward.  The LM head runs once a chunk of the chunked loss of
+    ``tcfg`` over ``seq`` tokens (``lm_head_calls``); without them, and
+    for the encoder's head on the cls row, once.  Remat ``"dots"``
+    recomputes each layer's forward but its matmuls: x and w of each
+    layer matmul are quantized again; ``"full"`` runs the layers'
+    forward again."""
     nl = layer_matmuls(cfg)
-    n = nl + 1
+    n = nl + (1 if tcfg is None or cfg.family == "encoder"
+              else lm_head_calls(cfg, tcfg, seq))
     redo_q, redo_f = {"none": (0, 0), "dots": (2 * nl, 0),
                       "full": (nl, nl)}[remat]
     if policy.block_mode == "2d":
@@ -1478,7 +1497,7 @@ def n_out(cfg):
 
 def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
                 profile=False, phase="train", remat="dots", state=None,
-                batches=None):
+                batches=None, tcfg=None):
     """``steps`` AdamW steps of ``make_train_step`` from random parameters
     (``init_state`` from ``--seed``): loss (and the encoder's accuracy),
     grad norm, lr, step seconds (host clock, synchronised), tokens/s
@@ -1487,9 +1506,10 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
     more step, logged as the others are, runs under the profiler (device
     busy time by kernel; its seconds are the profiled wall time).  The
     step updates the state in place; ``state`` and ``batches`` continue an
-    earlier run (another remat on the same state).  Returns the state, the
-    batches and the launches summed over the ``steps`` steps (the profiled
-    one not among them)."""
+    earlier run (another remat on the same state); ``tcfg`` is the step's
+    ``TrainConfig`` but its remat (the default one without it).  Returns
+    the state, the batches and the launches summed over the ``steps``
+    steps (the profiled one not among them)."""
     from repro_torch.core.packed_store import tree_leaves
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
@@ -1504,15 +1524,15 @@ def phase_train(torch, device, cfg, policy, args, steps, batch, seq, label,
         batches = make_batches(torch, cfg, args.seed, steps + profile, batch,
                                seq, device)
     sync()
+    tcfg = (tcfg or T.TrainConfig()).replace(remat=remat)
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     emit(phase, layout=label, step="init", seconds=time.perf_counter() - t0,
          family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
          n_params=n_params, batch=batch, seq=seq, remat=remat,
          data=(None if cfg.family == "encoder" else lm_source(cfg)),
-         policy=str(policy))
-    step_fn = T.make_train_step(cfg, policy, OptConfig(),
-                                T.TrainConfig(remat=remat))
-    expect = train_launch_counts(cfg, policy, remat)
+         xent_chunk=tcfg.xent_chunk, policy=str(policy))
+    step_fn = T.make_train_step(cfg, policy, OptConfig(), tcfg)
+    expect = train_launch_counts(cfg, policy, remat, seq, tcfg)
     total = dict.fromkeys(expect, 0)
     losses = []
     _f32_steps("mxsf_matmul")
@@ -1589,22 +1609,38 @@ class checked_kernels:
     better a sum than the kernel's (on whisper-medium's head dw, K = 896,
     one dominant product and ~900 small ones of one sign, it is 2.5x
     ``train_rtol(K)`` from the exact sum where the kernel's two-level sum
-    is 0.1x).  The last fused call with ``head_n`` columns keeps the exact
-    output, tolerance and x's dtype in ``head``."""
+    is 0.1x).  The head's forward calls: with ``on_head``, the fused calls
+    made inside the models' head functions (``transformer.lm_head``, once
+    a chunk of the chunked loss, and ``encoder_head``), each passed to
+    ``on_head(exact output, tolerance, x's dtype)`` and then dropped, so
+    no two calls' exact outputs sit side by side; without it, the last
+    fused call with ``head_n`` columns keeps them in ``head``."""
 
-    def __init__(self, torch, rtol, head_n):
+    def __init__(self, torch, rtol, head_n=None, on_head=None):
         self.torch, self.rtol = torch, rtol
-        self.head_n, self.head = head_n, None
+        self.head_n, self.head, self.on_head = head_n, None, on_head
+        self.in_head = 0  # depth of head-function calls being run
         self.calls = {k: [] for k in ("mxsf_fused_matmul", "mxsf_attention",
                                       "mxsf_quantize", "mxsf_requantize",
                                       "mxsf_matmul")}
 
+    def _head_role(self, fn):
+        def head(*args, **kw):
+            self.in_head += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.in_head -= 1
+        return head
+
     def _matmul(self, kind, y, y_plain, xq, wq, keep=False):
         k, torch = xq.shape[1], self.torch
         exact = torch.matmul(xq.double(), wq.double())
-        res = held_to_plain(torch, y, exact, xq, wq, keep, rtol=self.rtol(k))
+        sums = torch.matmul(xq.abs(), wq.abs())
+        res = held_to_plain(torch, y, exact, xq, wq, keep, self.rtol(k),
+                            sums)
         plain = held_to_plain(torch, y_plain, exact, xq, wq,
-                              rtol=self.rtol(k))
+                              rtol=self.rtol(k), sums=sums)
         res.update(k=k, over_sum=res["err_over_tol"] * self.rtol(k),
                    plain_err_over_tol=plain["err_over_tol"])
         self.calls[kind].append(res)
@@ -1661,7 +1697,10 @@ class checked_kernels:
             if emit_codes:
                 res["codes_bitwise"] = same(
                     out[1:], MQ.mxsf_quantize_plain(x, xblk))
-            if n == self.head_n:
+            if self.on_head is not None:
+                if self.in_head:
+                    self.on_head(y_ref, tol, x.dtype)
+            elif n == self.head_n:
                 self.head = (y_ref, tol, x.dtype)
             return out
 
@@ -1681,6 +1720,11 @@ class checked_kernels:
         MQ.mxsf_quantize, MQ.mxsf_requantize = quantize, requantize
         MM.mxsf_matmul, FM.mxsf_fused_matmul = matmul, fused
         MA.mxsf_attention = attention
+        if self.on_head is not None:
+            from repro_torch.models import transformer as TF
+            for name in ("lm_head", "encoder_head"):
+                self.saved.append((TF, name, getattr(TF, name)))
+                setattr(TF, name, self._head_role(getattr(TF, name)))
         return self
 
     def __exit__(self, *exc):
@@ -1728,49 +1772,87 @@ class checked_kernels:
         return rows, faults
 
 
-def _xent(torch, logits, labels):
-    return float(torch.nn.functional.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()))
+def head_sums(torch, cfg, y_ref, tol, labels, cast):
+    """One head call's part of the plain loss: the plain head's exact
+    output ``y_ref`` (rows x padded columns) cast as mx_dot casts the
+    head's output (``cast``) and, in f32, the final softcap as
+    ``lm_head`` applies it; (its cross-entropy summed over ``labels``, the
+    call's rows; their count; the largest logit tolerance: ``tol`` plus
+    one bf16 ulp where the cast rounds to bf16 -- the softcap keeps it,
+    |d/dz c tanh(z / c)| <= 1)."""
+    from repro_torch.models.transformer import head_shape
+    V = head_shape(cfg)[1]
+    logits = y_ref[:, :V].to(cast).float()
+    tol = tol[:, :V]
+    if cast == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch, logits)
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    logits = logits.reshape(-1, V)[:, :n_out(cfg)]
+    labels = labels.reshape(-1).long()
+    nll = torch.nn.functional.cross_entropy(logits, labels, reduction="sum")
+    return float(nll), int((labels != -100).sum()), float(tol.max())
+
+
+def plain_head_loss(heads):
+    """The plain head's loss over every head call (``head_sums`` of each:
+    the mean over all their labels) and its tolerance: logsumexp and the
+    gold logit each move by at most the largest |d logit| of any call."""
+    n = sum(h[1] for h in heads)
+    return (sum(h[0] for h in heads) / max(n, 1),
+            2.0 * max(h[2] for h in heads))
 
 
 def phase_train_slice(torch, device, cfg, policy, state, batch, label,
-                      phase="train_slice"):
+                      phase="train_slice", tcfg=None):
     """One train step teacher-forced (``checked_kernels``): every kernel
     call is held against its plain version on the same inputs, every
-    matmul within ``train_rtol``; the step's loss must match the loss of
-    the plain head's logits within the head's tolerance."""
+    matmul within ``train_rtol``; the head's forward calls must be the
+    path's (``lm_head_calls``: one a chunk of the chunked loss), and the
+    step's loss must match the plain head's loss over all of them
+    (``head_sums`` of each call on its chunk's labels as the call runs,
+    ``plain_head_loss``) within its tolerance.  ``tcfg``: the step's
+    ``TrainConfig`` (the default one without it)."""
     from repro_torch.core.blocking import torch_dtype
-    from repro_torch.models.transformer import head_shape
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
-    step_fn = T.make_train_step(cfg, policy, OptConfig(), T.TrainConfig())
-    from repro_torch.core.packed_store import weight_block
-    V = head_shape(cfg)[1]
-    wb = weight_block(policy)[1]  # the head's codes are padded to it
+    tcfg = tcfg or T.TrainConfig()
+    step_fn = T.make_train_step(cfg, policy, OptConfig(), tcfg)
+    labels = batch["label" if cfg.family == "encoder" else "labels"]
+    seq = None if cfg.family == "encoder" else labels.shape[1]
+    n_heads = 1 if seq is None else lm_head_calls(cfg, tcfg, seq)
+    rows = labels.shape[-1] // n_heads  # each call's labels of a row
+    cast = torch_dtype(cfg.compute_dtype)  # mx_dot's cast of the head
+    heads = []
+
+    def on_head(y_ref, tol, x_dtype):
+        i = len(heads)
+        if i >= n_heads:  # a call past the path's count: counted only
+            heads.append(None)
+            return
+        lab = labels if seq is None else labels[:, i * rows:(i + 1) * rows]
+        heads.append(head_sums(torch, cfg, y_ref, tol, lab, cast))
+
     t0 = time.perf_counter()
-    with checked_kernels(torch, train_rtol, -(-V // wb) * wb) as chk:
+    with checked_kernels(torch, train_rtol, on_head=on_head) as chk:
         _, metrics = step_fn(state, batch)
     seconds = time.perf_counter() - t0
     loss = float(metrics["loss"])
-    # the loss of the plain head's logits, cast as the forward casts them
-    y_ref, tol, _ = chk.head
-    cast = torch_dtype(cfg.compute_dtype)  # mx_dot's cast of the head
-    logits = y_ref[:, :V].to(cast).float()
-    ulp = _bf16_ulp(torch, logits) if cast == torch.bfloat16 else 0.0
-    labels = batch["label" if cfg.family == "encoder" else "labels"]
-    logits = logits.reshape(*labels.shape, V)[..., :n_out(cfg)]
-    loss_plain = _xent(torch, logits, labels)
-    # logsumexp and the gold logit each move by at most max|d logit|
-    loss_tol = 2.0 * float((tol[:, :V] + ulp).max())
-    rows, faults = chk.rows(train_launch_counts(cfg, policy))
+    rows_k, faults = chk.rows(train_launch_counts(cfg, policy, tcfg.remat,
+                                                  seq, tcfg))
+    if len(heads) != n_heads:
+        raise AssertionError(f"{phase} {label}: {len(heads)} head calls, "
+                             f"the path makes {n_heads}")
+    loss_plain, loss_tol = plain_head_loss(heads)
     emit(phase, layout=label, n_layers=cfg.n_layers, loss=loss,
          loss_plain_head=loss_plain, loss_abs_err=abs(loss - loss_plain),
-         loss_tol=loss_tol, seconds=seconds, kernels=rows)
+         loss_tol=loss_tol, head_calls=len(heads), seconds=seconds,
+         kernels=rows_k)
     if abs(loss - loss_plain) > loss_tol:
         faults.append("loss")
     if faults:
         raise AssertionError(f"{phase} {label}: {faults}")
-    return rows
+    return rows_k
 
 
 def _prompts(cfg, seed, lengths):
@@ -1857,7 +1939,9 @@ def device_profile(torch, fn, ranges=()):
     device busy time summed over device kernels, and the top kernels.
     ``ranges``: (module, function name) pairs wrapped in a profiler range
     of that name for the run, each reported with the device time of the
-    kernels launched inside it."""
+    kernels launched inside it.  Host operators are recorded only where
+    ranges need them (a range finds its kernels through its host event):
+    their trace of a training step took 20-30 s to process."""
     from torch.profiler import ProfilerActivity, profile, record_function
     saved = [(mod, name, getattr(mod, name)) for mod, name in ranges]
 
@@ -1871,8 +1955,8 @@ def device_profile(torch, fn, ranges=()):
     try:
         for mod, name, orig in saved:
             setattr(mod, name, ranged(name, orig))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if ranges else [])) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -5207,6 +5291,116 @@ def phase_train_families(torch, device, args, rehearsal):
     return launches
 
 
+# phase train_gemma2's runs: (name, layers (None: all), batch, seq,
+# layouts); the rehearsal's at reduced gemma2-2b (window 16), where the
+# query chunk and the loss chunk are GEMMA2_REHEARSAL_CHUNK (8 of each at
+# seq 64, as 8 of 1024 at 8192 on the card).  ``long`` keeps 6 layers:
+# with the tied head a shallow model at init predicts its input token
+# (x ~ sqrt(d) emb[t] dominates the final norm: at 2 layers the loss read
+# 17.47, not ln(256000) = 12.45; at all 26, 12.85)
+GEMMA2_TRAIN_RUNS = (("full", None, 4, 512, ("2d",)),
+                     ("long", 6, 1, 8192, ("2d", "1d")))
+GEMMA2_REHEARSAL_RUNS = (("full", None, 2, 32, ("2d",)),
+                         ("long", 2, 1, 64, ("2d", "1d")))
+GEMMA2_REHEARSAL_CHUNK = 8
+
+
+def check_head_kernels(torch, device, cfg, rows, seed):
+    """The 2D training kernels at the tied head's shape, d x V: the
+    quantizer on the bf16 head weight ((8,8): a step quantizes it once a
+    loss chunk) bit for bit and timed, and the fused forward emitting x's
+    codes at each M of ``rows`` (a whole batch; one loss chunk), as
+    ``phase_train_kernels`` checks wg's."""
+    from repro_torch.core import blocking as B
+    from repro_torch.models.transformer import head_shape
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    timer = Timer(torch, device)
+    d, V = head_shape(cfg)
+    w = (torch.randn((d, V), generator=gen, device=device)
+         * 0.02).to(torch.bfloat16)
+    _, w8 = check_quantize(torch, timer, w, (8, 8), "head w",
+                           _codec_edge(torch, 128, 256, gen, device))
+    del w
+    for m in rows:
+        x = torch.randn((m, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        x8 = B.quantize(x, "mxsf", (8, 8))
+        check_fused_train(torch, timer, gen, f"head forward, M {m}", x, *w8,
+                          (8, 8), (8, 8), want_codes=(x8.codes,
+                                                      x8.scale_e8m0))
+    del timer
+
+
+def phase_train_gemma2(torch, device, args, rehearsal):
+    """gemma2-2b training: ``MXSF_TRAIN`` on the kernel datapath, remat
+    ``"dots"``, f32 AdamW, seeded weights and uniform seeded tokens
+    (``lm_source``: its 256000^2 f32 table would take 262 GB; printed).
+    Run ``full``: all 26 layers at full width, 4 x 512, 2D.  Run
+    ``long``: 6 of the 26 layers (the even ones local with the 4096
+    window, the odd ones global), 1 x 8192, 2D and 1D: 8 query chunks of
+    ``blocks.ATTN_CHUNK`` (chunks 4-7 lose keys on the local layers) and
+    8 head chunks of ``xent_chunk`` rows, both softcaps.  First the
+    head's kernels at its shape (``check_head_kernels``); then each run
+    and layout: ``phase_train`` (2 steps and one profiled: the loss
+    within 1.5 of ln(vocab), launches equal to the path's), then
+    ``phase_train_slice`` (every kernel call against its plain version,
+    the head's calls the path's, the loss over every head chunk with the
+    final softcap).  Each depth cut printed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import MXSF_TRAIN
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import layer_windows
+    from repro_torch.train.step import TrainConfig
+    pol2 = MXSF_TRAIN.replace(backend="cuda")
+    layouts = {"2d": pol2,
+               "1d": pol2.replace(block_mode="1d", quantize_bwd=True)}
+    base, runs = get_config("gemma2-2b"), GEMMA2_TRAIN_RUNS
+    tcfg, attn_chunk = TrainConfig(), blocks.ATTN_CHUNK
+    if rehearsal:
+        base, runs = base.reduced(), GEMMA2_REHEARSAL_RUNS
+        tcfg = tcfg.replace(xent_chunk=GEMMA2_REHEARSAL_CHUNK)
+        attn_chunk = GEMMA2_REHEARSAL_CHUNK
+    emit("train_gemma2", step="data", data=lm_source(base),
+         lm_table_bytes=4 * base.vocab ** 2, lm_table_max=LM_TABLE_MAX)
+    # the rows of each run's head calls: the batch's, or a loss chunk's
+    check_head_kernels(torch, device, base, sorted({
+        b * (s if lm_head_calls(base, tcfg, s) == 1 else tcfg.xent_chunk)
+        for _, _, b, s, _ in runs}, reverse=True), args.seed)
+    free_device(torch, device)
+    launches = {}
+    saved, blocks.ATTN_CHUNK = blocks.ATTN_CHUNK, attn_chunk
+    try:
+        for run, depth, batch, seq, labels in runs:
+            cfg = base
+            if depth and depth < base.n_layers:
+                emit("train_gemma2", run=run, step="cut", n_layers=depth,
+                     of=base.n_layers)
+                cfg = base.replace(n_layers=depth)
+            emit("train_gemma2", run=run, step="plan", batch=batch, seq=seq,
+                 windows=layer_windows(cfg, cfg.n_layers),
+                 query_chunks=seq // blocks._pick_chunk(seq),
+                 head_calls=lm_head_calls(cfg, tcfg, seq),
+                 attn_softcap=cfg.attn_softcap,
+                 final_softcap=cfg.final_softcap)
+            for label in labels:
+                t0 = time.perf_counter()
+                name = f"{run}_{label}"
+                state, batches, launches[f"train_gemma2_{name}"] = \
+                    phase_train(torch, device, cfg, layouts[label], args, 2,
+                                batch, seq, name, profile=True,
+                                phase="train_gemma2", tcfg=tcfg)
+                phase_train_slice(torch, device, cfg, layouts[label], state,
+                                  batches[0], name, phase="train_gemma2",
+                                  tcfg=tcfg)
+                emit("train_gemma2", layout=name, step="done",
+                     seconds=time.perf_counter() - t0)
+                del state, batches
+                free_device(torch, device)
+    finally:
+        blocks.ATTN_CHUNK = saved
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # the dry run held against the card ("dryrun") and the examples ("examples")
 # ---------------------------------------------------------------------------
@@ -6203,6 +6397,8 @@ def run_phases(torch, device, args, rehearsal, cfg, policy, slots, chunk,
         del state, batches
         free_device(torch, device)
     launches.update(phase_train_families(torch, device, args, rehearsal))
+    free_device(torch, device)
+    launches.update(phase_train_gemma2(torch, device, args, rehearsal))
     launches.update(phase_dryrun(torch, device, args, rehearsal,
                                  procs[:-1]))
     phase_examples(torch, device, rehearsal)

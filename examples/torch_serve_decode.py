@@ -21,8 +21,9 @@ An MoE config serves the same way, each rank running its own experts
     PYTHONPATH=src torchrun --nproc-per-node 2 examples/torch_serve_decode.py --device cpu --mesh 1x2 --arch qwen2-moe-a2.7b-reduced
 
 ``--prefill-chunk auto`` is the port's ``auto_prefill_chunk``: the
-engine-shape heuristic, without the JAX package's measured floor (no
-kernel benchmark is ported).
+engine-shape heuristic, floored by a measured chunk where a
+``BENCH_kernel.json`` (or ``$BENCH_KERNEL_JSON``) has one, as in the JAX
+package.
 """
 import argparse
 import time

@@ -500,7 +500,13 @@ def _encoder_forward(params, batch, cfg: ModelConfig, policy: QuantPolicy,
         return _apply_sublayer(lp, x, cfg, policy, positions=positions,
                                window=NO_WINDOW, causal=False)
 
-    x = _run_layers(params["layers"], cfg.n_layers, body, x, remat)
+    return encoder_head(params, _run_layers(params["layers"], cfg.n_layers,
+                                            body, x, remat), cfg, policy)
+
+
+def encoder_head(params, x, cfg: ModelConfig, policy: QuantPolicy):
+    """The encoder's class logits (B, n_classes) in f32: the final rmsnorm
+    and the head on the cls row of ``x`` (B, S, d)."""
     x = blk.rmsnorm(params["final_norm"], x)
     return blk.dense(x[:, 0], blk.use(params, "head"), policy).float()
 

@@ -74,6 +74,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import os
+import re
 import time
 from collections import deque
 from typing import Callable, Deque, List, NamedTuple, Optional, Union
@@ -97,14 +100,37 @@ __all__ = ["Request", "ServeEngine", "auto_prefill_chunk", "resolve_device",
            "cache_parts", "kv_leaf"]
 
 
-def auto_prefill_chunk(max_len: int, slots: int) -> int:
+def _bench_chunk(path: Optional[str]) -> int:
+    """The chunk a kernel bench measured to beat token-by-token prefill
+    (``BENCH_kernel.json``'s ``kernel_prefill_chunked_dispatches`` row,
+    its ``derived`` field's ``C=``): the file at ``path``, else at
+    ``$BENCH_KERNEL_JSON``, else ``BENCH_kernel.json`` in the working
+    directory; 1 where there is no such file or row, or the file is not
+    JSON."""
+    path = path or os.environ.get("BENCH_KERNEL_JSON", "BENCH_kernel.json")
+    try:
+        with open(path) as f:
+            rows = json.load(f).get("rows", [])
+    except (OSError, ValueError):
+        return 1
+    for row in rows:
+        if row.get("name") == "kernel_prefill_chunked_dispatches":
+            m = re.search(r"C=(\d+)", row.get("derived", ""))
+            if m:
+                return max(1, int(m.group(1)))
+    return 1
+
+
+def auto_prefill_chunk(max_len: int, slots: int,
+                       bench_path: Optional[str] = None) -> int:
     """Resolve ``prefill_chunk="auto"`` from the engine shape: the chunk
     that fills one 256-row M tile across the slot batch, so a full-length
-    prompt still drains in >= 4 chunks, rounded down to a power of two.
-    (The JAX package also floors C by a measured ``BENCH_kernel.json`` row;
-    the port has no such measurement yet.)"""
+    prompt still drains in >= 4 chunks, rounded down to a power of two;
+    floored by a measured chunk (``_bench_chunk`` of ``bench_path``) and
+    capped by ``max_len``, as the JAX package resolves it."""
     c = max(1, min(max_len // 4, 256 // max(slots, 1)))
     c = 1 << (c.bit_length() - 1)
+    c = max(c, _bench_chunk(bench_path))
     return max(1, min(c, max_len))
 
 

@@ -6,6 +6,8 @@ Both engines run the kernel datapath: the JAX one with ``backend="pallas"``
 ``device="cpu"`` (the kernels' plain versions).  Greedy token streams must
 be equal token for token, and the dispatch counts equal.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -171,3 +173,41 @@ def test_moe_configs_pin_token_by_token():
                       backend="cuda", slots=2, max_len=16, prefill_chunk=16,
                       device="cpu")
     assert eng.prefill_chunk == 1
+
+
+BENCH_FILES = {  # what BENCH_kernel.json holds, None: no file
+    "no_file": None,
+    "no_row": json.dumps({"rows": [{"name": "kernel_fused_matmul",
+                                    "derived": "C=512"}]}),
+    "malformed": '{"rows": [',
+    "floor_64": json.dumps({"rows": [
+        {"name": "kernel_prefill_chunked_dispatches",
+         "derived": "P=200,C=64"}]}),
+    "floor_past_max_len": json.dumps({"rows": [
+        {"name": "kernel_prefill_chunked_dispatches",
+         "derived": "P=9000,C=8192"}]})}
+
+
+@pytest.mark.parametrize("case", sorted(BENCH_FILES))
+def test_auto_prefill_chunk_reads_the_bench_floor_as_jax_does(
+        case, tmp_path, monkeypatch):
+    """``auto_prefill_chunk`` of both packages on the same engine shapes,
+    with the bench file given by ``bench_path`` and by
+    ``$BENCH_KERNEL_JSON``: the same C in every case, and the floor
+    reaches it where the heuristic's C is smaller."""
+    from repro.serve.engine import auto_prefill_chunk as jax_chunk
+    from repro_torch.serve.engine import auto_prefill_chunk
+    path = tmp_path / "BENCH_kernel.json"
+    if BENCH_FILES[case] is not None:
+        path.write_text(BENCH_FILES[case])
+    shapes = ((1, 1), (8, 2), (24, 2), (256, 4), (512, 4), (4096, 16),
+              (16, 64))
+    for ml, sl in shapes:
+        want = jax_chunk(ml, sl, bench_path=str(path))
+        assert auto_prefill_chunk(ml, sl, bench_path=str(path)) == want
+        monkeypatch.setenv("BENCH_KERNEL_JSON", str(path))
+        assert auto_prefill_chunk(ml, sl) == want == jax_chunk(ml, sl)
+        monkeypatch.delenv("BENCH_KERNEL_JSON")
+        heuristic = auto_prefill_chunk(ml, sl, str(tmp_path / "none"))
+        floor = {"floor_64": 64, "floor_past_max_len": 8192}.get(case, 1)
+        assert want == min(max(heuristic, floor), ml), (ml, sl)

@@ -179,23 +179,35 @@ P2 = MXSF_TRAIN.replace(backend="cuda")
 P1 = P2.replace(block_mode="1d", quantize_bwd=True)
 
 
-@pytest.mark.parametrize("arch,policy,remat", [
+TRAIN_COUNT_CASES = [  # (arch, policy, remat, the loss's xent_chunk)
     ("h2o-danube-1.8b", P2, "dots"), ("h2o-danube-1.8b", P1, "dots"),
     ("h2o-danube-1.8b", P2, "none"), ("h2o-danube-1.8b", P2, "full"),
     ("qwen2-moe-a2.7b", P2, "dots"), ("mamba2-780m", P2, "dots"),
     ("zamba2-7b", P2, "dots"), ("whisper-medium", P2, "dots"),
-    ("internvl2-1b", P2, "dots")],
-    ids=lambda v: v if isinstance(v, str) else v.block_mode)
+    ("internvl2-1b", P2, "dots"), ("gemma2-2b", P2, "dots"),
+    ("gemma2-2b", P1, "dots")]
+
+
+@pytest.mark.parametrize("arch,policy,remat,xent_chunk", [
+    pytest.param(a, p, r, 1024, id=f"{a}-{p.block_mode}-{r}")
+    for a, p, r in TRAIN_COUNT_CASES] + [
+    pytest.param("gemma2-2b", p, "dots", 8,
+                 id=f"gemma2-2b-{p.block_mode}-dots-xent8") for p in (P2, P1)])
 def test_traced_training_launches_equal_the_paths_counts(arch, policy,
-                                                         remat):
+                                                         remat, xent_chunk):
+    """Seq 16: one head call at the default xent_chunk, two at 8 (the
+    chunked loss runs the head once a chunk)."""
     cfg = _small(arch)
     shape = ShapeConfig("t", 16, 2, "train")
-    tcfg, ocfg = T.TrainConfig(remat=remat), OptConfig()
+    tcfg = T.TrainConfig(remat=remat, xent_chunk=xent_chunk)
+    ocfg = OptConfig()
     inputs = dryrun.cell_inputs(cfg, shape, policy, ocfg)
     with cost.count(inputs) as c:
         dryrun.cell_program(cfg, shape, policy, tcfg, ocfg)(inputs)
-    want = CS.train_launch_counts(cfg, policy, remat)
+    want = CS.train_launch_counts(cfg, policy, remat, shape.seq_len, tcfg)
     assert dict(c.launches) == {k: v for k, v in want.items() if v}
+    if xent_chunk < shape.seq_len:
+        assert want != CS.train_launch_counts(cfg, policy, remat)
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "h2o-danube-1.8b",
