@@ -69,31 +69,45 @@ Phases, each printed as one JSON line:
               and the cache's bytes plus RESTORE_SLACK.  The checkpoint is
               removed when the phase ends.
 6b. serve_sharded -- the engine on a mesh, from phase 6's checkpoint
-              (removed after this phase): first a world of one rank in this
-              process on NCCL, ``ServeEngine.from_checkpoint(mesh=
-              make_test_mesh(1, 1))`` giving phase 6's token streams bit for
-              bit, its launches and collectives (NCCL) against their
-              formulas; then the same engine teacher-forced on those streams
-              with every fused matmul on its plain version (a pure f32
-              reorder: how far that moves the logits calibrates the next
-              step), ``make_compressed_allreduce`` over a gradient-sized tree
-              equal to ``blocking.qdq`` of it bit for bit, and a one-stage
-              ``pipeline_apply`` against the sequential run.  Then SHARD_TP
-              ranks sharing the card on a (1, SHARD_TP) mesh, each a process
-              started after the build, over gloo (NCCL refuses two ranks on
-              one device; collectives go through host memory): each restores
-              only its slices (store bytes equal to ``MeshRules``'
-              prediction, restore peak within store + cache +
-              RESTORE_SLACK), holds every kernel call of its first dispatch
-              against the plain version at its shard-local shape (column-
-              parallel N / tp, row-parallel K / tp, 20 / 4 heads), serves the
-              prompts teacher-forced on phase 6's streams (each step's logits
-              within REORDER_FACTOR times the baseline's largest move,
-              which may not pass REORDER_CEILING on the card; the top-1
-              equal wherever phase 6's top-1/top-2 gap exceeds twice that),
-              launches and collectives against their formulas; rank 0
-              profiles one decode dispatch (idle share, collectives' share).
-              A rank that fails or outlives SHARD_WAIT_S fails the phase.
+              (removed after this phase).  SHARD_TP ranks sharing the card
+              on a (1, SHARD_TP) mesh, each a process started after the
+              build, over gloo (NCCL refuses two ranks on one device;
+              collectives go through host memory): each restores only its
+              slices (store bytes equal to ``MeshRules``' prediction,
+              restore peak within store + cache + RESTORE_SLACK), holds
+              every kernel call of its first dispatch against the plain
+              version at its shard-local shape (column-parallel N / tp,
+              row-parallel K / tp, 20 / 4 heads), serves the prompts
+              teacher-forced on phase 6's streams keeping each emitted
+              logits row, its own choice and a digest of each sublayer's
+              output, launches and collectives against their formulas;
+              rank 0 profiles one decode dispatch (idle share,
+              collectives' share; beside this process's work).  Meanwhile
+              this process runs a world of one rank on NCCL,
+              ``ServeEngine.from_checkpoint(mesh=make_test_mesh(1, 1))``
+              giving phase 6's token streams bit for bit, its launches and
+              collectives (NCCL) against their formulas; the same engine
+              teacher-forced on those streams with every fused matmul on
+              its plain version (the reorder baseline, which may not pass
+              REORDER_CEILING on the card); ``make_compressed_allreduce``
+              over a gradient-sized tree equal to ``blocking.qdq`` of it
+              bit for bit and a one-stage ``pipeline_apply`` against the
+              sequential run; then, on the store that world restored, the
+              emulation of the ranks' plan on one device
+              (``emulating``: the plan stated from the config, the ranks'
+              kernel calls at their shapes, the row-parallel f32 partials
+              summed in rank order).  The exact gate: each rank's plan
+              equal to the emulation's field by field, and its first
+              dispatch's logits, every teacher-forced logits row and
+              choice, and every sublayer digest equal to the emulation's
+              bit for bit (``bitwise_rows`` of ``rows``, the first row and
+              the first sublayer that differ printed); the emulation with
+              a planted misstatement (each row-parallel partial rounded to
+              bf16 before the sum) must miss each rank's first dispatch.
+              The emulation's rows lie within REORDER_FACTOR times the
+              reorder baseline of phase 6's (the one-device top-1 choices
+              off the forced stream printed).  A rank that fails or
+              outlives SHARD_WAIT_S fails the phase.
 7. train   -- full-width h2o-danube-1.8b, all 24 layers, on the card:
               ``init_state`` from ``--seed``, batches from ``lm_batch``
               (4 x 512), ``make_train_step(MXSF_TRAIN, backend="cuda")``
@@ -221,12 +235,17 @@ Phases, each printed as one JSON line:
               forced with the assignments each MoE layer dropped past
               its capacity.
 11b. serve_sharded_moe -- expert parallelism on phase 11's model,
-              store, prompts and streams: a world of one rank in this
-              process on NCCL (tokens bit for bit), then two gloo ranks
-              sharing the card, each holding its half of the experts
+              store, prompts and streams: two gloo ranks sharing the card,
+              each holding its half of the experts
               (``ServeEngine.from_init``), its first dispatch
-              teacher-forced and its logits within the reorder baseline's
-              tolerance.
+              teacher-forced, routing and the gathered expert outputs
+              bitwise on one device's layer inputs, serving teacher-forced
+              on phase 11's streams; meanwhile this process runs a world
+              of one rank on NCCL (tokens bit for bit), the reorder
+              baseline, and the emulation of the ranks' plan on phase
+              11's store (each rank's expert rows on its slots, the shared
+              expert split as the plan says).  The exact gate and the
+              emulation's tolerance as in phase 6b.
 11c. dryrun_mesh -- the dry run on a mesh held against what the ranks of
               phases 6b and 11b ran.  A worker process started with phase
               16's (no card) traces, on ``meta`` tensors, each rank of the
@@ -313,7 +332,8 @@ Phases, each printed as one JSON line:
               memory beside the predicted one with their ratio; step
               seconds no less than the roofline's; finite outputs.
 17. examples -- each ``examples/torch_*.py`` once as a subprocess on the
-              card at a small size: exit 0 and its key lines printed.
+              card at a small size, all at once: exit 0 and its key lines
+              printed.
 18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
@@ -2345,8 +2365,13 @@ def _disk_rates(where, nbytes=2 << 30):
 SHARD_TP = 2  # the two-rank run's model axis
 SHARD_DIR = ROOT / "build" / "chip_smoke_sharded"  # the ranks' results
 SHARD_WAIT_S = 480  # the two-rank run's time limit, restore included
-REORDER_FACTOR = 2.0  # the two-rank logits' tolerance: this many times the
-                      # largest move a pure f32 reorder of the matmuls
+RANK_THREADS = 2  # a rank's CPU threads: the rehearsal's plain kernels sum
+                  # in an order that may depend on them, so the emulation
+                  # of the ranks runs at the same count
+PLANTED = "bf16_partials"  # the misstatement of the plan the exact gate
+                           # must reject (``emulating``)
+REORDER_FACTOR = 2.0  # the emulation's logits' tolerance: this many times
+                      # the largest move a pure f32 reorder of the matmuls
                       # caused on one device (``reorder_baseline``)
 REORDER_CEILING = 0.318359375 + 2.0 ** -5  # the most that move may be on
 # the card: the move recorded on the H100 (0.318359375 in two runs of the
@@ -2676,34 +2701,35 @@ def logit_check(torch, rows, choices, want, ref_logits, floor_tol=0.0):
 
 
 def sharded_serve(torch, eng, cfg, prompts, new_tokens, want, phase,
-                  ref_logits=None, floor_tol=0.0, **fields):
+                  teacher=False, **fields):
     """``serve_run`` on a sharded engine (launches checked there), then its
-    collectives against ``sharded_collectives``.  Without ``ref_logits``
-    the token streams must equal ``want``.  With them (the one-device
-    engine's logits row of each token of ``want``) the engine runs
-    teacher-forced on ``want`` (``tap_emits``) and its logits are held to
-    ``logit_check``.  Returns (token streams, launches, collectives, the
-    teacher-forced check)."""
+    collectives against ``sharded_collectives``.  Free-running, the token
+    streams must equal ``want``.  With ``teacher`` the engine runs
+    teacher-forced on ``want`` and keeps what the exact gate holds to the
+    emulation (``exact_gate``): each emitted token's logits row and the
+    engine's own choice (``tap_emits``), and a digest of each sublayer's
+    output (``layer_taps``).  Returns (token streams, launches,
+    collectives, {rows, choices, taps} or None)."""
     from repro_torch.core import sharding as shd
-    if ref_logits is not None:
+    record = None
+    if teacher:
         rows, choices = tap_emits(eng, cfg, {i + 1: t
                                              for i, t in enumerate(want)})
     shd.reset_counts()
-    outs, launches = serve_run(torch, eng, cfg, prompts, new_tokens, phase,
-                               **fields)
+    with layer_taps(torch) if teacher else contextlib.nullcontext() as taps:
+        outs, launches = serve_run(torch, eng, cfg, prompts, new_tokens,
+                                   phase, **fields)
     got = {k: v["calls"] for k, v in shd.counts().items()
            if k in ("all_reduce", "all_gather")}
     st = eng.stats()
     n = st["prefill_dispatches"] + st["decode_dispatches"]
     expect = {k: v * n for k, v in sharded_collectives(cfg, eng).items()
               if v}
-    check, faults = None, []
-    if ref_logits is None:
-        if outs != want:
-            faults.append(f"token streams {outs} != the reference's {want}")
-    else:
-        check, faults = logit_check(torch, rows, choices, want, ref_logits,
-                                    floor_tol)
+    faults = []
+    if teacher:
+        record = dict(rows=rows, choices=choices, taps=taps)
+    elif outs != want:
+        faults.append(f"token streams {outs} != the reference's {want}")
     if got != expect:
         faults.append(f"collectives {got} != {expect}")
     emit(phase, step="collectives", **fields, collectives=got,
@@ -2711,10 +2737,10 @@ def sharded_serve(torch, eng, cfg, prompts, new_tokens, want, phase,
              k: v["seconds"] for k, v in shd.counts().items()},
          collective_bytes_per_dispatch={
              k: v["bytes"] / n for k, v in shd.counts().items()},
-         same_tokens=outs == want, teacher_forced=check)
+         same_tokens=outs == want, teacher_forced=teacher)
     if faults:
         raise AssertionError(f"{phase} {fields}: {faults}")
-    return outs, launches, got, check
+    return outs, launches, got, record
 
 
 def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
@@ -2744,6 +2770,338 @@ def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
     return check
 
 
+# ---------------------------------------------------------------------------
+# the (1, SHARD_TP) plan emulated on one device: the exact gate of phases
+# serve_sharded and serve_sharded_moe
+# ---------------------------------------------------------------------------
+
+def emulated_plan(cfg, policy, tp=SHARD_TP) -> dict:
+    """The plan of a decoder's packed serving store on a (1, ``tp``) mesh,
+    stated from the config and the policy's 1D blocks alone (not from
+    ``blocks.tp_plan``, which the exact gate holds to it field by field):
+    the heads split where the query and kv heads both do; a row-parallel
+    linear (wo, a dense FFN's wd, the shared expert's wd) splits where its
+    local K holds whole blocks (wo otherwise runs whole on the gathered
+    context: ``ctx_gather``); the vocab where the padded vocab splits; the
+    experts whenever there are some and ``tp`` > 1.  Keyed as ``TPPlan``'s
+    fields."""
+    if policy.block_mode != "1d":
+        raise ValueError(f"the emulation states 1D serving plans, not "
+                         f"{policy.block_mode!r}")
+    n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
+    shared = cfg.expert_ff * cfg.n_shared_experts if n_moe else 0
+
+    def rows(k):
+        return k % tp == 0 and (k // tp) % policy.block_1d == 0
+
+    heads = cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
+    return dict(heads=heads, mlp=cfg.n_layers > n_moe and rows(cfg.d_ff),
+                vocab=cfg.padded_vocab % tp == 0,
+                experts=n_moe > 0 and tp > 1,
+                shared=shared > 0 and rows(shared), ssm=False,
+                ctx_gather=heads and not rows(cfg.n_heads * cfg.head_dim))
+
+
+def emulated_roles(plan: dict) -> dict:
+    """Each packed leaf's role under ``plan``, by its name in the store
+    (the last two parts of its path): ``"cols"`` (column-parallel) or
+    ``"rows"`` (row-parallel); a leaf not named runs whole."""
+    roles = {}
+    if plan["heads"]:
+        roles.update({f"attn/{n}": "cols" for n in ("wq", "wk", "wv")})
+        if not plan["ctx_gather"]:
+            roles["attn/wo"] = "rows"
+    for part, pre in (("mlp", "ffn"), ("shared", "shared")):
+        if plan[part]:
+            roles.update({f"{pre}/wg": "cols", f"{pre}/wu": "cols",
+                          f"{pre}/wd": "rows"})
+    if plan["vocab"]:
+        roles["head"] = "cols"
+    return roles
+
+
+@contextlib.contextmanager
+def emulating(torch, store, plan: dict, tp=SHARD_TP, planted=None):
+    """Inside the block a one-device engine over ``store`` computes what
+    the ``tp`` ranks of ``plan`` compute, through the kernels at the
+    ranks' shapes (this script's hook, as ``reorder_baseline``'s kernel
+    swap is).  Each fused matmul's role comes from the store leaf whose
+    codes it reads (``emulated_roles``; wq and wo are both 5120 x 5120 in
+    qwen2.5-32b): column-parallel, ``tp`` calls on the column slices,
+    concatenated; row-parallel, ``tp`` calls on the K slices, whose f32
+    partials are summed in rank order (with two ranks the all-reduce's
+    ``a + b``) and left for ``mx_dot`` to round once; otherwise one call.
+    Attention (with ``plan["heads"]``): ``tp`` calls, each on one rank's
+    query heads and its kv heads' slice of the cache.  The routed experts
+    (with ``plan["experts"]``): ``blocks._expert_ffn`` once a rank on its
+    expert rows and their slots, concatenated as the ranks' all-gather
+    concatenates them.  Norms, the router, rope, the lookup and sampling
+    run once, as every rank runs them whole.  ``planted`` misstates the
+    plan (the negative control): ``"bf16_partials"`` rounds each
+    row-parallel partial to bf16 before the sum, ``"rows_swapped"``
+    multiplies each rank's K slice of x by the other rank's rows."""
+    from repro_torch.ckpt.ckpt import _iter_leaves
+    from repro_torch.core.blocking import QuantizedTensor
+    from repro_torch.kernels import mxsf_attention as MA
+    from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.models import blocks as TB
+    if planted not in (None, "bf16_partials", "rows_swapped"):
+        raise ValueError(f"no planted misstatement {planted!r}")
+    kf, ka, kx = FM.mxsf_fused_matmul, MA.mxsf_attention, TB._expert_ffn
+    roles, names = emulated_roles(plan), {}
+    for path, leaf in _iter_leaves(store):
+        if isinstance(leaf, QuantizedTensor):
+            key = leaf.codes.untyped_storage().data_ptr()
+            if key in names:
+                raise AssertionError(f"{path} shares its codes' storage")
+            names[key] = "/".join(path[-2:])
+
+    def cut(t, dim, r, n):
+        return t.narrow(dim, r * n, n).contiguous()
+
+    def fused(x, codes, scales, xblk=(1, 64), wblk=(64, 1),
+              quantize_lhs=True, emit_codes=False):
+        name = names.get(codes.untyped_storage().data_ptr())
+        if name is None or emit_codes or not quantize_lhs:
+            raise AssertionError(f"a fused call serving does not make "
+                                 f"(weight {name})")
+        role = roles.get(name)
+        k, n = codes.shape
+        if role == "cols":
+            return torch.cat([kf(x, cut(codes, 1, r, n // tp),
+                                 cut(scales, 1, r, n // tp // wblk[1]),
+                                 xblk, wblk) for r in range(tp)], 1)
+        if role != "rows":
+            return kf(x, codes, scales, xblk, wblk)
+        if x.shape[1] != k:
+            raise AssertionError(f"{name}: K {x.shape[1]} != rows {k}")
+        acc = None
+        for r in range(tp):
+            w = tp - 1 - r if planted == "rows_swapped" else r
+            y = kf(cut(x, 1, r, k // tp), cut(codes, 0, w, k // tp),
+                   cut(scales, 0, w, k // tp // wblk[0]), xblk, wblk)
+            if planted == "bf16_partials":
+                y = y.to(torch.bfloat16).float()
+            acc = y if acc is None else acc + y
+        return acc
+
+    def attention(q, kc, ks, vc, vs, *, causal=True, kv_len=None,
+                  q_offset=None, window=None):
+        if kc.ndim != 4:
+            raise AssertionError("attention off the cache layout")
+        BH, S, dh = q.shape
+        B, kv = kc.shape[0], kc.shape[2]
+        h = BH // B
+
+        def mine(v, r):  # rank r's rows of a per-row (BH,) argument
+            if not torch.is_tensor(v):
+                return v
+            return cut(v.reshape(B, h), 1, r, h // tp).reshape(-1)
+
+        outs = [ka(cut(q.reshape(B, h, S, dh), 1, r, h // tp).reshape(
+            -1, S, dh), *(cut(t, 2, r, kv // tp) for t in (kc, ks, vc, vs)),
+            causal=causal, kv_len=mine(kv_len, r),
+            q_offset=mine(q_offset, r), window=mine(window, r)).reshape(
+            B, h // tp, S, dh) for r in range(tp)]
+        return torch.cat(outs, 1).reshape(BH, S, dh)
+
+    def experts(p, xe, cfg, policy):
+        E = xe.shape[1]
+        if E % tp:
+            raise AssertionError(f"{E} expert rows do not split {tp} ways")
+        c = E // tp
+        return torch.cat([kx(dict(p, **{n: p[n].narrow(0, r * c, c)
+                                        for n in ("we_g", "we_u", "we_d")}),
+                             xe.narrow(1, r * c, c), cfg, policy)
+                          for r in range(tp)], 1)
+
+    FM.mxsf_fused_matmul = fused
+    if plan["heads"]:
+        MA.mxsf_attention = attention
+    if plan["experts"]:
+        TB._expert_ffn = experts
+    try:
+        yield
+    finally:
+        FM.mxsf_fused_matmul, MA.mxsf_attention, TB._expert_ffn = kf, ka, kx
+
+
+@contextlib.contextmanager
+def layer_taps(torch):
+    """Inside the block, a digest of each sublayer's output, in call order:
+    ``blocks.attention``'s (after wo) and ``transformer._apply_ffn``'s,
+    layer after layer, dispatch after dispatch (this script's hook, as
+    ``moe_taps`` is).  A rank's are whole after their all-reduce, so a rank
+    and the emulation digest the same tensors.  Yields the list."""
+    import hashlib
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import transformer as TF
+    digests, attention, ffn = [], TB.attention, TF._apply_ffn
+
+    def digest(t):
+        raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+        return hashlib.blake2b(raw, digest_size=16).hexdigest()
+
+    def attn(*a, **kw):
+        out = attention(*a, **kw)
+        digests.append(digest(out[0]))
+        return out
+
+    def mlp(*a, **kw):
+        out = ffn(*a, **kw)
+        digests.append(digest(out))
+        return out
+
+    TB.attention, TF._apply_ffn = attn, mlp
+    try:
+        yield digests
+    finally:
+        TB.attention, TF._apply_ffn = attention, ffn
+
+
+@contextlib.contextmanager
+def rank_threads(torch, n=RANK_THREADS):
+    """The block at a rank's CPU thread count."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def run_first(torch, eng, prompts):
+    """``eng``'s first prefill dispatch of ``prompts`` (a chunk of each
+    slot's prompt from position 0) on a zeroed copy of its cache: its
+    logits (each slot's row at its last valid token, f32) on the host."""
+    B, C = eng.slots, eng.prefill_chunk
+    toks = torch.zeros((B, C), dtype=torch.int64)
+    nv = torch.zeros(B, dtype=torch.int64)
+    for s, p in enumerate(prompts[:B]):
+        n = min(C, len(p))
+        toks[s, :n] = torch.tensor(p[:n])
+        nv[s] = n
+    dev = eng.device
+    cache = {k: torch.zeros_like(v) for k, v in eng.cache.items()}
+    return eng._prefill(eng.params, toks.to(dev), cache,
+                        torch.zeros(B, dtype=torch.int64, device=dev),
+                        nv.to(dev))[0].float().cpu()
+
+
+def emulate_serving(torch, eng, cfg, prompts, new_tokens, want,
+                    planted=PLANTED):
+    """The (1, SHARD_TP) ranks' serving emulated on ``eng``, a one-device
+    engine over the whole store that has served nothing yet, at the ranks'
+    CPU thread count: the first dispatch (``run_first``) under the plan
+    and under the plan misstated by ``planted``, then the prompts
+    teacher-forced on ``want`` with each emitted row, choice and sublayer
+    digest kept, as ``sharded_serve`` keeps them on a rank.  Returns the
+    plan, both first dispatches' logits, the rows, choices and digests,
+    and the seconds."""
+    t0 = time.perf_counter()
+    plan = emulated_plan(cfg, eng.policy)
+    rows, choices = tap_emits(eng, cfg, {i + 1: t
+                                         for i, t in enumerate(want)})
+    with rank_threads(torch):
+        with emulating(torch, eng.params, plan, planted=planted):
+            misstated = run_first(torch, eng, prompts)
+        with emulating(torch, eng.params, plan):
+            first = run_first(torch, eng, prompts)
+            with layer_taps(torch) as taps:
+                reqs = [eng.submit(p, new_tokens) for p in prompts]
+                eng.run()
+    if not all(r.done for r in reqs):
+        raise AssertionError("emulation: requests left unfinished")
+    return dict(plan=plan, first=first, planted=misstated, rows=rows,
+                choices=choices, taps=taps,
+                seconds=time.perf_counter() - t0)
+
+
+def first_tap_difference(got, want, n_layers):
+    """The first sublayer whose digest differs between two runs of the
+    same dispatches (``layer_taps``): (dispatch, layer, sublayer), or
+    None."""
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None if len(got) == len(want) else min(len(got), len(want)))
+    if i is None:
+        return None
+    per = 2 * n_layers
+    return dict(dispatch=i // per, layer=i % per // 2,
+                sublayer=("attention", "ffn")[i % 2])
+
+
+def exact_gate(torch, phase, emu, ranks, out_dir, n_layers):
+    """Each rank held to the emulation (``emulate_serving``) bit for bit:
+    its plan field by field against ``emulated_plan``, its first
+    dispatch's logits, every teacher-forced logits row and its own choice
+    under ``torch.equal`` (``bitwise_rows`` of ``rows``; the first row
+    that differs with its uid, token index and max |delta|), and every
+    sublayer's output (the first that differs: dispatch, layer,
+    sublayer).  The negative control: the emulation of the misstated plan
+    must differ from each rank's first dispatch.  One line a rank;
+    returns the faults."""
+    faults, keys = [], sorted(emu["rows"])
+    for r, res in enumerate(ranks):
+        got = torch.load(out_dir / f"rank{r}.pt")
+        plan_off = {k: dict(rank=res["tp_plan"].get(k), emulated=v)
+                    for k, v in emu["plan"].items()
+                    if res["tp_plan"].get(k) != v}
+        same = [k for k in keys if k in got["rows"]
+                and torch.equal(got["rows"][k], emu["rows"][k])
+                and got["choices"][k] == emu["choices"][k]]
+        off = next((k for k in keys if k not in same), None)
+        if off is not None:
+            row = got["rows"].get(off)
+            off = dict(uid=off[0], i=off[1], choice=got["choices"].get(off),
+                       emulated_choice=emu["choices"][off],
+                       max_abs_delta=None if row is None else float(
+                           (row - emu["rows"][off]).abs().max()))
+        first_same = torch.equal(got["first"], emu["first"])
+        rejected = not torch.equal(got["first"], emu["planted"])
+        sub = first_tap_difference(got["taps"], emu["taps"], n_layers)
+        extra = sorted(set(got["rows"]) - set(keys))
+        emit(phase, step="exact", rank=r, plan_fields_off=plan_off,
+             bitwise_rows=len(same), rows=len(keys), extra_rows=extra,
+             first_row_differs=off, first_dispatch_bitwise=first_same,
+             first_dispatch_max_abs_delta=float(
+                 (got["first"] - emu["first"]).abs().max()),
+             sublayers=len(emu["taps"]), first_sublayer_differs=sub,
+             planted=PLANTED, planted_rejected=rejected,
+             planted_max_abs_delta=float(
+                 (got["first"] - emu["planted"]).abs().max()))
+        if plan_off:
+            faults.append(f"rank {r}: plan fields {sorted(plan_off)} off "
+                          "the emulation's")
+        if len(same) != len(keys) or extra:
+            faults.append(f"rank {r}: {len(same)} of {len(keys)} rows "
+                          f"bitwise (first off: {off}; first sublayer off: "
+                          f"{sub})")
+        if not first_same or sub is not None:
+            faults.append(f"rank {r}: first dispatch bitwise {first_same}, "
+                          f"first sublayer off {sub}")
+        if not rejected:
+            faults.append(f"rank {r}: the planted {PLANTED} went unnoticed")
+    return faults
+
+
+def emulation_check(torch, phase, emu, want, ref_logits, baseline,
+                    ceiling):
+    """The old tolerance, on the emulation: its teacher-forced rows within
+    ``logit_check``'s tolerance of the one-device reference's at
+    REORDER_FACTOR times the reorder baseline's move (capped by
+    ``ceiling`` on the card by the caller); beside it, how many of its own
+    top-1 choices differ from the stream it is forced on.  Returns
+    (record, faults)."""
+    check, faults = logit_check(torch, emu["rows"], emu["choices"], want,
+                                ref_logits,
+                                REORDER_FACTOR * baseline["max_dev"])
+    emit(phase, step="emulation", seconds=emu["seconds"],
+         plan=emu["plan"], floor_tol=REORDER_FACTOR * baseline["max_dev"],
+         baseline_ceiling=ceiling,
+         top1_off_stream=check["tokens"] - check["agree"], **check)
+    return check, faults
+
+
 @contextlib.contextmanager
 def one_rank_world(torch, device):
     """A world of one rank in this process on the production backend
@@ -2767,7 +3125,8 @@ def one_rank_world(torch, device):
 def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
                prompts, new_tokens, want, seed):
     """Phase serve_sharded, step 1: a world of one rank in this process
-    (``one_rank_world``)."""
+    (``one_rank_world``).  Returns (launches, the reorder baseline, the
+    store it restored)."""
     from repro_torch.core import blocking as B
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime.compress import make_compressed_allreduce
@@ -2789,6 +3148,7 @@ def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
             raise AssertionError(
                 f"serve_sharded: the reorder baseline moved the logits by "
                 f"{baseline['max_dev']}, past its ceiling {REORDER_CEILING}")
+        store = eng.params
         del eng
         free_device(torch, device)
         # the DP gradient mean over MXSF on the wire: one rank's sum is its
@@ -2819,7 +3179,7 @@ def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
         if not same or pipe_err > 2e-5:
             raise AssertionError("serve_sharded: compressed all-reduce or "
                                  "pipeline off its reference")
-    return launches, baseline
+    return launches, baseline, store
 
 
 def _free_port() -> int:
@@ -2837,7 +3197,10 @@ def gloo_rank(rank: str, world: str, port: str, rehearsal: str,
     group over ``port`` (NCCL refuses two ranks on one device, so
     collectives go through host memory), and its results dict, written to
     ``out_dir/rank<r>.json`` however the body ends (an error recorded).
-    Yields (torch, device, rank, world, results)."""
+    A body that ends well meets its peers at a barrier before the group
+    is torn down: no rank destroys its group (rank 0 hosts the group's
+    store) while a peer is still in a collective or its teardown.  Yields
+    (torch, device, rank, world, results)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -2847,13 +3210,15 @@ def gloo_rank(rank: str, world: str, port: str, rehearsal: str,
     if device.type == "cuda":
         torch.cuda.set_device(0)  # the ranks share the one card
     else:
-        torch.set_num_threads(2)
+        torch.set_num_threads(RANK_THREADS)
     out = {"rank": rank}
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
+    ended = False
     try:
         yield torch, device, rank, world, out
+        ended = True
     except BaseException as e:
         out["error"] = f"{type(e).__name__}: {e}"
         raise
@@ -2862,7 +3227,11 @@ def gloo_rank(rank: str, world: str, port: str, rehearsal: str,
         (out_dir / f"rank{rank}.json").write_text(json.dumps(
             out, default=str))
         if dist.is_initialized():
+            if ended:
+                dist.barrier()
             dist.destroy_process_group()
+
+
 
 
 def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
@@ -2870,8 +3239,9 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
     """One rank of phase serve_sharded's two-rank run (started after the
     build, so it loads the built kernels): restore its slices of the
     checkpoint, hold every kernel call of its first dispatch against the
-    plain version, serve the prompts, profile one decode dispatch on rank
-    0, and write its results to SHARD_DIR."""
+    plain version, serve the prompts teacher-forced on ckpt_serve's
+    streams, write its results to SHARD_DIR (what the exact gate reads in
+    ``rank<r>.pt``) and profile one decode dispatch on rank 0."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.policy import MXSF_INFER
     from repro_torch.launch import mesh as mesh_lib
@@ -2903,17 +3273,16 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
         if peak is not None and peak > store_b + cache_b + RESTORE_SLACK:
             raise AssertionError(f"restore peak {peak} B > store + cache + "
                                  "slack")
-        out["first_dispatch"] = sharded_first_dispatch(torch, eng, cfg,
-                                                       spec["prompts"])
+        out["first_dispatch"], first = sharded_first_dispatch(
+            torch, eng, cfg, spec["prompts"])
         out["dispatch"] = dispatch_counts(torch, eng)
-        outs, launches, collectives, check = sharded_serve(
+        outs, launches, collectives, record = sharded_serve(
             torch, eng, cfg, spec["prompts"], spec["new_tokens"],
-            spec["want"], "serve_sharded",
-            ref_logits=torch.load(spec["ref_logits"]),
-            floor_tol=spec["floor_tol"], mesh=f"1x{world}", rank=rank,
-            backend="gloo")
+            spec["want"], "serve_sharded", teacher=True, mesh=f"1x{world}",
+            rank=rank, backend="gloo")
+        torch.save(dict(record, first=first), SHARD_DIR / f"rank{rank}.pt")
         out.update(tokens=outs, launches=launches, collectives=collectives,
-                   teacher_forced=check, stats=eng.stats())
+                   stats=eng.stats())
         out["profile"] = rank_profile(torch, eng, rank, "serve_sharded")
 
 
@@ -2967,26 +3336,27 @@ def rank_profile(torch, eng, rank, phase):
     return None
 
 
-def run_rank_processes(phase, target, spec, out_dir, world, rehearsal,
-                       wait_s=SHARD_WAIT_S):
-    """``world`` ranks in their own processes (started after the build,
-    so they load the built kernels), each running ``chip_smoke.<target>
-    (rank, world, port, rehearsal, spec file)`` over one gloo group; a
-    rank that fails or outlives ``wait_s`` fails the phase, and every
-    rank still running is stopped.  Returns each rank's results (its
-    ``rank<r>.json``), each emitted; the ranks' teacher-forced choices
-    must agree."""
-    procs = start_rank_processes(target, spec, out_dir, world, rehearsal)
-    ranks = finish_rank_processes(phase, procs, out_dir, wait_s)
-    if any(r["teacher_forced"]["disagree"] != ranks[0]["teacher_forced"][
-            "disagree"] for r in ranks):
-        raise AssertionError(f"{phase}: the ranks chose differently")
-    return ranks
+def beside_ranks(phase, target, spec, out_dir, rehearsal, work):
+    """SHARD_TP ranks in their own processes (``start_rank_processes``:
+    started after the build, so they load the built kernels), each running
+    ``chip_smoke.<target>``, while this process runs ``work()``; then each
+    rank's results (``finish_rank_processes``: a rank that fails or
+    outlives SHARD_WAIT_S fails ``phase``).  A failure of ``work`` stops
+    the ranks.  Returns (``work()``, the ranks' results)."""
+    started = start_rank_processes(target, spec, out_dir, SHARD_TP,
+                                   rehearsal)
+    try:
+        res = work()
+    except BaseException:
+        stop_processes(started[0])
+        raise
+    return res, finish_rank_processes(phase, started, out_dir)
 
 
 def start_rank_processes(target, spec, out_dir, world, rehearsal):
-    """Start ``run_rank_processes``' ranks; returns (processes, the time
-    they started)."""
+    """Start ``world`` ranks, each running ``chip_smoke.<target>(rank,
+    world, port, rehearsal, spec file)`` over one gloo group; returns
+    (processes, the time they started)."""
     import os
     import shutil
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3042,21 +3412,11 @@ def sharded_first_dispatch(torch, eng, cfg, prompts):
     sharded path, every kernel call teacher-forced (``checked_kernels``):
     each call against its plain version at its shard-local shape, the
     calls against the path's count (``serve_launch_counts``), and the
-    shapes against ``shard_local_shapes`` and the local heads."""
-    from repro_torch.core import sharding as shd
-    B, C = eng.slots, eng.prefill_chunk
-    toks = torch.zeros((B, C), dtype=torch.int64)
-    nv = torch.zeros(B, dtype=torch.int64)
-    for s, p in enumerate(prompts[:B]):
-        n = min(C, len(p))
-        toks[s, :n] = torch.tensor(p[:n])
-        nv[s] = n
-    cache = {k: torch.zeros_like(v) for k, v in eng.cache.items()}
-    dev = eng.device
+    shapes against ``shard_local_shapes`` and the local heads.  Returns
+    (the record, the dispatch's logits on the host: ``run_first``'s, which
+    the exact gate holds to the emulation's)."""
     with checked_kernels(torch, lambda k: MATMUL_RTOL, None) as chk:
-        eng._prefill(eng.params, toks.to(dev), cache,
-                     torch.zeros(B, dtype=torch.int64, device=dev),
-                     nv.to(dev))
+        logits = run_first(torch, eng, prompts)
     expect = serve_launch_counts(cfg, eng.attn_backend)
     rows, faults = chk.rows(expect)
     tp = eng.rules.tp_size
@@ -3071,34 +3431,56 @@ def sharded_first_dispatch(torch, eng, cfg, prompts):
         faults.append(f"attention heads {heads} != {want_heads}")
     if faults:
         raise AssertionError(f"serve_sharded first dispatch: {faults}")
-    return dict(kernels=rows, fused_shapes=shapes, attention_heads=heads)
+    return dict(kernels=rows, fused_shapes=shapes,
+                attention_heads=heads), logits
 
 
 def phase_serve_sharded(torch, device, cfg, policy, args, slots, chunk,
                         max_len, new_tokens, lengths, ckpt_dir, want,
                         rehearsal):
     """Phase serve_sharded (on ckpt_serve's checkpoint and token streams;
-    ``cfg`` at the checkpoint's depth).  Step 1: a world of one rank in
-    this process on the production backend (``_world_one``).  Step 2:
-    SHARD_TP ranks sharing the card on a (1, SHARD_TP) mesh, each in its
-    own process (``sharded_rank``) over gloo; a rank that fails or
-    outlives SHARD_WAIT_S fails the phase.  Returns the launches of both
-    runs (rank 0's for the two-rank run)."""
+    ``cfg`` at the checkpoint's depth).  SHARD_TP ranks sharing the card on
+    a (1, SHARD_TP) mesh, each in its own process (``sharded_rank``) over
+    gloo, while this process runs a world of one rank (``_world_one``) and
+    then, on the store that world restored, the emulation of the ranks'
+    plan (``emulate_serving``).  Then the ranks are held to the emulation
+    bit for bit (``exact_gate``) and the emulation to ckpt_serve's logits
+    within REORDER_FACTOR times the reorder baseline
+    (``emulation_check``).  Returns the launches of both runs (rank 0's
+    for the two-rank run)."""
+    from repro_torch.serve.engine import ServeEngine
     t_phase = time.perf_counter()
     prompts = _prompts(cfg, args.seed, lengths)
-    launches, baseline = _world_one(
-        torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len, prompts,
-        new_tokens, want, args.seed)
-    free_device(torch, device)
-    ranks = run_rank_processes("serve_sharded", "sharded_rank", dict(
-        n_layers=cfg.n_layers, block_1d=policy.block_1d,
-        ckpt_dir=str(ckpt_dir), ref_logits=str(CKPT_ROOT / "logits.pt"),
-        floor_tol=REORDER_FACTOR * baseline["max_dev"], slots=slots,
-        chunk=chunk, max_len=max_len, prompts=prompts, new_tokens=new_tokens,
-        want=want), SHARD_DIR, SHARD_TP, rehearsal)
+
+    def work():
+        launches, baseline, store = _world_one(
+            torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
+            prompts, new_tokens, want, args.seed)
+        free_device(torch, device)
+        eng = ServeEngine(cfg, store, policy, backend="cuda", device=device,
+                          slots=slots, max_len=max_len, prefill_chunk=chunk)
+        emu = emulate_serving(torch, eng, cfg, prompts, new_tokens, want)
+        del eng, store
+        free_device(torch, device)
+        return launches, baseline, emu, time.perf_counter() - t_phase
+
+    (launches, baseline, emu, main_s), ranks = beside_ranks(
+        "serve_sharded", "sharded_rank", dict(
+            n_layers=cfg.n_layers, block_1d=policy.block_1d,
+            ckpt_dir=str(ckpt_dir), slots=slots, chunk=chunk,
+            max_len=max_len, prompts=prompts, new_tokens=new_tokens,
+            want=want), SHARD_DIR, rehearsal, work)
+    faults = exact_gate(torch, "serve_sharded", emu, ranks, SHARD_DIR,
+                        cfg.n_layers)
+    check, bad = emulation_check(
+        torch, "serve_sharded", emu, want, torch.load(CKPT_ROOT /
+                                                      "logits.pt"),
+        baseline, REORDER_CEILING if device.type == "cuda" else None)
     emit("serve_sharded", step="done", seconds=time.perf_counter() - t_phase,
-         ranks=SHARD_TP, free_running_equal=ranks[0]["teacher_forced"][
-             "free_running_equal"])
+         main_seconds=main_s, ranks=SHARD_TP,
+         free_running_equal=check["free_running_equal"])
+    if faults + bad:
+        raise AssertionError(f"serve_sharded: {faults + bad}")
     return {"serve_sharded_1x1": launches,
             f"serve_sharded_1x{SHARD_TP}": ranks[0]["launches"]}
 
@@ -4813,9 +5195,9 @@ def sharded_moe_rank(rank: str, world: str, port: str, rehearsal: str,
     hold its bytes to ``MeshRules``; hold every kernel call of its first
     dispatch against the plain version, and the exact part
     (``moe_exact``); serve serve_moe's prompts teacher-forced on its
-    streams, the logits within the tolerance, launches and collectives
-    against their formulas; profile one decode dispatch on rank 0; write
-    its results to SHARD_MOE_DIR."""
+    streams, launches and collectives against their formulas; write its
+    results to SHARD_MOE_DIR (what the exact gate reads in ``rank<r>.pt``)
+    and profile one decode dispatch on rank 0."""
     from repro_torch.core.policy import MXSF_INFER
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import model as M
@@ -4855,57 +5237,76 @@ def sharded_moe_rank(rank: str, world: str, port: str, rehearsal: str,
         if not held == counted == predicted:
             raise AssertionError(f"store {held} B, stats {counted} B, "
                                  f"MeshRules {predicted} B")
-        out["first_dispatch"] = sharded_first_dispatch(torch, eng, cfg,
-                                                       spec["prompts"])
+        out["first_dispatch"], first = sharded_first_dispatch(
+            torch, eng, cfg, spec["prompts"])
         out["exact"] = moe_exact(torch, eng, cfg, spec["prompts"],
                                  torch.load(spec["first"]))
         out["dispatch"] = dispatch_counts(torch, eng)
-        outs, launches, collectives, check = sharded_serve(
+        outs, launches, collectives, record = sharded_serve(
             torch, eng, cfg, spec["prompts"], spec["new_tokens"],
-            spec["want"], "serve_sharded_moe",
-            ref_logits=torch.load(spec["ref_logits"]),
-            floor_tol=spec["floor_tol"], mesh=f"1x{world}", rank=rank,
-            backend="gloo")
+            spec["want"], "serve_sharded_moe", teacher=True,
+            mesh=f"1x{world}", rank=rank, backend="gloo")
+        torch.save(dict(record, first=first),
+                   SHARD_MOE_DIR / f"rank{rank}.pt")
         out.update(tokens=outs, launches=launches, collectives=collectives,
                    collectives_per_dispatch=sharded_collectives(
-                       cfg, eng, breakdown=True),
-                   teacher_forced=check, stats=eng.stats())
+                       cfg, eng, breakdown=True), stats=eng.stats())
         out["profile"] = rank_profile(torch, eng, rank, "serve_sharded_moe")
 
 
 def phase_serve_sharded_moe(torch, device, args, ref, rehearsal):
     """Phase serve_sharded_moe: expert parallelism on serve_moe's model,
     store, prompts and streams (``ref``, whose store this phase frees).
-    Step 1: a world of one rank in this process (``_moe_world_one``).
-    Step 2: SHARD_TP ranks sharing the card on a (1, SHARD_TP) mesh, each
-    in its own process (``sharded_moe_rank``), each holding its half of
-    the experts.  Returns the launches of both runs (rank 0's for the
-    two-rank run)."""
+    SHARD_TP ranks sharing the card on a (1, SHARD_TP) mesh, each in its
+    own process (``sharded_moe_rank``), each holding its half of the
+    experts, while this process runs a world of one rank
+    (``_moe_world_one``) and then, on serve_moe's store, the emulation of
+    the ranks' plan (``emulate_serving``); the store, the ranks' halves and
+    their caches fit the card together at MOE_LAYERS.  Then the ranks are
+    held to the emulation bit for bit (``exact_gate``) and the emulation
+    to serve_moe's logits within REORDER_FACTOR times the reorder
+    baseline (``emulation_check``).  Returns the launches of both runs
+    (rank 0's for the two-rank run)."""
     import shutil
+    from repro_torch.serve.engine import ServeEngine
     t_phase = time.perf_counter()
     cfg, phase = ref["cfg"], "serve_sharded_moe"
     emit(phase, step="plan", n_layers=cfg.n_layers, of=moe_config(
         rehearsal).n_layers, experts=cfg.padded_experts, ranks=SHARD_TP)
-    try:
+
+    def work():
         launches, baseline = _moe_world_one(torch, device, ref)
-        del ref["store"]  # both ranks' halves do not fit beside it
+        eng = ServeEngine(cfg, ref["store"], ref["policy"], backend="cuda",
+                          device=device, slots=ref["slots"],
+                          max_len=ref["max_len"])
+        emu = emulate_serving(torch, eng, cfg, ref["prompts"],
+                              ref["new_tokens"], ref["want"])
+        del eng, ref["store"]
         free_device(torch, device)
+        return launches, baseline, emu, time.perf_counter() - t_phase
+
+    try:
         MOE_REF_DIR.mkdir(parents=True, exist_ok=True)
-        torch.save(ref["logits"], MOE_REF_DIR / "logits.pt")
         torch.save(ref["first"], MOE_REF_DIR / "first.pt")
-        ranks = run_rank_processes(phase, "sharded_moe_rank", dict(
-            n_layers=cfg.n_layers, block_1d=ref["policy"].block_1d,
-            seed=args.seed, slots=ref["slots"], max_len=ref["max_len"],
-            prompts=ref["prompts"], new_tokens=ref["new_tokens"],
-            want=ref["want"], ref_logits=str(MOE_REF_DIR / "logits.pt"),
-            first=str(MOE_REF_DIR / "first.pt"),
-            floor_tol=REORDER_FACTOR * baseline["max_dev"]),
-            SHARD_MOE_DIR, SHARD_TP, rehearsal)
+        (launches, baseline, emu, main_s), ranks = beside_ranks(
+            phase, "sharded_moe_rank", dict(
+                n_layers=cfg.n_layers, block_1d=ref["policy"].block_1d,
+                seed=args.seed, slots=ref["slots"], max_len=ref["max_len"],
+                prompts=ref["prompts"], new_tokens=ref["new_tokens"],
+                want=ref["want"], first=str(MOE_REF_DIR / "first.pt")),
+            SHARD_MOE_DIR, rehearsal, work)
     finally:
         shutil.rmtree(MOE_REF_DIR, ignore_errors=True)
+    faults = exact_gate(torch, phase, emu, ranks, SHARD_MOE_DIR,
+                        cfg.n_layers)
+    check, bad = emulation_check(
+        torch, phase, emu, ref["want"], ref["logits"], baseline,
+        MOE_REORDER_CEILING if device.type == "cuda" else None)
     emit(phase, step="done", seconds=time.perf_counter() - t_phase,
-         n_layers=cfg.n_layers, ranks=SHARD_TP,
-         free_running_equal=ranks[0]["teacher_forced"]["free_running_equal"])
+         main_seconds=main_s, n_layers=cfg.n_layers, ranks=SHARD_TP,
+         free_running_equal=check["free_running_equal"])
+    if faults + bad:
+        raise AssertionError(f"{phase}: {faults + bad}")
     return {"serve_sharded_moe_1x1": launches,
             f"serve_sharded_moe_1x{SHARD_TP}": ranks[0]["launches"]}
 
@@ -5684,17 +6085,16 @@ def phase_serve_sharded_families(torch, device, args, rehearsal):
     phase = "serve_sharded_families"
     plan = families_plan(rehearsal)
     emit(phase, step="plan", ranks=SHARD_TP, programs=plan)
-    started = start_rank_processes("sharded_family_rank", dict(
-        programs=plan, seed=args.seed), SHARD_FAM_DIR, SHARD_TP, rehearsal)
-    try:
+
+    def work():
         refs = {arch: family_reference(torch, device, arch, prog, args,
                                        rehearsal)
                 for arch, prog in plan.items()}
-    except BaseException:
-        stop_processes(started[0])
-        raise
-    t_ref = time.perf_counter() - t_phase
-    ranks = finish_rank_processes(phase, started, SHARD_FAM_DIR)
+        return refs, time.perf_counter() - t_phase
+
+    (refs, t_ref), ranks = beside_ranks(
+        phase, "sharded_family_rank", dict(programs=plan, seed=args.seed),
+        SHARD_FAM_DIR, rehearsal, work)
     faults = []
     for arch, (ref, baseline) in refs.items():
         row = family_logit_check(torch, arch, ref, baseline, SHARD_TP)
@@ -6163,34 +6563,51 @@ EXAMPLES = (
 
 def phase_examples(torch, device, rehearsal):
     """Each of the port's examples once, as a subprocess on the card (on
-    the CPU in the rehearsal) at a small size: it must exit 0 and print
-    its key lines."""
+    the CPU in the rehearsal) at a small size, all at once (each is mostly
+    its own start-up), sharing the host's cores: each must exit 0 within
+    600 s and print its key lines."""
     import os
     import shutil
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    ckpt = ROOT / "build" / "chip_smoke_examples"
-    shutil.rmtree(ckpt, ignore_errors=True)
+    wait_s = 600
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // len(EXAMPLES))))
+    out_dir = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    runs, ended, t0 = [], {}, time.perf_counter()
     try:
         for name, argv, lines in EXAMPLES:
             argv = list(argv)
             if name == "torch_train_lm.py":
-                argv += ["--ckpt-dir", str(ckpt)]
+                argv += ["--ckpt-dir", str(out_dir / "ckpt")]
             argv += ["--device", "cpu" if rehearsal else "cuda"]
-            t0 = time.perf_counter()
-            res = subprocess.run([sys.executable, str(ROOT / "examples" / name),
-                                  *argv], capture_output=True, text=True,
-                                 env=env, cwd=str(ROOT), timeout=600)
-            missing = [ln for ln in lines if ln not in res.stdout]
+            with open(out_dir / f"{name}.out", "w") as out, \
+                    open(out_dir / f"{name}.err", "w") as err:
+                runs.append((name, argv, lines, subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / name), *argv],
+                    stdout=out, stderr=err, env=env, cwd=str(ROOT))))
+        while len(ended) < len(runs):
+            for name, _, _, proc in runs:
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > wait_s:
+                left = [r[0] for r in runs if r[0] not in ended]
+                raise AssertionError(f"examples {left} outlived {wait_s} s")
+            time.sleep(0.2)
+        for name, argv, lines, proc in runs:
+            stdout = (out_dir / f"{name}.out").read_text()
+            missing = [ln for ln in lines if ln not in stdout]
             emit("examples", example=name, argv=argv,
-                 returncode=res.returncode,
-                 seconds=time.perf_counter() - t0, missing=missing,
-                 tail=res.stdout.strip().splitlines()[-3:])
-            if res.returncode != 0 or missing:
+                 returncode=proc.returncode, seconds=ended[name],
+                 missing=missing, tail=stdout.strip().splitlines()[-3:])
+            if proc.returncode != 0 or missing:
+                err = (out_dir / f"{name}.err").read_text()[-2000:]
                 raise AssertionError(f"example {name}: exit "
-                                     f"{res.returncode}, missing {missing}"
-                                     f"\n{res.stderr[-2000:]}")
+                                     f"{proc.returncode}, missing {missing}"
+                                     f"\n{err}")
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        stop_processes([r[3] for r in runs])
+        shutil.rmtree(out_dir, ignore_errors=True)
     free_device(torch, device)
 
 

@@ -42,6 +42,7 @@ from repro_torch.core import sharding as shd
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 
+import chip_smoke as CS
 import torch_moe_ranks as MR
 import torch_sharded_ranks as R
 from torch_dist import run_ranks
@@ -141,6 +142,40 @@ def test_llama4_interleaved_moe_on_1x2(ref, worlds):
         res = out["llama4"]
         _held_to_reference(res, ref["llama4"])
         assert res["plan"] == (True, True, True, True, True, False, False)
+
+
+@pytest.mark.parametrize("arch", ["qwen", "llama4"])
+def test_moe_1x2_ranks_equal_their_emulated_plan_bitwise(ref, worlds, arch):
+    """The (1, 2) ranks' first dispatch's logits and token streams equal,
+    bit for bit, one device running the same plan at the ranks' thread
+    count (``chip_smoke.emulating``: each rank's expert rows on its slots,
+    concatenated; the shared expert and the dense FFN split as the plan
+    says; the row-parallel partials summed in rank order), and their plan
+    is ``chip_smoke.emulated_plan``'s."""
+    from repro_torch.models.blocks import TPPlan
+    r = ref[arch]
+    key = (1, 2) if arch == "qwen" else "llama4"
+    toks, first = R.emulated(r["cfg"], convert.params_from_numpy(
+        r["np_params"], r["cfg"]), r["prompts"], max_len=MR.KW["max_len"])
+    plan = CS.emulated_plan(r["cfg"], MR.POL, 2)
+    for out in _world(ref, worlds, 2):
+        res = out[key]
+        assert dict(zip(TPPlan._fields, res["plan"])) == plan
+        np.testing.assert_array_equal(res["first"], first)
+        assert res["tokens"] == toks
+
+
+@pytest.mark.parametrize("planted", ["bf16_partials", "rows_swapped"])
+def test_moe_misstated_plan_fails_the_exact_gate(ref, worlds, planted):
+    """The negative control on the MoE plan: a misstated row-parallel sum
+    (o, the shared expert's down) gives another first dispatch than the
+    (1, 2) ranks'."""
+    q = ref["qwen"]
+    _, first = R.emulated(q["cfg"], convert.params_from_numpy(
+        q["np_params"], q["cfg"]), q["prompts"], planted=planted,
+        max_len=MR.KW["max_len"])
+    for out in _world(ref, worlds, 2):
+        assert not np.array_equal(out[(1, 2)]["first"], first)
 
 
 def test_decode_routes_the_whole_batch_under_a_data_axis(ref, worlds):

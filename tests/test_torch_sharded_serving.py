@@ -35,6 +35,7 @@ from repro_torch.core.policy import BF16
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.serve.engine import ServeEngine
 
+import chip_smoke as CS
 import torch_sharded_ranks as R
 from torch_dist import run_ranks
 
@@ -259,6 +260,76 @@ def test_replicated_attention_over_a_split_cache(ref, worlds):
         assert res["attn_backend"] == "cuda-packed"
         assert res["shard_fallback"] is None
         assert res["tokens"] == want
+
+
+@pytest.mark.parametrize("entry", [(1, 2), "blk64"],
+                         ids=["1x2", "1x2-ctx-gather"])
+def test_1x2_ranks_equal_their_emulated_plan_bitwise(ref, worlds, entry):
+    """The (1, 2) ranks' first dispatch's logits and token streams equal,
+    bit for bit, one device running the same plan at the ranks' thread
+    count (``chip_smoke.emulating``: the kernels' plain versions on the
+    column slices, the K slices' f32 partials summed in rank order and
+    rounded once, attention on each rank's heads), and their plan is
+    ``chip_smoke.emulated_plan``'s.  Under 64-element blocks (``blk64``)
+    wo runs whole on the gathered context (``ctx_gather``)."""
+    from repro_torch.models.blocks import TPPlan
+    pol = POL if entry == (1, 2) else R.BLOCK64
+    params = convert.params_from_numpy(ref["np_params"], ref["cfg"])
+    toks, first = R.emulated(ref["cfg"], params, ref["prompts"], pol)
+    plan = CS.emulated_plan(ref["cfg"], pol, 2)
+    assert plan["ctx_gather"] == (entry == "blk64")
+    for out in _world(ref, worlds, 2):
+        res = out[entry]
+        assert dict(zip(TPPlan._fields, res["plan"])) == plan
+        np.testing.assert_array_equal(res["first"], first)
+        assert res["tokens"] == toks
+
+
+@pytest.mark.parametrize("planted", ["bf16_partials", "rows_swapped"])
+def test_a_misstated_plan_fails_the_exact_gate(ref, worlds, planted):
+    """The negative control of the exact gate: the emulation with the
+    row-parallel partials rounded before their sum, or each rank's K slice
+    against the other rank's rows, gives another first dispatch than the
+    (1, 2) ranks'."""
+    params = convert.params_from_numpy(ref["np_params"], ref["cfg"])
+    _, first = R.emulated(ref["cfg"], params, ref["prompts"], POL, planted)
+    for out in _world(ref, worlds, 2):
+        assert not np.array_equal(out[(1, 2)]["first"], first)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "qwen2-moe-a2.7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "h2o-danube-1.8b", "gemma2-2b",
+                                  "gemma2-9b", "internvl2-1b"])
+def test_emulated_plan_states_the_engines_plan(arch):
+    """``chip_smoke.emulated_plan`` (from the config and the block size
+    alone) equals ``blocks.tp_plan`` (from the store's leaves) field by
+    field for the decoders at full and reduced width, 16- and 64-element
+    blocks, on 2 and 4 model ranks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        for block in (16, 64):
+            pol = POL.replace(block_1d=block)
+            for tp in (2, 4):
+                want = blocks.tp_plan(cfg, pol, M.packed_model_specs(
+                    cfg, pol), tp)._asdict()
+                assert CS.emulated_plan(cfg, pol, tp) == want, \
+                    (cfg.name, block, tp)
+
+
+def test_first_tap_difference_names_the_sublayer():
+    """The exact gate's first-difference line: digest i of a run with L
+    layers is dispatch i // 2L, layer (i % 2L) // 2, attention then ffn;
+    a run cut short differs where it ends."""
+    a = [str(i) for i in range(24)]
+    assert CS.first_tap_difference(a, list(a), 3) is None
+    b = a[:13] + ["x"] + a[14:]
+    assert CS.first_tap_difference(b, a, 3) == dict(
+        dispatch=2, layer=0, sublayer="ffn")
+    assert CS.first_tap_difference(a[:6], a, 3) == dict(
+        dispatch=1, layer=0, sublayer="attention")
 
 
 @pytest.mark.parametrize("case", list(R.ROW_CASES))

@@ -30,17 +30,25 @@ def free_port() -> int:
 
 
 def _entry(fn, rank, world, port, out, args):
+    """One rank: ``fn``'s result (or its traceback) to the parent.  A rank
+    whose ``fn`` returned meets its peers at a barrier before the group is
+    torn down, so no rank destroys its group (rank 0 hosts the group's
+    store) while a peer is still in a collective or its teardown."""
     torch.set_num_threads(1)
     os.environ["OMP_NUM_THREADS"] = "1"
+    ended = False
     try:
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
             world_size=world, timeout=timedelta(seconds=60))
         out.put((rank, True, fn(rank, *args)))
+        ended = True
     except BaseException:  # reported to the parent, which fails the test
         out.put((rank, False, traceback.format_exc()))
     finally:
         if dist.is_initialized():
+            if ended:
+                dist.barrier()
             dist.destroy_process_group()
 
 

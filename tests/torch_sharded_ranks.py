@@ -53,6 +53,20 @@ def serve(cfg, params, pol, prompts, mesh=None, backend="cuda", **kw):
     return eng, [r.out for r in reqs], first[0]
 
 
+def emulated(cfg, params, prompts, pol=POL, planted=None, **kw):
+    """The (1, 2) ranks' plan (``chip_smoke.emulated_plan``) served on one
+    device through ``chip_smoke.emulating`` at a rank's one CPU thread
+    (``torch_dist``), ``planted`` misstating it: (tokens, the first
+    dispatch's logits)."""
+    import chip_smoke as CS
+    store = M.pack_model_params(cfg, params, pol)
+    plan = CS.emulated_plan(cfg, pol, 2)
+    with CS.rank_threads(torch, 1), CS.emulating(torch, store, plan, 2,
+                                                  planted):
+        _, toks, first = serve(cfg, store, pol, prompts, **kw)
+    return toks, first.numpy()
+
+
 def spec_of(ns):
     return shd.normalize(ns.codes.spec if isinstance(ns, QuantizedTensor)
                          else ns.spec)
@@ -70,7 +84,7 @@ def parity(shape, params, prompts):
                                packed_store.tree_leaves(eng._store_sh))
            if isinstance(leaf, QuantizedTensor)]
     return dict(tokens=toks, first=first.numpy(), stats=eng.stats(),
-                attn_backend=eng.attn_backend,
+                plan=tuple(eng.tp_plan), attn_backend=eng.attn_backend,
                 shard_fallback=eng.shard_fallback,
                 cache_spec=spec_of(eng._cache_sh["k_codes"]),
                 packed_specs=qts,
@@ -100,9 +114,10 @@ def world_2(rank, np_params, np_params_kv1, prompts):
     # 64-element blocks: a rank's 2 query heads of 16 are half a block of
     # wo's rows, so the heads split and their context is gathered before
     # a whole wo (``TPPlan.ctx_gather``); the cache splits its kv heads
-    eng, toks, _ = serve(config(), params, BLOCK64, prompts,
-                         mesh_lib.make_test_mesh(1, 2))
-    out["blk64"] = dict(tokens=toks, attn_backend=eng.attn_backend,
+    eng, toks, first = serve(config(), params, BLOCK64, prompts,
+                             mesh_lib.make_test_mesh(1, 2))
+    out["blk64"] = dict(tokens=toks, first=first.numpy(),
+                        attn_backend=eng.attn_backend,
                         shard_fallback=eng.shard_fallback,
                         plan=tuple(eng.tp_plan))
     return out
