@@ -89,7 +89,9 @@ Phases, each printed as one JSON line:
               collectives (NCCL) against their formulas; the same engine
               teacher-forced on those streams with every fused matmul on
               its plain version (the reorder baseline, which may not pass
-              REORDER_CEILING on the card); ``make_compressed_allreduce``
+              REORDER_CEILING on the card; it waits for the ranks to pass
+              their checked first dispatch, as both dequantize whole
+              weights); ``make_compressed_allreduce``
               over a gradient-sized tree equal to ``blocking.qdq`` of it
               bit for bit and a one-stage ``pipeline_apply`` against the
               sequential run; then, on the store that world restored, the
@@ -207,11 +209,11 @@ Phases, each printed as one JSON line:
               (one a chunk of the chunked loss) the path's, and the loss
               within the head's tolerance of the loss of the plain head's
               softcapped logits over every head call.
-9. serve_gemma2 -- gemma2-9b at full width and all 42 layers (softcaps,
-              alternating 4096-token SWA: the value-domain cached
-              attention): one packed store (~13 GB) shared by two
-              ``ServeEngine``s of ``MXSF_INFER`` on the kernel datapath,
-              the policy's bf16 value cache and the packed MXSF cache
+9. serve_gemma2 -- gemma2-9b at full width and 14 of its 42 layers
+              (GEMMA2_SERVE_PERIODS; softcaps, alternating 4096-token SWA:
+              the value-domain cached attention): one packed store shared
+              by two ``ServeEngine``s of ``MXSF_INFER`` on the kernel
+              datapath, the policy's bf16 value cache and the packed MXSF cache
               (dequantized into the value path), 2 slots x max_len 4352,
               chunk 256, prompts of 4200 (past the window) and 37 tokens,
               16 new tokens each: tokens/s, peak memory, store and cache
@@ -247,16 +249,19 @@ Phases, each printed as one JSON line:
               expert split as the plan says).  The exact gate and the
               emulation's tolerance as in phase 6b.
 11c. dryrun_mesh -- the dry run on a mesh held against what the ranks of
-              phases 6b and 11b ran.  A worker process started with phase
-              16's (no card) traces, on ``meta`` tensors, each rank of the
-              two programs those phases run on two gloo ranks --
+              phases 6b, 11b and 14b ran.  A worker process started with
+              phase 16's (no card) traces, on ``meta`` tensors, each rank
+              of the programs those phases run on two gloo ranks --
               qwen2.5-32b at 16 layers (4 slots x 512, chunk 16) and
               qwen2-moe at MOE_LAYERS, packed store, MXSF cache, kernel
               datapath -- on a tracing mesh of (1, 2)
               (``dryrun.engine_dispatches``: the ``ServeEngine`` itself on
-              this rank's slices, one prefill and one decode dispatch).
-              Each rank of those phases ran the same two dispatches
-              (``dispatch_counts``); each rank's trace must equal them
+              this rank's slices, one prefill and one decode dispatch),
+              and phase 14b's three families (``dryrun.lockstep_counts``:
+              the lockstep prefill and first decode step).  Each rank of
+              those phases ran the same two dispatches (counted before
+              phase 14b's further decode steps); each rank's trace must
+              equal them
               exactly: launches by kernel (on the card), collectives by
               kind and axis with their operand bytes, and argument bytes
               equal to the rank's store plus cache bytes.  The worker also
@@ -297,6 +302,37 @@ Phases, each printed as one JSON line:
               launches (equal to the path's), a profiled decode step, and
               its first prefill and decode step teacher-forced as in
               ``slice``.
+14b. serve_sharded_families -- mamba2-780m (48 layers, 4 x 256-token
+              prompts), zamba2-7b (two groups and the tail: 15 layers, 2 x
+              256) and whisper-medium (24 + 24, 2 x 1500 frames) on a
+              (1, 2) mesh: a pair of gloo ranks a program, the three
+              pairs at once sharing the card (their gathers are staged
+              through host memory, so they overlap), each rank drawing
+              its slices of the ``--seed`` store (bytes equal to
+              ``MeshRules``' prediction), running the lockstep prefill
+              and first decode step with every kernel call held against
+              its plain version at its shard-local shape (launches and
+              collectives recorded for phase 11c), then FAMILY_DECODES - 1
+              more decode steps fed a seeded stream; each keeps every
+              logits row, a digest of every sublayer output and of each
+              stored cache slice.  Meanwhile this process draws the whole
+              store, computes one device's logits and their reorder
+              baseline (capped by FAMILY_REORDER_CEILING), and emulates
+              the ranks' plan on one device (``emulating``: the SSD
+              mixer once a rank on its heads, the gated norm's f32 sums
+              of squares added in rank order, whisper's value-path
+              attention on each rank's heads and its cross K/V on each
+              rank's columns) over the same dispatches.  The exact gate:
+              each rank's plan equal to the emulation's field by field,
+              every logits row and its top-1, every sublayer digest and
+              every stored cache slice bit for bit (``bitwise_rows`` of
+              ``rows``, the first row, sublayer and cache leaf that
+              differ printed); the emulation with ``bf16_partials``, and
+              on the SSD families with ``local_norm`` (each rank's heads
+              normalised by its own half of d_inner), must miss each
+              rank's first dispatch.  The emulation's logits lie within
+              REORDER_FACTOR times the baseline of one device's (the
+              rows whose top-1 differs printed).
 15. train_families -- ``MXSF_TRAIN`` (2D, remat ``"dots"``), 2 steps and
               one profiled, of mamba2-780m at 24 of its 48 layers (4 x
               512), whisper-medium at 6 + 6 of 24 + 24 (2 x 448 over 1500
@@ -337,10 +373,10 @@ Phases, each printed as one JSON line:
 18. the ``kernels`` line (every CUDA kernel, its launches on each path,
    each counted from 0), then the ``{"ok": true, ...}`` line.
 
-Phases 9-11c and 14 run right after phase 6, phases 7b and 7c after
-phase 8's 1D slice, phases 15-15b after phase 13, phases 16-17 last, and a
-``done`` line with the whole run's seconds comes before the ``kernels``
-line.
+Phases 9-11b, 14, 14b and 11c run right after phase 6, phases 7b and
+7c after phase 8's 1D slice, phases 15-15b after phase 13, phases 16-17
+last, and a ``done`` line with the whole run's seconds comes before the
+``kernels`` line.
 
 Any failure raises, so the run exits non-zero and prints no ok line.  The
 rehearsal runs the same phases on the CPU at the reduced config (the
@@ -2776,45 +2812,63 @@ def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
 # ---------------------------------------------------------------------------
 
 def emulated_plan(cfg, policy, tp=SHARD_TP) -> dict:
-    """The plan of a decoder's packed serving store on a (1, ``tp``) mesh,
-    stated from the config and the policy's 1D blocks alone (not from
+    """The plan of a packed serving store on a (1, ``tp``) mesh, stated
+    from the config and the policy's 1D blocks alone (not from
     ``blocks.tp_plan``, which the exact gate holds to it field by field):
-    the heads split where the query and kv heads both do; a row-parallel
-    linear (wo, a dense FFN's wd, the shared expert's wd) splits where its
-    local K holds whole blocks (wo otherwise runs whole on the gathered
-    context: ``ctx_gather``); the vocab where the padded vocab splits; the
-    experts whenever there are some and ``tp`` > 1.  Keyed as ``TPPlan``'s
-    fields."""
+    the heads split where the family has attention (every family but the
+    SSM) and its query and kv heads both do; a row-parallel linear (wo, a
+    dense FFN's wd, the shared expert's wd, the SSD's out_proj) splits
+    where its local K holds whole blocks (wo otherwise runs whole on the
+    gathered context: ``ctx_gather``); a dense FFN (a decoder's, the
+    hybrid's shared block's, the encoder-decoder's) where d_ff does so;
+    the vocab where the padded vocab splits; the experts whenever there
+    are some and ``tp`` > 1; the SSD heads where there is one group and
+    d_inner and the SSD heads split with out_proj's local rows whole
+    (in_proj's 1D column blocks are single columns, so its segments
+    always split whole).  Keyed as ``TPPlan``'s fields."""
     if policy.block_mode != "1d":
         raise ValueError(f"the emulation states 1D serving plans, not "
                          f"{policy.block_mode!r}")
+    fam = cfg.family
     n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
     shared = cfg.expert_ff * cfg.n_shared_experts if n_moe else 0
 
     def rows(k):
         return k % tp == 0 and (k // tp) % policy.block_1d == 0
 
-    heads = cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
-    return dict(heads=heads, mlp=cfg.n_layers > n_moe and rows(cfg.d_ff),
+    heads = fam != "ssm" and cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
+    ffn = fam != "ssm" and (fam != "decoder" or cfg.n_layers > n_moe)
+    ssm = (fam in ("ssm", "hybrid") and cfg.ssm_ngroups == 1
+           and cfg.ssm_heads % tp == 0 and rows(cfg.d_inner))
+    return dict(heads=heads, mlp=ffn and rows(cfg.d_ff),
                 vocab=cfg.padded_vocab % tp == 0,
                 experts=n_moe > 0 and tp > 1,
-                shared=shared > 0 and rows(shared), ssm=False,
+                shared=shared > 0 and rows(shared), ssm=ssm,
                 ctx_gather=heads and not rows(cfg.n_heads * cfg.head_dim))
 
 
 def emulated_roles(plan: dict) -> dict:
-    """Each packed leaf's role under ``plan``, by its name in the store
-    (the last two parts of its path): ``"cols"`` (column-parallel) or
-    ``"rows"`` (row-parallel); a leaf not named runs whole."""
+    """Each weight's role under ``plan``, by its name in the store (the
+    last two parts of its path): ``"cols"`` (column-parallel), ``"rows"``
+    (row-parallel) or ``"segments"`` (the SSD's in_proj: z, x and dt of a
+    rank's heads, all of B and C); a leaf not named runs whole.  The
+    attention sublayers: a decoder's and the hybrid's shared block's
+    ``attn``, the encoder-decoder's encoder ``attn``, decoder ``self`` and
+    ``cross`` (values, quantized on every call); the dense FFNs: ``ffn``,
+    the encoder-decoder's decoder ``mlp``."""
     roles = {}
     if plan["heads"]:
-        roles.update({f"attn/{n}": "cols" for n in ("wq", "wk", "wv")})
-        if not plan["ctx_gather"]:
-            roles["attn/wo"] = "rows"
-    for part, pre in (("mlp", "ffn"), ("shared", "shared")):
+        for pre in ("attn", "self", "cross"):
+            roles.update({f"{pre}/{n}": "cols" for n in ("wq", "wk", "wv")})
+            if not plan["ctx_gather"]:
+                roles[f"{pre}/wo"] = "rows"
+    for part, pres in (("mlp", ("ffn", "mlp")), ("shared", ("shared",))):
         if plan[part]:
-            roles.update({f"{pre}/wg": "cols", f"{pre}/wu": "cols",
-                          f"{pre}/wd": "rows"})
+            for pre in pres:
+                roles.update({f"{pre}/wg": "cols", f"{pre}/wu": "cols",
+                              f"{pre}/wd": "rows"})
+    if plan["ssm"]:
+        roles.update({"ssd/in_proj": "segments", "ssd/out_proj": "rows"})
     if plan["vocab"]:
         roles["head"] = "cols"
     return roles
@@ -2822,46 +2876,100 @@ def emulated_roles(plan: dict) -> dict:
 
 @contextlib.contextmanager
 def emulating(torch, store, plan: dict, tp=SHARD_TP, planted=None):
-    """Inside the block a one-device engine over ``store`` computes what
-    the ``tp`` ranks of ``plan`` compute, through the kernels at the
-    ranks' shapes (this script's hook, as ``reorder_baseline``'s kernel
-    swap is).  Each fused matmul's role comes from the store leaf whose
-    codes it reads (``emulated_roles``; wq and wo are both 5120 x 5120 in
-    qwen2.5-32b): column-parallel, ``tp`` calls on the column slices,
-    concatenated; row-parallel, ``tp`` calls on the K slices, whose f32
-    partials are summed in rank order (with two ranks the all-reduce's
-    ``a + b``) and left for ``mx_dot`` to round once; otherwise one call.
-    Attention (with ``plan["heads"]``): ``tp`` calls, each on one rank's
-    query heads and its kv heads' slice of the cache.  The routed experts
+    """Inside the block a one-device run over ``store`` computes what the
+    ``tp`` ranks of ``plan`` compute, through the kernels at the ranks'
+    shapes (this script's hook, as ``reorder_baseline``'s kernel swap is).
+    A weight's role (``emulated_roles``) comes from the store leaf the
+    call reads, never from its shape (wq and wo are both 5120 x 5120 in
+    qwen2.5-32b): a packed leaf's by the storage of the codes the fused
+    matmul is handed; a value leaf's (whisper's cross wq and wo, quantized
+    on every call) by the tensor ``blocks.dense`` is handed, each rank's
+    slice quantized by the quantizer as the rank quantizes it (codes the
+    emulation makes at a rank's shape run as they are).
+    Column-parallel: ``tp`` calls on the column slices, concatenated;
+    row-parallel: ``tp`` calls on the K slices, whose f32 partials are
+    summed in rank order (with two ranks the all-reduce's ``a + b``) and
+    rounded once.  Attention (with ``plan["heads"]``): the packed kernel
+    ``tp`` times, each on one rank's query heads and its kv heads' slice
+    of the cache; the value path (whisper's encoder and cross-attention)
+    as ``blocks._attend`` on each rank's heads, the contexts concatenated
+    before wo; whisper's cross
+    K/V as one ``enc @ w`` a rank on its columns.  The SSD mixer (with
+    ``plan["ssm"]``): ``ssd.ssd_forward`` / ``ssd_decode_step`` once a
+    rank on its heads (in_proj's segment columns, its conv channels,
+    dt / A / D, the scan or the state update, the conv tail in its
+    compute layout), then the gated norm from each rank's f32 sum of
+    squares over its d_inner / tp, added in rank order and divided by
+    d_inner, and out_proj row-parallel; the state and conv tail stored
+    whole (x channels gathered, B and C of rank 0).  The routed experts
     (with ``plan["experts"]``): ``blocks._expert_ffn`` once a rank on its
     expert rows and their slots, concatenated as the ranks' all-gather
     concatenates them.  Norms, the router, rope, the lookup and sampling
     run once, as every rank runs them whole.  ``planted`` misstates the
     plan (the negative control): ``"bf16_partials"`` rounds each
     row-parallel partial to bf16 before the sum, ``"rows_swapped"``
-    multiplies each rank's K slice of x by the other rank's rows."""
+    multiplies each rank's K slice of x by the other rank's rows,
+    ``"local_norm"`` normalises each rank's SSD heads by the mean over its
+    own d_inner / tp."""
+    import types
+    import torch.nn.functional as Fn
     from repro_torch.ckpt.ckpt import _iter_leaves
-    from repro_torch.core.blocking import QuantizedTensor
+    from repro_torch.core.blocking import QuantizedTensor, torch_dtype
+    from repro_torch.core.mx_dot import mx_dot
     from repro_torch.kernels import mxsf_attention as MA
     from repro_torch.kernels import mxsf_fused_matmul as FM
+    from repro_torch.kernels import mxsf_quant as MQ
     from repro_torch.models import blocks as TB
-    if planted not in (None, "bf16_partials", "rows_swapped"):
+    from repro_torch.models import decoding as D
+    from repro_torch.models import model as M
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models import transformer as TF
+    if planted not in (None, "bf16_partials", "rows_swapped", "local_norm"):
         raise ValueError(f"no planted misstatement {planted!r}")
-    kf, ka, kx = FM.mxsf_fused_matmul, MA.mxsf_attention, TB._expert_ffn
-    roles, names = emulated_roles(plan), {}
+    kf, kq, ka, kd = (FM.mxsf_fused_matmul, MQ.mxsf_quantize,
+                      MA.mxsf_attention, TB.dense)
+    kat, kout, kfwd, kdec, kgate = (TB._attend, TB._attn_out,
+                                    SSD.ssd_forward, SSD.ssd_decode_step,
+                                    SSD._gate_out)
+    roles, names, values = emulated_roles(plan), {}, {}
+    fresh = set()  # storage of codes made at a rank's shape: run as is
     for path, leaf in _iter_leaves(store):
+        name = "/".join(path[-2:])
+        key = (leaf.codes if isinstance(leaf, QuantizedTensor)
+               else leaf).untyped_storage().data_ptr()
+        if key in names or key in values:
+            raise AssertionError(f"{path} shares its storage")
         if isinstance(leaf, QuantizedTensor):
-            key = leaf.codes.untyped_storage().data_ptr()
-            if key in names:
-                raise AssertionError(f"{path} shares its codes' storage")
-            names[key] = "/".join(path[-2:])
+            names[key] = name
+        elif name in roles:
+            values[key] = name
 
     def cut(t, dim, r, n):
         return t.narrow(dim, r * n, n).contiguous()
 
+    def owner(r):  # the rank whose rows rank r's K slice meets
+        return tp - 1 - r if planted == "rows_swapped" else r
+
+    def summed(parts):  # row-parallel f32 partials, in rank order
+        acc = None
+        for y in parts:
+            if planted == "bf16_partials":
+                y = y.to(torch.bfloat16).float()
+            acc = y if acc is None else acc + y
+        return acc
+
+    def local(leaf, codes, scales):
+        fresh.add(codes.untyped_storage().data_ptr())
+        return QuantizedTensor(codes, scales, leaf.fmt, leaf.block,
+                               tuple(codes.shape), leaf.dtype)
+
     def fused(x, codes, scales, xblk=(1, 64), wblk=(64, 1),
               quantize_lhs=True, emit_codes=False):
-        name = names.get(codes.untyped_storage().data_ptr())
+        key = codes.untyped_storage().data_ptr()
+        if key in fresh and quantize_lhs and not emit_codes:
+            fresh.discard(key)
+            return kf(x, codes, scales, xblk, wblk)
+        name = names.get(key)
         if name is None or emit_codes or not quantize_lhs:
             raise AssertionError(f"a fused call serving does not make "
                                  f"(weight {name})")
@@ -2871,19 +2979,36 @@ def emulating(torch, store, plan: dict, tp=SHARD_TP, planted=None):
             return torch.cat([kf(x, cut(codes, 1, r, n // tp),
                                  cut(scales, 1, r, n // tp // wblk[1]),
                                  xblk, wblk) for r in range(tp)], 1)
+        if role == "segments":
+            raise AssertionError(f"{name} reached the fused matmul whole")
         if role != "rows":
             return kf(x, codes, scales, xblk, wblk)
         if x.shape[1] != k:
             raise AssertionError(f"{name}: K {x.shape[1]} != rows {k}")
-        acc = None
-        for r in range(tp):
-            w = tp - 1 - r if planted == "rows_swapped" else r
-            y = kf(cut(x, 1, r, k // tp), cut(codes, 0, w, k // tp),
-                   cut(scales, 0, w, k // tp // wblk[0]), xblk, wblk)
-            if planted == "bf16_partials":
-                y = y.to(torch.bfloat16).float()
-            acc = y if acc is None else acc + y
-        return acc
+        return summed(kf(cut(x, 1, r, k // tp),
+                         cut(codes, 0, owner(r), k // tp),
+                         cut(scales, 0, owner(r), k // tp // wblk[0]),
+                         xblk, wblk) for r in range(tp))
+
+    def quantize(x, block):
+        out = kq(x, block)
+        fresh.add(out[0].untyped_storage().data_ptr())
+        return out
+
+    def dense(x, w, policy):
+        name = (None if isinstance(w, QuantizedTensor) else
+                values.get(w.untyped_storage().data_ptr()))
+        role = roles.get(name)
+        if role is None:
+            return kd(x, w, policy)
+        if role == "cols":
+            n = w.shape[-1] // tp
+            return torch.cat([kd(x, cut(w, -1, r, n), policy)
+                              for r in range(tp)], -1)
+        k = w.shape[0] // tp  # rows: blocks._row_parallel of a value leaf
+        return summed(mx_dot(cut(x, -1, r, k),
+                             cut(w, 0, owner(r), k).to(x.dtype), policy,
+                             f32_out=True) for r in range(tp)).to(x.dtype)
 
     def attention(q, kc, ks, vc, vs, *, causal=True, kv_len=None,
                   q_offset=None, window=None):
@@ -2905,6 +3030,19 @@ def emulating(torch, store, plan: dict, tp=SHARD_TP, planted=None):
             B, h // tp, S, dh) for r in range(tp)]
         return torch.cat(outs, 1).reshape(BH, S, dh)
 
+    def attend(q, k, v, qpos, kpos, causal, window, p, x, cfg, policy,
+               kv_prequant=False, pre=""):
+        h, kv = q.shape[2], k.shape[2]
+        TB._attn_out = lambda ctx, *a: ctx  # each rank's context, before wo
+        try:
+            ctxs = [kat(cut(q, 2, r, h // tp), cut(k, 2, r, kv // tp),
+                        cut(v, 2, r, kv // tp), qpos, kpos, causal, window,
+                        p, x, cfg, policy, kv_prequant, pre)
+                    for r in range(tp)]
+        finally:
+            TB._attn_out = kout
+        return kout(torch.cat(ctxs, -1), p, policy, pre)
+
     def experts(p, xe, cfg, policy):
         E = xe.shape[1]
         if E % tp:
@@ -2915,48 +3053,223 @@ def emulating(torch, store, plan: dict, tp=SHARD_TP, planted=None):
                              xe.narrow(1, r * c, c), cfg, policy)
                           for r in range(tp)], 1)
 
-    FM.mxsf_fused_matmul = fused
+    @torch.no_grad()
+    def prefill(params, batch, cache, cfg, policy):
+        if cfg.family != "encdec":
+            return kp(params, batch, cache, cfg, policy)
+        enc = TF.encode(params, batch["frames"], cfg, policy)
+        kvs = {"wk": [], "wv": []}
+        for i in range(cfg.n_layers):
+            lp = D.layer_params(params["dec_layers"], i)["cross"]
+            for name, out in kvs.items():
+                w = lp[name]
+                n = w.shape[-1] // tp
+                out.append(torch.cat([(enc @ cut(w, 1, r, n).to(
+                    enc.dtype)).reshape(*enc.shape[:2], -1, cfg.head_dim).to(
+                    torch.bfloat16) for r in range(tp)], 2))
+        cache["cross"] = {"k": torch.stack(kvs["wk"]),
+                          "v": torch.stack(kvs["wv"])}
+        cache["cross_ready"] = torch.ones((), dtype=torch.int32,
+                                          device=enc.device)
+        return None, cache
+
+    def segments(t, r, cfg, proj, unit=1):
+        """Rank r's columns of in_proj (``proj``: z, x, B, C, dt) or of the
+        conv channels (x, B, C): 1/tp of each split segment, all of the
+        others."""
+        dI, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+        widths = ([(dI, True)] if proj else []) + [
+            (dI, True), (gn, False), (gn, False)] + (
+            [(cfg.ssm_heads, True)] if proj else [])
+        parts, start = [], 0
+        for w, split in widths:
+            n = w // tp if split else w
+            lo = start + (r * n if split else 0)
+            parts.append(t.narrow(-1, lo // unit, n // unit))
+            start += w
+        return torch.cat(parts, -1)
+
+    def ssd_rank(fn, p, r, cfg):
+        """``fn(weights, dims)`` (the port's SSD forward or decode step)
+        on rank r's slice: its weights and dims; the gate it reaches is
+        kept for ``gated``.  Returns (the gate's arguments, fn's
+        result)."""
+        Hl = cfg.ssm_heads // tp
+        dims = types.SimpleNamespace(
+            d_inner=cfg.d_inner // tp, ssm_heads=Hl, **{
+                k: getattr(cfg, k) for k in (
+                    "ssm_ngroups", "ssm_state", "ssm_headdim", "ssm_conv",
+                    "ssm_chunk")})
+        w = p["in_proj"]
+        pr = dict({n: p[n].narrow(-1, r * Hl, Hl)
+                   for n in ("A_log", "D", "dt_bias")},
+                  in_proj=local(w, segments(w.codes, r, cfg, True),
+                                segments(w.scale_e8m0, r, cfg, True,
+                                         w.block[-1])),
+                  **{n: segments(p[n], r, cfg, False)
+                     for n in ("conv_w", "conv_b")})
+        got = []
+        SSD._gate_out = lambda *a: got.append(a)
+        try:
+            out = fn(pr, dims)
+        finally:
+            SSD._gate_out = kgate
+        return got[0], out
+
+    def gated(p, got, cfg, policy):
+        """ssd._gate_out over the ranks' (weights, y, z, x) -- each the
+        rank's D skip and gate, its f32 sum of squares, their sum in rank
+        order over d_inner (``local_norm``: its own mean), its norm_w
+        slice -- then out_proj row-parallel."""
+        gs = []
+        for pr, y, z, xr, *_ in got:
+            y = y + xr * pr["D"].to(y.dtype)[None, None, :, None]
+            g = y.reshape(*y.shape[:2], -1) * Fn.silu(z)
+            gs.append((g, g.float()))
+        sums = [torch.sum(gf * gf, dim=-1, keepdim=True) for _, gf in gs]
+        total = sums[0]
+        for s in sums[1:]:
+            total = total + s
+        w = p["out_proj"]
+        k = w.codes.shape[0] // tp
+        parts = []
+        for r, (g, gf) in enumerate(gs):
+            var = sums[r] / k if planted == "local_norm" else \
+                total / cfg.d_inner
+            y = (gf * torch.rsqrt(var + 1e-6)
+                 * p["norm_w"].narrow(-1, r * k, k)).to(g.dtype)
+            o = owner(r)
+            parts.append(mx_dot(y, local(
+                w, cut(w.codes, 0, o, k),
+                cut(w.scale_e8m0, 0, o, k // w.block[0])), policy,
+                f32_out=True))
+        return summed(parts).to(torch.promote_types(
+            gs[0][0].dtype, torch_dtype(w.dtype)))
+
+    def whole_tail(tails, cfg):
+        """The conv tail (..., K-1, C) from the ranks' compute layouts:
+        each rank's x channels, then B and C (rank 0's)."""
+        dIl = cfg.d_inner // tp
+        return torch.cat([t[..., :dIl] for t in tails]
+                         + [tails[0][..., dIl:]], -1)
+
+    def ssd_forward(p, u, cfg, policy, *, return_state=False):
+        runs = [ssd_rank(lambda pr, dims: kfwd(pr, u, dims, policy,
+                                               return_state=True), p, r, cfg)
+                for r in range(tp)]
+        out = gated(p, [g for g, _ in runs], cfg, policy)
+        if not return_state:
+            return out
+        states = [c for _, (_, c) in runs]
+        return out, {"state": torch.cat([c["state"] for c in states], -3),
+                     "conv": whole_tail([c["conv"] for c in states], cfg)}
+
+    def ssd_decode_step(p, u, cache, cfg, policy):
+        hg = cfg.ssm_heads // tp // cfg.ssm_ngroups
+        mine = [{"state": cache["state"].narrow(-3, r * hg, hg).contiguous(),
+                 "conv": segments(cache["conv"], r, cfg, False)}
+                for r in range(tp)]
+        got = [ssd_rank(lambda pr, dims: kdec(pr, u, mine[r], dims, policy),
+                        p, r, cfg)[0] for r in range(tp)]
+        out = gated(p, got, cfg, policy)
+        cache["state"].copy_(torch.cat([c["state"] for c in mine], -3))
+        cache["conv"].copy_(whole_tail([c["conv"] for c in mine], cfg))
+        return out, cache
+
+    kx, kp = TB._expert_ffn, M.prefill
+    swaps = [(FM, "mxsf_fused_matmul", fused), (MQ, "mxsf_quantize",
+                                                   quantize),
+             (TB, "dense", dense)]
     if plan["heads"]:
-        MA.mxsf_attention = attention
+        swaps += [(MA, "mxsf_attention", attention), (TB, "_attend", attend)]
+        if any(name.startswith("cross/") for name in values.values()):
+            swaps += [(M, "prefill", prefill), (D, "prefill", prefill)]
     if plan["experts"]:
-        TB._expert_ffn = experts
+        swaps.append((TB, "_expert_ffn", experts))
+    if plan["ssm"]:
+        swaps += [(SSD, "ssd_forward", ssd_forward),
+                  (SSD, "ssd_decode_step", ssd_decode_step)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        FM.mxsf_fused_matmul, MA.mxsf_attention, TB._expert_ffn = kf, ka, kx
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def digest(torch, t) -> str:
+    """A 16-byte digest of a tensor's bytes."""
+    import hashlib
+    raw = t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.blake2b(raw, digest_size=16).hexdigest()
 
 
 @contextlib.contextmanager
-def layer_taps(torch):
-    """Inside the block, a digest of each sublayer's output, in call order:
-    ``blocks.attention``'s (after wo) and ``transformer._apply_ffn``'s,
-    layer after layer, dispatch after dispatch (this script's hook, as
-    ``moe_taps`` is).  A rank's are whole after their all-reduce, so a rank
-    and the emulation digest the same tensors.  Yields the list."""
-    import hashlib
+def layer_taps(torch, named=False):
+    """Inside the block, a digest of each sublayer's output, in call order
+    (this script's hook, as ``moe_taps`` is): ``blocks.attention``'s
+    (after wo; ``"cross"`` where it reads an encoder's keys, else
+    ``"attention"``), ``transformer._apply_ffn``'s (``"ffn"``),
+    ``blocks.mlp``'s called outside it (``"mlp"``: the encoder-decoder's
+    decoder) and the SSD mixer's (``"ssd"``, after out_proj), layer after
+    layer, dispatch after dispatch.  A rank's are whole after their
+    all-reduce, so a rank and the emulation digest the same tensors.
+    Yields the list: of digests, or with ``named`` of (kind, digest)
+    pairs."""
     from repro_torch.models import blocks as TB
+    from repro_torch.models import ssd as SSD
     from repro_torch.models import transformer as TF
-    digests, attention, ffn = [], TB.attention, TF._apply_ffn
+    digests, inside = [], []
+    saved = [(TB, "attention"), (TF, "_apply_ffn"), (TB, "mlp"),
+             (SSD, "ssd_forward"), (SSD, "ssd_decode_step")]
+    attention, ffn, mlp, fwd, dec = (getattr(m, n) for m, n in saved)
 
-    def digest(t):
-        raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
-        return hashlib.blake2b(raw, digest_size=16).hexdigest()
+    def tap(kind, t):
+        digests.append((kind, digest(torch, t)) if named else
+                       digest(torch, t))
 
     def attn(*a, **kw):
         out = attention(*a, **kw)
-        digests.append(digest(out[0]))
+        cross = kw.get("kv_cached") is not None or \
+            kw.get("kv_x") is not None
+        tap("cross" if cross else "attention", out[0])
         return out
 
-    def mlp(*a, **kw):
-        out = ffn(*a, **kw)
-        digests.append(digest(out))
+    def apply_ffn(*a, **kw):
+        inside.append(1)
+        try:
+            out = ffn(*a, **kw)
+        finally:
+            inside.pop()
+        tap("ffn", out)
         return out
 
-    TB.attention, TF._apply_ffn = attn, mlp
+    def dense_mlp(*a, **kw):
+        out = mlp(*a, **kw)
+        if not inside:
+            tap("mlp", out)
+        return out
+
+    def ssd_forward(*a, **kw):
+        out = fwd(*a, **kw)
+        tap("ssd", out[0] if kw.get("return_state") else out)
+        return out
+
+    def ssd_decode_step(*a, **kw):
+        out = dec(*a, **kw)
+        tap("ssd", out[0])
+        return out
+
+    for (mod, name), fn in zip(saved, (attn, apply_ffn, dense_mlp,
+                                       ssd_forward, ssd_decode_step)):
+        setattr(mod, name, fn)
     try:
         yield digests
     finally:
-        TB.attention, TF._apply_ffn = attention, ffn
+        for (mod, name), fn in zip(saved, (attention, ffn, mlp, fwd, dec)):
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -3017,17 +3330,34 @@ def emulate_serving(torch, eng, cfg, prompts, new_tokens, want,
                 seconds=time.perf_counter() - t0)
 
 
-def first_tap_difference(got, want, n_layers):
+def first_tap_difference(got, want, n_layers=None):
     """The first sublayer whose digest differs between two runs of the
-    same dispatches (``layer_taps``): (dispatch, layer, sublayer), or
-    None."""
-    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-             None if len(got) == len(want) else min(len(got), len(want)))
-    if i is None:
-        return None
-    per = 2 * n_layers
-    return dict(dispatch=i // per, layer=i % per // 2,
-                sublayer=("attention", "ffn")[i % 2])
+    same dispatches (``layer_taps``), or None.  A decoder's unnamed
+    digests (``n_layers`` layers, an attention and an ffn digest a
+    layer): (dispatch, layer, sublayer) from the index.  Named digests
+    (``n_layers`` None; one list of (kind, digest) pairs a dispatch): the
+    dispatch, the layer (the taps of its kind before it in that
+    dispatch) and its kind.  A run cut short differs where it ends."""
+    def first(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None if len(a) == len(b) else min(len(a), len(b)))
+
+    if n_layers is not None:
+        i = first(got, want)
+        if i is None:
+            return None
+        per = 2 * n_layers
+        return dict(dispatch=i // per, layer=i % per // 2,
+                    sublayer=("attention", "ffn")[i % 2])
+    for d in range(max(len(got), len(want))):
+        a, b = (t[d] if d < len(t) else [] for t in (got, want))
+        i = first(a, b)
+        if i is not None:
+            taps = b if i < len(b) else a
+            kind = taps[i][0]
+            return dict(dispatch=d, sublayer=kind,
+                        layer=sum(k == kind for k, _ in taps[:i]))
+    return None
 
 
 def exact_gate(torch, phase, emu, ranks, out_dir, n_layers):
@@ -3125,8 +3455,11 @@ def one_rank_world(torch, device):
 def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
                prompts, new_tokens, want, seed):
     """Phase serve_sharded, step 1: a world of one rank in this process
-    (``one_rank_world``).  Returns (launches, the reorder baseline, the
-    store it restored)."""
+    (``one_rank_world``); its reorder baseline waits for the two-rank
+    run's ranks to pass their checked first dispatch (``ranks_past``:
+    their checks and this baseline each dequantize whole weights, and
+    together they have filled the card).  Returns (launches, the reorder
+    baseline, the store it restored)."""
     from repro_torch.core import blocking as B
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime.compress import make_compressed_allreduce
@@ -3140,6 +3473,7 @@ def _world_one(torch, device, cfg, policy, ckpt_dir, slots, chunk, max_len,
         _, launches, collectives, _ = sharded_serve(
             torch, eng, cfg, prompts, new_tokens, want, "serve_sharded",
             mesh="1x1", backend=backend, restore_seconds=restore_s)
+        ranks_past(SHARD_DIR, "first")
         baseline = reorder_baseline(torch, eng, cfg, prompts, new_tokens,
                                     want, torch.load(CKPT_ROOT / "logits.pt"))
         emit("serve_sharded", step="reorder_baseline",
@@ -3275,6 +3609,8 @@ def sharded_rank(rank: str, world: str, port: str, rehearsal: str,
                                  "slack")
         out["first_dispatch"], first = sharded_first_dispatch(
             torch, eng, cfg, spec["prompts"])
+        free_device(torch, device)  # the checks' buffers back to the card
+        (SHARD_DIR / f"first{rank}").touch()
         out["dispatch"] = dispatch_counts(torch, eng)
         outs, launches, collectives, record = sharded_serve(
             torch, eng, cfg, spec["prompts"], spec["new_tokens"],
@@ -3334,6 +3670,18 @@ def rank_profile(torch, eng, rank, phase):
     for _ in range(2):
         eng._decode(eng.params, toks, eng.cache, pos)
     return None
+
+
+def ranks_past(out_dir, mark, world=SHARD_TP, wait_s=SHARD_WAIT_S):
+    """Wait until each of ``world`` ranks has dropped ``mark<rank>`` in
+    ``out_dir``, one has ended (its results file is written however it
+    ends) or ``wait_s`` has passed."""
+    deadline = time.perf_counter() + wait_s
+    while time.perf_counter() < deadline and not (
+            all((out_dir / f"{mark}{r}").exists() for r in range(world))
+            or any((out_dir / f"rank{r}.json").exists()
+                   for r in range(world))):
+        time.sleep(0.2)
 
 
 def beside_ranks(phase, target, spec, out_dir, rehearsal, work):
@@ -4772,9 +5120,14 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
+GEMMA2_SERVE_PERIODS = 7  # serve_gemma2's depth: 14 of gemma2-9b's 42
+# layers (each period a local and a global layer)
+
+
 def phase_serve_gemma2(torch, device, args, rehearsal):
-    """gemma2-9b at full width and depth (softcaps, alternating 4096-token
-    SWA): one packed store shared by two engines of ``MXSF_INFER`` on the
+    """gemma2-9b at full width, cut to GEMMA2_SERVE_PERIODS periods of its
+    alternating 4096-token SWA (softcaps; the cut printed): one packed
+    store shared by two engines of ``MXSF_INFER`` on the
     kernel datapath, A with the policy's bf16 value cache and B with the
     packed MXSF cache (dequantized into the value path, ``kv_prequant``);
     a 4200-token prompt (the local layers' window masks) and a 37-token
@@ -4784,6 +5137,7 @@ def phase_serve_gemma2(torch, device, args, rehearsal):
     from repro_torch.configs.base import get_config
     from repro_torch.core.packed_store import store_nbytes
     from repro_torch.core.policy import MXSF_INFER
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.engine import _nbytes as tree_bytes
@@ -4793,6 +5147,11 @@ def phase_serve_gemma2(torch, device, args, rehearsal):
     if rehearsal:
         cfg = cfg.reduced()
         chunk, max_len, new_tokens, lengths = 8, 40, 4, [21, 5]
+    full = cfg.n_layers
+    cfg = dryrun.at_depth(cfg, min(GEMMA2_SERVE_PERIODS,
+                                   dryrun.layer_period(cfg)[1]))
+    if cfg.n_layers < full:
+        emit("serve_gemma2", step="cut", n_layers=cfg.n_layers, of=full)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     store = M.init_packed_params(cfg, MXSF_INFER, gen, device=device)
@@ -5811,7 +6170,8 @@ def phase_train_gemma2(torch, device, args, rehearsal):
 # ("serve_sharded_families")
 # ---------------------------------------------------------------------------
 
-SHARD_FAM_DIR = ROOT / "build" / "chip_smoke_sharded_families"  # results
+SHARD_FAM_DIR = ROOT / "build" / "chip_smoke_sharded_families"  # results,
+# a folder a program
 # the most the one-device reorder baseline (``family_reference``) may move
 # each family's logits on the card: the move recorded on the H100 (the
 # same bits in two runs of this deterministic path and its seeded
@@ -5819,6 +6179,14 @@ SHARD_FAM_DIR = ROOT / "build" / "chip_smoke_sharded_families"  # results
 FAMILY_REORDER_CEILING = {"mamba2-780m": 0.4140625 + 2.0 ** -5,
                           "zamba2-7b": 0.27734375 + 2.0 ** -5,
                           "whisper-medium": 0.091796875 + 2.0 ** -5}
+FAMILY_DECODES = 8  # decode steps a program runs, filling families_plan's
+# max_len past the prompt
+# the negative controls of the exact gate, by family: the emulation with
+# each row-parallel partial rounded to bf16 before the sum, and with each
+# rank's SSD heads normalised by the mean over its own d_inner / tp
+FAMILY_PLANTED = {"ssm": ("bf16_partials", "local_norm"),
+                  "hybrid": ("bf16_partials", "local_norm"),
+                  "encdec": ("bf16_partials",)}
 
 
 def families_plan(rehearsal: bool) -> dict:
@@ -5841,7 +6209,8 @@ def families_plan(rehearsal: bool) -> dict:
             cfg = dryrun.at_depth(cfg, 2)
         out[arch] = dict(n_layers=cfg.n_layers,
                          n_enc_layers=cfg.n_enc_layers, batch=batch,
-                         prompt=prompt, max_len=max(prompt, 8) + 8)
+                         prompt=prompt,
+                         max_len=max(prompt, 8) + FAMILY_DECODES)
     return out
 
 
@@ -5857,16 +6226,19 @@ def family_program(arch: str, prog: dict, rehearsal: bool):
 
 def family_batch(torch, device, cfg, prog, seed):
     """The whole prefill batch of a program (seeded prompts, or whisper's
-    seeded bf16 frames) and the token its decode step is fed (whisper's
-    first prompt token; a seeded token for the others): the same in every
-    process that draws it."""
+    seeded bf16 frames) and the FAMILY_DECODES tokens (B, FAMILY_DECODES)
+    its decode steps are fed in turn (the first: whisper's first prompt
+    token, a seeded token for the others; then a seeded stream): the
+    same in every process that draws them."""
     B = prog["batch"]
-    token = torch.tensor(_prompts(cfg, seed + 2, [1] * B), device=device)
+    feed = torch.tensor([a + b for a, b in zip(
+        _prompts(cfg, seed + 2, [1] * B),
+        _prompts(cfg, seed + 3, [FAMILY_DECODES - 1] * B))], device=device)
     if cfg.family == "encdec":
         return {"frames": _stub(torch, device, seed + 1,
-                                (B, cfg.enc_seq, cfg.d_model), 1.0)}, token
+                                (B, cfg.enc_seq, cfg.d_model), 1.0)}, feed
     return {"tokens": torch.tensor(_prompts(cfg, seed, [prog["prompt"]] * B),
-                                   device=device)}, token
+                                   device=device)}, feed
 
 
 def family_logits(torch, cfg, policy, prog, store, batch, token, device):
@@ -5883,20 +6255,17 @@ def family_logits(torch, cfg, policy, prog, store, batch, token, device):
             "decode": ld[:, :cfg.vocab].float()}
 
 
-def family_reference(torch, device, arch, prog, args, rehearsal):
-    """One device's logits of a program (``family_logits``) over the store
-    drawn from ``--seed`` on the kernel datapath, then again with every
-    fused matmul on its plain version (cuBLAS's f32 order over the same
-    exact products): (the reference logits, the reorder baseline -- the
-    largest logit move between the two, capped on the card by
-    FAMILY_REORDER_CEILING)."""
+def family_reference(torch, device, arch, cfg, policy, prog, store, batch,
+                     feed):
+    """One device's logits of a program's prefill and first decode step
+    (``family_logits``) over ``store`` (drawn from ``--seed``) on the
+    kernel datapath, then again with every fused matmul on its plain
+    version (cuBLAS's f32 order over the same exact products): (the
+    reference logits, the reorder baseline -- the largest logit move
+    between the two, capped on the card by FAMILY_REORDER_CEILING)."""
     from repro_torch.kernels import mxsf_fused_matmul as FM
-    from repro_torch.models import model as M
     phase = "serve_sharded_families"
-    cfg, policy = family_program(arch, prog, rehearsal)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    store = M.init_packed_params(cfg, policy, gen, device=device)
-    batch, token = family_batch(torch, device, cfg, prog, args.seed)
+    token = feed[:, :1]
     ref = family_logits(torch, cfg, policy, prog, store, batch, token,
                         device)
     kernel = FM.mxsf_fused_matmul
@@ -5917,9 +6286,7 @@ def family_reference(torch, device, arch, prog, args, rehearsal):
         raise AssertionError(f"{phase} {arch}: the reorder baseline moved "
                              f"the logits by {dev}, past its ceiling "
                              f"{ceiling}")
-    del store
-    free_device(torch, device)
-    return ref, dev
+    return {k: None if v is None else v.cpu() for k, v in ref.items()}, dev
 
 
 def ssd_local_shapes(cfg, tp=SHARD_TP):
@@ -5931,26 +6298,141 @@ def ssd_local_shapes(cfg, tp=SHARD_TP):
     return [(cfg.d_model, n), (cfg.d_inner // tp, cfg.d_model)]
 
 
+def cache_leaves(cache, pre=()):
+    """A (nested) cache dict's tensors by path."""
+    out = {}
+    for k, v in sorted(cache.items()):
+        if isinstance(v, dict):
+            out.update(cache_leaves(v, pre + (k,)))
+        else:
+            out[pre + (k,)] = v
+    return out
+
+
+def stored_slice(t, path, rank, tp, layout, heads):
+    """A rank's stored slice of the whole cache leaf ``t`` at ``path``, as
+    its layout keeps it: the SSD state's heads and the conv tail's
+    channels where ``ssd_cache`` splits them; an attention cache's kv
+    heads where the plan splits the heads (``heads``) or the cache does
+    (``cache_heads`` / ``cross_cache``), its positions where the cache
+    does (``cache_sp``, ``cross_cache``)."""
+    def part(dim, split):
+        n = t.shape[dim] // split[2]
+        return t.narrow(dim, split[1], n)
+
+    name = path[-1]
+    if name in ("state", "conv"):
+        if layout["ssd_cache"][name]:
+            dim = -3 if name == "state" else -1
+            n = t.shape[dim] // tp
+            t = t.narrow(dim, rank * n, n)
+        return t
+    if name not in ("k", "v", "k_codes", "k_scales", "v_codes", "v_scales"):
+        return t
+    sp, ch = (layout.get("cross_cache") or (None, None)) \
+        if path[0] == "cross" else (layout.get("cache_sp"),
+                                    layout.get("cache_heads"))
+    if heads:
+        n = t.shape[-2] // tp
+        t = t.narrow(-2, rank * n, n)
+    elif ch is not None:
+        t = part(-2, ch)
+    return t if sp is None else part(-3, sp)
+
+
+def family_dispatches(torch, cfg, policy, prog, params, cache, batch, feed,
+                      run, n=None):
+    """A program's dispatches after the lockstep pair (or, with ``run``
+    None, all of them on one device): each of the FAMILY_DECODES decode
+    steps past the first fed its column of ``feed`` at its position,
+    each inside ``layer_taps``; ``run(step)`` issues a dispatch (a rank's
+    ``place.run``).  Yields (logits rows, named taps) a dispatch; ``n``
+    dispatches at most."""
+    from repro_torch.models import model as M
+    S = 0 if cfg.family == "encdec" else prog["prompt"]
+    first = 0 if run is None else 2
+    run = run or (lambda step: step())
+    for d in range(first, min(FAMILY_DECODES + 1, n or FAMILY_DECODES + 1)):
+        with layer_taps(torch, named=True) as taps:
+            if d == 0:
+                lk, _ = run(lambda: M.prefill(params, batch, cache, cfg,
+                                              policy))
+            else:
+                lk, _ = run(lambda: M.decode_step(
+                    params, feed[:, d - 1:d], cache, S + d - 1, cfg, policy))
+        yield (None if lk is None else lk[:, :cfg.vocab].float().cpu(),
+               list(taps))
+
+
+def emulate_family(torch, device, cfg, policy, prog, store, batch, feed,
+                   planted=None, n=None):
+    """The (1, SHARD_TP) ranks of a program emulated on one device over
+    the whole store (``emulating`` the plan ``emulated_plan`` states, at
+    the ranks' CPU thread count): its dispatches (``n`` at most) as the
+    ranks run them, each one's logits rows and sublayer digests, and the
+    whole cache after the last (on the host)."""
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    plan = emulated_plan(cfg, policy)
+    cache = M.init_cache(cfg, prog["batch"], prog["max_len"], ring=False,
+                         kv_fmt="mxsf", device=device)
+    with rank_threads(torch), emulating(torch, store, plan,
+                                        planted=planted):
+        runs = list(family_dispatches(torch, cfg, policy, prog, store, cache,
+                                      batch, feed, None, n))
+    return dict(plan=plan, rows=[r for r, _ in runs],
+                taps=[t for _, t in runs],
+                cache={k: v.cpu() for k, v in cache_leaves(cache).items()},
+                seconds=time.perf_counter() - t0)
+
+
+def family_main(torch, device, arch, prog, args, rehearsal):
+    """This process's part of a program, beside the ranks: the whole
+    store drawn from ``--seed``, one device's reference and reorder
+    baseline (``family_reference``), the emulation of the ranks' plan
+    over all of its dispatches (``emulate_family``) and, on the first
+    dispatch, each negative control of FAMILY_PLANTED."""
+    from repro_torch.models import model as M
+    cfg, policy = family_program(arch, prog, rehearsal)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    store = M.init_packed_params(cfg, policy, gen, device=device)
+    batch, feed = family_batch(torch, device, cfg, prog, args.seed)
+    ref, baseline = family_reference(torch, device, arch, cfg, policy, prog,
+                                     store, batch, feed)
+    emu = emulate_family(torch, device, cfg, policy, prog, store, batch,
+                         feed)
+    controls = {p: emulate_family(torch, device, cfg, policy, prog, store,
+                                  batch, feed, p, 1)
+                for p in FAMILY_PLANTED[cfg.family]}
+    del store
+    free_device(torch, device)
+    return dict(ref=ref, baseline=baseline, emu=emu, controls=controls)
+
+
 def sharded_family_rank(rank: str, world: str, port: str, rehearsal: str,
                         spec_file: str):
     """One rank of phase serve_sharded_families' two-rank run: for each
     program of ``families_plan``, draw this rank's slices of the store
     from the seed (``engine.draw_store``) and place a cache, hold both
     bytes to ``MeshRules.shard_nbytes``; run the lockstep prefill and
-    decode of ``engine.lockstep_dispatches`` (the decode fed
-    ``family_batch``'s token) with every kernel call teacher-forced
+    decode of ``engine.lockstep_dispatches`` (the decode fed the first of
+    ``family_batch``'s tokens) with every kernel call teacher-forced
     (``checked_kernels``) at its shard-local shape, counting launches and
     collectives (the ``dispatch`` record phase dryrun_mesh holds the
     trace to; the checks' plain versions launch nothing and send
-    nothing), and save the logits for the phase to hold to one device's.
-    Results to SHARD_FAM_DIR."""
+    nothing), then the program's other decode steps
+    (``family_dispatches``).  Saves for the exact gate every dispatch's
+    logits rows and sublayer digests, a digest of each of its stored
+    cache slices after the last, and its layout.  Results to the spec
+    file's folder."""
     from repro_torch.core import sharding as shd
     from repro_torch.launch import cost
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import model as M
     from repro_torch.serve import engine as E
     spec = json.loads(Path(spec_file).read_text())
-    with gloo_rank(rank, world, port, rehearsal, SHARD_FAM_DIR) as (
+    out_dir = Path(spec_file).parent
+    with gloo_rank(rank, world, port, rehearsal, out_dir) as (
             torch, device, rank, world, out):
         mesh = mesh_lib.make_test_mesh(1, world)
         rules = mesh_lib.MeshRules(mesh)
@@ -5986,28 +6468,43 @@ def sharded_family_rank(rank: str, world: str, port: str, rehearsal: str,
                                      f"{row['cache_bytes']} != MeshRules' "
                                      f"{row['predicted_store_bytes']} / "
                                      f"{row['predicted_cache_bytes']}")
-            batch, token = family_batch(torch, device, cfg, prog,
-                                        spec["seed"])
+            batch, feed = family_batch(torch, device, cfg, prog,
+                                       spec["seed"])
             disp = dict(n_layers=cfg.n_layers, store_bytes=row["store_bytes"],
                         cache_bytes=row["cache_bytes"])
-            logits = {}
+            rows, taps = [], []
             with checked_kernels(torch, lambda k: MATMUL_RTOL, None) as chk:
                 for kind, run in E.lockstep_dispatches(
-                        cfg, pol, place, store, cache, batch, token):
+                        cfg, pol, place, store, cache, batch, feed[:, :1]):
                     _sync(torch, device)
                     reset_launches()
                     shd.reset_counts()
                     t1 = time.perf_counter()
-                    lk, cache = run()
+                    with layer_taps(torch, named=True) as t:
+                        lk, cache = run()
                     _sync(torch, device)
                     disp[kind] = dict(
                         launches=({k: v for k, v in read_launches().items()
                                    if v} if device.type == "cuda" else None),
                         collectives=cost.collectives_by_axis(shd.counts()))
                     row[f"{kind}_seconds"] = time.perf_counter() - t1
-                    logits[kind] = None if lk is None else \
-                        lk[:, :cfg.vocab].float().cpu()
-            torch.save(logits, SHARD_FAM_DIR / f"logits_{arch}_rank{rank}.pt")
+                    rows.append(None if lk is None else
+                                lk[:, :cfg.vocab].float().cpu())
+                    taps.append(list(t))
+            t1 = time.perf_counter()
+            for lk, t in family_dispatches(torch, cfg, pol, prog, store,
+                                           cache, batch,
+                                           place.rows_of(feed)[0], place.run):
+                rows.append(lk)
+                taps.append(t)
+            _sync(torch, device)
+            row["decodes_seconds"] = time.perf_counter() - t1
+            torch.save(dict(rows=rows, taps=taps, layout={
+                k: place.layout.get(k) for k in (
+                    "ssd_cache", "cache_sp", "cache_heads", "cross_cache")},
+                cache={"/".join(k): (tuple(v.shape), digest(torch, v))
+                       for k, v in cache_leaves(cache).items()}),
+                out_dir / f"exact_{arch}_rank{rank}.pt")
             backend = row["attn_backend"]
             expect = {k: family_launch_counts(cfg, backend, "prefill")[k]
                       + family_launch_counts(cfg, backend)[k]
@@ -6040,75 +6537,149 @@ def sharded_family_rank(rank: str, world: str, port: str, rehearsal: str,
             free_device(torch, device)
 
 
-def family_logit_check(torch, arch, ref, baseline, ranks):
-    """Each rank's logits of a program (saved by ``sharded_family_rank``)
-    against one device's ``ref``: within REORDER_FACTOR times the reorder
-    baseline, or one bf16 ulp of the largest |logit| where that is more;
-    the rows whose top-1 differs from one device's are counted (the ranks
-    hold the same gathered logits, so they must choose alike)."""
+def family_exact_gate(torch, phase, arch, main, ranks):
+    """Each rank of a program held to the emulation (``family_main``) bit
+    for bit: its plan field by field against ``emulated_plan``, every
+    logits row and its top-1 under ``torch.equal`` (``bitwise_rows`` of
+    ``rows``; the first row that differs: dispatch kind, step, row, max
+    |delta|), every sublayer digest (the first that differs: dispatch,
+    layer, kind) and every stored cache slice (the emulation's whole
+    cache cut as the rank's layout stores it, ``stored_slice``; the first
+    leaf that differs).  The negative controls: each planted
+    misstatement's first dispatch must differ from the rank's.  One line
+    a rank; returns the faults."""
+    emu, faults = main["emu"], []
+    keys = [(d, i) for d, rows in enumerate(emu["rows"]) if rows is not None
+            for i in range(rows.shape[0])]
+    for r, res in enumerate(ranks):
+        got = torch.load(SHARD_FAM_DIR / arch / f"exact_{arch}_rank{r}.pt")
+        plan = res["families"][arch]["tp_plan"]
+        plan_off = {k: dict(rank=plan.get(k), emulated=v)
+                    for k, v in emu["plan"].items() if plan.get(k) != v}
+
+        def same(d, i, want):
+            row = got["rows"][d] if d < len(got["rows"]) else None
+            return (row is not None and torch.equal(row[i], want[d][i])
+                    and int(row[i].argmax()) == int(want[d][i].argmax()))
+
+        off = next((k for k in keys if not same(*k, emu["rows"])), None)
+        if off is not None:
+            d, i = off
+            row = got["rows"][d] if d < len(got["rows"]) else None
+            off = dict(kind="decode" if d else "prefill", step=d, row=i,
+                       max_abs_delta=None if row is None else float(
+                           (row[i] - emu["rows"][d][i]).abs().max()))
+        bitwise = sum(same(*k, emu["rows"]) for k in keys)
+        sub = first_tap_difference(got["taps"], emu["taps"])
+        want = {"/".join(k): (tuple(v.shape), digest(torch, v)) for k, v in (
+            (k, stored_slice(v, k, r, SHARD_TP, got["layout"],
+                             emu["plan"]["heads"]))
+            for k, v in emu["cache"].items())}
+        cache_off = next((k for k in sorted(set(want) | set(got["cache"]))
+                          if got["cache"].get(k) != want.get(k)), None)
+        planted = {}
+        for name, ctl in main["controls"].items():
+            row, crow = got["rows"][0], ctl["rows"][0]
+            planted[name] = dict(
+                rejected=got["taps"][0] != ctl["taps"][0] or (
+                    row is not None and not torch.equal(row, crow)),
+                first_sublayer_differs=first_tap_difference(
+                    got["taps"][:1], ctl["taps"]),
+                max_abs_delta=None if row is None else float(
+                    (row - crow).abs().max()))
+        emit(phase, step="exact", arch=arch, rank=r, plan_fields_off=plan_off,
+             bitwise_rows=bitwise, rows=len(keys), first_row_differs=off,
+             sublayers=sum(len(t) for t in emu["taps"]),
+             first_sublayer_differs=sub, cache_leaves=len(want),
+             first_cache_leaf_differs=cache_off, planted=planted)
+        if plan_off:
+            faults.append(f"{arch} rank {r}: plan fields {sorted(plan_off)} "
+                          "off the emulation's")
+        if bitwise != len(keys) or len(got["rows"]) != len(emu["rows"]):
+            faults.append(f"{arch} rank {r}: {bitwise} of {len(keys)} rows "
+                          f"bitwise (first off: {off}; first sublayer off: "
+                          f"{sub})")
+        if sub is not None or cache_off is not None:
+            faults.append(f"{arch} rank {r}: first sublayer off {sub}, "
+                          f"first cache leaf off {cache_off}")
+        faults += [f"{arch} rank {r}: the planted {name} went unnoticed"
+                   for name, c in planted.items() if not c["rejected"]]
+    return faults
+
+
+def family_logit_check(torch, arch, ref, baseline, emu):
+    """The emulation's logits of a program's prefill and first decode
+    step against one device's ``ref``: within REORDER_FACTOR times the
+    reorder baseline, or one bf16 ulp of the largest |logit| where that
+    is more; the rows whose top-1 differs from one device's are listed
+    (``disagree``)."""
     row = dict(arch=arch, baseline=baseline, tol=REORDER_FACTOR * baseline,
                max_dev=0.0, disagree=[])
-    choices = []
-    for r in range(ranks):
-        got = torch.load(SHARD_FAM_DIR / f"logits_{arch}_rank{r}.pt")
-        mine = []
-        for kind, want in ref.items():
-            if want is None:
-                continue
-            want = want.cpu()
-            row["tol"] = max(row["tol"],
-                             float(_bf16_ulp(torch, want.abs().max())))
-            row["max_dev"] = max(row["max_dev"],
-                                 float((got[kind] - want).abs().max()))
-            mine.append(got[kind].argmax(-1))
-            if r == 0:
-                row["disagree"] += [
-                    [kind, i] for i, same in enumerate(
-                        (got[kind].argmax(-1) == want.argmax(-1)).tolist())
-                    if not same]
-        choices.append(mine)
-    row["ranks_agree"] = all(all(bool((a == b).all()) for a, b in
-                                 zip(c, choices[0])) for c in choices)
+    for d, kind in enumerate(("prefill", "decode")):
+        want, got = ref[kind], emu["rows"][d]
+        if want is None:
+            continue
+        row["tol"] = max(row["tol"], float(_bf16_ulp(torch,
+                                                     want.abs().max())))
+        row["max_dev"] = max(row["max_dev"],
+                             float((got - want).abs().max()))
+        row["disagree"] += [[kind, i] for i, same in enumerate(
+            (got.argmax(-1) == want.argmax(-1)).tolist()) if not same]
     return row
 
 
 def phase_serve_sharded_families(torch, device, args, rehearsal):
     """Phase serve_sharded_families: mamba2, zamba2 and whisper sharded
-    over a (1, SHARD_TP) mesh.  SHARD_TP ranks sharing the card, each in
-    its own process (``sharded_family_rank``) over gloo, run every program
-    in turn, while this process computes each program's one-device
-    reference and reorder baseline (``family_reference``); then each
-    rank's logits are held to the reference (``family_logit_check``).
-    Returns rank 0's launches (the counted prefill and decode of every
-    program)."""
+    over a (1, SHARD_TP) mesh.  A pair of SHARD_TP ranks a program, the
+    three pairs at once sharing the card, each rank in its own process
+    (``sharded_family_rank``) over gloo, while this process computes each
+    program's one-device reference and reorder baseline, the emulation
+    of the ranks' plan and its negative controls (``family_main``); then
+    each rank is held to the emulation bit for bit
+    (``family_exact_gate``) and the emulation to the reference within
+    REORDER_FACTOR times the baseline (``family_logit_check``).  Returns
+    the launches of each program's rank 0 (its counted prefill and
+    decode), summed."""
+    import shutil
     t_phase = time.perf_counter()
     phase = "serve_sharded_families"
     plan = families_plan(rehearsal)
     emit(phase, step="plan", ranks=SHARD_TP, programs=plan)
-
-    def work():
-        refs = {arch: family_reference(torch, device, arch, prog, args,
-                                       rehearsal)
-                for arch, prog in plan.items()}
-        return refs, time.perf_counter() - t_phase
-
-    (refs, t_ref), ranks = beside_ranks(
-        phase, "sharded_family_rank", dict(programs=plan, seed=args.seed),
-        SHARD_FAM_DIR, rehearsal, work)
-    faults = []
-    for arch, (ref, baseline) in refs.items():
-        row = family_logit_check(torch, arch, ref, baseline, SHARD_TP)
-        emit(phase, step="teacher_forced", **row)
+    shutil.rmtree(SHARD_FAM_DIR, ignore_errors=True)
+    pairs = {}
+    try:  # each pair's gathers go through host memory: the pairs overlap
+        for arch, prog in plan.items():
+            pairs[arch] = start_rank_processes(
+                "sharded_family_rank", dict(programs={arch: prog},
+                                            seed=args.seed),
+                SHARD_FAM_DIR / arch, SHARD_TP, rehearsal)
+        mains = {arch: family_main(torch, device, arch, prog, args,
+                                   rehearsal)
+                 for arch, prog in plan.items()}
+        t_main = time.perf_counter() - t_phase
+        ranks = {arch: finish_rank_processes(phase, started,
+                                             SHARD_FAM_DIR / arch)
+                 for arch, started in pairs.items()}
+    finally:
+        for procs, _ in pairs.values():
+            stop_processes(procs)
+    faults, launches = [], {}
+    for arch, main in mains.items():
+        faults += family_exact_gate(torch, phase, arch, main, ranks[arch])
+        row = family_logit_check(torch, arch, main["ref"], main["baseline"],
+                                 main["emu"])
+        emit(phase, step="emulation", seconds=main["emu"]["seconds"],
+             plan=main["emu"]["plan"], **row)
         if row["max_dev"] > row["tol"]:
-            faults.append(f"{arch}: logits {row['max_dev']} off one "
-                          f"device's, past {row['tol']}")
-        if not row["ranks_agree"]:
-            faults.append(f"{arch}: the ranks chose differently")
+            faults.append(f"{arch}: the emulation's logits {row['max_dev']} "
+                          f"off one device's, past {row['tol']}")
+        for k, v in ranks[arch][0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     emit(phase, step="done", seconds=time.perf_counter() - t_phase,
-         reference_seconds=t_ref, ranks=SHARD_TP)
+         main_seconds=t_main, ranks=SHARD_TP)
     if faults:
         raise AssertionError(f"{phase}: {faults}")
-    return {f"serve_sharded_families_1x{SHARD_TP}": ranks[0]["launches"]}
+    return {f"serve_sharded_families_1x{SHARD_TP}": launches}
 
 
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
@@ -6519,8 +7090,8 @@ def phase_dryrun_mesh(torch, device, rehearsal, proc):
             _rank_row(faults, name, r, traced, real, on_card)
     for arch in families_plan(rehearsal):
         for r in range(SHARD_TP):
-            real = json.loads((SHARD_FAM_DIR / f"rank{r}.json").read_text())[
-                "dispatch"][arch]
+            real = json.loads((SHARD_FAM_DIR / arch / f"rank{r}.json")
+                              .read_text())["dispatch"][arch]
             traced = json.loads((DRYRUN_MESH_DIR /
                                  f"families_{arch}__rank{r}.json").read_text())
             _rank_row(faults, arch, r, traced, real, on_card)

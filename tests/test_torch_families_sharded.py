@@ -27,6 +27,16 @@ the ranks.
   ``cache_shardings`` on ``jax.sharding.AbstractMesh``), exactly.
 * The per-segment take of in_proj (``ssd._use_segments``) gives the
   one-device codes and scales of the rank's columns, bit for bit.
+* The exact gate: on (1, 2) each rank's greedy tokens and first logits
+  on the kernel path equal, bit for bit, one device running the ranks'
+  plan at a rank's thread count (``chip_smoke.emulating``: the kernels'
+  plain versions at the ranks' shapes, the SSD mixer once a rank on its
+  heads with the gated norm's f32 sums of squares added in rank order,
+  whisper's value-path attention on each rank's heads and its cross K/V
+  on each rank's columns); a misstated plan (the row-parallel partials
+  rounded to bf16 before their sum, each rank's SSD heads normalised by
+  its own half of d_inner) does not; ``chip_smoke.emulated_plan`` states
+  ``blocks.tp_plan`` of the three families.
 * The tracing mesh (``dryrun.lockstep_counts``, on ``meta``) counts what
   a gloo rank runs in one prefill and one decode (kernel calls by
   kernel, collectives by kind and axis with their operand bytes), and
@@ -47,12 +57,16 @@ from repro.core.policy import MXSF_INFER as JAX_INFER
 from repro.launch import mesh as JML
 from repro.models import model as JM
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import get_config as torch_config
 from repro_torch.core import sharding as shd
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import blocks
+from repro_torch.models import model as M
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train import step as T
 
+import chip_smoke as CS
 import torch_family_ranks as F
 from torch_dist import run_ranks
 from torch_sharded_ranks import LOGIT_RTOL
@@ -203,6 +217,54 @@ def test_in_proj_segment_take_is_exact(worlds, arch, shape):
         codes, scales, local = got["take"]
         assert codes and scales, (arch, shape, rank)
         assert tuple(local) == (cfg.d_model, n)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_families_1x2_ranks_equal_their_emulated_plan_bitwise(ref, worlds,
+                                                              arch):
+    """The (1, 2) ranks' greedy tokens and first logits on the kernel path
+    equal, bit for bit, one device running the same plan at the ranks'
+    thread count (``chip_smoke.emulating``), and their plan is
+    ``chip_smoke.emulated_plan``'s."""
+    toks, first = F.emulated(arch, ref["np_params"][arch],
+                             ref["inputs"][arch])
+    plan = CS.emulated_plan(F.config(arch), F.POL, 2)
+    for rank, got in worlds[(arch, (1, 2))].items():
+        assert got["plan"] == plan, rank
+        np.testing.assert_array_equal(got["first_mx"], first)
+        assert got["tokens"] == toks, rank
+
+
+@pytest.mark.parametrize("arch,planted", [
+    (arch, "bf16_partials") for arch in ARCHS] + [
+    (arch, "local_norm") for arch in ("mamba2-780m", "zamba2-7b")])
+def test_families_misstated_plan_fails_the_exact_gate(ref, worlds, arch,
+                                                      planted):
+    """The negative controls of the families' exact gate: the emulation
+    with the row-parallel partials (out_proj's too) rounded to bf16
+    before their sum, or each rank's SSD heads normalised by the mean
+    over its own half of d_inner, gives other first logits than the
+    (1, 2) ranks'."""
+    _, first = F.emulated(arch, ref["np_params"][arch], ref["inputs"][arch],
+                          planted)
+    for rank, got in worlds[(arch, (1, 2))].items():
+        assert not np.array_equal(got["first_mx"], first), rank
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_emulated_plan_states_the_families_plan(arch):
+    """``chip_smoke.emulated_plan`` (from the config and the block size
+    alone) equals ``blocks.tp_plan`` (from the store's leaves) field by
+    field for the SSM, hybrid and encoder-decoder at full and reduced
+    width, 16- and 64-element blocks, on 2 and 4 model ranks."""
+    for cfg in (torch_config(arch), torch_config(arch).reduced()):
+        for block in (16, 64):
+            pol = F.POL.replace(block_1d=block)
+            for tp in (2, 4):
+                want = blocks.tp_plan(cfg, pol, M.packed_model_specs(
+                    cfg, pol), tp)._asdict()
+                assert CS.emulated_plan(cfg, pol, tp) == want, \
+                    (cfg.name, block, tp)
 
 
 def _traced(arch, shape, rank):

@@ -100,6 +100,25 @@ def one_device(arch, np_params, np_inputs, pol=POL, kv_fmt="mxsf",
     cfg = config(arch)
     store = M.pack_model_params(cfg, convert.params_from_numpy(
         np_params, cfg), pol)
+    return _greedy_one(cfg, pol, store, np_inputs, kv_fmt, dtype)
+
+
+def emulated(arch, np_params, np_inputs, planted=None):
+    """The (1, 2) ranks' plan (``chip_smoke.emulated_plan``) run on one
+    device through ``chip_smoke.emulating`` at a rank's one CPU thread
+    (``torch_dist``), ``planted`` misstating it: the greedy tokens and
+    first logits of ``one_device`` on the kernel path."""
+    import chip_smoke as CS
+    cfg = config(arch)
+    store = M.pack_model_params(cfg, convert.params_from_numpy(
+        np_params, cfg), POL)
+    with CS.rank_threads(torch, 1), CS.emulating(
+            torch, store, CS.emulated_plan(cfg, POL, 2), 2, planted):
+        return _greedy_one(cfg, POL, store, np_inputs)
+
+
+def _greedy_one(cfg, pol, store, np_inputs, kv_fmt="mxsf",
+                dtype=torch.bfloat16):
     cache = M.init_cache(cfg, BATCH, MAX_LEN, ring=False, kv_fmt=kv_fmt,
                          dtype=dtype, device="cpu")
     batch, tok = inputs(cfg, np_inputs)
@@ -145,8 +164,8 @@ def segment_take(cfg, mesh, store, local, place):
 def parity(cfg, mesh, params, np_inputs):
     """One family on ``mesh``: greedy tokens on the kernel datapath and on
     the value path (``tokens_value``), the first logits of the unquantized
-    path (``first``), bytes, plan, attention path and (SSD families) the
-    per-segment take."""
+    path (``first``) and of the kernel path (``first_mx``), bytes, plan,
+    attention path and (SSD families) the per-segment take."""
     batch, feed = inputs(cfg, np_inputs)
     local, cache, _, pol, _, place = placed(cfg, F32["pol"], mesh, params,
                                             F32["kv_fmt"], F32["dtype"])
@@ -162,7 +181,8 @@ def parity(cfg, mesh, params, np_inputs):
                first=first)
     if cfg.family in ("ssm", "hybrid"):
         out["take"] = segment_take(cfg, mesh, store, local, place)
-    out["tokens"], _ = greedy(cfg, pol, place, local, cache, batch, feed)
+    out["tokens"], out["first_mx"] = greedy(cfg, pol, place, local, cache,
+                                            batch, feed)
     return out
 
 
