@@ -140,21 +140,37 @@ Phases, each printed as one JSON line:
               fused shapes checked), then one timed step (seconds, the
               collectives' host share, peak memory; launches and
               collectives against ``train_launch_counts`` and
-              ``train_collectives``); meanwhile this process computes each
-              layout's one-device gradients and their reorder baseline
-              (every matmul on its plain version): each rank's gradient
-              slices within REORDER_FACTOR times the baseline's largest
-              leaf move (capped by TRAIN_REORDER_CEILING), its loss within
-              REORDER_FACTOR times the baseline's loss scale
-              (``loss_move_scale``, capped by TRAIN_LOSS_CEILING), each
-              token's loss of its rows (a forward through the sharded
-              path) within REORDER_FACTOR times the baseline's RMS move
-              of a token's loss (capped by TRAIN_TOKEN_CEILING; a gate
-              that must reject the same tokens' losses read from the wrong
-              rows or positions), and
-              each rank's step equal to the mesh worker's trace of it
-              (launches, collectives by kind, axis and bytes, argument
-              bytes).
+              ``train_collectives``; its clip norm and a fingerprint of each
+              updated slice of the params and moments), each rank also
+              saving its gradient slices and each token's loss and
+              sublayer digest of its rows (a forward through the sharded
+              path); meanwhile this process computes each layout's
+              one-device gradients and their reorder baseline (every
+              matmul on its plain version) and each program's emulation
+              on one device (``emulating_training``: the plan stated from
+              the config (``emulated_plan``), each rank's sublayers at its
+              shapes inside autograd, a column region's input gradients
+              and the row-parallel f32 partials added in rank order, each
+              DP rank's rows a pass of its own, the clip norm summed as the
+              ranks group it, then AdamW) and the emulations of its
+              controls (``local_dp_mean`` on (2, 1); ``bf16_partials`` and
+              ``bf16_head_entry`` on (1, 2) 2D).  The exact gate: each
+              rank's plan field by field, every gradient slice, the loss,
+              every per-token loss, the clip norm and every updated state
+              slice equal to the emulation's bit for bit (``bitwise_leaves``
+              of ``leaves``, ``bitwise_state`` of ``state_slices``, the
+              first leaf and sublayer that differ printed), each control
+              missing every rank.  The old tolerance holds the emulation:
+              its gradients within REORDER_FACTOR times the baseline's
+              largest leaf move (capped by TRAIN_REORDER_CEILING), its loss
+              within REORDER_FACTOR times the baseline's loss scale
+              (``loss_move_scale``, capped by TRAIN_LOSS_CEILING), its
+              per-token losses within REORDER_FACTOR times the baseline's
+              RMS move of a token's loss (capped by TRAIN_TOKEN_CEILING; a
+              gate that must reject the same tokens' losses read from the
+              wrong rows or positions); and each rank's step equal to the
+              mesh worker's trace of it (launches, collectives by kind,
+              axis and bytes, argument bytes).
 7c. train_sharded_moe -- (after phase 7b) MoE training's first card
               run and its sharded step: qwen2-moe-a2.7b at full width and
               TRAIN_MOE_LAYERS (2) layers, 4 x 512, 2D.  One device first
@@ -166,20 +182,22 @@ Phases, each printed as one JSON line:
               reference (layer EP_LAYER without its shared expert, on its
               captured input and a seeded output gradient); one timed and
               one profiled step (seconds, peak, idle share, launches equal
-              to the path's).  Then two gloo ranks on (1, 2)
-              (``train_moe_rank``, results in
+              to the path's); the emulation of the ranks' program and of
+              its ``bf16_partials`` control (as phase 7b's, each rank's
+              expert rows at its shapes), from the state drawn anew.  Then
+              two gloo ranks on (1, 2) (``train_moe_rank``, results in
               ``build/chip_smoke_train_moe/``), each holding 32 of the 64
               expert rows: state bytes equal to ``MeshRules.
               shard_nbytes``; the gradient function teacher-forced at the
               shard-local shapes; the EP backward teacher-forced, the
               input gradient and the rank's expert rows' gradients bit for
-              bit against one device's; gradient slices, loss and each
-              token's loss of its rows within REORDER_FACTOR times the
-              baseline's moves (the token gate rejecting
-              ``planted_tokens``), the routing flips per layer printed;
-              one timed step (seconds, the collectives' host share, peak)
-              with launches and collectives against their formulas, and
-              equal to the mesh worker's trace of it.
+              bit against one device's; phase 7b's exact gate against the
+              emulation, every MoE layer's routing included (no token's
+              experts differ), and its old tolerance on the emulation (the
+              emulation's routing flips against one device printed); one
+              timed step (seconds, the collectives' host share, peak) with
+              launches and collectives against their formulas, and equal
+              to the mesh worker's trace of it.
 7d. train_sharded_families -- (after phase 7c) the sharded train step
               of the other families at full width, 2D, the SSD split
               over the model axis: mamba2-780m (2 of 48 layers, 4 x 512),
@@ -191,7 +209,8 @@ Phases, each printed as one JSON line:
               capped by TRAIN_FAM_CEILING), then one pair of gloo ranks
               on (1, 2) (``train_family_rank``, results in
               ``build/chip_smoke_train_families/``) runs the three in
-              turn, with phase 7b's gates: state bytes, every kernel call
+              turn, held to one device (``_tolerance_gates``, no
+              emulation yet): state bytes, every kernel call
               at the shard-local shapes (``train_local_shapes``),
               gradients, loss and tokens within REORDER_FACTOR times the
               baseline's moves, launches and collectives against their
@@ -2811,39 +2830,60 @@ def reorder_baseline(torch, eng, cfg, prompts, new_tokens, want,
 # serve_sharded and serve_sharded_moe
 # ---------------------------------------------------------------------------
 
-def emulated_plan(cfg, policy, tp=SHARD_TP) -> dict:
-    """The plan of a packed serving store on a (1, ``tp``) mesh, stated
-    from the config and the policy's 1D blocks alone (not from
-    ``blocks.tp_plan``, which the exact gate holds to it field by field):
-    the heads split where the family has attention (every family but the
-    SSM) and its query and kv heads both do; a row-parallel linear (wo, a
-    dense FFN's wd, the shared expert's wd, the SSD's out_proj) splits
-    where its local K holds whole blocks (wo otherwise runs whole on the
-    gathered context: ``ctx_gather``); a dense FFN (a decoder's, the
-    hybrid's shared block's, the encoder-decoder's) where d_ff does so;
-    the vocab where the padded vocab splits; the experts whenever there
-    are some and ``tp`` > 1; the SSD heads where there is one group and
-    d_inner and the SSD heads split with out_proj's local rows whole
-    (in_proj's 1D column blocks are single columns, so its segments
-    always split whole).  Keyed as ``TPPlan``'s fields."""
-    if policy.block_mode != "1d":
-        raise ValueError(f"the emulation states 1D serving plans, not "
-                         f"{policy.block_mode!r}")
+def emulated_plan(cfg, policy, tp=SHARD_TP, train=False) -> dict:
+    """The plan of a store on a (., ``tp``) mesh, stated from the config
+    and the policy's blocks alone (not from ``blocks.tp_plan``, which the
+    exact gates hold to it field by field): the heads split where the
+    family has attention (every family but the SSM), its query and kv
+    heads both do and each rank's wq and wk columns hold whole column
+    blocks; a row-parallel linear (wo, a dense FFN's wd, the shared
+    expert's wd, the SSD's out_proj) splits where its local K holds whole
+    row blocks (wo otherwise runs whole on the gathered context:
+    ``ctx_gather``); a dense FFN (a decoder's, the hybrid's shared
+    block's, the encoder-decoder's) where d_ff does so both ways; the
+    vocab where the padded vocab splits and an untied head's local
+    columns hold whole column blocks; the experts whenever there are some
+    and ``tp`` > 1; the SSD heads where there is one group, d_inner and
+    the SSD heads split into whole column blocks, B and C are whole
+    weight blocks and out_proj's local rows are whole row blocks.  The
+    blocks: a row block is the 1D block or the 2D tile; a column block
+    holds whole weight blocks (a packed 2D store's tiles; a packed 1D
+    weight's blocks run along K, and a training store's leaves are
+    values) and, with ``train``, whole blocks of the output gradient the
+    backward quantizes along N (the 2D tile, or the 1D block where the
+    backward is quantized).  Keyed as ``TPPlan``'s fields."""
     fam = cfg.family
     n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
     shared = cfg.expert_ff * cfg.n_shared_experts if n_moe else 0
+    mode = policy.block_mode
+    kb = {"2d": policy.tile, "1d": policy.block_1d}.get(mode, 1)
+    wb = policy.tile if mode == "2d" and not train else 1
+    gb = 1
+    if train and (mode == "2d" or mode == "1d" and policy.quantize_bwd):
+        gb = kb
+    nb = math.lcm(wb, gb)
 
     def rows(k):
-        return k % tp == 0 and (k // tp) % policy.block_1d == 0
+        return k % tp == 0 and (k // tp) % kb == 0
 
-    heads = fam != "ssm" and cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
+    def cols(n):
+        return n % tp == 0 and (n // tp) % nb == 0
+
+    dh = cfg.head_dim if cfg.n_heads else 0
+    heads = (fam != "ssm" and cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
+             and cols(cfg.n_heads * dh) and cols(cfg.n_kv * dh))
     ffn = fam != "ssm" and (fam != "decoder" or cfg.n_layers > n_moe)
+    gn = cfg.ssm_ngroups * cfg.ssm_state
     ssm = (fam in ("ssm", "hybrid") and cfg.ssm_ngroups == 1
-           and cfg.ssm_heads % tp == 0 and rows(cfg.d_inner))
-    return dict(heads=heads, mlp=ffn and rows(cfg.d_ff),
-                vocab=cfg.padded_vocab % tp == 0,
+           and cols(cfg.d_inner) and cols(cfg.ssm_heads) and gn % wb == 0
+           and rows(cfg.d_inner))
+    tied = cfg.tie_embeddings and fam != "encoder"
+    return dict(heads=heads, mlp=ffn and rows(cfg.d_ff) and cols(cfg.d_ff),
+                vocab=cfg.padded_vocab % tp == 0 and (
+                    tied or cols(cfg.padded_vocab)),
                 experts=n_moe > 0 and tp > 1,
-                shared=shared > 0 and rows(shared), ssm=ssm,
+                shared=shared > 0 and rows(shared) and cols(shared),
+                ssm=ssm,
                 ctx_gather=heads and not rows(cfg.n_heads * cfg.head_dim))
 
 
@@ -3432,6 +3472,466 @@ def emulation_check(torch, phase, emu, want, ref_logits, baseline,
     return check, faults
 
 
+# ---------------------------------------------------------------------------
+# a (data, model) training program emulated on one device: the exact gate
+# of phases train_sharded and train_sharded_moe
+# ---------------------------------------------------------------------------
+
+# the misstatements of a training plan the exact gate must reject
+TRAIN_PLANTED = ("bf16_partials", "bf16_head_entry", "local_dp_mean")
+_PIECES = {}  # the training emulation's autograd functions, made once
+
+
+def _train_pieces(torch):
+    """The training emulation's own autograd pieces (made on first use:
+    this script imports torch only when it runs).  ``Entry(x, n, rnd)``:
+    a column-parallel region's entry, one view of x a rank, whose
+    backward adds the ranks' input gradients in rank order in their dtype
+    (each rounded to bf16 first where ``rnd``), as the ranks' all-reduce
+    adds them."""
+    if not _PIECES:
+        class Entry(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, n, rnd):
+                ctx.rnd = rnd
+                return tuple(x.view_as(x) for _ in range(n))
+
+            @staticmethod
+            def backward(ctx, *grads):
+                acc = None
+                for g in grads:
+                    if ctx.rnd:
+                        g = g.to(torch.bfloat16).to(g.dtype)
+                    acc = g if acc is None else acc + g
+                return acc, None, None
+
+        _PIECES["Entry"] = Entry
+    return _PIECES["Entry"]
+
+
+@contextlib.contextmanager
+def emulating_training(torch, plan: dict, mesh_shape, planted=None):
+    """Inside the block the port's one-device gradient function computes
+    what the ranks of a (data, model) = ``mesh_shape`` training program
+    under ``plan`` (``emulated_plan(..., train=True)``) compute, through
+    the kernels at the ranks' shapes and inside autograd, so the backward
+    makes the ranks' calls and sums too (this script's hook, as
+    ``emulating`` is for serving; a decoder LM's loss).  DP
+    (``train.step.loss_fn``): each DP rank's rows run as a pass of their
+    own, the loss is the passes' (nll sum, label count) pairs added in
+    rank order and divided once, and each leaf's gradient is the passes'
+    gradients added -- the all-reduce's and, with two ranks, the FSDP
+    reduce-scatter's ``a + b``; a top-level leaf goes through one use a
+    call site that the passes share, so a leaf used twice (a tied
+    embedding) adds each use's gradients over the passes first, as each
+    use's reduce-scatter does.  TP: a column-parallel region (attention's
+    q/k/v, a dense FFN's or the shared expert's gate/up, the LM head)
+    enters once a rank (``Entry``): each rank's linears read its own view
+    of x, and the ranks' input gradients -- each the rank's own sum of
+    its linears' -- are added in rank order in x's dtype (bf16 at bf16
+    activations; the head enters in f32 and is rounded once after).  Each
+    rank runs the port's own sublayer on its slices -- its heads, its
+    columns of wq/wk/wv/wg/wu and biases, its rows of wo/wd, each an
+    autograd view of the whole leaf, so the whole gradient assembles from
+    disjoint slices exactly -- with its row-parallel linear swapped for
+    the f32 partial (``mx_dot(f32_out=True)``); the partials are added in
+    rank order and cast once, and the sum's backward hands every partial
+    the whole gradient.  The head's columns are concatenated after each
+    rank's softcap (the backward narrows); the lookup runs a rank at a
+    time on its vocab rows with zero rows elsewhere, summed in rank order;
+    each rank's expert rows (``blocks._expert_ffn``) run on its narrowed
+    slots, their outputs concatenated.  Norms, the router, the dispatch
+    and combine, rope and the loss run once a DP rank, as every model
+    rank runs them whole.  The swaps hold in a remat recompute too (the
+    pieces are module attributes, and ``Entry``'s forward is views).  A
+    plan that gathers the attention context (``ctx_gather``) raises.
+    ``planted`` misstates the plan (the negative controls):
+    ``"bf16_partials"`` rounds every row-parallel partial to bf16 before
+    the sum, ``"bf16_head_entry"`` each rank's head input gradient before
+    the f32 sum, ``"local_dp_mean"`` divides the loss by DP rank 0's own
+    label count."""
+    from repro_torch.core.mx_dot import mx_dot
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import step as TS
+    if planted not in (None,) + TRAIN_PLANTED:
+        raise ValueError(f"no planted misstatement {planted!r}")
+    dp, tp = mesh_shape
+    Entry = _train_pieces(torch)
+    k_attn, k_mlp, k_experts = TB.attention, TB.mlp, TB._expert_ffn
+    k_head, k_loss = TF.lm_head, TS.loss_fn
+    k_over_dp, k_rows = TS._over_dp, TB._row_parallel
+    sites = {}  # top-level leaf uses shared by the DP passes of one call
+
+    def grad_of(t):
+        return torch.is_grad_enabled() and t.requires_grad
+
+    def summed(parts, bf16=False):  # in rank order
+        acc = None
+        for y in parts:
+            if bf16:
+                y = y.to(torch.bfloat16).to(y.dtype)
+            acc = y if acc is None else acc + y
+        return acc
+
+    def entered(x, rnd=False):
+        return Entry.apply(x, tp, rnd) if grad_of(x) else (x,) * tp
+
+    def cut(t, dim, r):  # rank r's 1/tp of dim
+        n = t.shape[dim] // tp
+        return t.narrow(dim, r * n, n)
+
+    def site(key, leaf):
+        if not grad_of(leaf):
+            return leaf
+        if key not in sites:
+            sites[key] = leaf.view_as(leaf)
+        return sites[key]
+
+    def partial(x, p, name, split, policy, key=None):
+        return mx_dot(x, p[name].to(x.dtype), policy, f32_out=True)
+
+    @contextlib.contextmanager
+    def rank_run():  # inside: one rank's sublayer, its f32 partial out
+        TB._row_parallel = partial
+        try:
+            yield
+        finally:
+            TB._row_parallel = k_rows
+
+    def attention(p, x, cfg, policy, **kw):
+        if not plan["heads"]:
+            return k_attn(p, x, cfg, policy, **kw)
+        if plan["ctx_gather"] or any(kw.get(k) is not None for k in (
+                "cache", "kv_x", "kv_cached")):
+            raise NotImplementedError("the training emulation runs uncached "
+                                      "self-attention with wo split")
+        xs, outs = entered(x), []
+        for r in range(tp):
+            pr = dict(p, wo=cut(p["wo"], 0, r),
+                      **{n: cut(p[n], -1, r) for n in ("wq", "wk", "wv")},
+                      **{n: cut(p[n], 0, r) for n in ("bq", "bk", "bv")
+                         if n in p})
+            with rank_run():
+                outs.append(k_attn(pr, xs[r], cfg, policy, **kw)[0])
+        return summed(outs, planted == "bf16_partials").to(x.dtype), None
+
+    def mlp(p, x, cfg, policy, part="mlp"):
+        if not plan[part]:
+            return k_mlp(p, x, cfg, policy, part)
+        xs, outs = entered(x), []
+        for r in range(tp):
+            pr = {n: cut(p[n], -1, r) for n in ("wg", "wu") if n in p}
+            pr["wd"] = cut(p["wd"], 0, r)
+            with rank_run():
+                outs.append(k_mlp(pr, xs[r], cfg, policy, part))
+        return summed(outs, planted == "bf16_partials").to(x.dtype)
+
+    def experts(p, xe, cfg, policy):
+        E = xe.shape[1]
+        c = -(-E // tp)
+
+        def take(t, dim, r):  # rank r's c slots, zero rows past E
+            lo = min(r * c, E)
+            part = t.narrow(dim, lo, min(lo + c, E) - lo)
+            if part.shape[dim] == c:
+                return part
+            pad = list(t.shape)
+            pad[dim] = c - part.shape[dim]
+            return torch.cat([part, t.new_zeros(pad)], dim)
+
+        return torch.cat([k_experts(
+            dict(p, **{n: take(p[n], 0, r) for n in ("we_g", "we_u",
+                                                     "we_d")}),
+            take(xe, 1, r).contiguous(), cfg, policy)
+            for r in range(tp)], 1)[:, :E]
+
+    def lookup(params, tokens):
+        tok, emb = tokens.long(), site(("lookup", "emb"), params["emb"])
+        if emb.shape[0] % tp:  # the stored spec keeps the vocab whole
+            return emb[tok]
+        n, rows = emb.shape[0] // tp, []
+        for r in range(tp):
+            idx = tok - r * n
+            ok = (idx >= 0) & (idx < n)
+            got = emb.narrow(0, r * n, n)[torch.clamp(idx, 0, n - 1)]
+            rows.append(torch.where(ok[..., None], got,
+                                    torch.zeros_like(got)))
+        return summed(rows)
+
+    def lm_head(params, x, cfg, policy):
+        if not plan["vocab"]:
+            return k_head(params, x, cfg, policy)
+        x = TB.rmsnorm(params["final_norm"], x)
+        tied = "head" not in params
+        name = "emb" if tied else "head"
+        w = site(("head", name), params[name])
+        grad = grad_of(x)
+        xs = entered(x.float(), planted == "bf16_head_entry") if grad \
+            else None
+        outs = []
+        for r in range(tp):
+            wr = cut(w, 0 if tied else 1, r)
+            wr = wr.T if tied else wr
+            y = (TB.dense(xs[r], wr.to(x.dtype), policy).to(x.dtype) if grad
+                 else TB.dense(x, wr, policy)).float()
+            if cfg.final_softcap:
+                y = cfg.final_softcap * torch.tanh(y / cfg.final_softcap)
+            outs.append(y)
+        return torch.cat(outs, -1)
+
+    def loss_fn(params, batch, cfg, policy, tcfg):
+        if cfg.family == "encoder":
+            raise NotImplementedError("the training emulation runs LMs")
+        sites.clear()
+        n = next(iter(batch.values())).shape[0] // dp
+        sums = []
+        for d in range(dp):
+            got = []
+            TS._over_dp = lambda *s: got.append(s) or s
+            try:
+                k_loss(params, {k: v.narrow(0, d * n, n)
+                                for k, v in batch.items()}, cfg, policy,
+                       tcfg)
+            finally:
+                TS._over_dp = k_over_dp
+            sums.append(torch.stack(got[0]))
+        s, m = summed(sums).unbind()
+        if planted == "local_dp_mean":
+            m = sums[0][1]
+        loss = s / torch.clamp(m, min=1.0)
+        return loss, {"loss": loss}
+
+    swaps = [(TS, "loss_fn", loss_fn), (TF, "_lookup", lookup),
+             (TF, "lm_head", lm_head), (TB, "attention", attention),
+             (TB, "mlp", mlp)]
+    if plan["experts"]:
+        swaps.append((TB, "_expert_ffn", experts))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+MESH_AXES = ("data", "model")  # a training program's mesh axes
+
+
+def rank_coords(mesh_shape):
+    """Every rank of a (data, model) mesh, row-major: ``{axis: index}``."""
+    return [dict(zip(MESH_AXES, (d, t))) for d in range(mesh_shape[0])
+            for t in range(mesh_shape[1])]
+
+
+def rank_cut(torch, t, spec, coords, sizes):
+    """The slice of whole leaf ``t`` a rank at ``coords`` stores under
+    ``spec`` (``sizes``: axis -> size): each split dim in ``c =
+    ceil(n / shards)`` rows a shard (the axes of an entry major to
+    minor), zero rows past the end (an uneven expert split)."""
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(
+            entry, str) else tuple(entry)
+        if not axes:
+            continue
+        shards, i = 1, 0
+        for a in axes:
+            shards, i = shards * sizes[a], i * sizes[a] + coords[a]
+        n = t.shape[d]
+        c = -(-n // shards)
+        lo = min(i * c, n)
+        part = t.narrow(d, lo, min(lo + c, n) - lo)
+        if part.shape[d] < c:
+            pad = list(t.shape)
+            pad[d] = c - part.shape[d]
+            part = torch.cat([part, t.new_zeros(pad)], d)
+        t = part
+    return t
+
+
+def train_specs(cfg, ocfg, mesh_shape):
+    """``{path: stored spec}`` of a train state's params on a (data,
+    model) = ``mesh_shape`` mesh (``MeshRules``, as the ranks store them;
+    the moments follow them)."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.train import step as T
+    sh = T.state_shardings(cfg, ocfg, shd.AbstractMesh(mesh_shape,
+                                                       MESH_AXES))
+    return {"/".join(p): tuple(ns.spec)
+            for p, ns in T._flatten(sh["params"])}
+
+
+def emulated_grad_norm(torch, grads, specs, mesh_shape):
+    """The clip's grad norm as the ranks of a (data, model) mesh sum it
+    (``adamw.global_norm`` with shardings): each rank's sum of squares of
+    each of its slices (cut from the whole ``grads`` by ``specs``), added
+    by group of split axes of size > 1 in leaf order; each group all-reduced over its axes in turn (the ranks along
+    an axis added in rank order); the groups added in order.  Returns
+    every rank's norm, row-major."""
+    from repro_torch.train import step as T
+    sizes = dict(zip(MESH_AXES, mesh_shape))
+    ranks = rank_coords(mesh_shape)
+    groups = []
+    for co in ranks:
+        mine = {}
+        for path, g in T._flatten(grads):
+            key = "/".join(path)
+            part = rank_cut(torch, g, specs[key], co, sizes).contiguous()
+            sq = torch.sum(torch.square(part.float()))
+            split = {a for e in specs[key] if e is not None
+                     for a in ((e,) if isinstance(e, str) else e)
+                     if sizes[a] > 1}
+            axes = tuple(a for a in MESH_AXES if a in split)
+            mine[axes] = sq if axes not in mine else mine[axes] + sq
+        groups.append(mine)
+
+    def all_reduced(vals, at, dim):  # over the ranks along dim, in order
+        acc = None
+        for j in range(mesh_shape[dim]):
+            v = vals[at[:dim] + (j,) + at[dim + 1:]]
+            acc = v if acc is None else acc + v
+        return acc
+
+    norms = []
+    for co in ranks:
+        total = None
+        for axes in groups[0]:
+            vals = {tuple(c.values()): g[axes] for c, g in zip(ranks,
+                                                               groups)}
+            for a in axes:
+                vals = {k: all_reduced(vals, k, MESH_AXES.index(a))
+                        for k in vals}
+            v = vals[tuple(co.values())]
+            total = v if total is None else total + v
+        norms.append(torch.sqrt(total))
+    return norms
+
+
+def fingerprint(torch, t) -> str:
+    """A fingerprint of a tensor's bits, computed where it lies (a
+    digest of the tens of GB of a state's slices costs seconds on the
+    host): two sums of its 32-bit words (16-bit for 2-byte elements) as
+    int64, plain and weighted by a multiplicative hash of each word's
+    position, wrapping on overflow.  Equal bits give equal fingerprints;
+    a change goes unseen only where it cancels in both sums."""
+    flat = t.detach().reshape(-1).contiguous()
+    words = flat.view(torch.int32 if flat.element_size() == 4
+                      else torch.int16).to(torch.int64)
+    pos = torch.arange(words.numel(), device=words.device)
+    weights = (pos * 2654435761 + 40503) & 0xFFFFFFFF
+    return f"{int(words.sum()):x}:{int((words * weights).sum()):x}"
+
+
+def fingerprints(torch, trees: dict) -> dict:
+    """``{tree: {path: fingerprint}}`` of each leaf of each tree."""
+    from repro_torch.train import step as T
+    return {name: {"/".join(p): fingerprint(torch, t)
+                   for p, t in T._flatten(tree)}
+            for name, tree in trees.items()}
+
+
+def emulate_train(torch, cfg, pol, tcfg, ocfg, state, batch, mesh_shape,
+                  planted=(), step=True):
+    """A (data, model) = ``mesh_shape`` training program emulated on one
+    device (``emulating_training``) from the whole ``state`` (updated in
+    place with ``step``) on the whole ``batch``, at the caller's thread
+    count: the plan (``emulated_plan``), the loss, the whole gradients
+    (on the host), each MoE layer's routing (``moe_train_taps``), each DP
+    rank's per-token losses and sublayer digests (``layer_taps``) from a
+    forward of its rows, each misstatement of ``planted``'s loss and
+    whole gradients; with ``step``, each rank's clip norm
+    (``emulated_grad_norm``) and AdamW on the whole state with it, each
+    rank's slices of the updated params and moments fingerprinted.
+    Returns
+    the record the exact gate reads, its seconds and the seconds of each
+    part."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as T
+    t0 = time.perf_counter()
+    dp, tp = mesh_shape
+    plan = emulated_plan(cfg, pol, tp, train=True)
+    grad_fn = T.make_grad_fn(cfg, pol, tcfg)
+    parts = {}
+
+    def lap(name):  # seconds of each part, on the card synchronised
+        if state["opt"]["step"].is_cuda:
+            torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    with emulating_training(torch, plan, mesh_shape), \
+            moe_train_taps(torch, -1) as routing:
+        metrics, grads = grad_fn(state["params"], batch)
+    lap("grads")
+    n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
+    specs = train_specs(cfg, ocfg, mesh_shape)
+    out = dict(plan=plan, mesh=list(mesh_shape), loss=float(metrics["loss"]),
+               topi=routing["topi"][:n_moe], nll=[], taps=[], planted={},
+               specs=specs)
+    n = batch["tokens"].shape[0] // dp
+    for d in range(dp):
+        rows = {k: v.narrow(0, d * n, n) for k, v in batch.items()}
+        with emulating_training(torch, plan, mesh_shape), torch.no_grad(), \
+                layer_taps(torch) as taps:
+            logits = TF.forward(state["params"], rows, cfg, pol)
+        out["nll"].append(token_nll(torch, logits, rows["labels"],
+                                    cfg.vocab).cpu())
+        out["taps"].append(taps)
+        del logits
+    lap("forward")
+    for name in planted:
+        with emulating_training(torch, plan, mesh_shape, planted=name):
+            m_p, g_p = grad_fn(state["params"], batch)
+        out["planted"][name] = dict(loss=float(m_p["loss"]), grads={
+            "/".join(p): g.detach().cpu() for p, g in T._flatten(g_p)})
+        del g_p
+    lap("controls")
+    if step:
+        norms = emulated_grad_norm(torch, grads, specs, mesh_shape)
+        out["grad_norm"] = [float(v) for v in norms]
+        saved = adamw.global_norm
+        adamw.global_norm = lambda tree, shardings=None: norms[0]
+        try:
+            adamw.apply_updates(state["params"], grads, state["opt"], ocfg)
+        finally:
+            adamw.global_norm = saved
+        lap("step")
+        sizes = dict(zip(MESH_AXES, mesh_shape))
+        trees = {"params": state["params"], "m": state["opt"]["m"],
+                 "v": state["opt"]["v"]}
+        out["state"] = [fingerprints(torch, {name: {
+            "/".join(p): rank_cut(torch, t, specs["/".join(p)], co, sizes)
+            for p, t in T._flatten(tree)} for name, tree in trees.items()})
+            for co in rank_coords(mesh_shape)]
+        lap("fingerprints")
+    out["grads"] = {"/".join(p): g.detach().cpu() for p, g in
+                    T._flatten(grads)}
+    del grads
+    lap("to_host")
+    out.update(seconds=time.perf_counter() - t0, parts=parts)
+    return out
+
+
+def emulate_program(torch, device, plan, prog, batch, seed):
+    """``emulate_train`` of one program of a sharded training plan (its
+    mesh, layout and controls) from the state one device draws from
+    ``seed``, at a rank's CPU thread count."""
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as T
+    cfg, pol, tcfg = train_sharded_program(dict(plan, **prog),
+                                           prog["layout"])
+    state = T.init_state(torch.Generator(device=device).manual_seed(seed),
+                         cfg, OptConfig(), device=device)
+    with rank_threads(torch):
+        emu = emulate_train(torch, cfg, pol, tcfg, OptConfig(), state, batch,
+                            tuple(prog["mesh"]), prog["controls"])
+    del state
+    free_device(torch, device)
+    return emu
+
+
 @contextlib.contextmanager
 def one_rank_world(torch, device):
     """A world of one rank in this process on the production backend
@@ -3838,8 +4338,11 @@ TRAIN_SHARD_DIR = ROOT / "build" / "chip_smoke_train_sharded"  # results,
 TRAIN_SHARD_LAYERS = 2  # the phase's depth of h2o-danube-1.8b: at 4
 # (train_1d's) the whole script ran 1203.7 s on a slow card host
 TRAIN_SHARD_WAIT_S = 480  # the two-rank run's time limit
-# the programs of the two-rank run: (mesh, layout)
-TRAIN_SHARD_PROGRAMS = (((2, 1), "2d"), ((1, 2), "2d"), ((1, 2), "1d"))
+# the programs of the two-rank run: (mesh, layout, the misstatements of
+# the plan whose emulations the exact gate must tell from the ranks)
+TRAIN_SHARD_PROGRAMS = (((2, 1), "2d", ("local_dp_mean",)),
+                        ((1, 2), "2d", ("bf16_partials", "bf16_head_entry")),
+                        ((1, 2), "1d", ()))
 # the most the one-device reorder baseline may move the gradients (the
 # largest leaf's relative L2; layers/sub0/attn/wq in both layouts at every
 # seed), the loss (``loss_move_scale``) and a token's loss (the RMS of its
@@ -3858,14 +4361,14 @@ TRAIN_TOKEN_CEILING = {"2d": 0.01571168934384654 * 1.0625,
 def train_sharded_plan(rehearsal: bool) -> dict:
     """The two-rank training run: h2o-danube-1.8b (reduced in the
     rehearsal) at TRAIN_SHARD_LAYERS layers, phase train's batch, and each
-    program's name, mesh and layout."""
+    program's name, mesh, layout and controls."""
     return dict(arch="h2o-danube-1.8b" + ("-reduced" if rehearsal else ""),
                 n_layers=TRAIN_SHARD_LAYERS,
                 batch=2 if rehearsal else 4, seq=32 if rehearsal else 512,
                 block_1d=BLOCK_1D[rehearsal],
                 programs=[dict(name=f"{m[0]}x{m[1]}_{layout}", mesh=list(m),
-                               layout=layout)
-                          for m, layout in TRAIN_SHARD_PROGRAMS])
+                               layout=layout, controls=list(controls))
+                          for m, layout, controls in TRAIN_SHARD_PROGRAMS])
 
 
 def train_sharded_program(plan: dict, layout: str, backend: str = "cuda"):
@@ -3956,11 +4459,13 @@ def _rank_state(torch, device, cfg, prog, batch, seed):
 
 
 def _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
-                     out, faults):
+                     out, faults, exact=False):
     """One timed sharded train step on this rank, into ``out``: seconds,
     the collectives' host share, the peak, the launches and collectives
-    against their formulas (a mismatch appended to ``faults``), and the
-    counts the rank's trace is held to."""
+    against their formulas (a mismatch appended to ``faults``), the
+    counts the rank's trace is held to, its loss and clip norm, and with
+    ``exact`` a fingerprint of each updated slice of the params and
+    moments (the exact gate's)."""
     from repro_torch.core import sharding as shd
     from repro_torch.launch import cost
     from repro_torch.optim.adamw import OptConfig
@@ -3991,6 +4496,10 @@ def _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
     if on_card and launches != want_launches:
         faults.append(f"launches {launches} != {want_launches}")
     host = sum(v["seconds"] for v in counts.values())
+    if exact:
+        out["state_fingerprints"] = fingerprints(torch, {
+            "params": state["params"], "m": state["opt"]["m"],
+            "v": state["opt"]["v"]})
     out.update(step_loss=float(metrics["loss"]),
                grad_norm=float(metrics["grad_norm"]), seconds=seconds,
                tokens_per_s=plan["batch"] * plan["seq"] / seconds,
@@ -4015,10 +4524,8 @@ def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
     (bytes against ``MeshRules.shard_nbytes``), the gradient function
     teacher-forced (``checked_kernels`` at the shard-local shapes; the
     gradient slices written for the script's process), each token's loss
-    of its rows from a forward through the sharded path, then one timed
-    train step: seconds, the collectives' host share, the peak, the
-    launches and collectives against their formulas, and the counts
-    phase train_sharded holds the rank's trace to."""
+    of its rows and each sublayer's digest from a forward through the
+    sharded path, then one timed train step (``_rank_timed_step``)."""
     from repro_torch.train import step as T
     cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
     mesh, state, rows, out, faults = _rank_state(torch, device, cfg, prog,
@@ -4047,17 +4554,25 @@ def _train_rank_program(torch, device, plan, prog, rank, batch, seed):
                                                            rank))
     del grads
     # each token's loss of this rank's rows, a forward on the sharded path
-    from repro_torch.models import transformer as TR
-    with torch.no_grad(), grad_fn.layout.hints():
-        logits = TR.forward(state["params"], rows, cfg, pol)
-    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
-               _nll_file(prog["name"], rank))
-    del logits
+    out["taps"] = rank_forward(torch, state, rows, cfg, pol, grad_fn,
+                               _nll_file(prog["name"], rank))
     _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
-                     out, faults)
+                     out, faults, exact=True)
     del state
     free_device(torch, device)
     return out
+
+
+def rank_forward(torch, state, rows, cfg, pol, grad_fn, nll_file):
+    """A forward of a rank's rows on the sharded path: each token's loss,
+    saved to ``nll_file``; returns each sublayer's digest
+    (``layer_taps``)."""
+    from repro_torch.models import transformer as TR
+    with torch.no_grad(), grad_fn.layout.hints(), layer_taps(torch) as taps:
+        logits = TR.forward(state["params"], rows, cfg, pol)
+    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
+               nll_file)
+    return taps
 
 
 def sharded_train_rank(rank: str, world: str, port: str, rehearsal: str,
@@ -4185,40 +4700,27 @@ def _nll_file(name: str, rank: int) -> Path:
     return TRAIN_SHARD_DIR / f"nll_{name}_rank{rank}.pt"
 
 
-def _rank_gates(torch, ref, got, rel, rel_at, nll, mesh, traced, on_card,
-                who):
-    """The gates of a sharded train rank's results ``got`` against one
-    device's ``ref`` (loss and its tolerance, per-token losses and their
-    tolerance, the reorder baseline's gradient move): its gradient
-    slices' largest leaf move ``rel`` (at ``rel_at``) within
-    REORDER_FACTOR times the baseline's (on the card: the rehearsal's
-    baseline is 0), its loss, its rows' per-token losses ``nll`` (a gate
-    that must reject ``planted_tokens``), and its timed step equal to the
-    mesh worker's trace ``traced``.  Returns (the fields to print, the
-    faults, each naming ``who``)."""
-    from repro_torch.train import step as T
+def _tolerance_gates(torch, ref, loss, rel, rel_at, nll, rows_of, on_card,
+                     who):
+    """The reorder tolerance of a sharded train program's emulation
+    (``emulate_train``) against one device's ``ref`` (loss and its
+    tolerance, per-token losses and their tolerance, the reorder
+    baseline's gradient move): its whole gradients' largest leaf move
+    ``rel`` (at ``rel_at``) within REORDER_FACTOR times the baseline's
+    (on the card: the rehearsal's baseline is 0), its ``loss``, and its
+    per-token losses ``nll`` of the rows ``rows_of`` picks out of one
+    device's (a gate that must reject ``planted_tokens``).  Returns (the
+    fields to print, the faults, each naming ``who``)."""
     tol = REORDER_FACTOR * ref["baseline"]
-    dloss = abs(got["loss"] - ref["loss"])
-
-    def rows_of(t):
-        return T.batch_rows({"nll": t}, mesh)["nll"]
-
+    dloss = abs(loss - ref["loss"])
     want = rows_of(ref["nll"])
     token_err = _rms(torch, nll.to(want.device) - want)
     planted = {k: _rms(torch, v - want) for k, v in
                planted_tokens(torch, ref["nll"], rows_of).items()}
-    ran = got["dispatch"]
-    same_trace = (traced["collectives"] == ran["collectives"]
-                  and traced["argument_bytes"] == ran["argument_bytes"]
-                  and (ran["launches"] is None or
-                       traced["launches"] == ran["launches"]))
-    fields = dict(loss=got["loss"], ref_loss=ref["loss"], loss_abs_err=dloss,
+    fields = dict(loss=loss, ref_loss=ref["loss"], loss_abs_err=dloss,
                   loss_tol=ref["loss_tol"], token_rms_err=token_err,
                   token_tol=ref["token_tol"], planted_token_rms=planted,
-                  max_leaf_rel_l2=rel, leaf=rel_at, tol=tol,
-                  trace_equal=same_trace,
-                  traced_peak_bytes=traced["peak_bytes"],
-                  trace_seconds=traced["trace_seconds"])
+                  max_leaf_rel_l2=rel, leaf=rel_at, tol=tol)
     faults = []
     if on_card and rel > tol:
         faults.append(f"{who} gradients {rel} > {tol}")
@@ -4231,9 +4733,133 @@ def _rank_gates(torch, ref, got, rel, rel_at, nll, mesh, traced, on_card,
     if blind:
         faults.append(f"{who}: the token gate {ref['token_tol']} cannot "
                       f"see {blind}")
-    if not same_trace:
-        faults.append(f"{who}: traced {traced} != ran {ran}")
     return fields, faults
+
+
+def emulation_tolerance(torch, phase, prog, emu, ref, on_card):
+    """The old tolerance, on the emulation of a sharded train program:
+    ``_tolerance_gates`` of its whole gradients, loss and per-token
+    losses (every DP rank's rows, in order) against one device's; with
+    routing, each MoE layer's tokens whose experts differ from one
+    device's printed.  One ``emulation`` line; returns the faults."""
+    rel, at = _grads_rel(torch, emu["grads"], ref["grads"])
+    fields, faults = _tolerance_gates(
+        torch, ref, emu["loss"], rel, at, torch.cat(emu["nll"], 0),
+        lambda t: t, on_card, f"{prog['name']} emulation")
+    flips = (moe_flips(torch, emu["topi"], ref["topi"]) if "topi" in ref
+             else None)
+    emit(phase, step="emulation", program=prog["name"], plan=emu["plan"],
+         seconds=emu["seconds"], parts=emu["parts"], routing_flips=flips,
+         **fields)
+    return faults
+
+
+def train_exact_gate(torch, phase, prog, emu, ranks, load, n_layers,
+                     ref_grads):
+    """Each rank of a sharded train program held to the program's
+    emulation (``emulate_train``) bit for bit: its plan field by field,
+    every gradient leaf's slice (cut from the emulation's whole gradient
+    by the rank's stored spec, ``rank_cut``: uneven expert rows
+    included), the loss (the gradient function's and the timed step's),
+    every per-token loss of its rows, the clip norm, every updated slice
+    of the params and moments (by ``fingerprint``), each MoE layer's
+    routing (no token's experts may differ) and every sublayer of its
+    forward (the first that differs printed, for diagnosis).  Each of the program's
+    ``controls`` -- the emulation of a misstated plan -- must miss every
+    rank: its loss or a gradient slice differs.  ``load(r)``: rank r's
+    (gradient slices by path, routing or None, per-token losses).  Beside
+    it, the largest leaf move of the rank's slices from its slices of one
+    device's gradients ``ref_grads`` (the reading the reorder tolerance
+    held the ranks to before).  One ``exact`` line a rank; returns the
+    faults."""
+    faults, mesh_shape = [], tuple(prog["mesh"])
+    sizes = dict(zip(MESH_AXES, mesh_shape))
+    specs = emu["specs"]
+
+    def cut(t, key, co):
+        return rank_cut(torch, t, specs[key], co, sizes)
+
+    for r, res in enumerate(ranks):
+        co = res["coords"]
+        i = co["data"] * mesh_shape[1] + co["model"]
+        grads, topi, nll = load(r)
+        plan_off = {k: dict(rank=res["tp_plan"].get(k), emulated=v)
+                    for k, v in emu["plan"].items()
+                    if res["tp_plan"].get(k) != v}
+        same, first = 0, None
+        for key, whole in emu["grads"].items():
+            want, g = cut(whole, key, co), grads.get(key)
+            if g is not None and g.shape == want.shape and \
+                    torch.equal(g, want):
+                same += 1
+            elif first is None:
+                first = dict(leaf=key, max_abs_delta=None if g is None or
+                             g.shape != want.shape else float(
+                                 (g.float() - want.float()).abs().max()))
+        losses = (res["loss"], res["step_loss"])
+        loss_same = losses == (emu["loss"],) * 2
+        tokens_same = torch.equal(nll, emu["nll"][co["data"]])
+        norm_same = res["grad_norm"] == emu["grad_norm"][i]
+        n_state = sum(len(t) for t in emu["state"][i].values())
+        state_same = sum(res["state_fingerprints"][t].get(k) == d
+                         for t, by in emu["state"][i].items()
+                         for k, d in by.items())
+        sub = first_tap_difference(res["taps"], emu["taps"][co["data"]],
+                                   n_layers)
+        flips = None if topi is None else moe_flips(torch, topi,
+                                                    emu["topi"])
+        rel, rel_at = _grads_rel(torch, grads, {
+            k: cut(g, k, co) for k, g in ref_grads.items()})
+        rejected = {name: emu["planted"][name]["loss"] != res["loss"] or any(
+            not torch.equal(grads[k], cut(g, k, co))
+            for k, g in emu["planted"][name]["grads"].items())
+            for name in prog["controls"]}
+        emit(phase, step="exact", program=prog["name"], rank=r,
+             plan_fields_off=plan_off, bitwise_leaves=same,
+             leaves=len(emu["grads"]), first_leaf_differs=first,
+             loss=losses, emulated_loss=emu["loss"], loss_bitwise=loss_same,
+             tokens_bitwise=tokens_same, tokens=nll.numel(),
+             grad_norm=res["grad_norm"], emulated_grad_norm=emu[
+                 "grad_norm"][i], grad_norm_bitwise=norm_same,
+             bitwise_state=state_same, state_slices=n_state,
+             first_sublayer_differs=sub, routing_flips=flips,
+             planted_rejected=rejected, one_device_max_leaf_rel_l2=rel,
+             one_device_leaf=rel_at)
+        who = f"{prog['name']} rank {r}"
+        if plan_off:
+            faults.append(f"{who}: plan fields {sorted(plan_off)} off the "
+                          "emulation's")
+        if same != len(emu["grads"]):
+            faults.append(f"{who}: {same} of {len(emu['grads'])} gradient "
+                          f"leaves bitwise (first off: {first}; first "
+                          f"sublayer off: {sub})")
+        if not (loss_same and tokens_same and norm_same):
+            faults.append(f"{who}: loss {losses} / {emu['loss']}, tokens "
+                          f"bitwise {tokens_same}, grad norm "
+                          f"{res['grad_norm']} / {emu['grad_norm'][i]}")
+        if state_same != n_state or sub is not None:
+            faults.append(f"{who}: {state_same} of {n_state} state slices "
+                          f"bitwise, first sublayer off {sub}")
+        if flips is not None and any(flips):
+            faults.append(f"{who}: routing flips {flips} against the "
+                          "emulation")
+        blind = sorted(k for k, v in rejected.items() if not v)
+        if blind:
+            faults.append(f"{who}: the planted {blind} went unnoticed")
+    return faults
+
+
+def _trace_gate(got, traced, who):
+    """A rank's timed step against the mesh worker's trace of it: the
+    fields to print and the faults."""
+    ran = got["dispatch"]
+    same = (traced["collectives"] == ran["collectives"]
+            and traced["argument_bytes"] == ran["argument_bytes"]
+            and (ran["launches"] is None or
+                 traced["launches"] == ran["launches"]))
+    fields = dict(trace_equal=same, traced_peak_bytes=traced["peak_bytes"],
+                  trace_seconds=traced["trace_seconds"])
+    return fields, [] if same else [f"{who}: traced {traced} != ran {ran}"]
 
 
 def _train_world_one(torch, device, plan, batch, seed):
@@ -4296,24 +4922,27 @@ def phase_train_sharded(torch, device, args, rehearsal):
     (``sharded_train_rank``) run the programs of ``train_sharded_plan``
     -- a 2D step on (2, 1) and on (1, 2), a 1D step on (1, 2) -- while
     this process runs a world of one rank on NCCL (``_train_world_one``:
-    bit for bit against one device) and each layout's one-device
-    gradients and their reorder baseline (the same gradients with every
-    matmul on its plain version).  Then each rank's gradient slices
-    against the one-device gradients: the largest leaf's relative L2
-    within REORDER_FACTOR times the baseline's (which may not pass
-    TRAIN_REORDER_CEILING on the card; in the rehearsal the plain versions
-    are the kernels' own, so that gate is the card's alone), and its loss
-    within REORDER_FACTOR times the baseline's ``loss_move_scale`` (which
-    may not pass TRAIN_LOSS_CEILING on the card; at least 4 f32 ulps), and
-    the per-token losses of its rows within REORDER_FACTOR times the RMS
-    of the baseline's per-token moves (which may not pass
-    TRAIN_TOKEN_CEILING on the card), a gate that must reject every one of
-    ``planted_tokens`` (else it could not see a loss of the wrong tokens);
-    and each rank's step against the mesh worker's trace of it.  Returns
-    rank 0's launches of each program's timed step."""
+    bit for bit against one device), each layout's one-device gradients
+    and their reorder baseline (the same gradients with every matmul on
+    its plain version), and each program's emulation on one device
+    (``emulate_program``: the ranks' plan, their calls at their shapes
+    and their sums, with the program's controls).  Then the exact gate
+    (``train_exact_gate``): each rank's plan, gradient slices, loss,
+    per-token losses, clip norm and updated state equal to the
+    emulation's bit for bit, each control rejected.  The old tolerance
+    holds the emulation (``emulation_tolerance``): its gradients' largest
+    leaf relative L2 from one device's within REORDER_FACTOR times the
+    baseline's (which may not pass TRAIN_REORDER_CEILING on the card; in
+    the rehearsal the plain versions are the kernels' own, so that gate is
+    the card's alone), its loss within REORDER_FACTOR times the
+    baseline's ``loss_move_scale`` (which may not pass TRAIN_LOSS_CEILING
+    on the card; at least 4 f32 ulps), and its per-token losses within
+    REORDER_FACTOR times the RMS of the baseline's per-token moves (which
+    may not pass TRAIN_TOKEN_CEILING on the card), a gate that must reject
+    every one of ``planted_tokens`` (else it could not see a loss of the
+    wrong tokens).  Each rank's step against the mesh worker's trace of
+    it.  Returns rank 0's launches of each program's timed step."""
     import shutil
-    from repro_torch.core import sharding as shd
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
     t_phase = time.perf_counter()
@@ -4385,33 +5014,32 @@ def phase_train_sharded(torch, device, args, rehearsal):
                         f"moved a token's loss by {token_rms} (RMS), past "
                         f"its ceiling {token_ceiling}")
                 free_device(torch, device)
+            emus = {prog["name"]: emulate_program(torch, device, plan, prog,
+                                                  batch, args.seed)
+                    for prog in plan["programs"]}
         finally:
             ranks = finish_rank_processes("train_sharded", started,
                                           TRAIN_SHARD_DIR,
                                           TRAIN_SHARD_WAIT_S)
         faults = []
         mesh_traces = _train_traces(plan, rehearsal)
-        for rank, res in enumerate(ranks):
-            for prog, got in zip(plan["programs"], res["programs"]):
-                ref = refs[prog["layout"]]
-                sh = T.state_shardings(cfg, OptConfig(), shd.AbstractMesh(
-                    tuple(prog["mesh"]), ("data", "model")))["params"]
-                mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
-                mine = {"/".join(p): ref["grads"]["/".join(p)][
-                    shd.shard_slices(ref["grads"]["/".join(p)].shape,
-                                     ns.spec, mesh)]
-                        for p, ns in T._flatten(sh)}
-                slices = torch.load(_grad_file(prog["name"], rank),
-                                    mmap=True)
-                rel, rel_at = _grads_rel(torch, slices, mine)
-                del slices, mine
-                fields, bad = _rank_gates(
-                    torch, ref, got, rel, rel_at, torch.load(_nll_file(
-                        prog["name"], rank)), mesh,
-                    mesh_traces[prog["name"], rank], on_card,
-                    f"{prog['name']} rank {rank}")
-                emit("train_sharded", step="check", program=prog["name"],
-                     rank=rank, **fields)
+        for i, prog in enumerate(plan["programs"]):
+            name, emu = prog["name"], emus.pop(prog["name"])
+            faults += emulation_tolerance(torch, "train_sharded", prog, emu,
+                                          refs[prog["layout"]], on_card)
+            got = [res["programs"][i] for res in ranks]
+            faults += train_exact_gate(
+                torch, "train_sharded", prog, emu, got, lambda r: (
+                    torch.load(_grad_file(name, r), mmap=True), None,
+                    torch.load(_nll_file(name, r))), plan["n_layers"],
+                refs[prog["layout"]]["grads"])
+            del emu
+            for rank, res in enumerate(got):
+                fields, bad = _trace_gate(res, mesh_traces[name, rank],
+                                          f"{name} rank {rank}")
+                emit("train_sharded", step="check", program=name, rank=rank,
+                     seconds=res["seconds"],
+                     collective_share=res["collective_share"], **fields)
                 faults += bad
         if faults:
             raise AssertionError(f"train_sharded: {faults}")
@@ -4453,7 +5081,8 @@ def train_moe_plan(rehearsal: bool) -> dict:
                 batch=2 if rehearsal else 4, seq=32 if rehearsal else 512,
                 block_1d=BLOCK_1D[rehearsal],
                 programs=[dict(name=f"moe_1x{SHARD_TP}_2d",
-                               mesh=[1, SHARD_TP], layout="2d")])
+                               mesh=[1, SHARD_TP], layout="2d",
+                               controls=["bf16_partials"])])
 
 
 @contextlib.contextmanager
@@ -4572,8 +5201,10 @@ def _moe_one_device(torch, device, plan, batch, args):
     version) and the gates it sets; the EP backward of layer EP_LAYER on
     its captured input and a seeded output gradient, each rank's expert
     rows saved for it; then the step timed and profiled (seconds, peak,
-    idle share, launches).  Returns the references for the ranks' gates
-    and the step's launches."""
+    idle share, launches); then the emulation of the ranks' program
+    (``emulate_program``, on the state drawn anew).  Returns the
+    references for the ranks' gates, the step's launches and the
+    emulation."""
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import step as T
     on_card = device.type == "cuda"
@@ -4612,7 +5243,9 @@ def _moe_one_device(torch, device, plan, batch, args):
                                  batches=[batch] * (1 + on_card))
     del state
     free_device(torch, device)
-    return ref, launches
+    emu = emulate_program(torch, device, plan, plan["programs"][0], batch,
+                          args.seed)
+    return ref, launches, emu
 
 
 def _moe_rank_program(torch, device, plan, prog, rank, batch, seed):
@@ -4623,10 +5256,8 @@ def _moe_rank_program(torch, device, plan, prog, rank, batch, seed):
     saved for the script's process), the EP backward teacher-forced on
     one device's layer input and output gradient (against one device's
     input gradient and this rank's expert rows, bit for bit), each
-    token's loss of its rows, then one timed step: seconds, the
-    collectives' host share, the peak, launches and collectives against
-    their formulas, and the counts the rank's trace is held to."""
-    from repro_torch.models import transformer as TR
+    token's loss of its rows and each sublayer's digest, then one timed
+    step (``_rank_timed_step``)."""
     from repro_torch.train import step as T
     cfg, pol, tcfg = train_sharded_program(plan, prog["layout"])
     mesh, state, rows, out, faults = _rank_state(torch, device, cfg, prog,
@@ -4664,15 +5295,12 @@ def _moe_rank_program(torch, device, plan, prog, rank, batch, seed):
                  for k, v in ep.items()}
     del ep, ref
     # each token's loss of this rank's rows, a forward on the sharded path
-    with torch.no_grad(), grad_fn.layout.hints():
-        logits = TR.forward(state["params"], rows, cfg, pol)
-    torch.save(token_nll(torch, logits, rows["labels"], cfg.vocab).cpu(),
-               _moe_file("nll", rank))
-    del logits
+    out["taps"] = rank_forward(torch, state, rows, cfg, pol, grad_fn,
+                               _moe_file("nll", rank))
     out["checked_peak"] = (torch.cuda.max_memory_allocated()
                            if device.type == "cuda" else None)
     _rank_timed_step(torch, device, plan, cfg, pol, tcfg, mesh, state, rows,
-                     out, faults)
+                     out, faults, exact=True)
     del state
     free_device(torch, device)
     return out
@@ -4710,18 +5338,19 @@ def phase_train_sharded_moe(torch, device, args, rehearsal):
     the shard-local shapes; the EP backward of layer EP_LAYER on one
     device's input and output gradient -- its input gradient and the
     rank's expert rows' gradients -- bit for bit against one device's
-    (phase serve_sharded_moe's gathered expert outputs are); the gradient
-    slices, the loss and each token's loss of a rank's rows within
-    REORDER_FACTOR times the baseline's moves, the token gate rejecting ``planted_tokens``; the
-    routing flips per layer printed; launches and collectives a step
-    against their formulas; each rank's step equal to the mesh worker's
-    trace of it.  Returns the launches of the one-device step and of
-    rank 0's timed step."""
+    (phase serve_sharded_moe's gathered expert outputs are); the exact
+    gate (``train_exact_gate``) against the emulation of the ranks'
+    program, run on one device before them (``_moe_one_device``): plan,
+    gradient slices, loss, per-token losses, clip norm, updated state and
+    every MoE layer's routing bit for bit, its control rejected; the old
+    tolerance on the emulation (``emulation_tolerance``: gradients, loss
+    and each token's loss within REORDER_FACTOR times the baseline's
+    moves, the token gate rejecting ``planted_tokens``, its routing flips
+    against one device printed); launches and collectives a step against
+    their formulas; each rank's step equal to the mesh worker's trace of
+    it.  Returns the launches of the one-device step and of rank 0's
+    timed step."""
     import shutil
-    from repro_torch.core import sharding as shd
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.optim.adamw import OptConfig
-    from repro_torch.train import step as T
     t_phase = time.perf_counter()
     on_card = device.type == "cuda"
     plan = train_moe_plan(rehearsal)
@@ -4736,40 +5365,39 @@ def phase_train_sharded_moe(torch, device, args, rehearsal):
     shutil.rmtree(TRAIN_MOE_REF_DIR, ignore_errors=True)
     TRAIN_MOE_REF_DIR.mkdir(parents=True)
     try:
-        ref, one_launches = _moe_one_device(torch, device, plan, batch,
-                                            args)
+        ref, one_launches, emu = _moe_one_device(torch, device, plan, batch,
+                                                 args)
         ranks = finish_rank_processes(
             "train_sharded_moe", start_rank_processes(
                 "train_moe_rank", dict(plan=plan, seed=args.seed, batch={
                     k: v.tolist() for k, v in batch.items()}),
                 TRAIN_MOE_DIR, SHARD_TP, rehearsal),
             TRAIN_MOE_DIR, TRAIN_MOE_WAIT_S)
-        faults = []
+        prog = plan["programs"][0]
+        faults = emulation_tolerance(torch, "train_sharded_moe", prog, emu,
+                                     ref, on_card)
+
+        def load(r):
+            saved = torch.load(_moe_file("grads", r), mmap=True)
+            return (saved["grads"], saved["topi"],
+                    torch.load(_moe_file("nll", r)))
+
+        got = [res["programs"][0] for res in ranks]
+        faults += train_exact_gate(torch, "train_sharded_moe", prog, emu,
+                                   got, load, plan["n_layers"], ref["grads"])
+        del emu
         traces = _train_traces(plan, rehearsal)
-        sh = T.state_shardings(cfg, OptConfig(), shd.AbstractMesh(
-            tuple(plan["programs"][0]["mesh"]), ("data", "model")))["params"]
-        for rank, res in enumerate(ranks):
-            for prog, got in zip(plan["programs"], res["programs"]):
-                mesh = mesh_lib.make_tracing_mesh(tuple(prog["mesh"]), rank)
-                saved = torch.load(_moe_file("grads", rank), mmap=True)
-                mine = {"/".join(p): ref["grads"]["/".join(p)][
-                    shd.shard_slices(ref["grads"]["/".join(p)].shape,
-                                     ns.spec, mesh, shd.uneven_dims(ns))]
-                        for p, ns in T._flatten(sh)}
-                rel, rel_at = _grads_rel(torch, saved["grads"], mine)
-                flips = moe_flips(torch, saved["topi"], ref["topi"])
-                del saved, mine
-                fields, bad = _rank_gates(
-                    torch, ref, got, rel, rel_at, torch.load(_moe_file(
-                        "nll", rank)), mesh, traces[prog["name"], rank],
-                    on_card, f"rank {rank}")
-                ep_bitwise = all(v["bitwise"] for v in got["ep"].values())
-                emit("train_sharded_moe", step="check",
-                     program=prog["name"], rank=rank, routing_flips=flips,
-                     ep=got["ep"], ep_bitwise=ep_bitwise, **fields)
-                faults += bad
-                if not ep_bitwise:
-                    faults.append(f"rank {rank}: EP backward {got['ep']}")
+        for rank, res in enumerate(got):
+            fields, bad = _trace_gate(res, traces[prog["name"], rank],
+                                      f"rank {rank}")
+            ep_bitwise = all(v["bitwise"] for v in res["ep"].values())
+            emit("train_sharded_moe", step="check", program=prog["name"],
+                 rank=rank, ep=res["ep"], ep_bitwise=ep_bitwise,
+                 seconds=res["seconds"],
+                 collective_share=res["collective_share"], **fields)
+            faults += bad
+            if not ep_bitwise:
+                faults.append(f"rank {rank}: EP backward {res['ep']}")
         if faults:
             raise AssertionError(f"train_sharded_moe: {faults}")
     finally:
@@ -5000,11 +5628,16 @@ def phase_train_sharded_families(torch, device, args, rehearsal):
                 rel, rel_at = _grads_rel(torch, torch.load(_fam_file(
                     f"grads_{prog['name']}", rank), mmap=True), mine)
                 del mine
-                fields, bad = _rank_gates(
-                    torch, ref, got, rel, rel_at, torch.load(_fam_file(
-                        f"nll_{prog['name']}", rank)), mesh,
-                    traces[prog["name"], rank], on_card,
-                    f"{prog['name']} rank {rank}")
+                who = f"{prog['name']} rank {rank}"
+                fields, bad = _tolerance_gates(
+                    torch, ref, got["loss"], rel, rel_at, torch.load(
+                        _fam_file(f"nll_{prog['name']}", rank)),
+                    lambda t: T.batch_rows({"nll": t}, mesh)["nll"],
+                    on_card, who)
+                more, worse = _trace_gate(got, traces[prog["name"], rank],
+                                          who)
+                fields.update(more)
+                bad += worse
                 emit("train_sharded_families", step="check",
                      program=prog["name"], rank=rank,
                      tp_plan=got["tp_plan"], state_bytes=got["state_bytes"],

@@ -48,6 +48,9 @@ Tolerances, and why:
   slices.
 * Everything the JAX package compares bitwise stays bitwise: the state
   saved on (1, 2) and restored onto (1, 3), every slice.
+* The exact gate, bit for bit: each (1, 2) rank of qwen2-moe against the
+  one-device emulation of its plan (``chip_smoke.emulate_train``): the
+  plan, loss, every gradient slice and each MoE layer's top-k indices.
 """
 import concurrent.futures
 
@@ -240,6 +243,34 @@ def test_grads_and_routing_match_one_device(runs, arch, shape):
         for i, (g, w) in enumerate(zip(r["topi"], _own_rows(
                 want["topi"], r["coords"], n))):
             np.testing.assert_array_equal(g, w, err_msg=f"top-k call {i}")
+
+
+def test_moe_1x2_ranks_equal_their_emulated_plan_bitwise(runs):
+    """Each (1, 2) rank of qwen2-moe's gradient function equals the
+    one-device emulation of its plan (``chip_smoke.emulate_train``: each
+    rank's expert rows and shared-expert columns at its shapes, the
+    entries' and partials' sums in rank order, at the ranks' one thread)
+    bit for bit: its plan, loss and every gradient slice, and each MoE
+    layer's top-k indices (the forward's)."""
+    cfg = MR.config(QWEN)
+    state = T.init_state(torch.Generator().manual_seed(0), cfg,
+                         MR.OCFG[QWEN], device="cpu")
+    with CS.rank_threads(torch, 1):
+        emu = CS.emulate_train(torch, cfg, MR.POLICIES["f32"], MR.TCFG[QWEN],
+                               MR.OCFG[QWEN], state, MR.batch_of(QWEN),
+                               (1, 2), step=False)
+    specs = CS.train_specs(cfg, MR.OCFG[QWEN], (1, 2))
+    n_moe = cfg.n_layers // cfg.moe_every
+    assert emu["plan"]["experts"] and len(emu["topi"]) == n_moe
+    for r in runs[0]["grads", (1, 2), QWEN]:
+        assert r["tp_plan"] == emu["plan"]
+        assert r["loss"] == emu["loss"]
+        want = TR.rank_slices(emu["grads"], specs, (1, 2), r["coords"])
+        assert sorted(want) == sorted(r["grads"])
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["grads"][k], v, err_msg=k)
+        for i, (g, w) in enumerate(zip(r["topi"][:n_moe], emu["topi"])):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=i)
 
 
 @pytest.mark.parametrize("arch,shape", [(QWEN, (1, 2)), (QWEN, (2, 2)),

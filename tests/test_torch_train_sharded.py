@@ -43,6 +43,15 @@ Tolerances, and why:
   AdamW's first update moves those by lr (~2.5% relative L2 here).
 * Everything the JAX package compares bitwise stays bitwise: the state
   saved on (2, 1) and restored onto (1, 2), every slice.
+* The exact gate, bit for bit: each rank against the one-device
+  emulation of its plan (``chip_smoke.emulate_train`` at the ranks' one
+  thread; ``torch_train_ranks.emulated``) -- the plan, loss, every
+  gradient slice and, after a step, the clip norm and every params /
+  moments slice -- on the f32 gradient cases of (2, 1), (1, 2) and
+  (2, 2), three MXSF steps at bf16 activations (the card's dtype, so a
+  bf16 column entry differs from an f32 one) and the (2, 2) steps from
+  the JAX package's state.  Each misstatement of the plan must miss
+  every rank.
 """
 import math
 
@@ -81,6 +90,19 @@ STEP_TOLS = {"clip": (1e-3, 1e-4), "bf16_moments": (1e-3, 2.0 ** -8),
 JAX_LAYOUTS = {"2d": JAX_TRAIN,
                "1d": JAX_TRAIN.replace(block_mode="1d", block_1d=16,
                                        quantize_bwd=True)}
+# the MXSF steps of the world of two at bf16 activations (the card's), each
+# held bit for bit to the emulation of its plan: (kind, mesh) -> layout
+MX_CASES = {("mx_2d", (1, 2)): "2d", ("mx_1d", (1, 2)): "1d",
+            ("mx_2d", (2, 1)): "2d"}
+# the exact gate's cases: every grads case on a mesh of two ranks or
+# more, the MXSF steps and the (2, 2) steps from the JAX package's state
+EXACT_CASES = ([("grads", s, a) for s in MESHES[1:] for a in R.ARCHS]
+               + [(k, s, ARCH) for k, s in MX_CASES]
+               + [(f"jax_{n}", (2, 2), ARCH) for n in JAX_LAYOUTS])
+# each misstatement of the plan and the case whose ranks it must miss
+CONTROLS = {"bf16_partials": ("mx_2d", (1, 2)),
+            "bf16_head_entry": ("mx_2d", (1, 2)),
+            "local_dp_mean": ("mx_2d", (2, 1))}
 
 
 def _jax_state_and_batch():
@@ -119,6 +141,9 @@ def _todo(world, np_state, np_batch, ckpt_dir):
         todo += [("case", ("micro", (2, 1)),
                   dict(tk=dict(microbatches=2))),
                  ("ckpt_round", (ckpt_dir,), {})]
+        todo += [("case", key, dict(policy=layout, step=True,
+                                    dtype="bfloat16"))
+                 for key, layout in MX_CASES.items()]
     if world == 4:
         batch = {k: torch.tensor(v) for k, v in np_batch.items()}
         todo += [("case", (f"jax_{name}", (2, 2)), dict(
@@ -371,6 +396,100 @@ def test_checkpoint_saved_on_2x1_restores_on_1x2_bitwise(runs):
         want = R.slices(full, (1, 2), got["coords"], restore_specs)
         for k, v in want.items():
             np.testing.assert_array_equal(got["state"][k], v, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the exact gate: each rank bit for bit against the emulation of its plan
+# ---------------------------------------------------------------------------
+
+def _emulation(kind, shape, arch, jax_side, planted=()):
+    """The emulation of a case's program (``torch_train_ranks.emulated``)
+    from the case's state and batch."""
+    if kind.startswith("jax_"):
+        np_state, np_batch, _ = jax_side
+        return R.emulated(shape, arch, kind[4:], np_state=np_state, batch={
+            k: torch.tensor(v) for k, v in np_batch.items()}, step=True,
+            planted=planted)
+    if kind == "grads":
+        return R.emulated(shape, arch, planted=planted)
+    return R.emulated(shape, arch, MX_CASES[kind, shape], step=True,
+                      dtype="bfloat16", planted=planted)
+
+
+@pytest.mark.parametrize("kind,shape,arch", EXACT_CASES,
+                         ids=[f"{k}-{s[0]}x{s[1]}-{a.split('-')[0]}"
+                              for k, s, a in EXACT_CASES])
+def test_train_ranks_equal_their_emulated_plan_bitwise(runs, jax_side, kind,
+                                                       shape, arch):
+    """Each rank of a sharded gradient function or train step equals the
+    one-device emulation of its plan (``chip_smoke.emulate_train``, at
+    the ranks' one thread) bit for bit: its plan field by field, its
+    loss, every gradient slice, and after a step the clip norm and every
+    slice of the params and moments -- f32 gradients on (2, 1), (1, 2) and
+    (2, 2), MXSF steps at bf16 activations in 2D and 1D, and the (2, 2)
+    steps from the JAX package's state."""
+    emu, state = _emulation(kind, shape, arch, jax_side)
+    ranks = runs[0][kind, shape, arch]
+    specs = CS.train_specs(R.config(arch), R.OCFG, shape)
+    for r in ranks:
+        co = r["coords"]
+        assert r["tp_plan"] == emu["plan"]
+        assert r["loss"] == emu["loss"], co
+        want = R.rank_slices(emu["grads"], specs, shape, co)
+        assert sorted(want) == sorted(r["grads"])
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["grads"][k], v, err_msg=k)
+        if not kind.startswith("grads"):
+            assert r["grad_norm"] == emu["grad_norm"][
+                co["data"] * shape[1] + co["model"]], co
+            for name, tree in (("state", state["params"]),
+                               ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"])):
+                want = R.rank_slices({"/".join(p): t for p, t in
+                                      T._flatten(tree)}, specs, shape, co)
+                for k, v in want.items():
+                    np.testing.assert_array_equal(r[name][k], v,
+                                                  err_msg=(name, k))
+
+
+@pytest.mark.parametrize("planted", list(CONTROLS))
+def test_train_misstated_plan_fails_the_exact_gate(runs, jax_side, planted):
+    """The negative controls: the emulation of a misstated plan misses
+    every rank -- its loss or a gradient slice differs.  Every
+    row-parallel partial rounded to bf16 before the sum; the head's input
+    gradient partials rounded to bf16 before theirs (a bf16 entry: it
+    moves no forward value); each DP rank's loss divided by its own label
+    count."""
+    kind, shape = CONTROLS[planted]
+    emu, _ = _emulation(kind, shape, ARCH, jax_side, planted=(planted,))
+    mis = emu["planted"][planted]
+    specs = CS.train_specs(R.config(ARCH), R.OCFG, shape)
+    for r in runs[0][kind, shape, ARCH]:
+        want = R.rank_slices(mis["grads"], specs, shape, r["coords"])
+        assert mis["loss"] != r["loss"] or any(
+            not np.array_equal(r["grads"][k], v) for k, v in want.items())
+    if planted == "bf16_head_entry":  # the forward is the plan's
+        assert mis["loss"] == emu["loss"]
+
+
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_emulated_plan_states_the_training_plan(arch):
+    """``chip_smoke.emulated_plan(train=True)`` (from the config and the
+    policy alone) equals ``blocks.tp_plan(train=True)`` (from the state's
+    leaves) field by field, at full and reduced width, 2D and 1D (16- and
+    64-element blocks), on 2 and 4 model ranks."""
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as TF
+    pols = [R.POLICIES["2d"], R.POLICIES["1d"],
+            R.POLICIES["1d"].replace(block_1d=64)]
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        whole = TF.init_params(cfg, torch.Generator(), "meta")
+        for pol in pols:
+            for tp in (2, 4):
+                want = blocks.tp_plan(cfg, pol, whole, tp,
+                                      train=True)._asdict()
+                assert CS.emulated_plan(cfg, pol, tp, train=True) == want, \
+                    (cfg.name, pol.block_mode, pol.block_1d, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,8 @@ def case(rank, kind, shape, arch=QWEN, policy="f32", layers=None,
     False) or one train step.  Returns the loss, gradient or updated
     state slices (moments too), the grad norm, the routing of each MoE
     layer, the collectives, the state's bytes and ``MeshRules.
-    shard_nbytes`` of it, and this rank's coordinates."""
+    shard_nbytes`` of it, this rank's coordinates and, for the gradient
+    function, its TP plan."""
     cfg = config(arch, layers)
     mesh = TR._mesh(shape)
     ocfg = ocfg or OCFG[arch]
@@ -94,8 +95,9 @@ def case(rank, kind, shape, arch=QWEN, policy="f32", layers=None,
                                if "master" in state["opt"] else None),
                        grad_norm=float(metrics["grad_norm"]))
         else:
-            metrics, grads = T.make_grad_fn(cfg, pol, tcfg, mesh)(
-                state["params"], rows)
+            fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+            out["tp_plan"] = fn.layout.plan._asdict()
+            metrics, grads = fn(state["params"], rows)
             out["grads"] = TR.numpy_tree(grads)
     out.update(loss=float(metrics["loss"]), topi=_indices(taps),
                collectives=TR.collectives(),

@@ -8,6 +8,8 @@ runs the sharded gradient function or train step on a mesh of the world's
 ranks; it returns plain data: the loss, the gradient or state slices
 (numpy, by path), the collectives by kind and axis, the bytes held.
 """
+import contextlib
+
 import torch
 
 from repro_torch import convert
@@ -17,6 +19,7 @@ from repro_torch.core import sharding as shd
 from repro_torch.core.policy import BF16, MXSF_TRAIN
 from repro_torch.launch import cost
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train import step as T
 
@@ -74,14 +77,33 @@ def _state(cfg, ocfg, mesh, param_dtype="float32", np_state=None):
     return place_store(whole, sh, mesh, "cpu"), sh
 
 
+@contextlib.contextmanager
+def kept_grads():
+    """Inside the block, the gradients a train step hands AdamW (this
+    rank's slices, numpy by path) land in the dict it yields."""
+    got, apply = {}, adamw.apply_updates
+
+    def keep(params, grads, *args, **kw):
+        got.update(numpy_tree(grads))
+        return apply(params, grads, *args, **kw)
+
+    adamw.apply_updates = keep
+    try:
+        yield got
+    finally:
+        adamw.apply_updates = apply
+
+
 def case(rank, kind, shape, arch="h2o-danube-1.8b", policy="f32",
          tk=None, ocfg=None, param_dtype="float32", np_state=None,
-         batch=None, step=False):
-    """One case on a ``shape`` mesh: the gradient function (``step``
-    False) or one train step.  Returns loss, gradient or updated state
-    slices, grad norm, the collectives of the call, the state's bytes
-    and ``MeshRules.shard_nbytes`` of it, and this rank's coordinates."""
-    cfg = config(arch)
+         batch=None, step=False, dtype="float32"):
+    """One case on a ``shape`` mesh (activations in ``dtype``): the
+    gradient function (``step`` False) or one train step.  Returns loss,
+    gradient slices (a step's: those it hands AdamW), with ``step`` the
+    updated state slices and grad norm, the collectives of the call, the
+    state's bytes and ``MeshRules.shard_nbytes`` of it, and this rank's
+    coordinates."""
+    cfg = config(arch, dtype)
     mesh = _mesh(shape)
     ocfg = ocfg or OCFG
     tcfg = T.TrainConfig(**(tk or {}))
@@ -93,8 +115,10 @@ def case(rank, kind, shape, arch="h2o-danube-1.8b", policy="f32",
     out = dict(kind=kind, coords={a: mesh.coord(a) for a in mesh.shape})
     if step:
         fn = T.make_train_step(cfg, pol, ocfg, tcfg, mesh)
-        state, metrics = fn(state, rows)
-        out.update(state=numpy_tree(state["params"]),
+        out["tp_plan"] = fn.layout.plan._asdict()
+        with kept_grads() as grads:
+            state, metrics = fn(state, rows)
+        out.update(grads=grads, state=numpy_tree(state["params"]),
                    m=numpy_tree(state["opt"]["m"]),
                    v=numpy_tree(state["opt"]["v"]),
                    master=(numpy_tree(state["opt"]["master"])
@@ -102,8 +126,9 @@ def case(rank, kind, shape, arch="h2o-danube-1.8b", policy="f32",
                    step_count=int(state["opt"]["step"]),
                    grad_norm=float(metrics["grad_norm"]))
     else:
-        metrics, grads = T.make_grad_fn(cfg, pol, tcfg, mesh)(
-            state["params"], rows)
+        fn = T.make_grad_fn(cfg, pol, tcfg, mesh)
+        out["tp_plan"] = fn.layout.plan._asdict()
+        metrics, grads = fn(state["params"], rows)
         out["grads"] = numpy_tree(grads)
     out.update(loss=float(metrics["loss"]), collectives=collectives(),
                state_bytes=sum(t.numel() * t.element_size()
@@ -141,6 +166,37 @@ def restore_on(rank, shape, ckpt_dir, arch="h2o-danube-1.8b"):
     return dict(state=numpy_tree(got), step=step,
                 coords={a: mesh.coord(a) for a in mesh.shape},
                 dtypes=sorted({str(t.dtype) for _, t in T._flatten(got)}))
+
+
+def emulated(shape, arch="h2o-danube-1.8b", policy="f32", np_state=None,
+             batch=None, step=False, dtype="float32", planted=()):
+    """``case``'s program emulated on one device (``chip_smoke.
+    emulate_train``: the ranks' calls at their shapes and their sums) at
+    the test ranks' one thread, from the same state and batch: (the
+    emulation's record, the whole state it updated with ``step``)."""
+    import chip_smoke as CS
+    cfg = config(arch, dtype)
+    if np_state is None:
+        state = T.init_state(torch.Generator().manual_seed(0), cfg, OCFG,
+                             device="cpu")
+    else:
+        state = convert.train_state_from_numpy(np_state, cfg)
+    with CS.rank_threads(torch, 1):
+        emu = CS.emulate_train(
+            torch, cfg, POLICIES[policy], T.TrainConfig(), OCFG, state,
+            batch if batch is not None else batch_of(arch), shape, planted,
+            step)
+    return emu, state
+
+
+def rank_slices(whole: dict, specs: dict, shape, coords) -> dict:
+    """The slices of whole leaves (tensors by path) a rank at ``coords``
+    of a ``shape`` mesh stores under ``specs`` (``chip_smoke.rank_cut``),
+    as numpy."""
+    import chip_smoke as CS
+    sizes = dict(zip(CS.MESH_AXES, shape))
+    return {k: CS.rank_cut(torch, v, specs[k], coords, sizes).numpy()
+            for k, v in whole.items()}
 
 
 def slices(whole: dict, shape, coords, sh_by_path) -> dict:
